@@ -1,0 +1,12 @@
+"""gd3d_torch: the PyTorch + CUDA port of gd3d for one NVIDIA H100.
+
+The package mirrors gd3d's module paths and public names
+(`gd3d_torch/models/vit.py` is the counterpart of `gd3d/models/vit.py`, and
+so on) and keeps gd3d's layouts at its public functions: NHWC images and
+(B, N, H, D) attention inputs. It imports torch and numpy only, never JAX.
+
+Every Pallas kernel on the ported path is a hand-written CUDA kernel under
+`gd3d_torch/csrc/`, built at first use (`gd3d_torch/kernels/build.py`).
+A kernel's wrapper launches it for CUDA tensors and runs its plain PyTorch
+twin for CPU tensors.
+"""

@@ -1,0 +1,31 @@
+"""Hand-written CUDA kernels of the port and their launch counters.
+
+Each wrapper adds one to its `launches` count where it launches its kernel,
+and nowhere else, so a run can show that its main path went through the
+kernels.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+
+def wrappers() -> Dict[str, object]:
+    """Kernel id -> wrapper function (holding the `launches` count)."""
+    from gd3d_torch.kernels.cost_kl import masked_softmax_kl_fwd
+    from gd3d_torch.kernels.flash_bwd_fused import flash_attention_bwd_fused
+    from gd3d_torch.kernels.flash_fwd import flash_attention_fwd
+
+    return {
+        "K1": flash_attention_fwd,
+        "K2": flash_attention_bwd_fused,
+        "K3": masked_softmax_kl_fwd,
+    }
+
+
+def reset_launch_counts() -> None:
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return {k: fn.launches for k, fn in wrappers().items()}
