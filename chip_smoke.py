@@ -3,29 +3,40 @@
 
     python3 chip_smoke.py
 
-It needs one card and takes no arguments. It prints the card's name and power limit (nvidia-smi) and builds the CUDA
-kernels from gd3d_torch/csrc with nvcc (timed, with ptxas's register and
-spill report), then runs these phases in order, one or more printed lines each:
-  1. kernels  K1, K2, K3 against their plain PyTorch twins at every
-              main-path shape: max abs error against the stated tolerance,
-              and the median time of each;
-  2. steps    three full-width MASt3R distillation train steps (ViT-B/16
-              bf16 student, MASt3R ViT-L/Base-decoder fp32 teacher, 336x512
-              teacher and 512^2 student frames, one pair, random weights
-              from a seed): losses, keypoint count, step time, peak memory;
-              the trainable parameters must change (all but the depth head's
-              depth_attention branch, which training never calls), the
-              frozen ones not, and K1, K2 and K3 must each have launched;
-  3. profile  one more full-width step under torch.profiler: device time by
-              kernel and the device's idle share of the step;
-  4. agree    the same step's losses and gradients on a small input, CUDA
+It needs one card and takes no arguments. It prints the card's name and
+power limit (nvidia-smi) and builds the CUDA kernels from gd3d_torch/csrc
+with nvcc, one process per source (timed, with ptxas's register and spill
+report), then runs these phases in order, one or more printed lines each:
+  1. kernels  K1-K5 against their plain PyTorch twins at every main-path
+              shape of both steps: max abs error against the stated
+              tolerance, the median time of each, the time of one PyTorch
+              call that computes the same function where there is one
+              (library_ms, timed here only), and the bound: the larger of
+              bytes over 3.35 TB/s and operations over the peak of their
+              type (989 TFLOP/s bf16, 67 TFLOP/s fp32 off the tensor cores);
+  2. steps    three full-width MASt3R distillation steps (ViT-B/16 bf16
+              student, MASt3R ViT-L/Base-decoder fp32 teacher, 336x512
+              teacher and 512^2 student frames), then three full-width VGGT
+              steps (the same student, VGGT-1B teacher with its aggregator in
+              bf16 and its heads fp32, 518^2 frames): one pair per step,
+              random weights from a seed (the teachers' last depth conv
+              rescaled on the batch: Mast3rTeacher.face_forward,
+              VggtTeacher.spread_depth); losses, keypoint count, step time,
+              peak memory; the trainable parameters must change (all but the
+              depth head's depth_attention branch, which training never
+              calls), the frozen and teacher ones not, and every kernel must
+              have launched in each path's run (counts set to 0 just before
+              it and read just after);
+  3. profile  one more step of each path under torch.profiler: device time
+              by kernel and the device's idle share of the step;
+  4. agree    each step's losses and gradients on a small input, CUDA
               kernels against the CPU plain path, with shared weights.
 
-Then one JSON line of the kernels, and last the JSON result line. Exits
-non-zero, printing no result, without a CUDA device or if any phase fails.
-The kernels and agree phases compare fp32 results, so they run without
-TF32; the steps run with PyTorch's defaults (the teacher turns TF32 off
-itself).
+Then one JSON line of the kernels, the card line, and last the JSON result
+line. Exits non-zero, printing no result, without a CUDA device or if any
+phase fails. The kernels and agree phases compare fp32 results, so they run
+without TF32; the steps run with PyTorch's defaults (the teachers turn TF32
+off themselves).
 """
 from __future__ import annotations
 
@@ -36,20 +47,29 @@ import subprocess
 import sys
 import time
 
+# id -> (name, source, TPU kernel it replaces)
 REPLACES = {
     "K1": ("flash_attention_fwd", "gd3d_torch/csrc/flash_fwd.cu",
            "gd3d/ops/attention.py:180"),
     "K2": ("flash_attention_bwd_fused", "gd3d_torch/csrc/flash_bwd.cu",
-           "gd3d/kernels/flash_bwd_fused.py:153"),
+           "gd3d/kernels/flash_bwd_fused.py:262"),
     "K3": ("masked_softmax_kl_rows", "gd3d_torch/csrc/cost_kl.cu",
-           "gd3d/kernels/cost_kl.py:43"),
+           "gd3d/kernels/cost_kl.py:59"),
+    "K4": ("pairwise_rank_fwd", "gd3d_torch/csrc/pairwise_rank.cu",
+           "gd3d/kernels/pairwise_rank.py:235"),
+    "K4b": ("pairwise_rank_bwd", "gd3d_torch/csrc/pairwise_rank.cu",
+            "gd3d/kernels/pairwise_rank.py:309"),
+    "K5": ("rope2d_fwd", "gd3d_torch/csrc/rope2d.cu", "gd3d/kernels/rope2d.py:58"),
 }
 # Tolerance: max abs error <= TOL[dtype] * max(1, max |plain|). fp32: the
-# kernels and the plain twin sum in different orders (<= 4161 terms);
+# kernels and the plain twins sum in different orders (<= 6401 terms);
 # bf16: both round an fp32 result to bf16 (8 mantissa bits), so one ulp of
-# the largest value can separate them. K1's log-sum-exp is fp32 whatever
-# the operands, so it is held to the fp32 tolerance in every case.
+# the largest value can separate them (K5's twin also rounds cos and sin to
+# bf16 first, as gd3d does). K1's log-sum-exp is fp32 whatever the operands,
+# so it is held to the fp32 tolerance in every case.
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
 
 
 def log(msg: str) -> None:
@@ -81,103 +101,214 @@ def time_ms(fn, iters: int) -> float:
     return statistics.median(a.elapsed_time(b) for a, b in events)
 
 
+def bound(nbytes: float, ops: float, dtype: str):
+    """The least time the card could take: (ms, what bounds it)."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
+
+
 def max_err(got, want) -> tuple[float, float]:
     got, want = got.float(), want.float()
     return float((got - want).abs().max()), float(want.abs().max())
 
 
+class KernelReport:
+    """Errors, times and bounds per kernel case; one designated case per
+    kernel fills its entry of the JSON line."""
+
+    def __init__(self):
+        self.results = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
+                            "bound_ms": None, "bound_by": None, "library_ms": None}
+                        for k in REPLACES}
+        self.ok = True
+
+    def check(self, kern, where, pairs, run, run_plain, nbytes, ops, dtype, iters,
+              run_library=None, designated=False):
+        import torch
+
+        torch.cuda.synchronize()
+        worst, line_ok, parts = 0.0, True, []
+        for name, a, b, tol_dt in pairs:
+            err, mag = max_err(a, b)
+            tol = TOL[tol_dt] * max(1.0, mag)
+            line_ok &= math.isfinite(err) and err <= tol
+            worst = max(worst, err)
+            parts.append(f"{name} err={err:.3e} tol={tol:.1e}")
+        ms, plain_ms = time_ms(run, iters), time_ms(run_plain, iters)
+        lib_ms = time_ms(run_library, iters) if run_library is not None else None
+        b_ms, b_by = bound(nbytes, ops, dtype)
+        log(f"kernels: {kern} {where}: {' '.join(parts)} {'OK' if line_ok else 'FAIL'} "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={'none' if lib_ms is None else f'{lib_ms:.4f}'} "
+            f"bound_ms={b_ms:.4f} ({b_by})")
+        self.ok &= line_ok
+        r = self.results[kern]
+        r["max_abs_err"] = max(r["max_abs_err"], worst)
+        if designated:
+            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+
 def check_kernels(dev) -> dict:
     """Each kernel against its plain twin on the same inputs, at the shapes
-    the main path gives it."""
+    the main paths give it."""
     import torch
+    import torch.nn.functional as F
 
     from gd3d_torch.kernels.cost_kl import _reference_rows, masked_softmax_kl_fwd
     from gd3d_torch.kernels.flash_bwd_fused import (
         flash_attention_bwd_fused, flash_attention_bwd_plain)
-    from gd3d_torch.kernels.flash_fwd import (
-        flash_attention_fwd, flash_attention_fwd_plain)
+    from gd3d_torch.kernels.flash_fwd import flash_attention_fwd, flash_attention_fwd_plain
+    from gd3d_torch.kernels.pairwise_rank import (
+        pairwise_rank_bwd, pairwise_rank_bwd_plain, pairwise_rank_fwd,
+        pairwise_rank_sums_plain, pairwise_ranking_sums)
+    from gd3d_torch.kernels.rope2d import rope2d_fwd, rope2d_plain
     from gd3d_torch.ops.masks import masked_patch_cost
+    from gd3d_torch.ops.rope2d import grid_positions
 
     g = torch.Generator(device=dev).manual_seed(1234)
     bf16, f32 = torch.bfloat16, torch.float32
+    rep = KernelReport()
     attn_cases = [
-        # (kernel, where on the main path, B, N, H, dtype)
-        ("K1", "student main pass", 2, 4161, 12, bf16),
-        ("K1", "student cost pass", 2, 673, 12, bf16),
-        ("K1", "teacher encoder", 2, 672, 16, f32),
-        ("K1", "teacher decoder", 2, 672, 12, f32),
-        ("K2", "student main pass", 2, 4161, 12, bf16),
-        ("K2", "student cost pass", 2, 673, 12, bf16),
-        ("K2", "fp32 operands", 2, 673, 12, f32),
+        # (kernel, where on the main paths, B, N, H, D, dtype, designated)
+        ("K1", "MASt3R student main pass", 2, 4161, 12, 64, bf16, True),
+        ("K1", "MASt3R student cost pass", 2, 673, 12, 64, bf16, False),
+        ("K1", "CroCo encoder", 2, 672, 16, 64, f32, False),
+        ("K1", "CroCo decoder", 2, 672, 12, 64, f32, False),
+        ("K1", "VGGT student main pass", 2, 6401, 12, 64, bf16, False),
+        ("K1", "VGGT student cost pass", 2, 1370, 12, 64, bf16, False),
+        ("K1", "DINOv2 + VGGT frame attention", 2, 1374, 16, 64, bf16, False),
+        ("K1", "VGGT global attention", 1, 2748, 16, 64, bf16, False),
+        ("K1", "VGGT camera trunk", 1, 2, 16, 128, f32, False),
+        ("K2", "MASt3R student main pass", 2, 4161, 12, 64, bf16, True),
+        ("K2", "MASt3R student cost pass", 2, 673, 12, 64, bf16, False),
+        ("K2", "VGGT student main pass", 2, 6401, 12, 64, bf16, False),
+        ("K2", "VGGT student cost pass", 2, 1370, 12, 64, bf16, False),
+        ("K2", "fp32 operands", 2, 673, 12, 64, f32, False),
     ]
-    results = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None} for k in REPLACES}
-    ok = True
-    for kern, where, B, N, H, dt in attn_cases:
+    for kern, where, B, N, H, D, dt, designated in attn_cases:
         # q, k, v as the strided (B, N, H, D) views of one qkv projection
-        qkv = torch.randn((B, N, 3, H, 64), generator=g, device=dev).to(dt)
+        qkv = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(dt)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        scale = 64 ** -0.5
+        scale = D ** -0.5
+        elt, dname = q.element_size(), str(dt).split(".")[-1]
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        tag = f"{where} B={B} N={N} H={H} D={D} {dname}"
+        iters = 10 if N > 1000 else 30
         if kern == "K1":
             o, lse = flash_attention_fwd(q, k, v, scale)
             o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
-            pairs = [("o", o, o_ref, dt), ("lse", lse, lse_ref, f32)]
-            run = lambda: flash_attention_fwd(q, k, v, scale)  # noqa: E731
-            run_plain = lambda: flash_attention_fwd_plain(q, k, v, scale)  # noqa: E731
+            rep.check(
+                kern, tag, [("o", o, o_ref, dname), ("lse", lse, lse_ref, "float32")],
+                lambda: flash_attention_fwd(q, k, v, scale),
+                lambda: flash_attention_fwd_plain(q, k, v, scale),
+                nbytes=4 * B * N * H * D * elt + B * H * N * 4,
+                ops=4.0 * B * H * N * N * D, dtype=dname, iters=iters,
+                run_library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
+                designated=designated)
         else:
             o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
-            do = torch.randn((B, N, H, 64), generator=g, device=dev).to(dt)
+            do = torch.randn((B, N, H, D), generator=g, device=dev).to(dt)
             di = torch.einsum("bnhd,bnhd->bhn", o_ref.float(), do.float()).contiguous()
             grads = flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale)
             refs = flash_attention_bwd_plain(q, k, v, lse_ref, do, di, scale)
-            pairs = [(n, a, b, dt) for n, a, b in zip(("dq", "dk", "dv"), grads, refs)]
-            run = lambda: flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale)  # noqa: E731
-            run_plain = lambda: flash_attention_bwd_plain(q, k, v, lse_ref, do, di, scale)  # noqa: E731
-        torch.cuda.synchronize()
-        worst, line_ok = 0.0, True
-        parts = []
-        for name, a, b, tol_dt in pairs:
-            err, mag = max_err(a, b)
-            tol = TOL[str(tol_dt).split(".")[-1]] * max(1.0, mag)
-            line_ok &= math.isfinite(err) and err <= tol
-            worst = max(worst, err)
-            parts.append(f"{name} err={err:.3e} tol={tol:.1e}")
-        iters = 10 if N > 1000 else 30
-        ms, plain_ms = time_ms(run, iters), time_ms(run_plain, iters)
-        log(f"kernels: {kern} {where} B={B} N={N} H={H} D=64 {str(dt)[6:]}: "
-            f"{' '.join(parts)} {'OK' if line_ok else 'FAIL'} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-        ok &= line_ok
-        r = results[kern]
-        r["max_abs_err"] = max(r["max_abs_err"], worst)
-        if where == "student main pass":
-            r["ms"], r["plain_ms"] = ms, plain_ms
+            ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (qh, kh, vh))
+            out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
+            doh = do.transpose(1, 2)
+            rep.check(
+                kern, tag,
+                [(n, a, b, dname) for n, a, b in zip(("dq", "dk", "dv"), grads, refs)],
+                lambda: flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale),
+                lambda: flash_attention_bwd_plain(q, k, v, lse_ref, do, di, scale),
+                nbytes=7 * B * N * H * D * elt + 2 * B * H * N * 4,
+                ops=10.0 * B * H * N * N * D, dtype=dname, iters=iters,
+                run_library=lambda: torch.autograd.grad(out, (ql, kl, vl), doh,
+                                                        retain_graph=True),
+                designated=designated)
 
-    # K3 at the cost volume of one pair (B=1, 672 patches), masked rows in
-    B, N = 1, 672
-    raw = torch.rand((B, N, N), generator=g, device=dev)
-    mask = torch.rand((B, N), generator=g, device=dev) > 0.3
-    teacher_p = masked_patch_cost(raw, mask[0])
-    cost = torch.rand((B, N, N), generator=g, device=dev) * 2 - 1
-    out = masked_softmax_kl_fwd(teacher_p, cost, mask)
-    ref = _reference_rows(teacher_p, cost, mask, 1e-8)
-    err, mag = max_err(out, ref)
-    tol = TOL["float32"] * max(1.0, mag)
-    k3_ok = math.isfinite(err) and err <= tol
-    ms = time_ms(lambda: masked_softmax_kl_fwd(teacher_p, cost, mask), 50)
-    plain_ms = time_ms(lambda: _reference_rows(teacher_p, cost, mask, 1e-8), 50)
-    log(f"kernels: K3 cost-volume KL B={B} N={N} M={N} float32 "
-        f"({int((~mask).sum())} masked rows): err={err:.3e} tol={tol:.1e} "
-        f"{'OK' if k3_ok else 'FAIL'} kernel_ms={ms:.4f} plain_ms={plain_ms:.4f}")
-    ok &= k3_ok
-    results["K3"].update(max_abs_err=err, ms=ms, plain_ms=plain_ms)
-    if not ok:
+    # K3 at the cost volume of one pair, masked rows in
+    for N, designated in ((672, True), (1369, False)):
+        raw = torch.rand((1, N, N), generator=g, device=dev)
+        mask = torch.rand((1, N), generator=g, device=dev) > 0.3
+        teacher_p = masked_patch_cost(raw, mask[0])
+        cost = torch.rand((1, N, N), generator=g, device=dev) * 2 - 1
+        rep.check(
+            "K3", f"cost-volume KL B=1 N={N} M={N} float32 ({int((~mask).sum())} masked rows)",
+            [("kl", masked_softmax_kl_fwd(teacher_p, cost, mask),
+              _reference_rows(teacher_p, cost, mask, 1e-8), "float32")],
+            lambda: masked_softmax_kl_fwd(teacher_p, cost, mask),
+            lambda: _reference_rows(teacher_p, cost, mask, 1e-8),
+            nbytes=2 * N * N * 4 + N + N * 4, ops=8.0 * N * N, dtype="float32", iters=50,
+            designated=designated)
+
+    # K4 forward and both gradient passes at each step's keypoint count
+    for N, where, designated in ((672, "MASt3R", True), (300, "VGGT", False)):
+        h = 128
+        u = torch.randn((2, N, h), generator=g, device=dev) * 0.5
+        head = [torch.randn(h, generator=g, device=dev) * 0.1,
+                1 + torch.randn(h, generator=g, device=dev) * 0.05,
+                torch.randn(h, generator=g, device=dev) * 0.05,
+                torch.randn(h, generator=g, device=dev) * 0.2,
+                torch.randn(1, generator=g, device=dev) * 0.1]
+        depths = torch.rand((2, N), generator=g, device=dev) * 3
+        valid = torch.rand((2, N), generator=g, device=dev) > 0.25
+        args = (u, *head, depths, valid)
+        rows, cnts = pairwise_rank_fwd(*args, 0.05)
+        rows_p, cnts_p = pairwise_rank_sums_plain(*args, 0.05)
+        n_pairs = float(cnts.sum())
+        tag = f"{where} intra-depth u=(2,{N},{h}) float32 ({int(n_pairs)} valid pairs)"
+        small = 2 * N * 4 * 3 + (4 * h + 1) * 4
+        rep.check("K4", f"fwd {tag}", [("sums", rows, rows_p, "float32"),
+                                       ("counts", cnts, cnts_p, "float32")],
+                  lambda: pairwise_rank_fwd(*args, 0.05),
+                  lambda: pairwise_rank_sums_plain(*args, 0.05),
+                  nbytes=2 * N * h * 4 + small, ops=10.0 * h * n_pairs, dtype="float32",
+                  iters=30, designated=designated)
+        # the gradients through the autograd.Function, against the twin's
+        g_rows = torch.rand((2, N), generator=g, device=dev)
+        ins = [t.detach().clone().requires_grad_(True) for t in args[:6]]
+        (pairwise_ranking_sums(*ins, depths, valid, 0.05)[0] * g_rows).sum().backward()
+        refs = pairwise_rank_bwd_plain(*args, g_rows, 0.05)
+        names = ("du", "dbias", "dln_s", "dln_b", "dw_out", "db_out")
+        rep.check("K4b", f"bwd {tag}",
+                  [(n, t.grad, r, "float32") for n, t, r in zip(names, ins, refs)],
+                  lambda: pairwise_rank_bwd(*args, g_rows, 0.05),
+                  lambda: pairwise_rank_bwd_plain(*args, g_rows, 0.05),
+                  nbytes=4 * N * h * 4 + small, ops=50.0 * h * n_pairs, dtype="float32",
+                  iters=30, designated=designated)
+
+    # K5 forward and backward (-f0) on the (B, H, N, D) views the models pass
+    def vggt_pos(B):
+        pos = grid_positions(37, 37, B, device=dev) + 1
+        return torch.cat([torch.zeros((B, 5, 2), dtype=pos.dtype, device=dev), pos], 1)
+
+    rope_cases = [
+        ("VGGT frame attention", 2, 1374, 16, bf16, vggt_pos(2), True),
+        ("VGGT global attention", 1, 2748, 16, bf16, vggt_pos(2).reshape(1, 2748, 2), False),
+        ("CroCo encoder", 2, 672, 16, f32, grid_positions(21, 32, 2, device=dev), False),
+        ("CroCo decoder", 2, 672, 12, f32, grid_positions(21, 32, 2, device=dev), False),
+    ]
+    for where, B, N, H, dt, pos, designated in rope_cases:
+        x = torch.randn((B, N, 3, H, 64), generator=g, device=dev).to(dt)[:, :, 0]
+        xt = x.transpose(1, 2)
+        dname, elt = str(dt).split(".")[-1], x.element_size()
+        for direction, f0 in (("fwd", 1.0), ("bwd", -1.0)):
+            rep.check(
+                "K5", f"{direction} {where} (B,N,H,D)=({B},{N},{H},64) {dname}",
+                [("out", rope2d_fwd(xt, pos, 100.0, f0), rope2d_plain(xt, pos, 100.0, f0),
+                  dname)],
+                lambda: rope2d_fwd(xt, pos, 100.0, f0),
+                lambda: rope2d_plain(xt, pos, 100.0, f0),
+                nbytes=2 * B * N * H * 64 * elt + B * N * 2 * 8, ops=3.0 * B * N * H * 64,
+                dtype=dname, iters=50, designated=designated and f0 > 0)
+    if not rep.ok:
         raise AssertionError("a kernel disagrees with its plain version")
-    return results
+    return rep.results
 
 
-def flagship_setup(dev, seed: int = 0):
-    """Full-width student and teacher on `dev` with seeded random weights,
-    and one ScanNet++-geometry batch (as bench.py builds it)."""
+def mast3r_setup(dev, seed: int = 0):
+    """Full-width student and MASt3R teacher with seeded random weights, on
+    `dev` through the step builder, and one ScanNet++-geometry batch (as
+    bench.py builds it)."""
     import dataclasses
 
     import torch
@@ -192,15 +323,14 @@ def flagship_setup(dev, seed: int = 0):
 
     cfg = DistillConfig(teacher="mast3r", dataset="scannetpp")
     cfg = cfg.replace(student=dataclasses.replace(cfg.student, compute_dtype="bfloat16"))
+    student, teacher = Student(cfg.student), Mast3rTeacher(Mast3rConfig())
+    trainable, frozen = split_params(student)
+    step = build_mast3r_train_step(student, teacher, cfg,
+                                   make_optimizer(cfg.train, trainable.values()),
+                                   has_depth=False, device=dev)
     g = torch.Generator(device=dev).manual_seed(seed)
-    with torch.device(dev):
-        student = Student(cfg.student)
-        teacher = Mast3rTeacher(Mast3rConfig())
     init_params_(student, g)
     teacher.init_params(g)
-    trainable, frozen = split_params(student)
-    opt = make_optimizer(cfg.train, trainable.values())
-    step = build_mast3r_train_step(student, teacher, cfg, opt, has_depth=False)
     H, W = 336, 512
     batch = {
         "rgb_1": torch.rand((1, 512, 512, 3), generator=g, device=dev),
@@ -214,19 +344,57 @@ def flagship_setup(dev, seed: int = 0):
     return step, student, teacher, trainable, frozen, batch
 
 
-def run_steps(dev, n_steps: int = 3) -> dict:
+def vggt_setup(dev, seed: int = 1):
+    """The finetune_timm_vggt_scannetpp configuration at full width: the
+    ViT-B/16 bf16 student and the VGGT-1B teacher (bf16 aggregator, fp32
+    heads), seeded random weights with the two pinned heads of
+    bias_params_for_live_keypoints, on `dev` through the step builder; 518^2
+    teacher and 512^2 student frames (bench.py's VGGT line)."""
+    import dataclasses
+
+    import torch
+
+    from gd3d_torch.core.config import vggt_scannetpp
+    from gd3d_torch.distill.train_state import make_optimizer
+    from gd3d_torch.distill.vggt_step import build_vggt_train_step
+    from gd3d_torch.models.student import Student, split_params
+    from gd3d_torch.models.vggt.config import VggtConfig
+    from gd3d_torch.models.vit import init_params_
+    from gd3d_torch.teachers.vggt import VggtTeacher, bias_params_for_live_keypoints
+
+    cfg = vggt_scannetpp()
+    cfg = cfg.replace(student=dataclasses.replace(cfg.student, compute_dtype="bfloat16"))
+    student, teacher = Student(cfg.student), VggtTeacher(VggtConfig())
+    trainable, frozen = split_params(student)
+    step = build_vggt_train_step(student, teacher, cfg,
+                                 make_optimizer(cfg.train, trainable.values()), device=dev)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    init_params_(student, g)
+    teacher.init_params(g)
+    bias_params_for_live_keypoints(teacher)
+    batch = {
+        "rgb_1": torch.rand((1, 512, 512, 3), generator=g, device=dev),
+        "rgb_2": torch.rand((1, 512, 512, 3), generator=g, device=dev),
+        "rgb_vggt": torch.rand((1, 2, 518, 518, 3), generator=g, device=dev),
+    }
+    teacher.spread_depth(batch["rgb_vggt"], dtype=cfg.teacher_dtype)
+    return step, student, teacher, trainable, frozen, batch
+
+
+def run_steps(name, setup, dev, n_steps: int) -> dict:
     import torch
 
     from gd3d_torch.kernels import launch_counts, reset_launch_counts
 
-    step, student, teacher, trainable, frozen, batch = flagship_setup(dev)
+    t0 = time.perf_counter()
+    step, student, teacher, trainable, frozen, batch = setup(dev)
     before_t = {k: p.detach().clone() for k, p in trainable.items()}
     before_f = {k: p.detach().clone() for k, p in frozen.items()}
     teacher_sum = sum(float(p.double().sum()) for p in teacher.parameters())
-    n_params = sum(p.numel() for p in student.parameters())
-    n_teacher = sum(p.numel() for p in teacher.parameters())
-    log(f"steps: student {n_params} params ({sum(p.numel() for p in trainable.values())} "
-        f"trainable), teacher {n_teacher} params")
+    log(f"steps: {name} set-up {time.perf_counter() - t0:.2f} s; student "
+        f"{sum(p.numel() for p in student.parameters())} params "
+        f"({sum(p.numel() for p in trainable.values())} trainable), teacher "
+        f"{sum(p.numel() for p in teacher.parameters())} params")
     torch.cuda.synchronize()
     reset_launch_counts()
     for i in range(n_steps):
@@ -237,37 +405,37 @@ def run_steps(dev, n_steps: int = 3) -> dict:
         dt = time.perf_counter() - t0
         vals = {k: float(v) for k, v in m.items()}
         peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
-        log(f"steps: step {i} " + " ".join(f"{k}={v:.6f}" for k, v in vals.items())
+        log(f"steps: {name} step {i} " + " ".join(f"{k}={v:.6f}" for k, v in vals.items())
             + f" step_s={dt:.4f} peak_mem_gib={peak:.3f}")
         if not all(math.isfinite(v) for v in vals.values()):
-            raise AssertionError(f"non-finite metrics at step {i}: {vals}")
+            raise AssertionError(f"{name}: non-finite metrics at step {i}: {vals}")
         if vals["num_kps"] <= 0:
-            raise AssertionError("no keypoints survived the filters")
+            raise AssertionError(f"{name}: no keypoints survived the filters")
         if vals["depth_loss"] <= 0 or vals["intra_depth_loss"] <= 0:
-            raise AssertionError(f"a depth loss is 0 at step {i}: {vals}")
+            raise AssertionError(f"{name}: a depth loss is 0 at step {i}: {vals}")
     counts = launch_counts()
     changed = [k for k, p in trainable.items() if not torch.equal(p, before_t[k])]
     moved = [k for k, p in frozen.items() if not torch.equal(p, before_f[k])]
     teacher_after = sum(float(p.double().sum()) for p in teacher.parameters())
-    log(f"steps: launches {counts}; trainable tensors changed {len(changed)}/"
+    log(f"steps: {name} launches {counts}; trainable tensors changed {len(changed)}/"
         f"{len(trainable)}; frozen tensors changed {len(moved)}/{len(frozen)}; "
         f"teacher unchanged {teacher_after == teacher_sum}")
     unchanged = sorted(set(trainable) - set(changed))
-    log(f"steps: trainable tensors unchanged: {unchanged}")
+    log(f"steps: {name} trainable tensors unchanged: {unchanged}")
     # the depth head's depth_attention branch exists for checkpoint parity;
     # training calls the feature-only path (gd3d/models/vit.py:352-354)
     stuck = [k for k in unchanged if not k.startswith("depth_diff_head.depth_attention.")]
     if not changed or stuck:
-        raise AssertionError(f"trainable parameters did not change: {stuck or 'all'}")
+        raise AssertionError(f"{name}: trainable parameters did not change: {stuck or 'all'}")
     if moved or teacher_after != teacher_sum:
-        raise AssertionError(f"frozen parameters changed: {moved[:5]}")
+        raise AssertionError(f"{name}: frozen parameters changed: {moved[:5]}")
     if min(counts.values()) <= 0:
-        raise AssertionError(f"a kernel of the path never launched: {counts}")
-    profile_step(step, batch)
+        raise AssertionError(f"{name}: a kernel of the path never launched: {counts}")
+    profile_step(name, step, batch)
     return counts
 
 
-def profile_step(step, batch) -> None:
+def profile_step(name, step, batch) -> None:
     """Device time by kernel over one step, and the device's idle share of
     the step's wall time."""
     import torch
@@ -294,41 +462,84 @@ def profile_step(step, batch) -> None:
             end = b
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    log(f"profile: step wall {wall_ms:.2f} ms, kernel time {total:.2f} ms, device busy "
-        f"{covered / 1e3:.2f} ms, idle share {1 - covered / 1e3 / wall_ms:.3f}")
-    for name, ms, count in rows[:20]:
-        log(f"profile: {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<5d} {name[:90]}")
+    log(f"profile: {name} step wall {wall_ms:.2f} ms, kernel time {total:.2f} ms, device "
+        f"busy {covered / 1e3:.2f} ms, idle share {1 - covered / 1e3 / wall_ms:.3f}")
+    for kname, ms, count in rows[:20]:
+        log(f"profile: {name} {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<5d} {kname[:90]}")
 
 
-def check_agreement(dev) -> None:
-    """Small input, fp32: the step's losses and trainable gradients with the
-    CUDA kernels against the CPU plain path on shared weights."""
+def _compare(name, dev, run_loss) -> None:
+    """run_loss(device) -> (metrics, trainable grads); CPU plain path
+    against the CUDA kernels."""
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = run_loss("cpu"), run_loss(dev)
+    loss_err = max(abs(m_cpu[k] - m_gpu[k]) / max(1.0, abs(m_cpu[k])) for k in m_cpu)
+    grad_err = max(float((g_cpu[k] - g_gpu[k]).abs().max())
+                   / max(1e-3, float(g_cpu[k].abs().max())) for k in g_cpu)
+    ok = (m_cpu["num_kps"] == m_gpu["num_kps"] > 0 and loss_err <= 1e-4
+          and grad_err <= 1e-3 and g_cpu.keys() == g_gpu.keys())
+    log(f"agree: {name} cpu {m_cpu}")
+    log(f"agree: {name} gpu {m_gpu}")
+    log(f"agree: {name} loss rel err {loss_err:.3e} (tol 1e-4), grad rel err {grad_err:.3e} "
+        f"(tol 1e-3, fp32 sums in another order) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: the CUDA path disagrees with the CPU plain path")
+
+
+def _run_loss(student, teacher, batch, loss_fn, device):
+    from gd3d_torch.models.student import split_params
+
+    student.to(device)
+    teacher.to(device)
+    trainable, _ = split_params(student)
+    for p in trainable.values():
+        p.grad = None
+    loss, m = loss_fn({k: v.to(device) for k, v in batch.items()})
+    loss.backward()
+    return ({k: float(v.detach()) for k, v in m.items()},
+            {k: p.grad.detach().cpu().clone() for k, p in trainable.items()
+             if p.grad is not None})
+
+
+def _small_student(cfg_cls, g):
     import torch
 
-    from gd3d_torch.core.config import DistillConfig, KeypointConfig, StudentConfig
-    from gd3d_torch.distill.mast3r_step import mast3r_distill_loss
-    from gd3d_torch.models.croco import CrocoConfig
-    from gd3d_torch.models.mast3r import Mast3rConfig
-    from gd3d_torch.models.student import Student, split_params
+    from gd3d_torch.models.student import Student
     from gd3d_torch.models.vit import init_params_
-    from gd3d_torch.teachers.mast3r import Mast3rTeacher
 
-    # head dim 64, as the kernels take
-    cfg = DistillConfig(
-        student=StudentConfig(embed_dim=128, depth=8, num_heads=2, pretrain_img_size=32,
-                              adapter_bottleneck=8, target_res=64, depth_head_hidden=16),
-        keypoints=KeypointConfig(nn_subsample=16))
-    tcfg = Mast3rConfig(croco=CrocoConfig(enc_embed_dim=128, enc_depth=2, enc_num_heads=2,
-                                          dec_embed_dim=128, dec_depth=2, dec_num_heads=2),
-                        local_feat_dim=6, dpt_feature_dim=32, dpt_last_dim=16)
-    g = torch.Generator().manual_seed(7)
-    student, teacher = Student(cfg.student), Mast3rTeacher(tcfg)
+    # head dim 64 and depth-head width 32, as the kernels take
+    student = Student(cfg_cls(embed_dim=128, depth=8, num_heads=2, pretrain_img_size=32,
+                              adapter_bottleneck=8, target_res=64, depth_head_hidden=32))
     init_params_(student, g)
-    teacher.init_params(g)
     with torch.no_grad():
         for n, p in student.named_parameters():
             if ".lora_b_" in n:
                 p.normal_(0.0, 0.05, generator=g)
+    return student
+
+
+def check_agreement(dev) -> None:
+    """Small inputs, fp32: each step's losses and trainable gradients with
+    the CUDA kernels against the CPU plain path on shared weights."""
+    import torch
+
+    from gd3d_torch.core.config import DistillConfig, KeypointConfig, StudentConfig
+    from gd3d_torch.core.config import vggt_scannetpp
+    from gd3d_torch.distill.mast3r_step import mast3r_distill_loss
+    from gd3d_torch.distill.vggt_step import vggt_distill_loss
+    from gd3d_torch.models.croco import CrocoConfig
+    from gd3d_torch.models.mast3r import Mast3rConfig
+    from gd3d_torch.models.vggt.config import VggtConfig
+    from gd3d_torch.teachers.mast3r import Mast3rTeacher
+    from gd3d_torch.teachers.vggt import VggtTeacher, bias_params_for_live_keypoints
+
+    g = torch.Generator().manual_seed(7)
+    student = _small_student(StudentConfig, g)
+    cfg = DistillConfig(student=student.cfg, keypoints=KeypointConfig(nn_subsample=16))
+    teacher = Mast3rTeacher(Mast3rConfig(
+        croco=CrocoConfig(enc_embed_dim=128, enc_depth=2, enc_num_heads=2,
+                          dec_embed_dim=128, dec_depth=2, dec_num_heads=2),
+        local_feat_dim=6, dpt_feature_dim=32, dpt_last_dim=16))
+    teacher.init_params(g)
     H, W = 64, 96
     batch = {
         "rgb_1": torch.rand((1, 128, 128, 3), generator=g),
@@ -338,31 +549,33 @@ def check_agreement(dev) -> None:
         "intrinsic": torch.tensor([[[80.0, 0, W / 2], [0, 80.0, H / 2], [0, 0, 1]]]),
     }
     teacher.face_forward(batch["rgb_mast3r_1"], batch["rgb_mast3r_2"])
-    results = []
-    for device in ("cpu", dev):
-        student.to(device)
-        teacher.to(device)
-        trainable, _ = split_params(student)
-        for p in trainable.values():
-            p.grad = None
-        b = {k: v.to(device) for k, v in batch.items()}
-        loss, m = mast3r_distill_loss(student, teacher, cfg, b, 1.0, has_depth=False)
-        loss.backward()
-        results.append(({k: float(v.detach()) for k, v in m.items()},
-                        {k: p.grad.detach().cpu().clone() for k, p in trainable.items()
-                         if p.grad is not None}))
-    (m_cpu, g_cpu), (m_gpu, g_gpu) = results
-    loss_err = max(abs(m_cpu[k] - m_gpu[k]) / max(1.0, abs(m_cpu[k])) for k in m_cpu)
-    grad_err = max(float((g_cpu[k] - g_gpu[k]).abs().max())
-                   / max(1e-3, float(g_cpu[k].abs().max())) for k in g_cpu)
-    ok = (m_cpu["num_kps"] == m_gpu["num_kps"] and loss_err <= 1e-4 and grad_err <= 1e-3
-          and g_cpu.keys() == g_gpu.keys())
-    log(f"agree: cpu {m_cpu}")
-    log(f"agree: gpu {m_gpu}")
-    log(f"agree: loss rel err {loss_err:.3e} (tol 1e-4), grad rel err {grad_err:.3e} "
-        f"(tol 1e-3, fp32 sums in another order) {'OK' if ok else 'FAIL'}")
-    if not ok:
-        raise AssertionError("the CUDA path disagrees with the CPU plain path")
+    _compare("MASt3R", dev, lambda device: _run_loss(
+        student, teacher, batch,
+        lambda b: mast3r_distill_loss(student, teacher, cfg, b, 1.0, has_depth=False), device))
+
+    # VGGT: aggregator head dim 64 (K1, K5) and camera trunk head dim 128
+    # (K1's D=128 variant); fp32 teacher, so both sides compare in fp32
+    student = _small_student(StudentConfig, g)
+    cfg = vggt_scannetpp().replace(student=student.cfg, teacher_dtype="float32",
+                                   keypoints=KeypointConfig(nms_num=48, nms_min_distance=2))
+    teacher = VggtTeacher(VggtConfig(
+        img_size=56, embed_dim=128, depth=2, num_heads=2, dino_depth=2, dino_num_heads=2,
+        camera_trunk_depth=1, camera_iterations=2, dpt_out_channels=(16, 16, 16, 16),
+        dpt_hooks=(0, 0, 1, 1), track_features=16, track_iters=2, corr_levels=3,
+        corr_radius=2, track_hidden_size=32, track_depth=2, num_virtual_tracks=4))
+    teacher.init_params(g)
+    bias_params_for_live_keypoints(teacher)
+    batch = {
+        "rgb_1": torch.rand((1, 96, 96, 3), generator=g),
+        "rgb_2": torch.rand((1, 96, 96, 3), generator=g),
+        "rgb_vggt": torch.rand((1, 2, 56, 56, 3), generator=g),
+    }
+    teacher.spread_depth(batch["rgb_vggt"])
+    priority = torch.rand((1, 56 * 56), generator=g)
+    _compare("VGGT", dev, lambda device: _run_loss(
+        student, teacher, batch,
+        lambda b: vggt_distill_loss(student, teacher, cfg, b, 1.0,
+                                    priority=priority.to(device)), device))
 
 
 def main() -> int:
@@ -378,7 +591,7 @@ def main() -> int:
     from gd3d_torch.teachers.mast3r import no_tf32
 
     dev = torch.device("cuda", 0)
-
+    t_start = time.perf_counter()
     gpu = gpu_line()
     log(f"gpu: {gpu}")
     t0 = time.perf_counter()
@@ -386,14 +599,21 @@ def main() -> int:
     build.library()
     log(f"build: {build.library_path().name} in {time.perf_counter() - t0:.2f} s")
     for line in report.splitlines():
-        if "Used" in line or "spill" in line:
+        if "Used" in line or "spill" in line or "Compiling entry" in line:
             log(f"build: {line.strip()}")
 
     with no_tf32():
         kernels = check_kernels(dev)
-    counts = run_steps(dev)
+    log(f"phase: kernels done at {time.perf_counter() - t_start:.1f} s")
+    counts = {k: 0 for k in REPLACES}
+    for name, setup in (("MASt3R", mast3r_setup), ("VGGT", vggt_setup)):
+        for k, n in run_steps(name, setup, dev, n_steps=3).items():
+            counts[k] += n
+        torch.cuda.empty_cache()
+        log(f"phase: {name} steps done at {time.perf_counter() - t_start:.1f} s")
     with no_tf32():
         check_agreement(dev)
+    log(f"phase: agree done at {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

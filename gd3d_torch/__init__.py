@@ -5,8 +5,10 @@ The package mirrors gd3d's module paths and public names
 so on) and keeps gd3d's layouts at its public functions: NHWC images and
 (B, N, H, D) attention inputs. It imports torch and numpy only, never JAX.
 
-Every Pallas kernel on the ported path is a hand-written CUDA kernel under
-`gd3d_torch/csrc/`, built at first use (`gd3d_torch/kernels/build.py`).
-A kernel's wrapper launches it for CUDA tensors and runs its plain PyTorch
-twin for CPU tensors.
+Two train steps are ported: the MASt3R and the VGGT distillation steps.
+Every Pallas kernel of gd3d (K1 flash forward, K2 flash backward, K3
+masked-softmax KL, K4 pairwise ranking, K5 RoPE2D) is a hand-written CUDA
+kernel under `gd3d_torch/csrc/`, built at first use
+(`gd3d_torch/kernels/build.py`). A kernel's wrapper launches it for CUDA
+tensors and runs its plain PyTorch twin for CPU tensors.
 """

@@ -1,8 +1,10 @@
 """gd3d param trees (numpy leaves) -> gd3d_torch state dicts.
 
 The inverse of gd3d's torch -> flax converters (gd3d/teachers/convert.py
-convert_timm_vit, gd3d/teachers/mast3r.py convert_mast3r), extended to the
-student leaves those leave out (LoRA, adapters, refine conv, depth head):
+convert_timm_vit, gd3d/teachers/mast3r.py convert_mast3r,
+gd3d/teachers/vggt.py convert_vggt and convert_vggt_tracker), extended to
+the student leaves those leave out (LoRA, adapters, refine conv, depth
+head):
 
   Dense kernel (in, out)                -> Linear weight (out, in)
   Conv kernel (kh, kw, in, out)         -> Conv2d weight (out, in, kh, kw)
@@ -10,8 +12,9 @@ student leaves those leave out (LoRA, adapters, refine conv, depth head):
                                            (in, out, kh, kw), flipped back
   LayerNorm {scale, bias}               -> {weight, bias}
   scan-stacked blocks (leading layer axis: blocks_plain / blocks_adapt,
-  enc_blocks, dec_pairs/blk1|blk2)       -> blocks.{i} / enc_blocks.{i} /
-                                           dec_blocks.{i}, dec_blocks2.{i}
+  enc_blocks, dec_pairs/blk1|blk2,       -> blocks.{i} / enc_blocks.{i} /
+  VGGT blocks, aa_pairs/frame|global)      dec_blocks.{i}, dec_blocks2.{i} /
+                                           frame_blocks.{i}, global_blocks.{i}
 
 With them one seeded gd3d init loads into both packages, which is how the
 parity tests share weights.
@@ -25,6 +28,7 @@ import torch
 
 from gd3d_torch.core.config import StudentConfig
 from gd3d_torch.models.mast3r import Mast3rConfig
+from gd3d_torch.models.vggt.config import VggtConfig
 
 
 def _leaf(node: Mapping, transpose_conv: bool) -> Dict[str, np.ndarray]:
@@ -45,7 +49,11 @@ def _leaf(node: Mapping, transpose_conv: bool) -> Dict[str, np.ndarray]:
 
 def _emit(sd: dict, prefix: str, node: Mapping, transpose_conv: bool = False) -> None:
     """Flatten a flax subtree under `prefix`, converting each module leaf.
-    Submodule names inside blocks already match the torch names."""
+    Submodule names inside blocks already match the torch names; a bare
+    array (a LayerScale gamma, a packed MHA in_proj) is copied as it is."""
+    if not isinstance(node, Mapping):
+        sd[prefix] = node
+        return
     if "kernel" in node or "scale" in node:
         for k, v in _leaf(node, transpose_conv).items():
             sd[f"{prefix}.{k}"] = v
@@ -141,4 +149,77 @@ def mast3r_state_dict(params: Mapping, cfg: Mast3rConfig = Mast3rConfig()) -> Di
             _emit(sd, f"{p}.dpt.scratch.refinenet{i}", dpt[f"refinenet{i}"])
         _emit(sd, f"{p}.head_local_features.fc1", head["lf_fc1"])
         _emit(sd, f"{p}.head_local_features.fc2", head["lf_fc2"])
+    return _to_torch(sd)
+
+
+def _vggt_dpt(sd: dict, prefix: str, tree: Mapping) -> None:
+    _emit(sd, f"{prefix}.norm", tree["norm"])
+    for i in range(4):
+        _emit(sd, f"{prefix}.projects.{i}", tree[f"project_{i}"])
+        _emit(sd, f"{prefix}.scratch.layer{i + 1}_rn", tree[f"layer_{i}_rn"])
+        _emit(sd, f"{prefix}.scratch.refinenet{i + 1}", tree[f"refinenet{i + 1}"])
+    _emit(sd, f"{prefix}.resize_layers.0", tree["resize_0"], transpose_conv=True)
+    _emit(sd, f"{prefix}.resize_layers.1", tree["resize_1"], transpose_conv=True)
+    _emit(sd, f"{prefix}.resize_layers.3", tree["resize_3"])
+    _emit(sd, f"{prefix}.scratch.output_conv1", tree["output_conv1"])
+    if "output_conv2_0" in tree:
+        _emit(sd, f"{prefix}.scratch.output_conv2.0", tree["output_conv2_0"])
+        _emit(sd, f"{prefix}.scratch.output_conv2.2", tree["output_conv2_2"])
+
+
+def _vggt_dinov2(sd: dict, prefix: str, pe: Mapping, cfg: VggtConfig) -> None:
+    for name in ("cls_token", "pos_embed", "register_tokens"):
+        sd[f"{prefix}.{name}"] = pe[name]
+    sd[f"{prefix}.mask_token"] = np.zeros((1, cfg.embed_dim), np.float32)
+    _emit(sd, f"{prefix}.patch_embed.proj", pe["patch_embed"])
+    _emit(sd, f"{prefix}.norm", pe["norm"])
+    for i in range(cfg.dino_depth):
+        _emit(sd, f"{prefix}.blocks.{i}", _index(pe["blocks"], i))
+
+
+_TRACKER_BLOCKS = (("time_", "time_blocks"), ("space_", "space_virtual_blocks"),
+                   ("v2p_", "space_virtual2point_blocks"),
+                   ("p2v_", "space_point2virtual_blocks"))
+
+
+def vggt_state_dict(params: Mapping, cfg: VggtConfig = VggtConfig()) -> Dict[str, torch.Tensor]:
+    """gd3d Vggt param tree -> the port's Vggt state dict in the
+    facebook/VGGT-1B layout: the inverse of gd3d's convert_vggt and
+    convert_vggt_tracker. Unstacks the scanned DINOv2 `blocks` and
+    `aa_pairs/frame|global`, keeps the packed MHA in_proj and writes the
+    update-former's `virual_tracks`. DINOv2's `mask_token`, which gd3d does
+    not carry and no forward reads, is written as zeros."""
+    sd: dict = {}
+    agg = params["aggregator"]
+    sd["aggregator.camera_token"] = agg["camera_token"]
+    sd["aggregator.register_token"] = agg["register_token"]
+    _vggt_dinov2(sd, "aggregator.patch_embed", agg["patch_embed"], cfg)
+    for i in range(cfg.depth):
+        _emit(sd, f"aggregator.frame_blocks.{i}", _index(agg["aa_pairs"]["frame"], i))
+        _emit(sd, f"aggregator.global_blocks.{i}", _index(agg["aa_pairs"]["global"], i))
+
+    ch = params["camera_head"]
+    sd["camera_head.empty_pose_tokens"] = ch["empty_pose_tokens"]
+    for name in ("token_norm", "trunk_norm", "embed_pose", "pose_branch"):
+        _emit(sd, f"camera_head.{name}", ch[name])
+    _emit(sd, "camera_head.poseLN_modulation.1", ch["poseLN_modulation"])
+    for i in range(cfg.camera_trunk_depth):
+        _emit(sd, f"camera_head.trunk.{i}", ch[f"trunk_{i}"])
+    for head in ("depth_head", "point_head"):
+        _vggt_dpt(sd, head, params[head])
+
+    _vggt_dpt(sd, "track_head.feature_extractor", params["track_head"]["feature_extractor"])
+    tr, p = params["track_head"]["tracker"], "track_head.tracker"
+    sd[f"{p}.query_ref_token"] = tr["query_ref_token"]
+    for name in ("fmap_norm", "ffeat_norm", "corr_mlp"):
+        _emit(sd, f"{p}.{name}", tr[name])
+    for name in ("ffeat_updater", "vis_predictor", "conf_predictor"):
+        _emit(sd, f"{p}.{name}.0", tr[name])
+    uf = tr["updateformer"]
+    sd[f"{p}.updateformer.virual_tracks"] = uf["virtual_tracks"]
+    for name in ("input_norm", "input_transform", "output_norm", "flow_head"):
+        _emit(sd, f"{p}.updateformer.{name}", uf[name])
+    for i in range(cfg.track_depth):
+        for src, dst in _TRACKER_BLOCKS:
+            _emit(sd, f"{p}.updateformer.{dst}.{i}", uf[f"{src}{i}"])
     return _to_torch(sd)

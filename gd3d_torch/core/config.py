@@ -127,3 +127,14 @@ class DistillConfig:
 
     def replace(self, **kw) -> "DistillConfig":
         return dataclasses.replace(self, **kw)
+
+
+def vggt_scannetpp() -> DistillConfig:
+    """finetune_timm_vggt_scannetpp: all four losses weighted 1, the
+    teacher's aggregator in bf16."""
+    return DistillConfig(
+        teacher="vggt",
+        dataset="scannetpp",
+        loss_weights=LossWeights(ap=1.0, depth=1.0, intra_depth=1.0, kl=1.0),
+        teacher_dtype="bfloat16",
+    )

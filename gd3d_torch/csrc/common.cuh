@@ -66,6 +66,41 @@ __device__ __forceinline__ float pair_dot(const float* reg, const float* tile_ro
   return acc + __shfl_xor_sync(0xffffffffu, acc, 1);
 }
 
+// Head-dim-generic forms of the two helpers above, for K1 at head dim
+// 32 * kParts: kParts consecutive threads own one row, each a 32-wide part,
+// and a tile row lives in shared memory as kParts parts kPad floats apart.
+template <typename T, int kParts, int kRows>
+__device__ __forceinline__ void load_tile_parts(float* dst, const T* __restrict__ src,
+                                                long long row_stride, int row0, int n_rows) {
+  constexpr int kDim = 32 * kParts;
+  for (int idx = threadIdx.x; idx < kRows * kDim; idx += kThreads) {
+    const int r = idx / kDim;
+    const int d = idx % kDim;
+    const int gr = row0 + r;
+    const float val = gr < n_rows ? to_float(src[gr * row_stride + d]) : 0.f;
+    dst[r * (kParts * kPad) + (d / kHalf) * kPad + (d % kHalf)] = val;
+  }
+}
+
+// Dot product of a thread's 32-wide register part with a tile row's part,
+// completed across the row's kParts threads (a butterfly over lane bits).
+template <int kParts>
+__device__ __forceinline__ float parts_dot(const float* reg, const float* tile_row_part) {
+  const float4* t = reinterpret_cast<const float4*>(tile_row_part);
+  float acc = 0.f;
+#pragma unroll
+  for (int c = 0; c < kHalf / 4; ++c) {
+    const float4 x = t[c];
+    acc = fmaf(reg[4 * c + 0], x.x, acc);
+    acc = fmaf(reg[4 * c + 1], x.y, acc);
+    acc = fmaf(reg[4 * c + 2], x.z, acc);
+    acc = fmaf(reg[4 * c + 3], x.w, acc);
+  }
+#pragma unroll
+  for (int o = 1; o < kParts; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
+  return acc;
+}
+
 // reg += w * tile_row_half.
 __device__ __forceinline__ void axpy_row(float* reg, float w, const float* tile_row_half) {
   const float4* t = reinterpret_cast<const float4*>(tile_row_half);

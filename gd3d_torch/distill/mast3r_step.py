@@ -146,10 +146,16 @@ def build_mast3r_train_step(
     cfg: DistillConfig,
     optimizer: ClippedAdamW,
     has_depth: bool,
+    device="cuda",
 ) -> Callable[[Dict[str, torch.Tensor], float], Dict[str, torch.Tensor]]:
-    """step(batch, temperature) -> detached metrics. Updates the student's
-    trainable parameters in place; the temperature is a runtime scalar.
-    has_depth=True raises (see mast3r_distill_loss)."""
+    """Put the student and the teacher on `device` (the card unless the
+    caller asks for another), and return step(batch, temperature) ->
+    detached metrics, which updates the student's trainable parameters in
+    place; the temperature is a runtime scalar. has_depth=True raises (see
+    mast3r_distill_loss)."""
+    device = torch.device(device)
+    student.to(device)
+    teacher.to(device)
 
     def train_step(batch, temperature):
         optimizer.zero_grad()

@@ -10,15 +10,22 @@ from typing import Dict
 
 
 def wrappers() -> Dict[str, object]:
-    """Kernel id -> wrapper function (holding the `launches` count)."""
+    """Kernel id -> wrapper function (holding the `launches` count). K4's
+    backward (row pass, column pass and partial sums) is one wrapper of its
+    own; K5's backward is K5 with -f0 and counts with its forward."""
     from gd3d_torch.kernels.cost_kl import masked_softmax_kl_fwd
     from gd3d_torch.kernels.flash_bwd_fused import flash_attention_bwd_fused
     from gd3d_torch.kernels.flash_fwd import flash_attention_fwd
+    from gd3d_torch.kernels.pairwise_rank import pairwise_rank_bwd, pairwise_rank_fwd
+    from gd3d_torch.kernels.rope2d import rope2d_fwd
 
     return {
         "K1": flash_attention_fwd,
         "K2": flash_attention_bwd_fused,
         "K3": masked_softmax_kl_fwd,
+        "K4": pairwise_rank_fwd,
+        "K4b": pairwise_rank_bwd,
+        "K5": rope2d_fwd,
     }
 
 

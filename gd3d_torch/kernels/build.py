@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels.
 
-nvcc compiles every `gd3d_torch/csrc/*.cu` for sm_90a into one shared
+nvcc compiles every `gd3d_torch/csrc/*.cu` for sm_90a, one process per
+source, all started together, and links the objects into one shared
 library with a plain C interface, which ctypes loads. The library goes to
 `gd3d_torch/build/` (listed in .gitignore) under a name that hashes the
 sources and flags, so an edited source rebuilds and an unchanged one is
@@ -25,7 +26,7 @@ CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -36,6 +37,9 @@ _ARGTYPES = {
     "gd3d_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
     "gd3d_flash_bwd": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
     "gd3d_cost_kl": [_P] * 4 + [_I] * 3 + [_F, _P],
+    "gd3d_rope2d": [_P] * 3 + [_I] * 4 + [_L] * 9 + [_F, _F, _I, _P],
+    "gd3d_pairwise_rank_fwd": [_P] * 10 + [_I] * 3 + [_F, _F, _P],
+    "gd3d_pairwise_rank_bwd": [_P] * 12 + [_I] * 3 + [_F, _F, _P],
 }
 
 
@@ -73,13 +77,29 @@ def build() -> str:
     if so.exists():
         return ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(_sources(), objs)]
+    report, failed = [], []
+    for src, proc in zip(_sources(), procs):
+        out, _ = proc.communicate()
+        report.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{src.name} ({proc.returncode}):\n{out}")
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+    tmp = so.with_name(f"{tag}.so.tmp")
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink()
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
     os.replace(tmp, so)
-    return res.stdout + res.stderr
+    return "".join(report) + res.stdout + res.stderr
 
 
 @functools.cache

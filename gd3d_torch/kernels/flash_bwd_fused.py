@@ -35,7 +35,7 @@ def flash_attention_bwd_fused(q, k, v, lse, do, di, scale: float):
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, lse, do, di, scale)
     do = do.contiguous()
-    check_operands(q, k, v, do)
+    check_operands(q, k, v, do, head_dims=(64,))
     B, N, H, D = q.shape
     M = k.shape[1]
     for name, t in (("lse", lse), ("di", di)):

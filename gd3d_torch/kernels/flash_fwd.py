@@ -11,7 +11,7 @@ import torch
 
 from gd3d_torch.kernels import build
 
-HEAD_DIM = 64
+HEAD_DIMS = (64, 128)  # K1 takes both; K2 takes 64 only
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -25,9 +25,9 @@ def flash_attention_fwd_plain(q, k, v, scale: float):
     return o.to(q.dtype), lse
 
 
-def check_operands(*ts: torch.Tensor) -> None:
+def check_operands(*ts: torch.Tensor, head_dims=HEAD_DIMS) -> None:
     """What the flash kernels take: CUDA tensors of one dtype (fp32 or bf16)
-    on one device, head dim 64 and a contiguous last dim."""
+    on one device, a head dim in `head_dims` and a contiguous last dim."""
     t0 = ts[0]
     for t in ts:
         if not t.is_cuda or t.device != t0.device:
@@ -36,9 +36,10 @@ def check_operands(*ts: torch.Tensor) -> None:
         if t.dtype != t0.dtype or t.dtype not in DTYPES:
             raise ValueError(f"flash kernels take one dtype of {DTYPES}, got "
                              f"{[x.dtype for x in ts]}")
-        if t.dim() != 4 or t.shape[-1] != HEAD_DIM or t.stride(-1) != 1:
-            raise ValueError(f"flash kernels take (B, N, H, {HEAD_DIM}) views "
-                             f"with a contiguous last dim, got shape "
+        if (t.dim() != 4 or t.shape[-1] not in head_dims or t.shape[-1] != t0.shape[-1]
+                or t.stride(-1) != 1):
+            raise ValueError(f"flash kernels take (B, N, H, D) views with D in "
+                             f"{head_dims} and a contiguous last dim, got shape "
                              f"{tuple(t.shape)} strides {t.stride()}")
 
 

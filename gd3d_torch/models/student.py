@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gd3d_torch.core.config import StudentConfig
+from gd3d_torch.kernels.pairwise_rank import pairwise_ranking_sums
 from gd3d_torch.models.vit import DepthDiffHead, ViT
 from gd3d_torch.ops.basic import l2_normalize
 from gd3d_torch.ops.interpolate import interpolate_features
@@ -120,6 +121,21 @@ class Student(nn.Module):
         feat = torch.stack([t[:, npfx:] for t in out], 0).mean(0)
         return feat.reshape(B, H // ps, W // ps, self.cfg.embed_dim)
 
+    def get_feature_cost_vggt(self, rgbs: torch.Tensor, vggt_patch: int = 14,
+                              layer: int = 7) -> torch.Tensor:
+        """VGGT-step cost features: the patch grid follows the teacher's /14
+        grid, the images are resized to that grid times the student's patch
+        (518^2 -> 37 x 37 patches, 1370 tokens), and the raw intermediate
+        layer 7 is tapped (gd3d's normalize=False). Returns (B, ph, pw, C)."""
+        B, H, W, _ = rgbs.shape
+        ph, pw = H // vggt_patch, W // vggt_patch
+        ps = self.cfg.patch_size
+        resized = resize_bilinear(rgbs, (ph * ps, pw * ps))
+        out = self.forward_tokens(normalize_img(resized), take_indices=(layer,),
+                                  final_tokens=False)["intermediates"][0]
+        out = out[:, self.cfg.num_prefix_tokens:]
+        return out.reshape(B, ph, pw, self.cfg.embed_dim)
+
     def get_feature_and_intermediates(
         self, rgbs: torch.Tensor, pts: torch.Tensor, n: Sequence[int] = (4, 5, 6, 7),
     ):
@@ -151,9 +167,26 @@ class Student(nn.Module):
     def intra_depth_loss(self, kp_feat_all, kp_depth_all, valid_all,
                          depth_threshold: float) -> torch.Tensor:
         """Mean of the two per-view pairwise logistic ranking losses over the
-        stacked views (2B, N, ...). gd3d's opt-in fused Pallas path (K4) is
-        not ported yet; this is gd3d's default path."""
+        stacked views (2B, N, ...), through K4 in the form of gd3d's fused
+        path (gd3d/models/student.py:430-454): u = feat . W + b in fp32, the
+        head's first bias passed again (it commutes with the pair
+        subtraction), and the mean of the per-view masked means. The whole
+        pair chain is fp32, also when the student computes in bf16. A head
+        without tanh takes the plain score path, as in gd3d."""
         B = kp_feat_all.shape[0] // 2
+        if self.cfg.depth_head_tanh:
+            fin, ln, fout = (self.depth_diff_head.fusion_layer[i] for i in (0, 1, 3))
+            u = F.linear(kp_feat_all.float(), fin.weight, fin.bias)
+            sums, cnts = pairwise_ranking_sums(
+                u, fin.bias, ln.weight, ln.bias, fout.weight[0], fout.bias,
+                kp_depth_all, valid_all, depth_threshold)
+
+            def view_mean(s, c):
+                tot, cnt = s.sum(), c.sum()
+                return torch.where(cnt > 0, tot / torch.clamp(cnt, min=1.0),
+                                   torch.zeros_like(tot))
+
+            return (view_mean(sums[:B], cnts[:B]) + view_mean(sums[B:], cnts[B:])) / 2.0
         score_all = self.pairwise_score_diff(kp_feat_all)
         intra_1 = pairwise_logistic_ranking_loss(
             score_all[:B], kp_depth_all[:B], depth_threshold, valid_all[:B])

@@ -37,7 +37,7 @@ def init_params_(module: nn.Module, generator: torch.Generator) -> None:
                 mod.weight.uniform_(-bound, bound, generator=generator)
                 if mod.bias is not None:
                     mod.bias.uniform_(-bound, bound, generator=generator)
-            elif isinstance(mod, nn.LayerNorm):
+            elif isinstance(mod, nn.LayerNorm) and mod.weight is not None:
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
         for name, p in module.named_parameters():
@@ -58,11 +58,26 @@ def _cubic_kernel(x: float, a: float = -0.75) -> float:
 
 
 @functools.lru_cache(maxsize=32)
-def _bicubic_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+def _bicubic_resize_matrix(in_size: int, out_size: int, antialias: bool = False) -> np.ndarray:
     """(out, in) matrix of F.interpolate(bicubic, align_corners=False):
-    half-pixel sampling, a = -0.75, border taps replicated."""
+    half-pixel sampling, a = -0.75, border taps replicated. With antialias
+    and a downscale, torch's antialiased filter instead: cubic with
+    a = -0.5, support stretched by the scale, taps clamped to the valid
+    range and renormalized (as gd3d's matrix)."""
     W = np.zeros((out_size, in_size), np.float32)
     scale = in_size / out_size
+    if antialias and scale > 1.0:
+        support = 2.0 * scale
+        for o in range(out_size):
+            center = scale * (o + 0.5)
+            lo = max(0, int(center - support + 0.5))
+            hi = min(in_size, int(center + support + 0.5))
+            ws = np.array([_cubic_kernel((t + 0.5 - center) / scale, a=-0.5)
+                           for t in range(lo, hi)])
+            if ws.sum() > 0:
+                ws = ws / ws.sum()
+            W[o, lo:hi] = ws
+        return W
     for o in range(out_size):
         src = (o + 0.5) * scale - 0.5
         f = int(np.floor(src))

@@ -1,9 +1,46 @@
-"""Depth rasterization and keypoint depth (counterpart of the device-side
-part of gd3d/ops/geometry.py that the MASt3R step calls)."""
+"""Depth rasterization, keypoint depth and co-view masks (counterpart of
+the device-side part of gd3d/ops/geometry.py that the MASt3R and VGGT steps
+call)."""
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+
+def compute_projection(P: torch.Tensor, points_3d: torch.Tensor) -> torch.Tensor:
+    """Project (..., 3) points through a (3, 4) matrix -> (..., 2)."""
+    shape = points_3d.shape[:-1]
+    pts = points_3d.reshape(-1, 3)
+    ph = torch.cat([pts, torch.ones_like(pts[:, :1])], dim=1) @ P.T
+    return (ph[:, :2] / (ph[:, 2:3] + 1e-8)).reshape(*shape, 2)
+
+
+def convert_camera_to_world(point_map: torch.Tensor, extrinsic: torch.Tensor) -> torch.Tensor:
+    """(x - t) @ R^T, the reference's formula (not the geometric inverse of an
+    OpenCV [R|t]; kept, as gd3d keeps it)."""
+    R, t = extrinsic[:, :3], extrinsic[:, 3][None, :]
+    return ((point_map.reshape(-1, 3) - t) @ R.T).reshape(point_map.shape)
+
+
+def coview_mask(point_map: torch.Tensor, P_other: torch.Tensor,
+                image_shape: Tuple[int, int]) -> torch.Tensor:
+    proj = compute_projection(P_other, point_map)
+    u, v = proj[..., 0], proj[..., 1]
+    H, W = image_shape
+    return (u >= 0) & (u < W) & (v >= 0) & (v < H)
+
+
+def coview_masks(point_map_view1, point_map_view2, intrinsic1, extrinsic1, intrinsic2,
+                 extrinsic2, image_shape: Tuple[int, int]):
+    """Mutual-reprojection visibility masks of one pair, (H, W) bool each.
+    Both views' points are converted with extrinsic1, as in the reference
+    and gd3d."""
+    world1 = convert_camera_to_world(point_map_view1, extrinsic1)
+    world2 = convert_camera_to_world(point_map_view2, extrinsic1)
+    return (coview_mask(world1, intrinsic2 @ extrinsic2, image_shape),
+            coview_mask(world2, intrinsic1 @ extrinsic1, image_shape))
 
 
 def point_cloud_to_depth(

@@ -41,10 +41,13 @@ def ap_loss_paired(
     valid: torch.Tensor,
     thres3d_neg: float = 0.1,
     temp: float = 0.01,
+    legacy_rpos1: bool = False,
 ) -> torch.Tensor:
     """Smooth-AP matching loss for 1:1-paired keypoints: positives on the
     diagonal, negatives farther than thres3d_neg in 3D, two ranking
-    directions averaged."""
+    directions averaged. legacy_rpos1: the VGGT module's first-direction
+    rpos, sigmoid(1 - pos_sim) + 1, where the MASt3R module has
+    sigmoid(pos_sim - 1) + 1 (gd3d's flag of the same name)."""
     B, N, _ = desc_1.shape
     sim = torch.einsum("bnc,bmc->bnm", desc_1, desc_2)
     dist = torch.linalg.vector_norm(
@@ -54,7 +57,7 @@ def ap_loss_paired(
     pos_sim = torch.diagonal(sim, dim1=1, dim2=2)
     negf = neg_mask.to(sim.dtype)
 
-    rpos1 = temp_sigmoid(pos_sim - 1.0, temp) + 1.0
+    rpos1 = temp_sigmoid((1.0 - pos_sim) if legacy_rpos1 else (pos_sim - 1.0), temp) + 1.0
     rall1 = rpos1 + (temp_sigmoid(sim - 1.0, temp) * negf).sum(-1)
     ap1 = rpos1 / rall1
 

@@ -1,36 +1,26 @@
-"""2D rotary position embedding, CroCo flavour (counterpart of the
-`rope2d_xla` path of gd3d/ops/rope2d.py).
+"""2D rotary position embedding, CroCo flavour (counterpart of
+gd3d/ops/rope2d.py).
 
 The head dim splits into a y half and an x half; each half gets 1D RoPE at
-its integer grid position. gd3d's Pallas RoPE kernel (K5,
-gd3d/kernels/rope2d.py) is off by default there and is not ported yet; this
-plain version is what gd3d runs by default. Autograd differentiates it.
+its integer grid position. Every call goes through `RoPE2D`, an
+autograd.Function whose forward is K5 (gd3d_torch/kernels/rope2d.py) and
+whose backward is K5 with -F0, as gd3d's custom_vjp. For CUDA tensors the
+wrapper launches the hand-written kernel; for CPU tensors it runs the plain
+twin, gd3d's `rope2d_xla` formula. The CroCo teacher and the VGGT
+aggregator both call it.
 """
 from __future__ import annotations
 
 import torch
 
-
-def _rope1d(tokens: torch.Tensor, pos1d: torch.Tensor, base: float):
-    """tokens (B, H, N, D), pos1d (B, N) int."""
-    D = tokens.shape[-1]
-    exponent = torch.arange(0, D, 2, dtype=torch.float32, device=tokens.device) / D
-    inv_freq = 1.0 / (base ** exponent)
-    angles = pos1d[..., None].to(torch.float32) * inv_freq  # (B, N, D/2)
-    angles = torch.cat([angles, angles], dim=-1)
-    cos = torch.cos(angles).to(tokens.dtype)[:, None]
-    sin = torch.sin(angles).to(tokens.dtype)[:, None]
-    x1, x2 = tokens.chunk(2, dim=-1)
-    rot = torch.cat([-x2, x1], dim=-1)
-    return tokens * cos + rot * sin
+from gd3d_torch.kernels.rope2d import RoPE2D
 
 
-def rope2d(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.0) -> torch.Tensor:
-    """tokens (B, H, N, D) with D % 4 == 0, positions (B, N, 2) as (y, x)."""
-    y, x = tokens.chunk(2, dim=-1)
-    y = _rope1d(y, positions[:, :, 0], base)
-    x = _rope1d(x, positions[:, :, 1], base)
-    return torch.cat([y, x], dim=-1)
+def rope2d(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.0,
+           f0: float = 1.0) -> torch.Tensor:
+    """tokens (B, H, N, D) with D % 4 == 0, positions (B, N, 2) as (y, x)
+    integers. The result is stored in (B, N, H, D) order (see K5)."""
+    return RoPE2D.apply(tokens, positions, float(base), float(f0))
 
 
 def grid_positions(h: int, w: int, batch: int = 1, device=None) -> torch.Tensor:

@@ -115,7 +115,7 @@ def test_two_steps_match_gd3d():
     st.load_state_dict(student_state_dict(params, cfg.student))
     tr, _ = split_params(st)
     step = build_mast3r_train_step(st, te, cfg, make_optimizer(cfg.train, tr.values()),
-                                   has_depth=False)
+                                   has_depth=False, device="cpu")
     tbatch = {k: torch.from_numpy(v) for k, v in batch.items()}
     got = [{k: float(v) for k, v in step(tbatch, 1.0).items()} for _ in range(2)]
 
