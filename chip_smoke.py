@@ -13,7 +13,10 @@ report), then runs these phases in order, one or more printed lines each:
               call that computes the same function where there is one
               (library_ms, timed here only), and the bound: the larger of
               bytes over 3.35 TB/s and operations over the peak of their
-              type (989 TFLOP/s bf16, 67 TFLOP/s fp32 off the tensor cores);
+              type (989 TFLOP/s bf16, 67 TFLOP/s fp32 off the tensor cores),
+              with the achieved TFLOP/s (those operations over the kernel's
+              time) and the share of the bound reached; K2 runs twice at the
+              MASt3R student's main shape and must give the same bits;
   2. steps    three full-width MASt3R distillation steps (ViT-B/16 bf16
               student, MASt3R ViT-L/Base-decoder fp32 teacher, 336x512
               teacher and 512^2 student frames), then three full-width VGGT
@@ -30,12 +33,14 @@ report), then runs these phases in order, one or more printed lines each:
   3. profile  one more step of each path under torch.profiler: device time
               by kernel and the device's idle share of the step;
   4. agree    each step's losses and gradients on a small input, CUDA
-              kernels against the CPU plain path, with shared weights.
+              kernels against the CPU plain path, with shared weights, in
+              fp32, and the MASt3R student once more under its bf16 autocast
+              (the bf16 tensor-core K1 and K2).
 
 Then one JSON line of the kernels, the card line, and last the JSON result
 line. Exits non-zero, printing no result, without a CUDA device or if any
-phase fails. The kernels and agree phases compare fp32 results, so they run
-without TF32; the steps run with PyTorch's defaults (the teachers turn TF32
+phase fails. The kernels and agree phases compare fp32 results too, so they
+run without TF32; the steps run with PyTorch's defaults (the teachers turn TF32
 off themselves).
 """
 from __future__ import annotations
@@ -64,9 +69,11 @@ REPLACES = {
 # Tolerance: max abs error <= TOL[dtype] * max(1, max |plain|). fp32: the
 # kernels and the plain twins sum in different orders (<= 6401 terms);
 # bf16: both round an fp32 result to bf16 (8 mantissa bits), so one ulp of
-# the largest value can separate them (K5's twin also rounds cos and sin to
-# bf16 first, as gd3d does). K1's log-sum-exp is fp32 whatever the operands,
-# so it is held to the fp32 tolerance in every case.
+# the largest value can separate them; the bf16 K1 and K2 also round P and
+# dS to bf16 before their tensor-core products (at most 2^-9 relative per
+# term), and K5's twin rounds cos and sin to bf16 first, as gd3d does. K1's
+# log-sum-exp is fp32 whatever the operands, so it is held to the fp32
+# tolerance in every case.
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
@@ -140,7 +147,8 @@ class KernelReport:
         log(f"kernels: {kern} {where}: {' '.join(parts)} {'OK' if line_ok else 'FAIL'} "
             f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
             f"library_ms={'none' if lib_ms is None else f'{lib_ms:.4f}'} "
-            f"bound_ms={b_ms:.4f} ({b_by})")
+            f"bound_ms={b_ms:.4f} ({b_by}) tflops={ops / ms / 1e9:.2f} "
+            f"bound_share={b_ms / ms:.3f}")
         self.ok &= line_ok
         r = self.results[kern]
         r["max_abs_err"] = max(r["max_abs_err"], worst)
@@ -211,6 +219,12 @@ def check_kernels(dev) -> dict:
             di = torch.einsum("bnhd,bnhd->bhn", o_ref.float(), do.float()).contiguous()
             grads = flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale)
             refs = flash_attention_bwd_plain(q, k, v, lse_ref, do, di, scale)
+            if designated:  # every sum runs in a fixed order: the same bits again
+                again = flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale)
+                same = all(torch.equal(a, b) for a, b in zip(grads, again))
+                log(f"kernels: K2 {tag} repeat bit-identical {same} "
+                    f"{'OK' if same else 'FAIL'}")
+                rep.ok &= same
             ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (qh, kh, vh))
             out = F.scaled_dot_product_attention(ql, kl, vl, scale=scale)
             doh = do.transpose(1, 2)
@@ -468,19 +482,28 @@ def profile_step(name, step, batch) -> None:
         log(f"profile: {name} {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<5d} {kname[:90]}")
 
 
-def _compare(name, dev, run_loss) -> None:
+def _compare(name, dev, run_loss, loss_tol=1e-4, grad_tol=1e-3, grad_l2=False,
+             why="fp32 sums in another order") -> None:
     """run_loss(device) -> (metrics, trainable grads); CPU plain path
-    against the CUDA kernels."""
+    against the CUDA kernels. The gradient error is the worst tensor's max
+    abs error over its max |grad|, or with grad_l2 the relative L2 error of
+    all trainable gradients together."""
     (m_cpu, g_cpu), (m_gpu, g_gpu) = run_loss("cpu"), run_loss(dev)
     loss_err = max(abs(m_cpu[k] - m_gpu[k]) / max(1.0, abs(m_cpu[k])) for k in m_cpu)
-    grad_err = max(float((g_cpu[k] - g_gpu[k]).abs().max())
-                   / max(1e-3, float(g_cpu[k].abs().max())) for k in g_cpu)
-    ok = (m_cpu["num_kps"] == m_gpu["num_kps"] > 0 and loss_err <= 1e-4
-          and grad_err <= 1e-3 and g_cpu.keys() == g_gpu.keys())
+    if grad_l2:
+        num = sum(float((g_cpu[k] - g_gpu[k]).double().square().sum()) for k in g_cpu)
+        den = sum(float(g_cpu[k].double().square().sum()) for k in g_cpu)
+        grad_err = math.sqrt(num / den)
+    else:
+        grad_err = max(float((g_cpu[k] - g_gpu[k]).abs().max())
+                       / max(1e-3, float(g_cpu[k].abs().max())) for k in g_cpu)
+    ok = (m_cpu["num_kps"] == m_gpu["num_kps"] > 0 and loss_err <= loss_tol
+          and grad_err <= grad_tol and g_cpu.keys() == g_gpu.keys())
     log(f"agree: {name} cpu {m_cpu}")
     log(f"agree: {name} gpu {m_gpu}")
-    log(f"agree: {name} loss rel err {loss_err:.3e} (tol 1e-4), grad rel err {grad_err:.3e} "
-        f"(tol 1e-3, fp32 sums in another order) {'OK' if ok else 'FAIL'}")
+    log(f"agree: {name} loss rel err {loss_err:.3e} (tol {loss_tol:g}), grad "
+        f"{'rel L2' if grad_l2 else 'rel'} err {grad_err:.3e} (tol {grad_tol:g}, {why}) "
+        f"{'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{name}: the CUDA path disagrees with the CPU plain path")
 
@@ -518,8 +541,11 @@ def _small_student(cfg_cls, g):
 
 
 def check_agreement(dev) -> None:
-    """Small inputs, fp32: each step's losses and trainable gradients with
-    the CUDA kernels against the CPU plain path on shared weights."""
+    """Small inputs: each step's losses and trainable gradients with the
+    CUDA kernels against the CPU plain path on shared weights, in fp32, and
+    the MASt3R student once more under its bf16 autocast."""
+    import dataclasses
+
     import torch
 
     from gd3d_torch.core.config import DistillConfig, KeypointConfig, StudentConfig
@@ -528,6 +554,7 @@ def check_agreement(dev) -> None:
     from gd3d_torch.distill.vggt_step import vggt_distill_loss
     from gd3d_torch.models.croco import CrocoConfig
     from gd3d_torch.models.mast3r import Mast3rConfig
+    from gd3d_torch.models.student import Student
     from gd3d_torch.models.vggt.config import VggtConfig
     from gd3d_torch.teachers.mast3r import Mast3rTeacher
     from gd3d_torch.teachers.vggt import VggtTeacher, bias_params_for_live_keypoints
@@ -552,6 +579,22 @@ def check_agreement(dev) -> None:
     _compare("MASt3R", dev, lambda device: _run_loss(
         student, teacher, batch,
         lambda b: mast3r_distill_loss(student, teacher, cfg, b, 1.0, has_depth=False), device))
+
+    # the same student on the same weights under the step's bf16 autocast:
+    # the one composed check of the bf16 tensor-core K1 and K2. Both sides
+    # round at the autocast points, but CPU and CUDA bf16 GEMMs, and the
+    # kernels' bf16 P and dS against the twins' fp32 ones, put an ulp of
+    # bf16 (2^-8) in other places. On this input a whole bf16 rounding
+    # against fp32 moves the losses by 4.2e-4 relative and the gradients by
+    # 2.5% relative L2 (CPU, plain path), so the tolerances are 5e-3 and 0.1.
+    cfg16 = cfg.replace(student=dataclasses.replace(student.cfg, compute_dtype="bfloat16"))
+    student16 = Student(cfg16.student)
+    student16.load_state_dict(student.state_dict())
+    _compare("MASt3R bf16 student", dev, lambda device: _run_loss(
+        student16, teacher, batch,
+        lambda b: mast3r_distill_loss(student16, teacher, cfg16, b, 1.0, has_depth=False),
+        device), loss_tol=5e-3, grad_tol=0.1, grad_l2=True,
+        why="bf16 rounded in other places")
 
     # VGGT: aggregator head dim 64 (K1, K5) and camera trunk head dim 128
     # (K1's D=128 variant); fp32 teacher, so both sides compare in fp32

@@ -25,9 +25,19 @@ def flash_attention_fwd_plain(q, k, v, scale: float):
     return o.to(q.dtype), lse
 
 
+def aligned_16(t: torch.Tensor) -> bool:
+    """Whether the bf16 kernels' 16-byte cp.async copies can read the
+    (B, N, H, D) view `t`: its first element and every step along B, N and H
+    (of a dim longer than 1) fall on 16 bytes."""
+    elt = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(
+        n == 1 or (s * elt) % 16 == 0 for n, s in zip(t.shape[:3], t.stride()[:3]))
+
+
 def check_operands(*ts: torch.Tensor, head_dims=HEAD_DIMS) -> None:
     """What the flash kernels take: CUDA tensors of one dtype (fp32 or bf16)
-    on one device, a head dim in `head_dims` and a contiguous last dim."""
+    on one device, a head dim in `head_dims` and a contiguous last dim; bf16
+    views also `aligned_16`."""
     t0 = ts[0]
     for t in ts:
         if not t.is_cuda or t.device != t0.device:
@@ -41,6 +51,10 @@ def check_operands(*ts: torch.Tensor, head_dims=HEAD_DIMS) -> None:
             raise ValueError(f"flash kernels take (B, N, H, D) views with D in "
                              f"{head_dims} and a contiguous last dim, got shape "
                              f"{tuple(t.shape)} strides {t.stride()}")
+        if t.dtype == torch.bfloat16 and not aligned_16(t):
+            raise ValueError(f"bf16 flash kernels copy 16-byte chunks: the view's "
+                             f"address and its (B, N, H) steps must fall on 16 bytes, "
+                             f"got offset {t.data_ptr() % 16} strides {t.stride()}")
 
 
 def flash_attention_fwd(q, k, v, scale: float):

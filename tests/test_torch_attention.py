@@ -19,7 +19,8 @@ from gd3d.ops.attention import _einsum_sdpa
 from gd3d_torch.kernels import launch_counts
 from gd3d_torch.kernels.flash_bwd_fused import (
     flash_attention_bwd_fused, flash_attention_bwd_plain)
-from gd3d_torch.kernels.flash_fwd import flash_attention_fwd, flash_attention_fwd_plain
+from gd3d_torch.kernels.flash_fwd import (
+    aligned_16, flash_attention_fwd, flash_attention_fwd_plain)
 from gd3d_torch.ops.attention import scaled_dot_attention
 
 GRAD_TOL = dict(rtol=1e-4, atol=2e-5)
@@ -119,3 +120,17 @@ def test_wrappers_refuse_other_devices():
     lse = torch.empty((1, 1, 8), device="meta")
     with pytest.raises(ValueError):
         flash_attention_bwd_fused(q, q, q, lse, q, lse, 0.125)
+
+
+def test_aligned_16_reads_the_views_the_models_pass():
+    """The bf16 kernels' 16-byte copy rule: the q, k, v views of a
+    (B, N, 3, H, 64) projection pass; a view whose address or row step is off
+    16 bytes does not; a step along a dim of length 1 is never taken."""
+    qkv = torch.zeros((2, 67, 3, 12, 64), dtype=torch.bfloat16)
+    assert all(aligned_16(qkv[:, :, i]) for i in range(3))
+    wide = torch.zeros((2, 67, 3 * 12 * 64 + 4), dtype=torch.bfloat16)
+    assert not aligned_16(wide[..., :3 * 12 * 64].reshape(2, 67, 3, 12, 64)[:, :, 0])
+    flat = torch.zeros((67 * 12 * 64 + 1,), dtype=torch.bfloat16)
+    assert not aligned_16(flat[1:].view(1, 67, 12, 64))
+    assert aligned_16(torch.zeros((1, 67, 12, 64)).as_strided((1, 67, 12, 64),
+                                                               (3, 768, 64, 1)))
