@@ -9,14 +9,18 @@ with nvcc, one process per source (timed, with ptxas's register and spill
 report), then runs these phases in order, one or more printed lines each:
   1. kernels  K1-K5 against their plain PyTorch twins at every main-path
               shape of both steps: max abs error against the stated
-              tolerance, the median time of each, the time of one PyTorch
-              call that computes the same function where there is one
-              (library_ms, timed here only), and the bound: the larger of
+              tolerance, the median device time of each (the host enqueues
+              behind a long matrix product, so its own time per call,
+              host_us, is printed apart), the time of one PyTorch call that
+              computes the same function where there is one (library_ms,
+              timed here only, with the name of the device kernel it ran),
+              and the bound: the larger of
               bytes over 3.35 TB/s and operations over the peak of their
               type (989 TFLOP/s bf16, 67 TFLOP/s fp32 off the tensor cores),
               with the achieved TFLOP/s (those operations over the kernel's
-              time) and the share of the bound reached; K2 runs twice at the
-              MASt3R student's main shape and must give the same bits;
+              time) and the share of the bound reached; K2 at the MASt3R
+              student's main shape, and K4 and K4b at the MASt3R keypoint
+              count, run twice and must give the same bits;
   2. steps    three full-width MASt3R distillation steps (ViT-B/16 bf16
               student, MASt3R ViT-L/Base-decoder fp32 teacher, 336x512
               teacher and 512^2 student frames), then three full-width VGGT
@@ -29,7 +33,13 @@ report), then runs these phases in order, one or more printed lines each:
               depth head's depth_attention branch, which training never
               calls), the frozen and teacher ones not, and every kernel must
               have launched in each path's run (counts set to 0 just before
-              it and read just after);
+              it and read just after); then K4 once more on the last step's
+              own keypoints against its plain twin, with the sum of the valid
+              keypoints' indices and depths (which keypoints the teacher
+              selected, to compare two runs by), and the full-width MASt3R
+              teacher with the fp32 K1 against the same teacher on K1's plain
+              twin (fp32 tolerance), with the count of rasterised depth
+              pixels that the rounding difference moves;
   3. profile  one more step of each path under torch.profiler: device time
               by kernel and the device's idle share of the step;
   4. agree    each step's losses and gradients on a small input, CUDA
@@ -90,13 +100,21 @@ def gpu_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int) -> float:
-    """Median device time of one call, CUDA events around each call."""
+def time_ms(fn, iters: int) -> tuple[float, float]:
+    """(median device time of one call in ms, host time of one call in us).
+    CUDA events around each call; four long matrix products go first, so
+    that the host enqueues every call while the device is still busy and the
+    events see no host time. The host time is the enqueueing loop's."""
     import torch
 
     for _ in range(3):
         fn()
+    plug = torch.empty((8192, 8192), device="cuda")
+    torch.cuda.synchronize()
+    for _ in range(4):  # ~0.1 s of fp32 work: iters calls enqueue in less
+        torch.mm(plug, plug)
     events = []
+    t0 = time.perf_counter()
     for _ in range(iters):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -104,8 +122,26 @@ def time_ms(fn, iters: int) -> float:
         fn()
         b.record()
         events.append((a, b))
+    host_us = (time.perf_counter() - t0) / iters * 1e6
     torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events)
+    return statistics.median(a.elapsed_time(b) for a, b in events), host_us
+
+
+def device_kernel_name(fn) -> str:
+    """The device kernel that took the most time in one profiled call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):  # a profile now and then comes back without device events
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+        if rows:
+            return max(rows, key=lambda e: e.device_time_total).key
+    return "none seen"
 
 
 def bound(nbytes: float, ops: float, dtype: str):
@@ -141,13 +177,15 @@ class KernelReport:
             line_ok &= math.isfinite(err) and err <= tol
             worst = max(worst, err)
             parts.append(f"{name} err={err:.3e} tol={tol:.1e}")
-        ms, plain_ms = time_ms(run, iters), time_ms(run_plain, iters)
-        lib_ms = time_ms(run_library, iters) if run_library is not None else None
+        (ms, host_us), (plain_ms, _) = time_ms(run, iters), time_ms(run_plain, iters)
+        lib_ms, lib = None, "none"
+        if run_library is not None:
+            lib_ms = time_ms(run_library, iters)[0]
+            lib = f"{lib_ms:.4f} ({device_kernel_name(run_library)[:60]})"
         b_ms, b_by = bound(nbytes, ops, dtype)
         log(f"kernels: {kern} {where}: {' '.join(parts)} {'OK' if line_ok else 'FAIL'} "
-            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={'none' if lib_ms is None else f'{lib_ms:.4f}'} "
-            f"bound_ms={b_ms:.4f} ({b_by}) tflops={ops / ms / 1e9:.2f} "
+            f"kernel_ms={ms:.4f} host_us={host_us:.1f} plain_ms={plain_ms:.4f} "
+            f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) tflops={ops / ms / 1e9:.2f} "
             f"bound_share={b_ms / ms:.3f}")
         self.ok &= line_ok
         r = self.results[kern]
@@ -270,6 +308,14 @@ def check_kernels(dev) -> dict:
         rows_p, cnts_p = pairwise_rank_sums_plain(*args, 0.05)
         n_pairs = float(cnts.sum())
         tag = f"{where} intra-depth u=(2,{N},{h}) float32 ({int(n_pairs)} valid pairs)"
+        g_rows = torch.rand((2, N), generator=g, device=dev)
+        if designated:  # partials summed in a fixed order, no atomics: the same bits again
+            same = all(torch.equal(a, b) for a, b in zip(
+                (rows, cnts, *pairwise_rank_bwd(*args, g_rows, 0.05)),
+                (*pairwise_rank_fwd(*args, 0.05), *pairwise_rank_bwd(*args, g_rows, 0.05))))
+            log(f"kernels: K4 K4b {tag} repeat bit-identical {same} "
+                f"{'OK' if same else 'FAIL'}")
+            rep.ok &= same
         small = 2 * N * 4 * 3 + (4 * h + 1) * 4
         rep.check("K4", f"fwd {tag}", [("sums", rows, rows_p, "float32"),
                                        ("counts", cnts, cnts_p, "float32")],
@@ -278,7 +324,6 @@ def check_kernels(dev) -> dict:
                   nbytes=2 * N * h * 4 + small, ops=10.0 * h * n_pairs, dtype="float32",
                   iters=30, designated=designated)
         # the gradients through the autograd.Function, against the twin's
-        g_rows = torch.rand((2, N), generator=g, device=dev)
         ins = [t.detach().clone().requires_grad_(True) for t in args[:6]]
         (pairwise_ranking_sums(*ins, depths, valid, 0.05)[0] * g_rows).sum().backward()
         refs = pairwise_rank_bwd_plain(*args, g_rows, 0.05)
@@ -395,10 +440,90 @@ def vggt_setup(dev, seed: int = 1):
     return step, student, teacher, trainable, frozen, batch
 
 
-def run_steps(name, setup, dev, n_steps: int) -> dict:
+def check_step_keypoints(name, args) -> None:
+    """K4 on the operands the step itself gave it (N keypoint slots, few of
+    them valid with random weights) against its plain twin. The sums of the
+    valid keypoints' indices and depths say which keypoints the frozen
+    teacher selected: a rounding difference in its fp32 kernels can flip a
+    reciprocal match, and the step's losses then differ from another run's
+    although every kernel agrees with its twin."""
+    import torch
+
+    from gd3d_torch.kernels.pairwise_rank import pairwise_rank_fwd, pairwise_rank_sums_plain
+
+    *head, depths, valid, thr = args[:9]
+    rows, cnts = pairwise_rank_fwd(*head, depths, valid, thr)
+    rows_p, cnts_p = pairwise_rank_sums_plain(*head, depths, valid, thr)
+    err, mag = max_err(rows, rows_p)
+    ok = torch.equal(cnts, cnts_p) and err <= TOL["float32"] * max(1.0, mag)
+    index_sum = int((valid * torch.arange(valid.shape[1], device=valid.device)).sum())
+    log(f"steps: {name} K4 on the step's keypoints u={tuple(head[0].shape)}: "
+        f"{int(valid.sum())} valid (index sum {index_sum}, depth sum "
+        f"{float((depths * valid).sum()):.6f}), {int(cnts.sum())} pairs, mean pair loss "
+        f"{float(rows.sum() / cnts.sum()):.6f}; sums err={err:.3e} "
+        f"tol={TOL['float32'] * max(1.0, mag):.1e} counts equal "
+        f"{torch.equal(cnts, cnts_p)} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: K4 disagrees with its plain twin on the step's keypoints")
+
+
+def check_mast3r_teacher(teacher, batch) -> None:
+    """The full-width frozen teacher once with K1 and once with K1's plain
+    twin in its place: descriptors, point clouds and confidences within the
+    fp32 tolerance. Also printed: whether the matched keypoints agree, and
+    how many pixels of the depth map rasterised from the point cloud differ.
+    That map is a z-buffer, so rounding moves points across pixel borders;
+    with random weights this is what moves the depth losses between two
+    revisions of an fp32 teacher kernel."""
+    import torch
+
+    from gd3d_torch.core.config import DistillConfig
+    from gd3d_torch.distill.keypoints import filter_and_match_keypoints
+    from gd3d_torch.kernels.flash_fwd import flash_attention_fwd_plain
+    from gd3d_torch.ops import attention
+    from gd3d_torch.ops.depth import post_process_depth
+    from gd3d_torch.ops.geometry import point_cloud_to_depth
+
+    images = batch["rgb_mast3r_1"], batch["rgb_mast3r_2"]
+    H, W = images[0].shape[1:3]
+    with_kernel = teacher.extract_features(*images, 1.0)
+    kernel_fwd = attention.flash_attention_fwd
+    attention.flash_attention_fwd = flash_attention_fwd_plain
+    try:
+        with_twin = teacher.extract_features(*images, 1.0)
+    finally:
+        attention.flash_attention_fwd = kernel_fwd
+    ok, parts = True, []
+    for key in ("desc_1", "desc_2", "pts3d_1", "pts3d_2", "conf_1", "conf_2"):
+        err, mag = max_err(with_kernel[key], with_twin[key])
+        ok &= err <= TOL["float32"] * max(1.0, mag)
+        parts.append(f"{key} err={err:.3e} of {mag:.3e}")
+    kcfg = DistillConfig(teacher="mast3r", dataset="scannetpp").keypoints
+
+    def keypoints_and_depth(feats):
+        kps = filter_and_match_keypoints(
+            {k: feats[k][0] for k in ("desc_1", "desc_2", "conf_1", "conf_2")}, H, W,
+            subsample=kcfg.nn_subsample, border=kcfg.border,
+            min_conf_percent=kcfg.min_conf_percentile)
+        depth = post_process_depth(point_cloud_to_depth(
+            feats["pts3d_1"][0].reshape(-1, 3), batch["intrinsic"][0], W, H), kernel_size=3)
+        return kps, depth
+
+    (kps_k, depth_k), (kps_t, depth_t) = (keypoints_and_depth(f) for f in (with_kernel, with_twin))
+    same_kps = all(torch.equal(a, b) for a, b in zip(kps_k, kps_t))
+    moved = int(((depth_k - depth_t).abs() > 1e-3).sum())
+    log(f"steps: MASt3R teacher with K1 against K1's plain twin (tol {TOL['float32']:g} of "
+        f"the max): {' '.join(parts)} {'OK' if ok else 'FAIL'}; keypoints equal {same_kps}; "
+        f"rasterised depth differs by more than 1e-3 at {moved} of {depth_k.numel()} pixels")
+    if not ok:
+        raise AssertionError("MASt3R: the teacher on K1 disagrees with the teacher on its twin")
+
+
+def run_steps(name, setup, dev, n_steps: int, check_teacher=None) -> dict:
     import torch
 
     from gd3d_torch.kernels import launch_counts, reset_launch_counts
+    from gd3d_torch.models import student as student_module
 
     t0 = time.perf_counter()
     step, student, teacher, trainable, frozen, batch = setup(dev)
@@ -410,6 +535,13 @@ def run_steps(name, setup, dev, n_steps: int) -> dict:
         f"({sum(p.numel() for p in trainable.values())} trainable), teacher "
         f"{sum(p.numel() for p in teacher.parameters())} params")
     torch.cuda.synchronize()
+    k4_entry, k4_args = student_module.pairwise_ranking_sums, []
+
+    def keep_args(*args):  # the step's own K4 operands, for the check after it
+        k4_args[:] = [a.detach().clone() if torch.is_tensor(a) else a for a in args]
+        return k4_entry(*args)
+
+    student_module.pairwise_ranking_sums = keep_args
     reset_launch_counts()
     for i in range(n_steps):
         torch.cuda.reset_peak_memory_stats(dev)
@@ -427,7 +559,11 @@ def run_steps(name, setup, dev, n_steps: int) -> dict:
             raise AssertionError(f"{name}: no keypoints survived the filters")
         if vals["depth_loss"] <= 0 or vals["intra_depth_loss"] <= 0:
             raise AssertionError(f"{name}: a depth loss is 0 at step {i}: {vals}")
+    student_module.pairwise_ranking_sums = k4_entry
     counts = launch_counts()
+    check_step_keypoints(name, k4_args)
+    if check_teacher is not None:
+        check_teacher(teacher, batch)
     changed = [k for k, p in trainable.items() if not torch.equal(p, before_t[k])]
     moved = [k for k, p in frozen.items() if not torch.equal(p, before_f[k])]
     teacher_after = sum(float(p.double().sum()) for p in teacher.parameters())
@@ -478,8 +614,11 @@ def profile_step(name, step, batch) -> None:
     total = sum(r[1] for r in rows)
     log(f"profile: {name} step wall {wall_ms:.2f} ms, kernel time {total:.2f} ms, device "
         f"busy {covered / 1e3:.2f} ms, idle share {1 - covered / 1e3 / wall_ms:.3f}")
-    for kname, ms, count in rows[:20]:
-        log(f"profile: {name} {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<5d} {kname[:90]}")
+    # the 20 longest, and every hand-written kernel (namespace gd3d) after them
+    for i, (kname, ms, count) in enumerate(rows):
+        if i < 20 or "gd3d::" in kname:
+            log(f"profile: {name} {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<5d} "
+                f"{kname[:90]}")
 
 
 def _compare(name, dev, run_loss, loss_tol=1e-4, grad_tol=1e-3, grad_l2=False,
@@ -649,8 +788,9 @@ def main() -> int:
         kernels = check_kernels(dev)
     log(f"phase: kernels done at {time.perf_counter() - t_start:.1f} s")
     counts = {k: 0 for k in REPLACES}
-    for name, setup in (("MASt3R", mast3r_setup), ("VGGT", vggt_setup)):
-        for k, n in run_steps(name, setup, dev, n_steps=3).items():
+    for name, setup, check in (("MASt3R", mast3r_setup, check_mast3r_teacher),
+                               ("VGGT", vggt_setup, None)):
+        for k, n in run_steps(name, setup, dev, n_steps=3, check_teacher=check).items():
             counts[k] += n
         torch.cuda.empty_cache()
         log(f"phase: {name} steps done at {time.perf_counter() - t_start:.1f} s")

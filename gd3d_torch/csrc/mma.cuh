@@ -1,7 +1,7 @@
 // Tensor-core building blocks of the bf16 flash kernels (K1 forward, K2
 // backward), as inline PTX for sm_90a: mma.sync m16n8k16 (bf16 operands,
-// fp32 accumulators), ldmatrix (plain and .trans) and cp.async copies with
-// zero-fill.
+// fp32 accumulators), ldmatrix (plain and .trans) and tile loads built on
+// the cp.async copies of common.cuh.
 //
 // Tiles: 64 rows of head dim 64 in bf16 (128 bytes a row). In shared memory
 // each row is padded by 16 bytes (kRowE = 72 elements, 144 bytes), so the 8
@@ -31,32 +31,6 @@ using bf16 = __nv_bfloat16;
 constexpr int kRowE = kD + 8;                            // elements per smem row
 constexpr int kTileBytes = kTile * kRowE * 2;            // 9216
 constexpr int kChunks = kTile * kD * 2 / 16 / kThreads;  // 16-byte copies per thread
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte copy; copies zeros when !ok (src is then not read).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 16 : 0));
-}
-
-// 4-byte copy, zeros when !ok.
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool ok) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
-               "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most kPending of this thread's copy groups are in flight.
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
 
 // Rows [row0, row0 + 64) of a (rows, 64) bf16 slice with row stride `stride`
 // (elements) into a padded smem tile; rows at or past n_rows become zeros.

@@ -38,9 +38,11 @@ _ARGTYPES = {
     "gd3d_flash_bwd": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
     "gd3d_cost_kl": [_P] * 4 + [_I] * 3 + [_F, _P],
     "gd3d_rope2d": [_P] * 3 + [_I] * 4 + [_L] * 9 + [_F, _F, _I, _P],
-    "gd3d_pairwise_rank_fwd": [_P] * 10 + [_I] * 3 + [_F, _F, _P],
-    "gd3d_pairwise_rank_bwd": [_P] * 12 + [_I] * 3 + [_F, _F, _P],
+    "gd3d_pairwise_rank_fwd": [_P] * 11 + [_I] * 4 + [_F, _F, _P],
+    "gd3d_pairwise_rank_bwd": [_P] * 12 + [_I] * 4 + [_F, _F, _P],
+    "gd3d_pairwise_rank_scratch": [_I] * 5,
 }
+_RESTYPES = {"gd3d_pairwise_rank_scratch": ctypes.c_longlong}
 
 
 def _nvcc() -> str:
@@ -109,7 +111,7 @@ def library() -> ctypes.CDLL:
     for name, argtypes in _ARGTYPES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = _RESTYPES.get(name, ctypes.c_int)
     return lib
 
 

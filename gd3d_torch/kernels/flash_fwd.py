@@ -26,7 +26,7 @@ def flash_attention_fwd_plain(q, k, v, scale: float):
 
 
 def aligned_16(t: torch.Tensor) -> bool:
-    """Whether the bf16 kernels' 16-byte cp.async copies can read the
+    """Whether the kernels' 16-byte cp.async copies can read the
     (B, N, H, D) view `t`: its first element and every step along B, N and H
     (of a dim longer than 1) fall on 16 bytes."""
     elt = t.element_size()
@@ -34,15 +34,14 @@ def aligned_16(t: torch.Tensor) -> bool:
         n == 1 or (s * elt) % 16 == 0 for n, s in zip(t.shape[:3], t.stride()[:3]))
 
 
-def check_operands(*ts: torch.Tensor, head_dims=HEAD_DIMS) -> None:
-    """What the flash kernels take: CUDA tensors of one dtype (fp32 or bf16)
-    on one device, a head dim in `head_dims` and a contiguous last dim; bf16
-    views also `aligned_16`."""
+def check_views(*ts: torch.Tensor, head_dims=HEAD_DIMS, fp32_copies_16: bool = False) -> None:
+    """The layout the flash kernels take, on any device: tensors of one dtype
+    (fp32 or bf16), (B, N, H, D) with D in `head_dims` and a contiguous last
+    dim. bf16 views must be `aligned_16`, and with `fp32_copies_16` (K1, whose
+    fp32 head-dim-64 kernel copies 16 bytes at a time) fp32 views of head dim
+    64 too. Nothing is copied to make a view fit: it raises."""
     t0 = ts[0]
     for t in ts:
-        if not t.is_cuda or t.device != t0.device:
-            raise ValueError(f"flash kernels need CUDA tensors on one device, "
-                             f"got {t.device}")
         if t.dtype != t0.dtype or t.dtype not in DTYPES:
             raise ValueError(f"flash kernels take one dtype of {DTYPES}, got "
                              f"{[x.dtype for x in ts]}")
@@ -51,17 +50,29 @@ def check_operands(*ts: torch.Tensor, head_dims=HEAD_DIMS) -> None:
             raise ValueError(f"flash kernels take (B, N, H, D) views with D in "
                              f"{head_dims} and a contiguous last dim, got shape "
                              f"{tuple(t.shape)} strides {t.stride()}")
-        if t.dtype == torch.bfloat16 and not aligned_16(t):
-            raise ValueError(f"bf16 flash kernels copy 16-byte chunks: the view's "
-                             f"address and its (B, N, H) steps must fall on 16 bytes, "
-                             f"got offset {t.data_ptr() % 16} strides {t.stride()}")
+        copies_16 = t.dtype == torch.bfloat16 or (fp32_copies_16 and t.shape[-1] == 64)
+        if copies_16 and not aligned_16(t):
+            raise ValueError(f"this flash kernel copies 16-byte chunks: the "
+                             f"{t.dtype} view's address and its (B, N, H) steps must "
+                             f"fall on 16 bytes, got offset {t.data_ptr() % 16} strides "
+                             f"{t.stride()}")
+
+
+def check_operands(*ts: torch.Tensor, **layout) -> None:
+    """What the flash kernels take: CUDA tensors on one device, in the layout
+    of `check_views`."""
+    for t in ts:
+        if not t.is_cuda or t.device != ts[0].device:
+            raise ValueError(f"flash kernels need CUDA tensors on one device, "
+                             f"got {t.device}")
+    check_views(*ts, **layout)
 
 
 def flash_attention_fwd(q, k, v, scale: float):
     """K1. CPU tensors run the plain twin; CUDA tensors launch the kernel."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, scale)
-    check_operands(q, k, v)
+    check_operands(q, k, v, fp32_copies_16=True)
     B, N, H, D = q.shape
     M = k.shape[1]
     if k.shape != (B, M, H, D) or v.shape != k.shape:

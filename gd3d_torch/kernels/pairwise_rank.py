@@ -12,6 +12,13 @@ summed over the valid pairs (|d_j - d_i| > thr, both keypoints valid).
 Outputs are per-row (per i) loss sums and valid-pair counts, (B, N) each;
 callers sum them per view. `pairwise_rank_sums_plain` is the plain PyTorch
 twin (gd3d's `_reference`, per row): the CPU path, and the oracle.
+
+The kernels visit only the valid keypoints of a view, compacted into
+scratch, and split the streamed keypoints of a pair into `stream_chunks`
+chunks across the grid; per-chunk partial sums go to scratch too and are
+summed by the kernels in a fixed order (no atomics: the same bits from run
+to run). `scratch_floats` is the size of that scratch; the wrappers allocate
+it per call with `torch.empty`.
 """
 from __future__ import annotations
 
@@ -23,7 +30,32 @@ import torch.nn.functional as F
 from gd3d_torch.kernels import build
 
 HIDDEN = (32, 64, 96, 128)
-ROWS_PER_BLOCK = 8  # warps per block in the kernel: one owned row each
+BWD_ROWS_PER_BLOCK = 4  # warps per block of the backward passes: one owned row each
+TARGET_WARPS = 4096     # owned rows x chunks the grid should reach: ~8 per scheduler
+
+
+def stream_chunks(B: int, N: int) -> int:
+    """Into how many chunks the kernels split the streamed keypoints, so that
+    B * N owned rows times the chunks give the card's 528 schedulers several
+    warps each, with at least 32 keypoints a chunk."""
+    return max(1, min(math.ceil(TARGET_WARPS / (B * N)), math.ceil(N / 32)))
+
+
+def _align4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+def scratch_floats(B: int, N: int, h: int, n_chunks: int, backward: bool) -> int:
+    """fp32 elements of scratch for one forward or backward call (PrScratch in
+    csrc/pairwise_rank.cu): the compacted view (rows, depths, upstream
+    gradients, keypoint indices, the count of valid keypoints) and the
+    per-chunk partials: row sums and counts forward; both roles of du and the
+    per-block parameter-gradient partials backward."""
+    total = _align4(B * N * h) + 3 * _align4(B * N) + _align4(B)
+    if backward:
+        blocks = B * math.ceil(N / BWD_ROWS_PER_BLOCK) * n_chunks
+        return total + 2 * _align4(B * N * n_chunks * h) + _align4(blocks * (4 * h + 1))
+    return total + 2 * _align4(B * N * n_chunks)
 
 
 def pairwise_rank_sums_plain(u, bias, ln_s, ln_b, w_out, b_out, depths, valid,
@@ -45,25 +77,27 @@ def pairwise_rank_sums_plain(u, bias, ln_s, ln_b, w_out, b_out, depths, valid,
     return (loss * pvf).sum(-1), pvf.sum(-1)
 
 
-def _check(u, head, depths, valid, *rest):
+def _f32(t):
+    """`t` as contiguous fp32, itself where it already is."""
+    return t if t.dtype is torch.float32 and t.is_contiguous() else t.float().contiguous()
+
+
+def _prep(u, bias, ln_s, ln_b, w_out, b_out, depths, valid, *rest):
+    """The operands as the kernels read them (contiguous fp32, u on 16 bytes,
+    the head's vectors flat), checked: one device, hidden width in HIDDEN,
+    shapes that fit u's (B, N, h). `rest` is the backward's grad_rows."""
     B, N, h = u.shape
     if h not in HIDDEN:
         raise ValueError(f"pairwise_rank takes hidden width in {HIDDEN}, got {h}")
-    for name, t, shape in (("u", u, (B, N, h)), ("depths", depths, (B, N)),
-                           ("valid", valid, (B, N)),
-                           *((f"head[{i}]", p, (h,)) for i, p in enumerate(head[:4])),
-                           ("b_out", head[4], (1,)),
-                           *(("grad_rows", t, (B, N)) for t in rest)):
-        if (t.device != u.device or t.dtype != torch.float32 or tuple(t.shape) != shape
-                or not t.is_contiguous()):
-            raise ValueError(f"pairwise_rank: {name} must be contiguous fp32 {shape} on "
-                             f"{u.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
-
-
-def _prep(u, bias, ln_s, ln_b, w_out, b_out, depths, valid):
-    head = tuple(p.float().reshape(-1).contiguous() for p in (bias, ln_s, ln_b, w_out, b_out))
-    return (u.float().contiguous(), head, depths.float().contiguous(),
-            valid.float().contiguous())
+    head = tuple(_f32(p).reshape(-1) for p in (bias, ln_s, ln_b, w_out, b_out))
+    rows = tuple(_f32(t) for t in (depths, valid, *rest))
+    for t, shape in (*((p, (h,)) for p in head[:4]), (head[4], (1,)),
+                     *((t, (B, N)) for t in rows)):
+        if t.shape != shape or t.device != u.device:
+            raise ValueError(f"pairwise_rank: operands must fit u {tuple(u.shape)} on "
+                             f"{u.device}: got {tuple(t.shape)} on {t.device}, want {shape}")
+    u = _f32(u)
+    return (u if u.data_ptr() % 16 == 0 else u.clone(), head, *rows)
 
 
 def pairwise_rank_fwd(u, bias, ln_s, ln_b, w_out, b_out, depths, valid,
@@ -74,15 +108,17 @@ def pairwise_rank_fwd(u, bias, ln_s, ln_b, w_out, b_out, depths, valid,
         return pairwise_rank_sums_plain(u, bias, ln_s, ln_b, w_out, b_out, depths,
                                         valid, thr, eps)
     u, head, depths, valid = _prep(u, bias, ln_s, ln_b, w_out, b_out, depths, valid)
-    _check(u, head, depths, valid)
     B, N, h = u.shape
     row_sum = torch.empty((B, N), dtype=torch.float32, device=u.device)
     row_cnt = torch.empty((B, N), dtype=torch.float32, device=u.device)
+    n_chunks = stream_chunks(B, N)
+    scratch = torch.empty(scratch_floats(B, N, h, n_chunks, False), dtype=torch.float32,
+                          device=u.device)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = build.library().gd3d_pairwise_rank_fwd(
         u.data_ptr(), depths.data_ptr(), valid.data_ptr(),
         *(p.data_ptr() for p in head), row_sum.data_ptr(), row_cnt.data_ptr(),
-        B, N, h, float(thr), float(eps), stream)
+        scratch.data_ptr(), B, N, h, n_chunks, float(thr), float(eps), stream)
     build.check(err, "pairwise_rank_fwd")
     pairwise_rank_fwd.launches += 1
     return row_sum, row_cnt
@@ -105,24 +141,25 @@ def pairwise_rank_bwd_plain(u, bias, ln_s, ln_b, w_out, b_out, depths, valid, gr
 
 def pairwise_rank_bwd(u, bias, ln_s, ln_b, w_out, b_out, depths, valid, grad_rows,
                       thr: float, eps: float = 1e-5):
-    """K4 backward (row pass, column pass, partial sums): the gradients of
-    sum(row_sums * grad_rows) w.r.t. (u, bias, ln_s, ln_b, w_out, b_out),
+    """K4 backward (compaction, row pass, column pass, partial sums): the
+    gradients of sum(row_sums * grad_rows) w.r.t. (u, bias, ln_s, ln_b, w_out, b_out),
     fp32. CUDA tensors only."""
-    u, head, depths, valid = _prep(u, bias, ln_s, ln_b, w_out, b_out, depths, valid)
-    grad_rows = grad_rows.float().contiguous()
     if not u.is_cuda:
         raise ValueError("pairwise_rank_bwd launches a CUDA kernel; got CPU tensors")
-    _check(u, head, depths, valid, grad_rows)
+    u, head, depths, valid, grad_rows = _prep(u, bias, ln_s, ln_b, w_out, b_out, depths,
+                                              valid, grad_rows)
     B, N, h = u.shape
     du = torch.empty_like(u)
-    n_blocks = B * math.ceil(N / ROWS_PER_BLOCK)
-    partials = torch.empty((n_blocks, 4 * h + 1), dtype=torch.float32, device=u.device)
+    n_chunks = stream_chunks(B, N)
+    scratch = torch.empty(scratch_floats(B, N, h, n_chunks, True), dtype=torch.float32,
+                          device=u.device)
     pgrad = torch.empty(4 * h + 1, dtype=torch.float32, device=u.device)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = build.library().gd3d_pairwise_rank_bwd(
         u.data_ptr(), depths.data_ptr(), valid.data_ptr(),
         *(p.data_ptr() for p in head), grad_rows.data_ptr(), du.data_ptr(),
-        partials.data_ptr(), pgrad.data_ptr(), B, N, h, float(thr), float(eps), stream)
+        scratch.data_ptr(), pgrad.data_ptr(), B, N, h, n_chunks, float(thr), float(eps),
+        stream)
     build.check(err, "pairwise_rank_bwd")
     pairwise_rank_bwd.launches += 1
     dbias, dln_s, dln_b, dw_out = pgrad[:4 * h].reshape(4, h)

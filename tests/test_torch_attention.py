@@ -20,7 +20,7 @@ from gd3d_torch.kernels import launch_counts
 from gd3d_torch.kernels.flash_bwd_fused import (
     flash_attention_bwd_fused, flash_attention_bwd_plain)
 from gd3d_torch.kernels.flash_fwd import (
-    aligned_16, flash_attention_fwd, flash_attention_fwd_plain)
+    aligned_16, check_operands, check_views, flash_attention_fwd, flash_attention_fwd_plain)
 from gd3d_torch.ops.attention import scaled_dot_attention
 
 GRAD_TOL = dict(rtol=1e-4, atol=2e-5)
@@ -134,3 +134,46 @@ def test_aligned_16_reads_the_views_the_models_pass():
     assert not aligned_16(flat[1:].view(1, 67, 12, 64))
     assert aligned_16(torch.zeros((1, 67, 12, 64)).as_strided((1, 67, 12, 64),
                                                                (3, 768, 64, 1)))
+
+
+def _croco_views(B=2, N=67, H=4):
+    """q, k, v as models/croco.py hands them to K1: q and k come back from
+    RoPE as (B, H, N, D)-contiguous tensors viewed as (B, N, H, D), v is the
+    strided view of the qkv projection."""
+    qkv = torch.zeros((B, N, 3, H, 64))
+    q, k = (torch.zeros((B, H, N, 64)).transpose(1, 2) for _ in range(2))
+    return q, k, qkv[:, :, 2]
+
+
+@pytest.mark.parametrize("layout", ["croco", "qkv"])
+def test_check_views_accepts_the_fp32_layouts_the_models_pass(layout):
+    """K1's fp32 head-dim-64 kernel copies 16 bytes at a time; both layouts
+    models/croco.py passes (and the plain qkv views of the ViTs) fit."""
+    if layout == "croco":
+        q, k, v = _croco_views()
+    else:
+        qkv = torch.zeros((2, 67, 3, 4, 64))
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    check_views(q, k, v, fp32_copies_16=True)
+    assert all(aligned_16(t) for t in (q, k, v))
+    with pytest.raises(ValueError, match="CUDA"):  # the layout fits; the device does not
+        check_operands(q, k, v, fp32_copies_16=True)
+
+
+@pytest.mark.parametrize("how", ["row_step", "address"])
+def test_check_views_refuses_misaligned_fp32_views(how):
+    """An fp32 head-dim-64 view whose address or row step is off 16 bytes
+    raises (nothing is copied to make it fit); K2's fp32 kernel and the
+    head-dim-128 kernel read 4 bytes at a time and take it."""
+    if how == "row_step":
+        wide = torch.zeros((1, 70, 3 * 2 * 64 + 2))  # row step 386 * 4 bytes
+        bad = wide[..., :384].reshape(1, 70, 3, 2, 64)[:, :, 0]
+    else:
+        bad = torch.zeros((70 * 2 * 64 + 1,))[1:].view(1, 70, 2, 64)  # off by 4 bytes
+    ok = torch.zeros((1, 70, 2, 64))
+    assert not aligned_16(bad)
+    with pytest.raises(ValueError, match="16 bytes"):
+        check_views(ok, bad, ok, fp32_copies_16=True)
+    check_views(ok, bad, ok, head_dims=(64,))  # K2 fp32: no 16-byte copies
+    wide128 = torch.zeros((1, 70, 2 * 128 + 2))[..., :256].reshape(1, 70, 2, 128)
+    check_views(wide128, wide128, wide128, fp32_copies_16=True)  # head dim 128

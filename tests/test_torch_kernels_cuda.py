@@ -17,14 +17,14 @@ which stays within a few ulps of bf16 (2^-8) of the largest output.
 import pytest
 import torch
 
-from gd3d_torch.kernels import launch_counts
+from gd3d_torch.kernels import build, launch_counts
 from gd3d_torch.kernels.cost_kl import _reference_rows, masked_softmax_kl_rows
 from gd3d_torch.kernels.flash_bwd_fused import (
     flash_attention_bwd_fused, flash_attention_bwd_plain)
 from gd3d_torch.kernels.flash_fwd import flash_attention_fwd, flash_attention_fwd_plain
 from gd3d_torch.kernels.pairwise_rank import (
-    pairwise_rank_bwd_plain, pairwise_rank_fwd, pairwise_rank_sums_plain,
-    pairwise_ranking_sums)
+    pairwise_rank_bwd, pairwise_rank_bwd_plain, pairwise_rank_fwd, pairwise_rank_sums_plain,
+    pairwise_ranking_sums, scratch_floats, stream_chunks)
 from gd3d_torch.kernels.rope2d import rope2d_plain
 from gd3d_torch.ops.attention import scaled_dot_attention
 from gd3d_torch.ops.rope2d import grid_positions, rope2d
@@ -112,6 +112,39 @@ def test_flash_kernels_refuse_misaligned_bf16_views(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N,M", LENGTHS)
+def test_flash_fwd_fp32_croco_layout_matches_plain(dev, N, M):
+    """The fp32 head-dim-64 K1 on the CroCo teacher's layout: q and k are
+    (B, H, N, D)-contiguous (as RoPE returns them) viewed as (B, N, H, D),
+    v is the strided view of a qkv projection."""
+    g = torch.Generator(device=dev).manual_seed(N * 1000 + M + 1)
+    B, H = 2, 3
+    q = torch.randn((B, H, N, 64), generator=g, device=dev).transpose(1, 2)
+    k = torch.randn((B, H, M, 64), generator=g, device=dev).transpose(1, 2)
+    v = torch.randn((B, M, 3, H, 64), generator=g, device=dev)[:, :, 2]
+    before = launch_counts()["K1"]
+    o, lse = flash_attention_fwd(q, k, v, 0.125)
+    assert launch_counts()["K1"] == before + 1
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, 0.125)
+    assert_close(o, o_ref, torch.float32)
+    assert_close(lse, lse_ref, torch.float32)
+
+
+@pytest.mark.cuda
+def test_flash_fwd_refuses_misaligned_fp32_views(dev):
+    """The fp32 head-dim-64 K1 copies 16-byte chunks too: a view whose row
+    step or address is off 16 bytes raises instead of being copied."""
+    wide = torch.randn((1, 70, 3 * 2 * 64 + 2), device=dev)
+    good = wide[..., :384].reshape(1, 70, 3, 2, 64)  # row step 386 * 4 bytes
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_fwd(good[:, :, 0], good[:, :, 1], good[:, :, 2], 0.125)
+    shifted = torch.randn((70 * 2 * 64 + 1,), device=dev)[1:].view(1, 70, 2, 64)
+    ok = torch.randn((1, 70, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_fwd(ok, shifted, ok, 0.125)
+
+
+@pytest.mark.cuda
 def test_attention_function_grads_match_plain_autograd(dev):
     g = torch.Generator(device=dev).manual_seed(0)
     qkv = torch.randn((2, 200, 3, 2, 64), generator=g, device=dev) * 0.5
@@ -162,12 +195,7 @@ def test_rope2d_fwd_bwd_match_plain(dev, dtype):
     assert_close(t.grad, rope2d_plain(w, pos, 100.0, -1.0), dtype)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("N,h", [(70, 128), (300, 32)])
-def test_pairwise_rank_matches_plain(dev, N, h):
-    """K4: per-row sums and counts, and the six gradients through the
-    autograd.Function; an all-invalid view gives 0; N is no tile multiple."""
-    g = torch.Generator(device=dev).manual_seed(N)
+def _rank_inputs(g, N, h, dev, second_view="random"):
     u = torch.randn((2, N, h), generator=g, device=dev) * 0.5
     head = [torch.randn(h, generator=g, device=dev) * 0.1,
             1 + torch.randn(h, generator=g, device=dev) * 0.05,
@@ -176,18 +204,63 @@ def test_pairwise_rank_matches_plain(dev, N, h):
             torch.randn(1, generator=g, device=dev) * 0.1]
     depths = torch.rand((2, N), generator=g, device=dev) * 3
     valid = torch.rand((2, N), generator=g, device=dev) > 0.25
-    valid[1] = False
+    if second_view != "random":
+        valid[1] = False
+    if second_view == "one_valid":
+        valid[1, N // 2] = True
+    return u, head, depths, valid
+
+
+# N and h that straddle the kernels' tiles of 32 streamed keypoints, the 4
+# pairs a warp takes per step, the 4 or 8 owned rows a block and the chunks
+@pytest.mark.cuda
+@pytest.mark.parametrize("second_view", ["all_invalid", "one_valid"])
+@pytest.mark.parametrize("N,h", [(1, 32), (7, 96), (33, 128), (70, 128), (70, 96),
+                                 (300, 32), (300, 128)])
+def test_pairwise_rank_matches_plain(dev, N, h, second_view):
+    """K4: per-row sums and counts, and the six gradients through the
+    autograd.Function; a view with no valid keypoint, or with one, gives 0
+    (no pair); N is no tile multiple."""
+    g = torch.Generator(device=dev).manual_seed(N)
+    u, head, depths, valid = _rank_inputs(g, N, h, dev, second_view)
+    before = launch_counts()["K4"]
     rows, cnts = pairwise_rank_fwd(u, *head, depths, valid, 0.05)
+    assert launch_counts()["K4"] == before + 1
     want_rows, want_cnts = pairwise_rank_sums_plain(u, *head, depths, valid, 0.05)
     assert torch.equal(cnts, want_cnts) and float(cnts[1].sum()) == 0.0
+    assert float(rows[1].abs().sum()) == 0.0
     assert_close(rows, want_rows, torch.float32)
     g_rows = torch.rand((2, N), generator=g, device=dev)
     ins = [t.clone().requires_grad_(True) for t in (u, *head)]
     before = launch_counts()["K4b"]
     (pairwise_ranking_sums(*ins, depths, valid, 0.05)[0] * g_rows).sum().backward()
     assert launch_counts()["K4b"] == before + 1
+    assert float(ins[0].grad[1].abs().sum()) == 0.0
     for t, want in zip(ins, pairwise_rank_bwd_plain(u, *head, depths, valid, g_rows, 0.05)):
         assert_close(t.grad, want, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,h", [(70, 96), (672, 128)])
+def test_pairwise_rank_is_deterministic(dev, N, h):
+    """K4 and K4b sum their per-chunk and per-block partials in a fixed order
+    (no atomics): two calls give the same bits."""
+    g = torch.Generator(device=dev).manual_seed(N + 1)
+    u, head, depths, valid = _rank_inputs(g, N, h, dev)
+    g_rows = torch.rand((2, N), generator=g, device=dev)
+    runs = [(*pairwise_rank_fwd(u, *head, depths, valid, 0.05),
+             *pairwise_rank_bwd(u, *head, depths, valid, g_rows, 0.05)) for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,N,h", [(1, 1, 32), (2, 300, 96), (2, 672, 128)])
+def test_pairwise_rank_scratch_matches_the_kernels_layout(dev, B, N, h):
+    """The wrapper's scratch reckoning is the C side's (PrScratch)."""
+    chunks = stream_chunks(B, N)
+    for backward in (False, True):
+        assert build.library().gd3d_pairwise_rank_scratch(B, N, h, chunks, int(backward)) \
+            == scratch_floats(B, N, h, chunks, backward)
 
 
 @pytest.mark.cuda

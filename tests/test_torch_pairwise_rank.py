@@ -23,9 +23,12 @@ from gd3d.models.student import Student as JStudent
 from gd3d_torch.convert import student_state_dict
 from gd3d_torch.core.config import StudentConfig
 from gd3d_torch.kernels.pairwise_rank import (
+    BWD_ROWS_PER_BLOCK,
     pairwise_rank_bwd_plain,
     pairwise_rank_fwd,
     pairwise_ranking_sums,
+    scratch_floats,
+    stream_chunks,
 )
 from gd3d_torch.models.student import Student
 
@@ -131,3 +134,32 @@ def test_student_intra_depth_loss_matches_gd3d(n):
     got = st.intra_depth_loss(torch.from_numpy(feats), torch.from_numpy(depths),
                               torch.from_numpy(valid), THR)
     np.testing.assert_allclose(float(got), float(want), rtol=3e-5, atol=1e-6)
+
+
+def test_sums_match_gd3d_kernel_at_hidden_96_ragged_n():
+    """h = 96 (three 32-wide parts a row) and an N that is no multiple of
+    gd3d's 64-wide tiles nor of the port's tiles of 32."""
+    args = _setup(5, n=77, h=96)
+    s_k, c_k = pairwise_ranking_sums_fused(*map(jnp.asarray, args), THR, interpret=True)
+    rows, cnts = pairwise_rank_fwd(*_torch(args), THR)
+    np.testing.assert_array_equal(cnts.sum(1).numpy(), np.asarray(c_k))
+    np.testing.assert_allclose(rows.sum(1).numpy(), np.asarray(s_k), rtol=2e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("n,chunks", [(1, 1), (300, 7), (672, 4)])
+def test_scratch_reckoning_for_the_chunked_partials(n, chunks):
+    """The wrapper's plan for the CUDA kernels: into how many chunks the
+    streamed keypoints are split, and the floats of scratch a call needs
+    (the compacted view, then the per-chunk partials), every part rounded
+    up to 16 bytes."""
+    B, h = 2, 128
+    assert stream_chunks(B, n) == chunks
+    up4 = lambda x: -(-x // 4) * 4  # noqa: E731
+    view = up4(B * n * h) + 3 * up4(B * n) + up4(B)  # rows, depths, grads, indices, count
+    assert scratch_floats(B, n, h, chunks, False) == view + 2 * up4(B * n * chunks)
+    blocks = B * -(-n // BWD_ROWS_PER_BLOCK) * chunks
+    assert scratch_floats(B, n, h, chunks, True) == (
+        view + 2 * up4(B * n * chunks * h) + up4(blocks * (4 * h + 1)))
+    # more chunks never shrink it, and a chunk keeps at least 32 keypoints
+    assert scratch_floats(B, n, h, chunks + 1, True) > scratch_floats(B, n, h, chunks, True)
+    assert chunks == 1 or n / chunks >= 32
