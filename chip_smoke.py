@@ -20,7 +20,8 @@ report), then runs these phases in order, one or more printed lines each:
               with the achieved TFLOP/s (those operations over the kernel's
               time) and the share of the bound reached; K2 at the MASt3R
               student's main shape, and K4 and K4b at the MASt3R keypoint
-              count, run twice and must give the same bits;
+              count, run twice and must give the same bits; K5 on one
+              tensor and on each main-path layer's q and k in one launch;
   2. steps    three full-width MASt3R distillation steps (ViT-B/16 bf16
               student, MASt3R ViT-L/Base-decoder fp32 teacher, 336x512
               teacher and 512^2 student frames), then three full-width VGGT
@@ -57,7 +58,6 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 import time
@@ -98,33 +98,6 @@ def gpu_line() -> str:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return res.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, iters: int) -> tuple[float, float]:
-    """(median device time of one call in ms, host time of one call in us).
-    CUDA events around each call; four long matrix products go first, so
-    that the host enqueues every call while the device is still busy and the
-    events see no host time. The host time is the enqueueing loop's."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    plug = torch.empty((8192, 8192), device="cuda")
-    torch.cuda.synchronize()
-    for _ in range(4):  # ~0.1 s of fp32 work: iters calls enqueue in less
-        torch.mm(plug, plug)
-    events = []
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        events.append((a, b))
-    host_us = (time.perf_counter() - t0) / iters * 1e6
-    torch.cuda.synchronize()
-    return statistics.median(a.elapsed_time(b) for a, b in events), host_us
 
 
 def device_kernel_name(fn) -> str:
@@ -169,6 +142,8 @@ class KernelReport:
               run_library=None, designated=False):
         import torch
 
+        from gd3d_torch.kernels.timing import time_ms
+
         torch.cuda.synchronize()
         worst, line_ok, parts = 0.0, True, []
         for name, a, b, tol_dt in pairs:
@@ -185,7 +160,7 @@ class KernelReport:
         b_ms, b_by = bound(nbytes, ops, dtype)
         log(f"kernels: {kern} {where}: {' '.join(parts)} {'OK' if line_ok else 'FAIL'} "
             f"kernel_ms={ms:.4f} host_us={host_us:.1f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib} bound_ms={b_ms:.4f} ({b_by}) tflops={ops / ms / 1e9:.2f} "
+            f"library_ms={lib} bound_ms={b_ms:.4g} ({b_by}) tflops={ops / ms / 1e9:.2f} "
             f"bound_share={b_ms / ms:.3f}")
         self.ok &= line_ok
         r = self.results[kern]
@@ -207,13 +182,20 @@ def check_kernels(dev) -> dict:
     from gd3d_torch.kernels.pairwise_rank import (
         pairwise_rank_bwd, pairwise_rank_bwd_plain, pairwise_rank_fwd,
         pairwise_rank_sums_plain, pairwise_ranking_sums)
-    from gd3d_torch.kernels.rope2d import rope2d_fwd, rope2d_plain
+    from gd3d_torch.kernels.rope2d import rope2d_fwd, rope2d_plain, rope2d_qk_fwd
+    from gd3d_torch.kernels.timing import time_ms
     from gd3d_torch.ops.masks import masked_patch_cost
     from gd3d_torch.ops.rope2d import grid_positions
 
     g = torch.Generator(device=dev).manual_seed(1234)
     bf16, f32 = torch.bfloat16, torch.float32
     rep = KernelReport()
+    # what a launch costs with no work to speak of, timed the same way: the
+    # floor under the short kernels' times (K3, K5, the camera trunk's K1)
+    one = torch.zeros(1, device=dev)
+    floor_ms, floor_us = time_ms(lambda: one.add_(1.0), 50)
+    log(f"kernels: launch floor (a PyTorch add of one element) kernel_ms={floor_ms:.4f} "
+        f"host_us={floor_us:.1f}")
     attn_cases = [
         # (kernel, where on the main paths, B, N, H, D, dtype, designated)
         ("K1", "MASt3R student main pass", 2, 4161, 12, 64, bf16, True),
@@ -277,19 +259,22 @@ def check_kernels(dev) -> dict:
                                                         retain_graph=True),
                 designated=designated)
 
-    # K3 at the cost volume of one pair, masked rows in
-    for N, designated in ((672, True), (1369, False)):
-        raw = torch.rand((1, N, N), generator=g, device=dev)
+    # K3 at the cost volume of one pair (M = N on both paths), masked rows in;
+    # and an odd M, whose rows start off 16 bytes. The kernel reads no cost
+    # row of a masked patch (it is zeroed), so the bound counts kept rows only
+    for N, M, designated in ((672, 672, True), (1369, 1369, False), (672, 37, False)):
+        raw = torch.rand((1, N, M), generator=g, device=dev)
         mask = torch.rand((1, N), generator=g, device=dev) > 0.3
+        kept = int(mask.sum())
         teacher_p = masked_patch_cost(raw, mask[0])
-        cost = torch.rand((1, N, N), generator=g, device=dev) * 2 - 1
+        cost = torch.rand((1, N, M), generator=g, device=dev) * 2 - 1
         rep.check(
-            "K3", f"cost-volume KL B=1 N={N} M={N} float32 ({int((~mask).sum())} masked rows)",
+            "K3", f"cost-volume KL B=1 N={N} M={M} float32 ({N - kept} masked rows)",
             [("kl", masked_softmax_kl_fwd(teacher_p, cost, mask),
               _reference_rows(teacher_p, cost, mask, 1e-8), "float32")],
             lambda: masked_softmax_kl_fwd(teacher_p, cost, mask),
             lambda: _reference_rows(teacher_p, cost, mask, 1e-8),
-            nbytes=2 * N * N * 4 + N + N * 4, ops=8.0 * N * N, dtype="float32", iters=50,
+            nbytes=(N + kept) * M * 4 + N + N * 4, ops=8.0 * N * M, dtype="float32", iters=50,
             designated=designated)
 
     # K4 forward and both gradient passes at each step's keypoint count
@@ -341,12 +326,12 @@ def check_kernels(dev) -> dict:
         return torch.cat([torch.zeros((B, 5, 2), dtype=pos.dtype, device=dev), pos], 1)
 
     rope_cases = [
-        ("VGGT frame attention", 2, 1374, 16, bf16, vggt_pos(2), True),
-        ("VGGT global attention", 1, 2748, 16, bf16, vggt_pos(2).reshape(1, 2748, 2), False),
-        ("CroCo encoder", 2, 672, 16, f32, grid_positions(21, 32, 2, device=dev), False),
-        ("CroCo decoder", 2, 672, 12, f32, grid_positions(21, 32, 2, device=dev), False),
+        ("VGGT frame attention", 2, 1374, 16, bf16, vggt_pos(2)),
+        ("VGGT global attention", 1, 2748, 16, bf16, vggt_pos(2).reshape(1, 2748, 2)),
+        ("CroCo encoder", 2, 672, 16, f32, grid_positions(21, 32, 2, device=dev)),
+        ("CroCo decoder", 2, 672, 12, f32, grid_positions(21, 32, 2, device=dev)),
     ]
-    for where, B, N, H, dt, pos, designated in rope_cases:
+    for where, B, N, H, dt, pos in rope_cases:
         x = torch.randn((B, N, 3, H, 64), generator=g, device=dev).to(dt)[:, :, 0]
         xt = x.transpose(1, 2)
         dname, elt = str(dt).split(".")[-1], x.element_size()
@@ -358,7 +343,46 @@ def check_kernels(dev) -> dict:
                 lambda: rope2d_fwd(xt, pos, 100.0, f0),
                 lambda: rope2d_plain(xt, pos, 100.0, f0),
                 nbytes=2 * B * N * H * 64 * elt + B * N * 2 * 8, ops=3.0 * B * N * H * 64,
-                dtype=dname, iters=50, designated=designated and f0 > 0)
+                dtype=dname, iters=50)
+
+    # K5 on q and k in one launch, as every attention layer calls it: q and k
+    # as the main paths hand them over, (B, H, N, D) views of (B, N, 3, H, D)
+    # projections (CroCo self attention), of q_norm/k_norm outputs (VGGT), of
+    # separate projections (CroCo cross attention, each side on its own
+    # positions); the decoder runs one pair (B = 1) per direction. Every K5
+    # launch of both main paths is such a pair, and the teachers are frozen,
+    # so the forward pair at the VGGT frame shape fills K5's JSON entry
+    def pair(B, N, H, dt, kind):
+        if kind == "qkv":
+            qkv = torch.randn((B, N, 3, H, 64), generator=g, device=dev).to(dt)
+            return qkv[:, :, 0].transpose(1, 2), qkv[:, :, 1].transpose(1, 2)
+        return tuple(torch.randn((B, N, H, 64), generator=g, device=dev).to(dt).transpose(1, 2)
+                     for _ in range(2))
+
+    grid = grid_positions(21, 32, 1, device=dev)
+    pair_cases = [
+        ("VGGT frame attention", 2, 1374, 16, bf16, "normed", vggt_pos(2), vggt_pos(2)),
+        ("VGGT global attention", 1, 2748, 16, bf16, "normed", vggt_pos(2).reshape(1, 2748, 2),
+         vggt_pos(2).reshape(1, 2748, 2)),
+        ("CroCo encoder", 2, 672, 16, f32, "qkv", grid_positions(21, 32, 2, device=dev),
+         grid_positions(21, 32, 2, device=dev)),
+        ("CroCo decoder self", 1, 672, 12, f32, "qkv", grid, grid),
+        ("CroCo decoder cross", 1, 672, 12, f32, "separate", grid, grid.clone()),
+    ]
+    for where, B, N, H, dt, kind, qpos, kpos in pair_cases:
+        q, k = pair(B, N, H, dt, kind)
+        dname, elt = str(dt).split(".")[-1], q.element_size()
+        for direction, f0 in (("fwd", 1.0), ("bwd", -1.0)):
+            yq, yk = rope2d_qk_fwd(q, qpos, k, kpos, 100.0, f0)
+            rep.check(
+                "K5", f"pair {direction} {where} q, k (B,N,H,D)=({B},{N},{H},64) {dname}",
+                [("q", yq, rope2d_plain(q, qpos, 100.0, f0), dname),
+                 ("k", yk, rope2d_plain(k, kpos, 100.0, f0), dname)],
+                lambda: rope2d_qk_fwd(q, qpos, k, kpos, 100.0, f0),
+                lambda: (rope2d_plain(q, qpos, 100.0, f0), rope2d_plain(k, kpos, 100.0, f0)),
+                nbytes=2 * (2 * B * N * H * 64 * elt + B * N * 2 * 8),
+                ops=2 * 3.0 * B * N * H * 64, dtype=dname, iters=50,
+                designated=where == "VGGT frame attention" and f0 > 0)
     if not rep.ok:
         raise AssertionError("a kernel disagrees with its plain version")
     return rep.results
@@ -567,7 +591,9 @@ def run_steps(name, setup, dev, n_steps: int, check_teacher=None) -> dict:
     changed = [k for k, p in trainable.items() if not torch.equal(p, before_t[k])]
     moved = [k for k, p in frozen.items() if not torch.equal(p, before_f[k])]
     teacher_after = sum(float(p.double().sum()) for p in teacher.parameters())
-    log(f"steps: {name} launches {counts}; trainable tensors changed {len(changed)}/"
+    per_step = {k: n / n_steps for k, n in counts.items()}
+    log(f"steps: {name} launches {counts} over {n_steps} steps, {per_step} a step; "
+        f"trainable tensors changed {len(changed)}/"
         f"{len(trainable)}; frozen tensors changed {len(moved)}/{len(frozen)}; "
         f"teacher unchanged {teacher_after == teacher_sum}")
     unchanged = sorted(set(trainable) - set(changed))

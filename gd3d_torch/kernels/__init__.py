@@ -12,7 +12,8 @@ from typing import Dict
 def wrappers() -> Dict[str, object]:
     """Kernel id -> wrapper function (holding the `launches` count). K4's
     backward (row pass, column pass and partial sums) is one wrapper of its
-    own; K5's backward is K5 with -f0 and counts with its forward."""
+    own; K5's backward is K5 with -f0 and counts with its forward, and a
+    launch that rotates q and k together (`rope2d_qk_fwd`) counts once."""
     from gd3d_torch.kernels.cost_kl import masked_softmax_kl_fwd
     from gd3d_torch.kernels.flash_bwd_fused import flash_attention_bwd_fused
     from gd3d_torch.kernels.flash_fwd import flash_attention_fwd

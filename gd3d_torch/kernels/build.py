@@ -37,7 +37,7 @@ _ARGTYPES = {
     "gd3d_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
     "gd3d_flash_bwd": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
     "gd3d_cost_kl": [_P] * 4 + [_I] * 3 + [_F, _P],
-    "gd3d_rope2d": [_P] * 3 + [_I] * 4 + [_L] * 9 + [_F, _F, _I, _P],
+    "gd3d_rope2d": [_I] + ([_P] * 3 + [_I] * 3 + [_L] * 6) * 2 + [_I, _I, _F, _F, _I, _P],
     "gd3d_pairwise_rank_fwd": [_P] * 11 + [_I] * 4 + [_F, _F, _P],
     "gd3d_pairwise_rank_bwd": [_P] * 12 + [_I] * 4 + [_F, _F, _P],
     "gd3d_pairwise_rank_scratch": [_I] * 5,
@@ -71,22 +71,20 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgd3d_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> str:
-    """Compile the library if it is not built yet. Returns nvcc's report
-    (ptxas registers, shared memory and spills per kernel), or "" when an
-    up-to-date library was already there."""
-    so = library_path()
-    if so.exists():
-        return ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def compile_library(so: Path, sources, extra_flags=()) -> str:
+    """Compile `sources` with NVCC_FLAGS and `extra_flags`, one nvcc process
+    each, all started together, and link them into the shared library `so`.
+    Returns nvcc's report (ptxas registers, shared memory and spills per
+    kernel)."""
+    so.parent.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     tag = f"{so.stem}.{os.getpid()}"
-    objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in _sources()]
-    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+    objs = [so.parent / f"{src.stem}.{tag}.o" for src in sources]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj), str(src)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for src, obj in zip(_sources(), objs)]
+             for src, obj in zip(sources, objs)]
     report, failed = [], []
-    for src, proc in zip(_sources(), procs):
+    for src, proc in zip(sources, procs):
         out, _ = proc.communicate()
         report.append(out)
         if proc.returncode != 0:
@@ -104,15 +102,31 @@ def build() -> str:
     return "".join(report) + res.stdout + res.stderr
 
 
+def build() -> str:
+    """Compile the library if it is not built yet. Returns nvcc's report,
+    or "" when an up-to-date library was already there."""
+    so = library_path()
+    if so.exists():
+        return ""
+    return compile_library(so, _sources())
+
+
+def load(so: Path) -> ctypes.CDLL:
+    """Load a library built by `compile_library` and type the entry points
+    it holds."""
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in _ARGTYPES.items():
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = _RESTYPES.get(name, ctypes.c_int)
+    return lib
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
     build()
-    lib = ctypes.CDLL(str(library_path()))
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = _RESTYPES.get(name, ctypes.c_int)
-    return lib
+    return load(library_path())
 
 
 def check(err: int, what: str) -> None:

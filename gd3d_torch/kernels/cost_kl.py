@@ -39,7 +39,11 @@ def masked_softmax_kl_fwd(teacher_p, student_cost, row_mask, eps: float = 1e-8):
             raise ValueError(f"{name}: need contiguous {dt} {want} on "
                              f"{student_cost.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
-    out = torch.empty((B, N), dtype=torch.float32, device=student_cost.device)
+    if (teacher_p.data_ptr() - student_cost.data_ptr()) % 16:
+        raise ValueError("teacher_p and student_cost: the kernel reads both maps in 16-byte "
+                         "vectors at one index, so their addresses must agree modulo 16, got "
+                         f"{teacher_p.data_ptr() % 16} and {student_cost.data_ptr() % 16}")
+    out =torch.empty((B, N), dtype=torch.float32, device=student_cost.device)
     stream = torch.cuda.current_stream(student_cost.device).cuda_stream
     err = build.library().gd3d_cost_kl(
         teacher_p.data_ptr(), student_cost.data_ptr(), row_mask.data_ptr(),

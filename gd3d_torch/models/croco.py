@@ -16,7 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gd3d_torch.ops.attention import scaled_dot_attention
-from gd3d_torch.ops.rope2d import grid_positions, rope2d
+from gd3d_torch.ops.rope2d import grid_positions, rope2d_qk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,8 +62,8 @@ class RopeSelfAttention(nn.Module):
         qkv = self.qkv(x).reshape(B, N, 3, H, C // H)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         # rope runs on (B, H, N, D); its outputs go back as strided views
-        q = rope2d(q.transpose(1, 2), pos, self.rope_base).transpose(1, 2)
-        k = rope2d(k.transpose(1, 2), pos, self.rope_base).transpose(1, 2)
+        q, k = rope2d_qk(q.transpose(1, 2), pos, k.transpose(1, 2), pos, self.rope_base)
+        q, k = q.transpose(1, 2), k.transpose(1, 2)
         out = scaled_dot_attention(q, k, v, scale=(C // H) ** -0.5)
         return self.proj(out.reshape(B, N, C))
 
@@ -88,8 +88,7 @@ class RopeCrossAttention(nn.Module):
         q = self.projq(query).reshape(B, Nq, H, D).transpose(1, 2)
         k = self.projk(key).reshape(B, Nk, H, D).transpose(1, 2)
         v = self.projv(value).reshape(B, Nk, H, D).transpose(1, 2)
-        q = rope2d(q, qpos, self.rope_base)
-        k = rope2d(k, kpos, self.rope_base)
+        q, k = rope2d_qk(q, qpos, k, kpos, self.rope_base)
         attn = torch.einsum("bhnd,bhmd->bhnm", q * D ** -0.5, k)
         attn_map = attn.mean(dim=1).detach()
         out = torch.einsum("bhnm,bhmd->bnhd", torch.softmax(attn, dim=-1), v)

@@ -15,7 +15,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gd3d_torch.ops.attention import scaled_dot_attention
-from gd3d_torch.ops.rope2d import rope2d
+from gd3d_torch.ops.rope2d import rope2d_qk
 
 
 class LayerScale(nn.Module):
@@ -68,8 +68,8 @@ class VggtAttention(nn.Module):
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
         if self.use_rope and pos is not None:
-            q = rope2d(q.transpose(1, 2), pos, self.rope_freq).transpose(1, 2)
-            k = rope2d(k.transpose(1, 2), pos, self.rope_freq).transpose(1, 2)
+            q, k = rope2d_qk(q.transpose(1, 2), pos, k.transpose(1, 2), pos, self.rope_freq)
+            q, k = q.transpose(1, 2), k.transpose(1, 2)
         scale = D ** -0.5
         out = self.proj(scaled_dot_attention(q, k, v, scale=scale).reshape(B, N, C))
 

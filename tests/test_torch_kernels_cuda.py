@@ -25,9 +25,9 @@ from gd3d_torch.kernels.flash_fwd import flash_attention_fwd, flash_attention_fw
 from gd3d_torch.kernels.pairwise_rank import (
     pairwise_rank_bwd, pairwise_rank_bwd_plain, pairwise_rank_fwd, pairwise_rank_sums_plain,
     pairwise_ranking_sums, scratch_floats, stream_chunks)
-from gd3d_torch.kernels.rope2d import rope2d_plain
+from gd3d_torch.kernels.rope2d import rope2d_fwd, rope2d_plain, rope2d_qk_fwd
 from gd3d_torch.ops.attention import scaled_dot_attention
-from gd3d_torch.ops.rope2d import grid_positions, rope2d
+from gd3d_torch.ops.rope2d import grid_positions, rope2d, rope2d_qk
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
@@ -195,6 +195,112 @@ def test_rope2d_fwd_bwd_match_plain(dev, dtype):
     assert_close(t.grad, rope2d_plain(w, pos, 100.0, -1.0), dtype)
 
 
+def _vggt_pos(B, h, w, dev):
+    """The aggregator's positions: 5 special tokens at 0, the grid + 1."""
+    pos = grid_positions(h, w, B, device=dev) + 1
+    return torch.cat([torch.zeros((B, 5, 2), dtype=pos.dtype, device=dev), pos], 1)
+
+
+def _rope_pair(case, g, dtype, dev):
+    """q and k as each main path hands them to K5, (B, H, N, D) views:
+    the transposes of (B, N, 3, H, D) projections (CroCo self attention),
+    of q_norm/k_norm outputs (VGGT), or of separate projections (CroCo
+    cross attention, with other positions and, here, another length)."""
+    if case.startswith("vggt"):
+        B, h, w = (2, 37, 37) if case == "vggt frame" else (1, 37, 37)
+        pos = _vggt_pos(2, h, w, dev)
+        if B == 1:  # global attention: both frames in one sequence
+            pos = pos.reshape(1, -1, 2)
+        N = pos.shape[1]
+        q = torch.randn((B, N, 16, 64), generator=g, device=dev).to(dtype)
+        k = torch.randn((B, N, 16, 64), generator=g, device=dev).to(dtype)
+        return q.transpose(1, 2), pos, k.transpose(1, 2), pos
+    if case == "croco encoder":
+        qkv = torch.randn((2, 672, 3, 16, 64), generator=g, device=dev).to(dtype)
+        pos = grid_positions(21, 32, 2, device=dev)  # stride 0 over the batch
+        return qkv[:, :, 0].transpose(1, 2), pos, qkv[:, :, 1].transpose(1, 2), pos
+    # CroCo decoder cross attention
+    q = torch.randn((1, 672, 12, 64), generator=g, device=dev).to(dtype).transpose(1, 2)
+    k = torch.randn((1, 600, 12, 64), generator=g, device=dev).to(dtype).transpose(1, 2)
+    return q, grid_positions(21, 32, 1, device=dev), k, grid_positions(20, 30, 1, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["vggt frame", "vggt global", "croco encoder",
+                                  "croco decoder cross"])
+def test_rope2d_single_and_pair_match_plain(dev, case, dtype):
+    """K5 on one tensor and on q and k in one launch, forward and backward
+    (-f0), at the main paths' shapes and layouts."""
+    g = torch.Generator(device=dev).manual_seed(len(case))
+    q, qpos, k, kpos = _rope_pair(case, g, dtype, dev)
+    for f0 in (1.0, -1.0):
+        before = launch_counts()["K5"]
+        assert_close(rope2d_fwd(q, qpos, 100.0, f0), rope2d_plain(q, qpos, 100.0, f0), dtype)
+        yq, yk = rope2d_qk_fwd(q, qpos, k, kpos, 100.0, f0)
+        assert launch_counts()["K5"] == before + 2
+        assert yq.shape == q.shape and yk.shape == k.shape
+        assert_close(yq, rope2d_plain(q, qpos, 100.0, f0), dtype)
+        assert_close(yk, rope2d_plain(k, kpos, 100.0, f0), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("used", ["both", "q", "k"])
+def test_rope2d_qk_backward_matches_plain(dev, used):
+    """RoPE2DQK's backward: one launch for both gradients, one for the side
+    whose gradient is not None, and none for the other."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    q0, qpos, k0, kpos = _rope_pair("croco decoder cross", g, torch.float32, dev)
+    q, k = (t.detach().requires_grad_(True) for t in (q0, k0))
+    yq, yk = rope2d_qk(q, qpos, k, kpos)
+    wq, wk = torch.randn(yq.shape, generator=g, device=dev), torch.randn(yk.shape, generator=g,
+                                                                          device=dev)
+    loss = {"both": (yq * wq).sum() + (yk * wk).sum(), "q": (yq * wq).sum(),
+            "k": (yk * wk).sum()}[used]
+    before = launch_counts()["K5"]
+    loss.backward()
+    assert launch_counts()["K5"] == before + 1
+    if used != "k":
+        assert_close(q.grad, rope2d_plain(wq, qpos, 100.0, -1.0), torch.float32)
+    if used != "q":
+        assert_close(k.grad, rope2d_plain(wk, kpos, 100.0, -1.0), torch.float32)
+    assert (q.grad is None) == (used == "k") and (k.grad is None) == (used == "q")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rope2d_refuses_misaligned_views(dev, dtype):
+    """K5 reads 16-byte vectors at D = 64: a view whose address or row step
+    is off 16 bytes raises instead of being copied, for one tensor and for
+    either side of a pair."""
+    pos = grid_positions(5, 14, 1, device=dev)
+    ok = torch.randn((1, 70, 2, 64), device=dev).to(dtype).transpose(1, 2)
+    shifted = torch.randn((70 * 2 * 64 + 1,), device=dev).to(dtype)[1:].view(1, 70, 2, 64)
+    wide = torch.randn((1, 70, 2 * 64 + 2), device=dev).to(dtype)[..., :128]
+    wide = wide.reshape(1, 70, 2, 64)  # row step 130 elements
+    for bad in (shifted.transpose(1, 2), wide.transpose(1, 2)):
+        with pytest.raises(ValueError, match="16 bytes"):
+            rope2d_fwd(bad, pos)
+        with pytest.raises(ValueError, match="16 bytes"):
+            rope2d_qk_fwd(ok, pos, bad, pos)
+        with pytest.raises(ValueError, match="16 bytes"):
+            rope2d_qk_fwd(bad, pos, ok, pos)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype", [(4, torch.bfloat16), (8, torch.bfloat16),
+                                     (16, torch.bfloat16), (24, torch.float32),
+                                     (4, torch.float32)])
+def test_rope2d_narrow_head_dims_match_plain(dev, D, dtype):
+    """Head dims whose quarter does not fill 16 bytes take the narrower
+    vector instantiations (8, 4 or 2 bytes) of the same kernel."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    x = torch.randn((2, 45, 3, 5, D), generator=g, device=dev).to(dtype)[:, :, 1]
+    pos = grid_positions(5, 9, 2, device=dev)
+    assert_close(rope2d_fwd(x.transpose(1, 2), pos),
+                 rope2d_plain(x.transpose(1, 2), pos), dtype)
+
+
 def _rank_inputs(g, N, h, dev, second_view="random"):
     u = torch.randn((2, N, h), generator=g, device=dev) * 0.5
     head = [torch.randn(h, generator=g, device=dev) * 0.1,
@@ -274,3 +380,50 @@ def test_cost_kl_matches_plain(dev):
     got = masked_softmax_kl_rows(p, cost, mask)
     assert launch_counts()["K3"] == before + 1
     assert_close(got, _reference_rows(p, cost, mask, 1e-8), torch.float32)
+
+
+def _kl_inputs(g, B, N, M, masked, dev):
+    """A teacher map row-normalized under the mask, as masked_patch_cost
+    gives it, and a cost volume whose row 0 is so spread that its softmax
+    falls below eps (1e-8) at most entries."""
+    mask = {"none": torch.ones((B, N), dtype=torch.bool, device=dev),
+            "all": torch.zeros((B, N), dtype=torch.bool, device=dev),
+            "some": torch.rand((B, N), generator=g, device=dev) > 0.3}[masked]
+    p = torch.rand((B, N, M), generator=g, device=dev) * mask[..., None]
+    p = p / p.sum(-1, keepdim=True).clamp(min=1e-8)
+    cost = torch.rand((B, N, M), generator=g, device=dev) * 2 - 1
+    cost[:, 0] *= 60.0
+    return p, cost, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", ["none", "all", "some"])
+@pytest.mark.parametrize("B,N,M", [(2, 33, 37), (1, 672, 672), (1, 1369, 1369), (1, 70, 2000)])
+def test_cost_kl_rows_match_plain(dev, B, N, M, masked):
+    """K3 at the main paths' M (672 with 16-byte rows, 1369 whose rows start
+    off 16 bytes), an odd small M, and an M beyond the registers (its rest
+    read as scalars); every row masked out, none, some; a row whose
+    softmax falls below eps."""
+    g = torch.Generator(device=dev).manual_seed(M + len(masked))
+    p, cost, mask = _kl_inputs(g, B, N, M, masked, dev)
+    q0 = torch.softmax(torch.where(mask[..., None], cost, 0.0), -1)[0, 0]
+    assert masked == "all" or not bool(mask[0, 0]) or float(q0.min()) < 1e-8
+    before = launch_counts()["K3"]
+    got = masked_softmax_kl_rows(p, cost, mask)
+    assert launch_counts()["K3"] == before + 1
+    assert_close(got, _reference_rows(p, cost, mask, 1e-8), torch.float32)
+
+
+@pytest.mark.cuda
+def test_cost_kl_refuses_maps_off_each_other_by_4_bytes(dev):
+    """Maps whose addresses differ modulo 16 bytes: no float4 can hold the
+    same index of both, so the wrapper raises instead of launching."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    p, cost, mask = _kl_inputs(g, 1, 50, 672, "some", dev)
+    shifted = torch.empty(cost.numel() + 1, device=dev)[1:].view(cost.shape)
+    shifted.copy_(cost)
+    assert (shifted.data_ptr() - p.data_ptr()) % 16 != 0
+    before = launch_counts()["K3"]
+    with pytest.raises(ValueError, match="modulo 16"):
+        masked_softmax_kl_rows(p, shifted, mask)
+    assert launch_counts()["K3"] == before
