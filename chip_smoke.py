@@ -16,17 +16,25 @@ report), then runs these phases in order, one or more printed lines each:
               timed here only, with the name of the device kernel it ran),
               and the bound: the larger of
               bytes over 3.35 TB/s and operations over the peak of their
-              type (989 TFLOP/s bf16, 67 TFLOP/s fp32 off the tensor cores),
-              with the achieved TFLOP/s (those operations over the kernel's
-              time) and the share of the bound reached; K2 at the MASt3R
-              student's main shape, and K4 and K4b at the MASt3R keypoint
-              count, run twice and must give the same bits; K5 on one
-              tensor and on each main-path layer's q and k in one launch;
+              type (989 TFLOP/s bf16, 67 TFLOP/s fp32 off the tensor cores;
+              the fp32 K2, three TF32 products for each fp32 one, against
+              495 / 3 = 165 TFLOP/s, its share of the 67 TFLOP/s bound
+              printed beside), with the achieved TFLOP/s (those operations
+              over the kernel's time) and the share of the bound reached; K1
+              and K2 in bf16 and fp32 at the four student shapes; K2 at the
+              MASt3R student's main shape in both dtypes, and K4 and K4b at
+              the MASt3R keypoint count, run twice and must give the same
+              bits; K5 on one tensor and on each main-path layer's q and k in
+              one launch;
   2. steps    three full-width MASt3R distillation steps (ViT-B/16 bf16
               student, MASt3R ViT-L/Base-decoder fp32 teacher, 336x512
-              teacher and 512^2 student frames), then three full-width VGGT
-              steps (the same student, VGGT-1B teacher with its aggregator in
-              bf16 and its heads fp32, 518^2 frames): one pair per step,
+              teacher and 512^2 student frames), three more with the
+              student at its configured fp32 (the named config as gd3d's
+              trainer runs it: 12 fp32 K2 and 20 fp32 K1 launches at the
+              student's lengths a step, asserted), then three full-width
+              VGGT steps (the bf16 student, VGGT-1B teacher with its
+              aggregator in bf16 and its heads fp32, 518^2 frames): one pair
+              per step,
               random weights from a seed (the teachers' last depth conv
               rescaled on the batch: Mast3rTeacher.face_forward,
               VggtTeacher.spread_depth); losses, keypoint count, step time,
@@ -86,7 +94,9 @@ REPLACES = {
 # tolerance in every case.
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # H100 SXM, dense
+# H100 SXM, dense. "tf32x3": the fp32 K2's route, three TF32 products on the
+# tensor cores (495 TFLOP/s) for each fp32 product
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 
 
 def log(msg: str) -> None:
@@ -117,9 +127,9 @@ def device_kernel_name(fn) -> str:
     return "none seen"
 
 
-def bound(nbytes: float, ops: float, dtype: str):
+def bound(nbytes: float, ops: float, peak: str):
     """The least time the card could take: (ms, what bounds it)."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[dtype]
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_OPS[peak]
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -130,16 +140,17 @@ def max_err(got, want) -> tuple[float, float]:
 
 class KernelReport:
     """Errors, times and bounds per kernel case; one designated case per
-    kernel fills its entry of the JSON line."""
+    kernel fills its entry of the JSON line (its error, times and bound);
+    every case is held to its tolerance and logged on its own line."""
 
     def __init__(self):
-        self.results = {k: {"max_abs_err": 0.0, "ms": None, "plain_ms": None,
+        self.results = {k: {"max_abs_err": None, "ms": None, "plain_ms": None,
                             "bound_ms": None, "bound_by": None, "library_ms": None}
                         for k in REPLACES}
         self.ok = True
 
     def check(self, kern, where, pairs, run, run_plain, nbytes, ops, dtype, iters,
-              run_library=None, designated=False):
+              run_library=None, designated=False, peak=None):
         import torch
 
         from gd3d_torch.kernels.timing import time_ms
@@ -157,16 +168,19 @@ class KernelReport:
         if run_library is not None:
             lib_ms = time_ms(run_library, iters)[0]
             lib = f"{lib_ms:.4f} ({device_kernel_name(run_library)[:60]})"
-        b_ms, b_by = bound(nbytes, ops, dtype)
+        b_ms, b_by = bound(nbytes, ops, peak or dtype)
+        also = ""
+        if peak not in (None, dtype):  # the dtype's own bound beside the route's
+            d_ms, d_by = bound(nbytes, ops, dtype)
+            also = f" {dtype}_cores_bound_ms={d_ms:.4g} ({d_by}) share={d_ms / ms:.3f}"
         log(f"kernels: {kern} {where}: {' '.join(parts)} {'OK' if line_ok else 'FAIL'} "
             f"kernel_ms={ms:.4f} host_us={host_us:.1f} plain_ms={plain_ms:.4f} "
-            f"library_ms={lib} bound_ms={b_ms:.4g} ({b_by}) tflops={ops / ms / 1e9:.2f} "
-            f"bound_share={b_ms / ms:.3f}")
+            f"library_ms={lib} bound_ms={b_ms:.4g} ({b_by}, {peak or dtype}) "
+            f"tflops={ops / ms / 1e9:.2f} bound_share={b_ms / ms:.3f}{also}")
         self.ok &= line_ok
-        r = self.results[kern]
-        r["max_abs_err"] = max(r["max_abs_err"], worst)
         if designated:
-            r.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+            self.results[kern].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                                      library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
 def check_kernels(dev) -> dict:
@@ -196,22 +210,22 @@ def check_kernels(dev) -> dict:
     floor_ms, floor_us = time_ms(lambda: one.add_(1.0), 50)
     log(f"kernels: launch floor (a PyTorch add of one element) kernel_ms={floor_ms:.4f} "
         f"host_us={floor_us:.1f}")
+    # the student's four lengths, in bf16 (bench.py's student) and in fp32
+    # (the named configs' compute_dtype, which gd3d's trainer keeps)
+    student = [("MASt3R student main pass", 2, 4161), ("MASt3R student cost pass", 2, 673),
+               ("VGGT student main pass", 2, 6401), ("VGGT student cost pass", 2, 1370)]
     attn_cases = [
-        # (kernel, where on the main paths, B, N, H, D, dtype, designated)
-        ("K1", "MASt3R student main pass", 2, 4161, 12, 64, bf16, True),
-        ("K1", "MASt3R student cost pass", 2, 673, 12, 64, bf16, False),
+        # (kernel, where on the main paths, B, N, H, D, dtype, designated);
+        # a designated K2 case also runs twice and must repeat its bits
+        *[("K1", where, B, N, 12, 64, dt, (dt, N) == (bf16, 4161))
+          for dt in (bf16, f32) for where, B, N in student],
         ("K1", "CroCo encoder", 2, 672, 16, 64, f32, False),
         ("K1", "CroCo decoder", 2, 672, 12, 64, f32, False),
-        ("K1", "VGGT student main pass", 2, 6401, 12, 64, bf16, False),
-        ("K1", "VGGT student cost pass", 2, 1370, 12, 64, bf16, False),
         ("K1", "DINOv2 + VGGT frame attention", 2, 1374, 16, 64, bf16, False),
         ("K1", "VGGT global attention", 1, 2748, 16, 64, bf16, False),
         ("K1", "VGGT camera trunk", 1, 2, 16, 128, f32, False),
-        ("K2", "MASt3R student main pass", 2, 4161, 12, 64, bf16, True),
-        ("K2", "MASt3R student cost pass", 2, 673, 12, 64, bf16, False),
-        ("K2", "VGGT student main pass", 2, 6401, 12, 64, bf16, False),
-        ("K2", "VGGT student cost pass", 2, 1370, 12, 64, bf16, False),
-        ("K2", "fp32 operands", 2, 673, 12, 64, f32, False),
+        *[("K2", where, B, N, 12, 64, dt, N == 4161)
+          for dt in (bf16, f32) for where, B, N in student],
     ]
     for kern, where, B, N, H, D, dt, designated in attn_cases:
         # q, k, v as the strided (B, N, H, D) views of one qkv projection
@@ -257,7 +271,8 @@ def check_kernels(dev) -> dict:
                 ops=10.0 * B * H * N * N * D, dtype=dname, iters=iters,
                 run_library=lambda: torch.autograd.grad(out, (ql, kl, vl), doh,
                                                         retain_graph=True),
-                designated=designated)
+                designated=designated and dt == f32,  # the JSON line's K2: fp32
+                peak="tf32x3" if dt == f32 else None)
 
     # K3 at the cost volume of one pair (M = N on both paths), masked rows in;
     # and an odd M, whose rows start off 16 bytes. The kernel reads no cost
@@ -385,13 +400,17 @@ def check_kernels(dev) -> dict:
                 designated=where == "VGGT frame attention" and f0 > 0)
     if not rep.ok:
         raise AssertionError("a kernel disagrees with its plain version")
+    missing = [k for k, r in rep.results.items() if r["ms"] is None]
+    if missing:
+        raise AssertionError(f"no designated case for {missing}")
     return rep.results
 
 
-def mast3r_setup(dev, seed: int = 0):
+def mast3r_setup(dev, seed: int = 0, student_dtype: str = "bfloat16"):
     """Full-width student and MASt3R teacher with seeded random weights, on
     `dev` through the step builder, and one ScanNet++-geometry batch (as
-    bench.py builds it)."""
+    bench.py builds it). The student computes in `student_dtype`: bf16 as
+    bench.py runs it, or fp32, the named config's own compute_dtype."""
     import dataclasses
 
     import torch
@@ -405,7 +424,7 @@ def mast3r_setup(dev, seed: int = 0):
     from gd3d_torch.teachers.mast3r import Mast3rTeacher
 
     cfg = DistillConfig(teacher="mast3r", dataset="scannetpp")
-    cfg = cfg.replace(student=dataclasses.replace(cfg.student, compute_dtype="bfloat16"))
+    cfg = cfg.replace(student=dataclasses.replace(cfg.student, compute_dtype=student_dtype))
     student, teacher = Student(cfg.student), Mast3rTeacher(Mast3rConfig())
     trainable, frozen = split_params(student)
     step = build_mast3r_train_step(student, teacher, cfg,
@@ -543,10 +562,13 @@ def check_mast3r_teacher(teacher, batch) -> None:
         raise AssertionError("MASt3R: the teacher on K1 disagrees with the teacher on its twin")
 
 
-def run_steps(name, setup, dev, n_steps: int, check_teacher=None) -> dict:
+def run_steps(name, setup, dev, n_steps: int, check_teacher=None, expect=()) -> dict:
+    """n_steps steps of one path; `expect` holds (kernel, dtype, lengths,
+    launches a step) that the flash kernels' counts by dtype and length must
+    show."""
     import torch
 
-    from gd3d_torch.kernels import launch_counts, reset_launch_counts
+    from gd3d_torch.kernels import launch_counts, launch_counts_by, reset_launch_counts
     from gd3d_torch.models import student as student_module
 
     t0 = time.perf_counter()
@@ -584,7 +606,7 @@ def run_steps(name, setup, dev, n_steps: int, check_teacher=None) -> dict:
         if vals["depth_loss"] <= 0 or vals["intra_depth_loss"] <= 0:
             raise AssertionError(f"{name}: a depth loss is 0 at step {i}: {vals}")
     student_module.pairwise_ranking_sums = k4_entry
-    counts = launch_counts()
+    counts, counts_by = launch_counts(), launch_counts_by()
     check_step_keypoints(name, k4_args)
     if check_teacher is not None:
         check_teacher(teacher, batch)
@@ -598,6 +620,16 @@ def run_steps(name, setup, dev, n_steps: int, check_teacher=None) -> dict:
         f"teacher unchanged {teacher_after == teacher_sum}")
     unchanged = sorted(set(trainable) - set(changed))
     log(f"steps: {name} trainable tensors unchanged: {unchanged}")
+    by_step = {k: {f"{dt} N={n}": c / n_steps for (dt, n), c in sorted(v.items())}
+               for k, v in counts_by.items()}
+    log(f"steps: {name} flash launches a step by dtype and length: {by_step}")
+    for kern, dt, lengths, want in expect:
+        got = sum(c for (d, n), c in counts_by[kern].items() if d == dt and n in lengths)
+        log(f"steps: {name} {dt} {kern} at N in {lengths}: {got / n_steps:g} a step "
+            f"(want {want}) {'OK' if got == want * n_steps else 'FAIL'}")
+        if got != want * n_steps:
+            raise AssertionError(f"{name}: {dt} {kern} launched {got} times in {n_steps} "
+                                 f"steps, not {want} a step")
     # the depth head's depth_attention branch exists for checkpoint parity;
     # training calls the feature-only path (gd3d/models/vit.py:352-354)
     stuck = [k for k in unchanged if not k.startswith("depth_diff_head.depth_attention.")]
@@ -814,9 +846,16 @@ def main() -> int:
         kernels = check_kernels(dev)
     log(f"phase: kernels done at {time.perf_counter() - t_start:.1f} s")
     counts = {k: 0 for k in REPLACES}
-    for name, setup, check in (("MASt3R", mast3r_setup, check_mast3r_teacher),
-                               ("VGGT", vggt_setup, None)):
-        for k, n in run_steps(name, setup, dev, n_steps=3, check_teacher=check).items():
+    # the fp32 student at its lengths (2, 4161) and (2, 673): 8 main-pass
+    # blocks from lora_start_block on and 4 cost-pass blocks take a backward
+    fp32_student = (("K2", "float32", (4161, 673), 12), ("K1", "float32", (4161, 673), 20))
+    runs = (("MASt3R", mast3r_setup, check_mast3r_teacher, ()),
+            ("MASt3R fp32 student",
+             lambda d: mast3r_setup(d, student_dtype="float32"), None, fp32_student),
+            ("VGGT", vggt_setup, None, ()))
+    for name, setup, check, expect in runs:
+        for k, n in run_steps(name, setup, dev, n_steps=3, check_teacher=check,
+                              expect=expect).items():
             counts[k] += n
         torch.cuda.empty_cache()
         log(f"phase: {name} steps done at {time.perf_counter() - t_start:.1f} s")

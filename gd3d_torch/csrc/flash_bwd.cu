@@ -19,188 +19,422 @@
 // two runs give identical bits.
 //
 // What bounds it on an H100: arithmetic, as in K1 (3.5x the forward's
-// products at the same shapes). Two designs:
-//
-// * bf16 (the student): flash_bwd_dkv_tc_kernel and flash_bwd_dq_tc_kernel,
-//   all seven products on the tensor cores (mma.sync m16n8k16, bf16
-//   operands, fp32 accumulators), 4 warps a block, 16 rows a warp.
-//   - dK/dV: one block per 64 keys holds its K and V rows as A fragments
-//     in registers. Query tiles of Q and dO, with their lse and di, stream
-//     through a two-stage cp.async ring. The block works on the transposed
+// products at the same shapes). Both designs run all seven products on the
+// tensor cores, 4 warps a block, 16 rows a warp, and share one plan:
+//   - dK/dV: one block per 64 keys holds its K and V rows as A operands in
+//     registers. Query tiles of Q and dO, with their lse and di, stream
+//     through shared memory by cp.async. The block works on the transposed
 //     problem, keys by queries: S^T = K Q^T and dP^T = V dO^T leave P^T and
 //     dS^T = P^T * (dP^T - di) * scale in accumulator fragments whose rows
-//     are this warp's keys, which, rounded to bf16, are directly the A
-//     operands of dV += P^T dO and dK += dS^T Q (dO and Q through
-//     ldmatrix.trans). So neither P nor dS goes through shared memory.
-//   - dQ: one block per 64 queries holds Q and dO as A fragments; 64-key
-//     tiles of K and V stream through the ring; S = Q K^T and dP = dO V^T
-//     give dS, rounded to bf16, the A operand of dQ += dS K (K through
-//     ldmatrix.trans).
+//     are this warp's keys, which are directly the A operands of
+//     dV += P^T dO and dK += dS^T Q. So neither P nor dS goes through
+//     shared memory.
+//   - dQ: one block per 64 queries holds Q and dO as A operands; 64-key
+//     tiles of K and V stream through shared memory; S = Q K^T and
+//     dP = dO V^T give dS, the A operand of dQ += dS K.
 //   Queries are taken 32 at a time inside a tile (keys, in the dQ kernel),
 //   which keeps the S and dP fragments at 16 registers each. Both kernels
-//   use more than 48 KB of shared memory (six 9 KB tiles), so they launch
-//   with dynamic shared memory. dK, dV and dQ accumulate in fp32 registers
-//   and are stored once, through shared memory, with 16-byte writes.
-// * fp32: flash_bwd_dkv_kernel and flash_bwd_dq_kernel on the fp32 CUDA
-//   cores. One row per thread pair in registers; the other operand's tiles
-//   stream through shared memory as 16-byte broadcast reads.
+//   use more than 48 KB of shared memory, so they launch with dynamic
+//   shared memory. dK, dV and dQ accumulate in fp32 registers and are
+//   stored once.
 //
-// Layout: q, k, v, dout are (B, N, H, D) views read through their strides;
-// dq, dk, dv are contiguous (B, N|M, H, D); lse and di are contiguous
-// (B, H, N) fp32. Ragged lengths are masked in the kernels: the tensor-core
-// kernels copy zeros for rows past N or M, which makes a padded query's
-// terms exactly 0 (its Q and dO rows are 0, and so are its lse and di), and
-// the dQ kernel gives keys past M a P of 0.
+// * bf16 (the student under autocast): flash_bwd_dkv_tc_kernel and
+//   flash_bwd_dq_tc_kernel, mma.sync m16n8k16 with bf16 operands and fp32
+//   accumulators; P^T, dS^T and dS are rounded to bf16 as A fragments, dO,
+//   Q and K come through ldmatrix.trans. Tiles stream through a two-stage
+//   cp.async ring of 16-byte-padded rows; results are stored through shared
+//   memory with 16-byte writes.
+// * fp32 (the student at its configured compute_dtype): flash_bwd_dkv_tf32_
+//   kernel and flash_bwd_dq_tf32_kernel, mma.sync m16n8k8 on TF32 operands
+//   at fp32 accuracy: every operand is split into two TF32 parts and every
+//   product is three mma.sync (mma.cuh), whatever
+//   torch.backends.cuda.matmul.allow_tf32 says. The 67 TFLOP/s of the fp32
+//   CUDA cores bound any fp32 kernel at 2.5x the time that three TF32
+//   products at 495 TFLOP/s take.
+//   - A streamed tile lands raw (cp.async, 16 bytes a copy), then the block
+//     splits it once into a hi and a lo tile with rows of 68 floats, which
+//     both of a tile's roles read without bank conflicts (tf32::kLd); the
+//     next tile's copy runs during the products. 4 x 17 KB of split tiles
+//     and 2 x 16 KB of raw ones: 101 KB, 2 blocks an SM.
+//   - The register-resident operands (K and V, or Q and dO: 64 floats a
+//     thread) stay fp32 and are split at use, once per k-step and 32-row
+//     chunk, reused over 4 n-tiles: their split parts would take 128
+//     registers. For the same reason the chunk loop is not unrolled
+//     (#pragma unroll 1): with two chunks in flight the compiler overlaps
+//     the next chunk's S with this one's dV and dK, reaches 255 registers
+//     and spills.
+//     243 (dK/dV) and 222 (dQ) registers, no spills.
+//   - The A fragment of m16n8k8 holds columns t and t + 4 where the
+//     accumulator holds 2t and 2t + 1. P^T, dS^T and dS pass from the
+//     accumulator as A fragments with no shuffle by reading C column 2t as
+//     A column t and 2t + 1 as t + 4 (mma.cuh, a_from_c_tf32); the B operand
+//     of dV, dK and dQ then loads queries (keys) 2t and 2t + 1 of each 8
+//     into its rows t and t + 4.
+//
+// Layout: q, k, v, dout are (B, N, H, D) views read through their strides,
+// whose addresses and (B, N, H) steps fall on 16 bytes (the wrapper
+// checks); dq, dk, dv are contiguous (B, N|M, H, D); lse and di are
+// contiguous (B, H, N) fp32. Ragged lengths are masked in the kernels: rows
+// past N or M are copied as zeros, which makes a padded query's terms
+// exactly 0 (its Q and dO rows are 0, and so are its lse and di), and the
+// dQ kernels give keys past M a P of 0.
 #include "common.cuh"
 #include "mma.cuh"
 
 namespace gd3d {
 
-// dK, dV for one 64-key tile of one (b, h); loops over every query tile.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ di,
-                     T* __restrict__ dk, T* __restrict__ dv, int N, int M, int H,
-                     Strides qs, Strides ks, Strides vs, Strides dos, float scale) {
-  __shared__ __align__(16) float Qs[kTile * kRow];
-  __shared__ __align__(16) float dOs[kTile * kRow];
-  __shared__ float Ls[kTile];
-  __shared__ float Ds[kTile];
+// fp32 on the tensor cores (see the note at the top). Shared memory, in
+// floats: the raw tiles that cp.async fills (two of 64 x 64; in the dK/dV
+// kernel also the tile's 64 lse and 64 di), then the split tiles the
+// products read (hi and lo of each), then (dK/dV) the split tile's lse, di.
+#ifndef GD3D_TF32_CHUNK
+#define GD3D_TF32_CHUNK 32  // queries (keys) a warp takes at a time in the fp32 kernels
+#endif
 
+namespace tf32 {
+constexpr int kChunk = GD3D_TF32_CHUNK;
+constexpr int kNt = kChunk / 8;  // n-tiles of S (k-steps of the second products) a chunk
+static_assert(kChunk == 16 || kChunk == 32, "chunks of 16 or 32 rows");
+constexpr int kTileF = kTile * kD;  // floats per raw tile: 64 rows of 64, unpadded
+// Split tiles have rows of 68 floats. The two ways the products read a tile
+// then hit 32 banks: 8 rows g at 4 columns t (an S-type product's B
+// operand: bank 4 g + t + const) and the 4 rows 2t (or 2t + 1) at 8 columns
+// g (a P- or dS-type product's: bank 8 t + g + const).
+constexpr int kLd = kD + 4;
+constexpr int kSplitF = kTile * kLd;
+constexpr int kDkvSmem = (2 * kTileF + 2 * kTile + 4 * kSplitF + 2 * kTile) * 4;  // 103424 bytes
+constexpr int kDqSmem = (2 * kTileF + 4 * kSplitF) * 4;                          // 102400 bytes
+
+// Rows [row0, row0 + 64) of a (rows, 64) fp32 slice with row stride
+// `stride` (elements) into an unpadded raw tile; rows at or past n_rows
+// become zeros. src and stride * 4 bytes must fall on 16 bytes.
+__device__ __forceinline__ void load_raw_async(uint32_t dst, const float* __restrict__ src,
+                                               long long stride, int row0, int n_rows) {
+#pragma unroll
+  for (int i = 0; i < kTileF / 4 / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c >> 4;
+    const int col = (c & 15) * 4;
+    const bool ok = row0 + r < n_rows;
+    cp_async16(dst + (r * kD + col) * 4, ok ? src + (long long)(row0 + r) * stride + col : src,
+               ok);
+  }
+}
+
+// A raw tile into its TF32 parts, hi and lo, in rows of kLd floats.
+__device__ __forceinline__ void split_tile(const float* __restrict__ raw, float* __restrict__ hi,
+                                           float* __restrict__ lo) {
+#pragma unroll
+  for (int i = 0; i < kTileF / 4 / kThreads; ++i) {
+    const int c = threadIdx.x + i * kThreads;
+    const int r = c >> 4;
+    const int col = (c & 15) * 4;
+    const float4 x = *reinterpret_cast<const float4*>(raw + r * kD + col);
+    const float4 h = make_float4(tc::round_tf32(x.x), tc::round_tf32(x.y),
+                                 tc::round_tf32(x.z), tc::round_tf32(x.w));
+    const float4 l = make_float4(tc::round_tf32(x.x - h.x), tc::round_tf32(x.y - h.y),
+                                 tc::round_tf32(x.z - h.z), tc::round_tf32(x.w - h.w));
+    const int o = r * kLd + col;
+    *reinterpret_cast<float4*>(hi + o) = h;
+    *reinterpret_cast<float4*>(lo + o) = l;
+  }
+}
+
+// A B fragment of a split tile at offsets o0 (b0) and o1 (b1): hi0, hi1,
+// lo0, lo1, as mma_split takes it.
+__device__ __forceinline__ void load_b(uint32_t (&b)[4], const float* hi, const float* lo,
+                                       int o0, int o1) {
+  b[0] = __float_as_uint(hi[o0]);
+  b[1] = __float_as_uint(hi[o1]);
+  b[2] = __float_as_uint(lo[o0]);
+  b[3] = __float_as_uint(lo[o1]);
+}
+
+// The warp's 16 rows (first + g, first + g + 8) of a (rows, 64) fp32 slice
+// as A fragments of the 8 k-steps over the head dim, in fp32 (split at
+// use); rows at or past n_rows are zeros. Read once a block, from device
+// memory.
+__device__ __forceinline__ void load_a_rows(float (&a)[8][4], const float* __restrict__ src,
+                                            long long stride, int first, int n_rows, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  const bool ok0 = first + g < n_rows, ok1 = first + g + 8 < n_rows;
+  const float* r0 = src + (long long)(first + g) * stride;
+  const float* r1 = src + (long long)(first + g + 8) * stride;
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    a[kk][0] = ok0 ? r0[8 * kk + t] : 0.f;
+    a[kk][1] = ok1 ? r1[8 * kk + t] : 0.f;
+    a[kk][2] = ok0 ? r0[8 * kk + t + 4] : 0.f;
+    a[kk][3] = ok1 ? r1[8 * kk + t + 4] : 0.f;
+  }
+}
+
+// Writes a warp's 16 x 64 fp32 C tile to rows first + g, first + g + 8 of
+// a (rows, 64) slice with row stride `stride`; rows at or past n_rows are
+// skipped.
+__device__ __forceinline__ void store_c_rows(const float (&c)[8][4], float* __restrict__ dst,
+                                             long long stride, int first, int n_rows,
+                                             int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = first + g + 8 * half;
+    if (r >= n_rows) continue;
+    float* row = dst + (long long)r * stride + 2 * t;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+      *reinterpret_cast<float2*>(row + nt * 8) = make_float2(c[nt][2 * half], c[nt][2 * half + 1]);
+  }
+}
+}  // namespace tf32
+
+// dK, dV for one 64-key tile of one (b, h), looping over every query tile.
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ di,
+                          float* __restrict__ dk, float* __restrict__ dv, int N, int M, int H,
+                          Strides qs, Strides ks, Strides vs, Strides dos, float scale) {
+  using namespace tf32;
+  extern __shared__ __align__(16) float smem_f[];
+  float* rawQ = smem_f;
+  float* rawO = rawQ + kTileF;
+  float* rawStats = rawO + kTileF;  // lse, then di
+  float* Qhi = rawStats + 2 * kTile;
+  float* Qlo = Qhi + kSplitF;
+  float* Ohi = Qlo + kSplitF;
+  float* Olo = Ohi + kSplitF;
+  float* stats = Olo + kSplitF;
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int row = threadIdx.x >> 1;
-  const int half = threadIdx.x & 1;
-  const int j = blockIdx.x * kTile + row;
-  const bool key_ok = j < M;
-
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* dob = dout + b * dos.b + h * dos.h;
-  const T* kb = k + b * ks.b + h * ks.h + (long long)j * ks.n + half * kHalf;
-  const T* vb = v + b * vs.b + h * vs.h + (long long)j * vs.n + half * kHalf;
+  const int key0 = blockIdx.x * kTile;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* dob = dout + b * dos.b + h * dos.h;
   const float* lse_bh = lse + ((long long)b * H + h) * N;
   const float* di_bh = di + ((long long)b * H + h) * N;
 
-  float kr[kHalf], vr[kHalf], dk_acc[kHalf], dv_acc[kHalf];
-#pragma unroll
-  for (int d = 0; d < kHalf; ++d) {
-    kr[d] = key_ok ? to_float(kb[d]) : 0.f;
-    vr[d] = key_ok ? to_float(vb[d]) : 0.f;
-    dk_acc[d] = 0.f;
-    dv_acc[d] = 0.f;
-  }
+  auto load_query_tile = [&](int i0) {
+    load_raw_async(smem_u32(rawQ), qb, qs.n, i0, N);
+    load_raw_async(smem_u32(rawO), dob, dos.n, i0, N);
+    if (tid < kTile)
+      tc::load_vec_async(smem_u32(rawStats), lse_bh, i0, N, tid);
+    else
+      tc::load_vec_async(smem_u32(rawStats + kTile), di_bh, i0, N, tid - kTile);
+  };
+  load_query_tile(0);
+  cp_async_commit();
 
-  for (int q0 = 0; q0 < N; q0 += kTile) {
+  float kf[8][4], vf[8][4];  // the warp's 16 keys of K and V, A fragments in fp32
+  load_a_rows(kf, k + b * ks.b + h * ks.h, ks.n, key0 + warp * 16, M, lane);
+  load_a_rows(vf, v + b * vs.b + h * vs.h, vs.n, key0 + warp * 16, M, lane);
+  float dk_acc[8][4] = {};
+  float dv_acc[8][4] = {};
+  const float scale_log2 = scale * kLog2e;
+  const int n_tiles = (N + kTile - 1) / kTile;
+  for (int i = 0; i < n_tiles; ++i) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile i has landed; every warp is done with tile i - 1
+    split_tile(rawQ, Qhi, Qlo);
+    split_tile(rawO, Ohi, Olo);
+    stats[tid] = rawStats[tid];
     __syncthreads();
-    load_tile(Qs, qb, qs.n, q0, N);
-    load_tile(dOs, dob, dos.n, q0, N);
-    if (threadIdx.x < kTile) {
-      const int i = q0 + threadIdx.x;
-      Ls[threadIdx.x] = i < N ? lse_bh[i] : 0.f;
-      Ds[threadIdx.x] = i < N ? di_bh[i] : 0.f;
+    if (i + 1 < n_tiles) {  // the raw tiles are free: copy the next during the products
+      load_query_tile((i + 1) * kTile);
+      cp_async_commit();
     }
-    __syncthreads();
-
-    const int rows = min(kTile, N - q0);
-    for (int i = 0; i < rows; ++i) {
-      const float* q_row = Qs + i * kRow + half * kPad;
-      const float* do_row = dOs + i * kRow + half * kPad;
-      const float s = pair_dot(kr, q_row);
-      const float dp = pair_dot(vr, do_row);
-      const float p = key_ok ? __expf(s * scale - Ls[i]) : 0.f;
-      const float ds = p * (dp - Ds[i]) * scale;
-      axpy_row(dv_acc, p, do_row);
-      axpy_row(dk_acc, ds, q_row);
-    }
-  }
-
-  if (key_ok) {
-    const long long off = (((long long)b * M + j) * H + h) * kD + half * kHalf;
+#pragma unroll 1  // two chunks in flight spill (see the note at the top)
+    for (int c0 = 0; c0 < kTile; c0 += kChunk) {  // kChunk queries at a time
+      float s[kNt][4] = {};   // S^T: 16 keys x kChunk queries
+      float dp[kNt][4] = {};  // dP^T
 #pragma unroll
-    for (int d = 0; d < kHalf; ++d) {
-      dk[off + d] = from_float<T>(dk_acc[d]);
-      dv[off + d] = from_float<T>(dv_acc[d]);
+      for (int kk = 0; kk < 8; ++kk) {
+        const tc::SplitA ka = tc::split_a(kf[kk][0], kf[kk][1], kf[kk][2], kf[kk][3]);
+        const tc::SplitA va = tc::split_a(vf[kk][0], vf[kk][1], vf[kk][2], vf[kk][3]);
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          const int o0 = (c0 + nt * 8 + g) * kLd + 8 * kk + t, o1 = o0 + 4;
+          uint32_t bq[4], bo[4];
+          load_b(bq, Qhi, Qlo, o0, o1);
+          tc::mma_split(s[nt], ka, bq);
+          load_b(bo, Ohi, Olo, o0, o1);
+          tc::mma_split(dp[nt], va, bo);
+        }
+      }
+      // P^T and dS^T; the column (query) picks lse and di
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        const int c = c0 + nt * 8 + 2 * t;
+        const float2 L = *reinterpret_cast<const float2*>(stats + c);
+        const float2 Dv = *reinterpret_cast<const float2*>(stats + kTile + c);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = exp2f(fmaf(s[nt][e], scale_log2, -((e & 1) ? L.y : L.x) * kLog2e));
+          dp[nt][e] = p * (dp[nt][e] - ((e & 1) ? Dv.y : Dv.x)) * scale;
+          s[nt][e] = p;
+        }
+      }
+      // dV += P^T dO, dK += dS^T Q over the chunk's queries, 8 at a time: C
+      // columns 2t and 2t + 1 are A columns t and t + 4, so B holds queries
+      // 2t and 2t + 1 in its rows t and t + 4, head dims g of each 8
+#pragma unroll
+      for (int kq = 0; kq < kNt; ++kq) {
+        const tc::SplitA pa = tc::a_from_c_tf32(s[kq]);
+        const tc::SplitA da = tc::a_from_c_tf32(dp[kq]);
+#pragma unroll
+        for (int nd = 0; nd < 8; ++nd) {
+          const int o0 = (c0 + kq * 8 + 2 * t) * kLd + 8 * nd + g, o1 = o0 + kLd;
+          uint32_t bo[4], bq[4];
+          load_b(bo, Ohi, Olo, o0, o1);
+          tc::mma_split(dv_acc[nd], pa, bo);
+          load_b(bq, Qhi, Qlo, o0, o1);
+          tc::mma_split(dk_acc[nd], da, bq);
+        }
+      }
     }
   }
+
+  const long long off = (long long)b * M * H * kD + h * kD;
+  store_c_rows(dk_acc, dk + off, (long long)H * kD, key0 + warp * 16, M, lane);
+  store_c_rows(dv_acc, dv + off, (long long)H * kD, key0 + warp * 16, M, lane);
 }
 
-// dQ for one 64-query tile of one (b, h); loops over every key tile.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ di,
-                    T* __restrict__ dq, int N, int M, int H, Strides qs, Strides ks,
-                    Strides vs, Strides dos, float scale) {
-  __shared__ __align__(16) float Ks[kTile * kRow];
-  __shared__ __align__(16) float Vs[kTile * kRow];
-
+// dQ for one 64-query tile of one (b, h), looping over every key tile.
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ di,
+                         float* __restrict__ dq, int N, int M, int H, Strides qs, Strides ks,
+                         Strides vs, Strides dos, float scale) {
+  using namespace tf32;
+  extern __shared__ __align__(16) float smem_f[];
+  float* rawK = smem_f;
+  float* rawV = rawK + kTileF;
+  float* Khi = rawV + kTileF;
+  float* Klo = Khi + kSplitF;
+  float* Vhi = Klo + kSplitF;
+  float* Vlo = Vhi + kSplitF;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z;
   const int h = blockIdx.y;
-  const int row = threadIdx.x >> 1;
-  const int half = threadIdx.x & 1;
-  const int i = blockIdx.x * kTile + row;
-  const bool q_ok = i < N;
+  const int q0 = blockIdx.x * kTile;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
 
-  const T* qb = q + b * qs.b + h * qs.h + (long long)i * qs.n + half * kHalf;
-  const T* dob = dout + b * dos.b + h * dos.h + (long long)i * dos.n + half * kHalf;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
-  const long long stat = ((long long)b * H + h) * N + i;
-  const float lse_i = q_ok ? lse[stat] : 0.f;
-  const float di_i = q_ok ? di[stat] : 0.f;
+  load_raw_async(smem_u32(rawK), kb, ks.n, 0, M);
+  load_raw_async(smem_u32(rawV), vb, vs.n, 0, M);
+  cp_async_commit();
 
-  float qr[kHalf], dor[kHalf], dq_acc[kHalf];
+  float qf[8][4], of[8][4];  // the warp's 16 queries of Q and dO, A fragments in fp32
+  load_a_rows(qf, q + b * qs.b + h * qs.h, qs.n, q0 + warp * 16, N, lane);
+  load_a_rows(of, dout + b * dos.b + h * dos.h, dos.n, q0 + warp * 16, N, lane);
+  // this lane's rows g and g + 8: lse in log2 units and di
+  const float* lse_bh = lse + ((long long)b * H + h) * N;
+  const float* di_bh = di + ((long long)b * H + h) * N;
+  float lse2[2], dii[2];
 #pragma unroll
-  for (int d = 0; d < kHalf; ++d) {
-    qr[d] = q_ok ? to_float(qb[d]) : 0.f;
-    dor[d] = q_ok ? to_float(dob[d]) : 0.f;
-    dq_acc[d] = 0.f;
+  for (int r = 0; r < 2; ++r) {
+    const int n = q0 + warp * 16 + g + 8 * r;
+    lse2[r] = n < N ? lse_bh[n] * kLog2e : 0.f;
+    dii[r] = n < N ? di_bh[n] : 0.f;
   }
-
-  for (int k0 = 0; k0 < M; k0 += kTile) {
+  float dq_acc[8][4] = {};
+  const float scale_log2 = scale * kLog2e;
+  const int n_tiles = (M + kTile - 1) / kTile;
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j has landed; every warp is done with tile j - 1
+    split_tile(rawK, Khi, Klo);
+    split_tile(rawV, Vhi, Vlo);
     __syncthreads();
-    load_tile(Ks, kb, ks.n, k0, M);
-    load_tile(Vs, vb, vs.n, k0, M);
-    __syncthreads();
-
-    const int cols = min(kTile, M - k0);
-    for (int j = 0; j < cols; ++j) {
-      const float* k_row = Ks + j * kRow + half * kPad;
-      const float s = pair_dot(qr, k_row);
-      const float dp = pair_dot(dor, Vs + j * kRow + half * kPad);
-      const float p = q_ok ? __expf(s * scale - lse_i) : 0.f;
-      axpy_row(dq_acc, p * (dp - di_i) * scale, k_row);
+    if (j + 1 < n_tiles) {
+      load_raw_async(smem_u32(rawK), kb, ks.n, (j + 1) * kTile, M);
+      load_raw_async(smem_u32(rawV), vb, vs.n, (j + 1) * kTile, M);
+      cp_async_commit();
+    }
+#pragma unroll 1  // two chunks in flight spill (see the note at the top)
+    for (int c0 = 0; c0 < kTile; c0 += kChunk) {  // kChunk keys at a time
+      float s[kNt][4] = {};   // S: 16 queries x kChunk keys
+      float dp[kNt][4] = {};  // dP
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        const tc::SplitA qa = tc::split_a(qf[kk][0], qf[kk][1], qf[kk][2], qf[kk][3]);
+        const tc::SplitA oa = tc::split_a(of[kk][0], of[kk][1], of[kk][2], of[kk][3]);
+#pragma unroll
+        for (int nt = 0; nt < kNt; ++nt) {
+          const int o0 = (c0 + nt * 8 + g) * kLd + 8 * kk + t, o1 = o0 + 4;
+          uint32_t bk[4], bv[4];
+          load_b(bk, Khi, Klo, o0, o1);
+          tc::mma_split(s[nt], qa, bk);
+          load_b(bv, Vhi, Vlo, o0, o1);
+          tc::mma_split(dp[nt], oa, bv);
+        }
+      }
+      // dS; keys past M get P = 0
+      const int k0 = j * kTile + c0;
+      const bool ragged = k0 + kChunk > M;
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + nt * 8 + 2 * t + (e & 1);
+          const float p = (ragged && key >= M)
+                              ? 0.f
+                              : exp2f(fmaf(s[nt][e], scale_log2, -lse2[e >> 1]));
+          s[nt][e] = p * (dp[nt][e] - dii[e >> 1]) * scale;
+        }
+      }
+      // dQ += dS K over the chunk's keys, 8 at a time (keys 2t, 2t + 1 in B's rows t, t + 4)
+#pragma unroll
+      for (int kq = 0; kq < kNt; ++kq) {
+        const tc::SplitA da = tc::a_from_c_tf32(s[kq]);
+#pragma unroll
+        for (int nd = 0; nd < 8; ++nd) {
+          const int o0 = (c0 + kq * 8 + 2 * t) * kLd + 8 * nd + g;
+          uint32_t bk[4];
+          load_b(bk, Khi, Klo, o0, o0 + kLd);
+          tc::mma_split(dq_acc[nd], da, bk);
+        }
+      }
     }
   }
 
-  if (q_ok) {
-    const long long off = (((long long)b * N + i) * H + h) * kD + half * kHalf;
-#pragma unroll
-    for (int d = 0; d < kHalf; ++d) dq[off + d] = from_float<T>(dq_acc[d]);
-  }
+  store_c_rows(dq_acc, dq + (long long)b * N * H * kD + h * kD, (long long)H * kD,
+               q0 + warp * 16, N, lane);
 }
 
-template <typename T>
-void launch_bwd(const void* q, const void* k, const void* v, const void* dout,
-                const void* lse, const void* di, void* dq, void* dk, void* dv, int B, int N,
-                int M, int H, Strides qs, Strides ks, Strides vs, Strides dos, float scale,
-                cudaStream_t stream) {
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* do_ = static_cast<const T*>(dout);
+cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* di, void* dq, void* dk, void* dv,
+                            int B, int N, int M, int H, Strides qs, Strides ks, Strides vs,
+                            Strides dos, float scale, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tf32_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         tf32::kDkvSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_tf32_kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, tf32::kDqSmem);
+  if (err != cudaSuccess) return err;
+  const float* q_ = static_cast<const float*>(q);
+  const float* k_ = static_cast<const float*>(k);
+  const float* v_ = static_cast<const float*>(v);
+  const float* do_ = static_cast<const float*>(dout);
   const float* lse_ = static_cast<const float*>(lse);
   const float* di_ = static_cast<const float*>(di);
   const dim3 grid_kv((M + kTile - 1) / kTile, H, B);
-  flash_bwd_dkv_kernel<T><<<grid_kv, kThreads, 0, stream>>>(
-      q_, k_, v_, do_, lse_, di_, static_cast<T*>(dk), static_cast<T*>(dv), N, M, H, qs,
-      ks, vs, dos, scale);
+  flash_bwd_dkv_tf32_kernel<<<grid_kv, kThreads, tf32::kDkvSmem, stream>>>(
+      q_, k_, v_, do_, lse_, di_, static_cast<float*>(dk), static_cast<float*>(dv), N, M, H,
+      qs, ks, vs, dos, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   const dim3 grid_q((N + kTile - 1) / kTile, H, B);
-  flash_bwd_dq_kernel<T><<<grid_q, kThreads, 0, stream>>>(
-      q_, k_, v_, do_, lse_, di_, static_cast<T*>(dq), N, M, H, qs, ks, vs, dos, scale);
+  flash_bwd_dq_tf32_kernel<<<grid_q, kThreads, tf32::kDqSmem, stream>>>(
+      q_, k_, v_, do_, lse_, di_, static_cast<float*>(dq), N, M, H, qs, ks, vs, dos, scale);
+  return cudaGetLastError();
 }
 
 // bf16 on the tensor cores (see the note at the top). dK, dV for one 64-key
@@ -464,10 +698,12 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const voi
   flash_bwd_dkv_tc_kernel<<<grid_kv, kThreads, kDkvSmem, stream>>>(
       q_, k_, v_, do_, lse_, di_, static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, M, H,
       qs, ks, vs, dos, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
   const dim3 grid_q((N + kTile - 1) / kTile, H, B);
   flash_bwd_dq_tc_kernel<<<grid_q, kThreads, kDqSmem, stream>>>(
       q_, k_, v_, do_, lse_, di_, static_cast<bf16*>(dq), N, M, H, qs, ks, vs, dos, scale);
-  return cudaSuccess;
+  return cudaGetLastError();
 }
 
 }  // namespace gd3d
@@ -485,13 +721,10 @@ extern "C" int gd3d_flash_bwd(const void* q, const void* k, const void* v,
   const Strides qs{qsb, qsn, qsh}, ks{ksb, ksn, ksh}, vs{vsb, vsn, vsh},
       dos{dosb, dosn, dosh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    const cudaError_t err = launch_bwd_tc(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H,
-                                          qs, ks, vs, dos, scale, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  } else {
-    launch_bwd<float>(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks, vs, dos,
-                      scale, st);
-  }
-  return static_cast<int>(cudaGetLastError());
+  // each launcher returns the first launch error of its two kernels
+  return static_cast<int>(
+      is_bf16 ? launch_bwd_tc(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks, vs, dos,
+                              scale, st)
+              : launch_bwd_tf32(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks, vs,
+                                dos, scale, st));
 }

@@ -2,11 +2,12 @@
 
 Each wrapper adds one to its `launches` count where it launches its kernel,
 and nowhere else, so a run can show that its main path went through the
-kernels.
+kernels. The flash wrappers (K1, K2) also count by dtype and length
+(`launches_by`), at the same place.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 
 def wrappers() -> Dict[str, object]:
@@ -33,7 +34,16 @@ def wrappers() -> Dict[str, object]:
 def reset_launch_counts() -> None:
     for fn in wrappers().values():
         fn.launches = 0
+        if hasattr(fn, "launches_by"):
+            fn.launches_by.clear()
 
 
 def launch_counts() -> Dict[str, int]:
     return {k: fn.launches for k, fn in wrappers().items()}
+
+
+def launch_counts_by() -> Dict[str, Dict[Tuple[str, int], int]]:
+    """The flash kernels' launches split by operand dtype and sequence
+    length N (the query count): kernel id -> {(dtype, N): launches}."""
+    return {k: dict(fn.launches_by) for k, fn in wrappers().items()
+            if hasattr(fn, "launches_by")}

@@ -4,9 +4,13 @@ Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_bwd.cu, which replace
 gd3d/kernels/flash_bwd_fused.py::flash_attention_bwd_fused. gd3d's kernel
 sums per-KV-block dQ partials after one pass; the port runs a dK/dV kernel
 and a second, dQ kernel (see the source note), which is deterministic.
+Both dtypes run on the tensor cores (fp32 as three TF32 products each) and
+copy 16 bytes at a time, so every view must be 16-byte aligned.
 `flash_attention_bwd_plain` is the plain PyTorch twin.
 """
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -35,7 +39,7 @@ def flash_attention_bwd_fused(q, k, v, lse, do, di, scale: float):
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, lse, do, di, scale)
     do = do.contiguous()
-    check_operands(q, k, v, do, head_dims=(64,))
+    check_operands(q, k, v, do, head_dims=(64,), fp32_copies_16=True)
     B, N, H, D = q.shape
     M = k.shape[1]
     for name, t in (("lse", lse), ("di", di)):
@@ -55,7 +59,9 @@ def flash_attention_bwd_fused(q, k, v, lse, do, di, scale: float):
         float(scale), int(q.dtype == torch.bfloat16), stream)
     build.check(err, "flash_attention_bwd_fused")
     flash_attention_bwd_fused.launches += 1
+    flash_attention_bwd_fused.launches_by[(str(q.dtype).removeprefix("torch."), N)] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd_fused.launches = 0
+flash_attention_bwd_fused.launches_by = Counter()  # (dtype, N) -> launches

@@ -7,6 +7,8 @@ PyTorch twin: the CPU path, and the oracle the kernel is checked against.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from gd3d_torch.kernels import build
@@ -37,9 +39,9 @@ def aligned_16(t: torch.Tensor) -> bool:
 def check_views(*ts: torch.Tensor, head_dims=HEAD_DIMS, fp32_copies_16: bool = False) -> None:
     """The layout the flash kernels take, on any device: tensors of one dtype
     (fp32 or bf16), (B, N, H, D) with D in `head_dims` and a contiguous last
-    dim. bf16 views must be `aligned_16`, and with `fp32_copies_16` (K1, whose
-    fp32 head-dim-64 kernel copies 16 bytes at a time) fp32 views of head dim
-    64 too. Nothing is copied to make a view fit: it raises."""
+    dim. bf16 views must be `aligned_16`, and with `fp32_copies_16` (K1 and
+    K2, whose fp32 head-dim-64 kernels copy 16 bytes at a time) fp32 views of
+    head dim 64 too. Nothing is copied to make a view fit: it raises."""
     t0 = ts[0]
     for t in ts:
         if t.dtype != t0.dtype or t.dtype not in DTYPES:
@@ -87,7 +89,9 @@ def flash_attention_fwd(q, k, v, scale: float):
         float(scale), int(q.dtype == torch.bfloat16), stream)
     build.check(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by[(str(q.dtype).removeprefix("torch."), N)] += 1
     return o, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by = Counter()  # (dtype, N) -> launches

@@ -1,24 +1,41 @@
-"""Time K5 and K3 at the main paths' shapes for other values of their
-compile-time tuning constants: the heads one K5 thread rotates
-(GD3D_ROPE_HEADS in csrc/rope2d.cu: 4, 8, 16) and the rows one K3 block
-holds (GD3D_KL_ROWS in csrc/cost_kl.cu: 1, 2, 4, 8). Needs a CUDA card and
-nvcc:
+"""Time kernels at the main paths' shapes for other values of their
+compile-time constants. Needs a CUDA card and nvcc.
 
     python3 -m gd3d_torch.kernels.sweep
 
-Each setting is a library of the two sources built with -D flags into
-gd3d_torch/build/ (all nvcc processes started together); the shipped
-defaults, 4 and 4, are one of them. Every case is first checked against its
-plain twin. The settings are timed in the order listed, then again in the
-reverse order, each case by chip_smoke.py's method (kernels/timing.py). It
-prints the card line, then one JSON object per setting and run: the median
-device time in ms of each case, and a one-element add timed the same way
-("floor", what a launch costs with no work).
+K5 and K3: the heads one K5 thread rotates (GD3D_ROPE_HEADS in
+csrc/rope2d.cu: 4, 8, 16) and the rows one K3 block holds (GD3D_KL_ROWS in
+csrc/cost_kl.cu: 1, 2, 4, 8). Each setting is a library of the two sources
+built with -D flags into gd3d_torch/build/ (all nvcc processes started
+together); the shipped defaults, 4 and 4, are one of them. Every case is
+first checked against its plain twin. The settings are timed in the order
+listed, then again in the reverse order, each case by chip_smoke.py's
+method (kernels/timing.py). It prints the card line, then one JSON object
+per setting and run: the median device time in ms of each case, and a
+one-element add timed the same way ("floor", what a launch costs with no
+work).
+
+    python3 -m gd3d_torch.kernels.sweep k2 [--parent OTHER/flash_bwd.cu]
+
+The fp32 K2 (K2_SETTINGS): its TF32 passes (GD3D_TF32_PASSES in
+csrc/mma.cuh: 3, the split-precision build, or 1, single-pass TF32) and
+the rows a warp takes at a time (GD3D_TF32_CHUNK in csrc/flash_bwd.cu: 32
+or 16); the shipped defaults, p3 c32, come first. With --parent another
+revision's csrc/flash_bwd.cu is built beside them (it includes its own
+directory's headers). Each build is held to the plain twin at the fp32
+student's four lengths (tolerance 1e-4 of max(1, max |plain|)) and at
+(2, 673, 3, 64) to the tight bound TIGHT (2e-5); the 1-pass build is
+expected to miss both and is only reported. Then each is timed at the four
+lengths, in order and again in reverse. K2 builds are libraries of
+csrc/flash_bwd.cu alone, timed the same way. To compare whole steps, run
+two revisions' chip_smoke.py in one call.
 """
 from __future__ import annotations
 
+import argparse
 import json
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 import subprocess
 import sys
 
@@ -26,10 +43,13 @@ import torch
 
 from gd3d_torch.kernels import build
 from gd3d_torch.kernels.cost_kl import _reference_rows
+from gd3d_torch.kernels.flash_bwd_fused import flash_attention_bwd_plain
+from gd3d_torch.kernels.flash_fwd import flash_attention_fwd_plain
 from gd3d_torch.kernels.rope2d import _NO_TASK, _task, rope2d_plain, vec_width
 from gd3d_torch.kernels.timing import time_ms
 from gd3d_torch.ops.masks import masked_patch_cost
 from gd3d_torch.ops.rope2d import grid_positions
+from gd3d_torch.teachers.mast3r import no_tf32
 
 # (GD3D_ROPE_HEADS, GD3D_KL_ROWS): each constant swept with the other at its default
 SETTINGS = ((4, 4), (8, 4), (16, 4), (4, 1), (4, 2), (4, 8))
@@ -101,14 +121,7 @@ def cases(dev):
     return out
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("sweep: no CUDA device", file=sys.stderr)
-        return 1
-    dev = torch.device("cuda", 0)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         timeout=60, check=True).stdout.strip(), flush=True)
+def k5_k3(dev) -> int:
     builds = [variant(h, r) for h, r in SETTINGS]
     with ThreadPoolExecutor(len(builds)) as pool:  # every nvcc process at once
         list(pool.map(lambda b: build.compile_library(*b), builds))
@@ -137,6 +150,111 @@ def main() -> int:
             print(json.dumps({"run": run, "heads": heads, "rows": rows, "ms": times}),
                   flush=True)
     return 0
+
+
+# ------------------------------------------------------------------ K2 fp32
+K2_LENGTHS = ((2, 4161), (2, 673), (2, 6401), (2, 1370))  # the fp32 student's (B, N), H = 12
+TIGHT = 2e-5  # the card test's bound at (2, 673, 3, 64)
+
+
+# (TF32 passes, chunk rows); the shipped build first
+K2_SETTINGS = ((3, 32), (1, 32), (3, 16))
+
+
+def k2_variants(parent: str | None):
+    """(name, library, sources, flags) of each K2 build."""
+    src = [build.CSRC_DIR / "flash_bwd.cu"]
+    out = [(f"p{p} c{c}", build.library_path().with_name(f"libgd3d_sweep_k2_p{p}c{c}.so"),
+            src, (f"-DGD3D_TF32_PASSES={p}", f"-DGD3D_TF32_CHUNK={c}"))
+           for p, c in K2_SETTINGS]
+    if parent:
+        out.append(("parent", build.library_path().with_name("libgd3d_sweep_k2_parent.so"),
+                    [Path(parent).resolve()], ()))
+    return out
+
+
+def k2_call(lib, q, k, v, lse, do, di, scale):
+    B, N, H, D = q.shape
+    M = k.shape[1]
+    dq = torch.empty((B, N, H, D), device=q.device)
+    dk = torch.empty((B, M, H, D), device=q.device)
+    dv = torch.empty((B, M, H, D), device=q.device)
+    err = lib.gd3d_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+        di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, M, H, D,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], float(scale), 0,
+        torch.cuda.current_stream().cuda_stream)
+    build.check(err, "sweep flash_bwd")
+    return dq, dk, dv
+
+
+def k2_cases(dev):
+    """name -> (operands, plain gradients): q, k, v as views of one qkv
+    projection, random rows of dO, at each length and at the tight case."""
+    g = torch.Generator(device=dev).manual_seed(1234)
+    out = {}
+    for B, N, H in [(B, N, 12) for B, N in K2_LENGTHS] + [(2, 673, 3)]:
+        qkv = torch.randn((B, N, 3, H, 64), generator=g, device=dev)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        o, lse = flash_attention_fwd_plain(q, k, v, 0.125)
+        do = torch.randn((B, N, H, 64), generator=g, device=dev)
+        di = torch.einsum("bnhd,bnhd->bhn", o, do).contiguous()
+        args = (q, k, v, lse, do, di, 0.125)
+        out[f"({B},{N},{H},64)"] = (args, flash_attention_bwd_plain(*args))
+    return out
+
+
+def k2(dev, parent: str | None) -> int:
+    variants = k2_variants(parent)
+    with ThreadPoolExecutor(len(variants)) as pool:  # every nvcc process at once
+        reports = list(pool.map(lambda v: build.compile_library(*v[1:]), variants))
+    for (name, *_), report in zip(variants, reports):
+        for line in report.splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                print(f"{name}: {line.strip()}", flush=True)
+    libs = {name: build.load(so) for name, so, _, _ in variants}
+    with no_tf32():  # the plain twin in full fp32
+        work = k2_cases(dev)
+    ok = True
+    for name, lib in libs.items():
+        errs = {}
+        for case, (args, want) in work.items():
+            got = k2_call(lib, *args)
+            errs[case] = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
+                             for a, b in zip(got, want))
+        tight = errs["(2,673,3,64)"] <= TIGHT
+        within = all(e <= 1e-4 for e in errs.values())
+        print(json.dumps({"k2": name, "err_over_max": errs, "within_1e-4": within,
+                          "within_tight": tight}), flush=True)
+        if not name.startswith("p1 "):
+            ok &= within and (tight or name == "parent")
+    if not ok:
+        print("sweep: a K2 build disagrees with its plain twin", file=sys.stderr)
+        return 1
+    order = list(libs.items())
+    for run, turn in enumerate((order, order[::-1])):
+        for name, lib in turn:
+            times = {case: time_ms(lambda a=args, lib=lib: k2_call(lib, *a), 10)[0]
+                     for case, (args, _) in work.items() if not case.endswith(",3,64)")}
+            print(json.dumps({"run": run, "k2": name, "ms": times}), flush=True)
+    return 0
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("what", nargs="?", choices=("k5k3", "k2"), default="k5k3")
+    ap.add_argument("--parent", help="another revision's flash_bwd.cu (k2)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("sweep: no CUDA device", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout.strip(), flush=True)
+    if args.what == "k2":
+        return k2(dev, args.parent)
+    return k5_k3(dev)
 
 
 if __name__ == "__main__":

@@ -12,7 +12,10 @@ another order). bf16: tol 1e-2. The plain twins compute in fp32 from the
 bf16 operands and round only the output; the bf16 flash kernels (K1, K2)
 run on the tensor cores and also round P (K1, and dV in K2) and dS (dK, dQ)
 to bf16 before the next product, a relative error of at most 2^-9 per term,
-which stays within a few ulps of bf16 (2^-8) of the largest output.
+which stays within a few ulps of bf16 (2^-8) of the largest output. The fp32
+K2 runs on the tensor cores as three TF32 products for each fp32 product
+(split operands); `test_flash_bwd_fp32_keeps_fp32_precision` holds it to
+TIGHT_K2, which single-pass TF32 misses by more than 10x.
 """
 import pytest
 import torch
@@ -30,6 +33,10 @@ from gd3d_torch.ops.attention import scaled_dot_attention
 from gd3d_torch.ops.rope2d import grid_positions, rope2d, rope2d_qk
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+# fp32 K2 on random rows at (2, 673, 3, 64): the split-precision kernel
+# measured 8.3e-6 of the max on NVIDIA H100 80GB HBM3 (PERF.md), a 1-pass
+# TF32 build 6.4e-4 (python3 -m gd3d_torch.kernels.sweep k2)
+TIGHT_K2 = 2e-5
 
 
 @pytest.fixture
@@ -80,16 +87,60 @@ def test_flash_kernels_match_plain(dev, dtype, N, M):
 
 
 @pytest.mark.cuda
-def test_flash_bwd_bf16_is_deterministic(dev):
-    """K2 sums in a fixed order (no atomics): two calls give the same bits."""
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_flash_bwd_bf16_is_deterministic(dev, dtype):
+    """K2 sums in a fixed order (no atomics), in both dtypes: two calls give
+    the same bits."""
     g = torch.Generator(device=dev).manual_seed(5)
-    q, k, v = _qkv_views(g, 2, 673, 673, 12, torch.bfloat16, dev)
+    q, k, v = _qkv_views(g, 2, 673, 673, 12, dtype, dev)
     o, lse = flash_attention_fwd(q, k, v, 0.125)
-    do = torch.randn(o.shape, generator=g, device=dev).to(torch.bfloat16)
+    do = torch.randn(o.shape, generator=g, device=dev).to(dtype)
     di = torch.einsum("bnhd,bnhd->bhn", o.float(), do.float()).contiguous()
     first = flash_attention_bwd_fused(q, k, v, lse, do, di, 0.125)
     second = flash_attention_bwd_fused(q, k, v, lse, do, di, 0.125)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_fp32_keeps_fp32_precision(dev):
+    """The fp32 K2 (TF32 parts, three products each) on random rows of Q, K,
+    V and dO, held to TIGHT_K2: a lost lo part, or a reduction index
+    permuted wrongly between the accumulator and the next product's B
+    operand, shows here (rows that all match would hide the second)."""
+    g = torch.Generator(device=dev).manual_seed(673)
+    q, k, v = _qkv_views(g, 2, 673, 673, 3, torch.float32, dev)
+    o, lse = flash_attention_fwd_plain(q, k, v, 0.125)
+    do = torch.randn(o.shape, generator=g, device=dev)
+    di = torch.einsum("bnhd,bnhd->bhn", o, do).contiguous()
+    grads = flash_attention_bwd_fused(q, k, v, lse, do, di, 0.125)
+    for name, a, b in zip(("dq", "dk", "dv"), grads,
+                          flash_attention_bwd_plain(q, k, v, lse, do, di, 0.125)):
+        err = float((a - b).abs().max())
+        assert err <= TIGHT_K2 * max(1.0, float(b.abs().max())), (name, err)
+    # PyTorch's TF32 switch does not reach the kernel
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        again = flash_attention_bwd_fused(q, k, v, lse, do, di, 0.125)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert all(torch.equal(a, b) for a, b in zip(grads, again))
+
+
+@pytest.mark.cuda
+def test_flash_bwd_refuses_misaligned_fp32_views(dev):
+    """The fp32 K2 copies 16-byte chunks: a view whose address or row step is
+    off 16 bytes raises instead of being copied."""
+    wide = torch.randn((1, 70, 3 * 2 * 64 + 2), device=dev)
+    good = wide[..., :384].reshape(1, 70, 3, 2, 64)  # row step 386 * 4 bytes
+    q, k, v = good[:, :, 0], good[:, :, 1], good[:, :, 2]
+    lse = torch.zeros((1, 2, 70), device=dev)
+    do = torch.randn((1, 70, 2, 64), device=dev)
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_bwd_fused(q, k, v, lse, do, lse, 0.125)
+    flat = torch.randn((70 * 2 * 64 + 1,), device=dev)
+    shifted = flat[1:].view(1, 70, 2, 64)  # address off by 4 bytes
+    with pytest.raises(ValueError, match="16 bytes"):
+        flash_attention_bwd_fused(do, shifted, do, lse, do, lse, 0.125)
 
 
 @pytest.mark.cuda
