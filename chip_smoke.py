@@ -8,7 +8,8 @@ power limit (nvidia-smi) and builds the CUDA kernels from gd3d_torch/csrc
 with nvcc, one process per source (timed, with ptxas's register and spill
 report), then runs these phases in order, one or more printed lines each:
   1. kernels  K1-K5 against their plain PyTorch twins at every main-path
-              shape of both steps: max abs error against the stated
+              shape of both steps and of the train phase (ME, objaverse
+              MASt3R): max abs error against the stated
               tolerance, the median device time of each (the host enqueues
               behind a long matrix product, so its own time per call,
               host_us, is printed apart), the time of one PyTorch call that
@@ -54,10 +55,28 @@ report), then runs these phases in order, one or more printed lines each:
   4. agree    each step's losses and gradients on a small input, CUDA
               kernels against the CPU plain path, with shared weights, in
               fp32, and the MASt3R student once more under its bf16 autocast
-              (the bf16 tensor-core K1 and K2).
+              (the bf16 tensor-core K1 and K2);
+  5. train    the training entry point, gd3d_torch.cli.train.main, in this
+              process at full width on synthetic data with the named
+              configs' fp32 students: (a) the ME baseline
+              (finetune_timm_me_objaverse, 512^2 views resized to 1280^2,
+              3000 keypoints), two epochs of one step straight, and one
+              epoch resumed from its restart state to two, whose epoch-1
+              loss and final state (trainable tensors, AdamW's moments and
+              step counts, the accumulation buffer) must equal the straight
+              run's (RESUME_TOL, STATE_TOL; the counts exactly); (b) the
+              objaverse MASt3R path (384x512 teacher frames, the batch's
+              depth maps), --dev --multistep 2; (c) VGGT ScanNet++, --dev.
+              Each run prints its step records (losses, ap_pos_overflow for
+              ME), median step time and peak memory, and asserts finite
+              metrics, changed trainable tensors, unchanged frozen and
+              teacher ones, and its kernel launches (counts set to 0 after
+              the run's set-up, before its first step): fp32 K1 and K2 at
+              the students' lengths, and every kernel on the teacher paths;
+              then profiles one more group of each run's step, as phase 3.
 
-Then one JSON line of the kernels, the card line, and last the JSON result
-line. Exits non-zero, printing no result, without a CUDA device or if any
+Then one JSON line of the kernels (launches: the steps and train phases'
+runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The kernels and agree phases compare fp32 results too, so they
 run without TF32; the steps run with PyTorch's defaults (the teachers turn TF32
 off themselves).
@@ -93,6 +112,23 @@ REPLACES = {
 # log-sum-exp is fp32 whatever the operands, so it is held to the fp32
 # tolerance in every case.
 TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# The ME run resumed from its restart state against the straight run: the
+# epoch-1 loss, and the final trainable tensors and accumulation buffer,
+# each kind as ||resumed - straight|| / ||straight|| over all its tensors.
+# The same bits are expected, but scatter-adds of the keypoint
+# interpolation's backward (atomics) may order the gradient's sums
+# otherwise. 1e-5 is far below any change of the state: one update moves
+# the loss by ~1e-3.
+RESUME_TOL = 1e-5
+# The same for AdamW's moments, which hold the gradients themselves. AdamW's
+# first update moves an element by about lr * sign(grad), so where a
+# gradient sits near zero, sums in another order can flip it; LoRA B starts
+# at zero and LoRA A's next gradient passes through it, so the moments
+# agree to ~1e-4 (LoRA A of the first LoRA block the worst). A resume that
+# dropped AdamW's state would leave the moments of one gradient where the
+# straight run holds two (off by their own size), and unequal step counts,
+# which are compared exactly.
+STATE_TOL = 1e-3
 HBM_BYTES_PER_S = 3.35e12
 # H100 SXM, dense. "tf32x3": the fp32 K2's route, three TF32 products on the
 # tensor cores (495 TFLOP/s) for each fp32 product
@@ -226,6 +262,18 @@ def check_kernels(dev) -> dict:
         ("K1", "VGGT camera trunk", 1, 2, 16, 128, f32, False),
         *[("K2", where, B, N, 12, 64, dt, N == 4161)
           for dt in (bf16, f32) for where, B, N in student],
+        # the train phase's own shapes: the ME student (one view a call,
+        # 512^2 -> 1280^2) and the objaverse MASt3R path (384x512 frames),
+        # fp32 as the named configs run
+        *[(kern, where, B, N, H, 64, f32, False) for kern, where, B, N, H in (
+            ("K1", "ME student (one view)", 1, 6401, 12),
+            ("K1", "objaverse MASt3R student main pass", 2, 4801, 12),
+            ("K1", "objaverse MASt3R student cost pass", 2, 769, 12),
+            ("K1", "objaverse CroCo encoder", 2, 768, 16),
+            ("K1", "objaverse CroCo decoder", 2, 768, 12),
+            ("K2", "ME student (one view)", 1, 6401, 12),
+            ("K2", "objaverse MASt3R student main pass", 2, 4801, 12),
+            ("K2", "objaverse MASt3R student cost pass", 2, 769, 12))],
     ]
     for kern, where, B, N, H, D, dt, designated in attn_cases:
         # q, k, v as the strided (B, N, H, D) views of one qkv projection
@@ -277,7 +325,8 @@ def check_kernels(dev) -> dict:
     # K3 at the cost volume of one pair (M = N on both paths), masked rows in;
     # and an odd M, whose rows start off 16 bytes. The kernel reads no cost
     # row of a masked patch (it is zeroed), so the bound counts kept rows only
-    for N, M, designated in ((672, 672, True), (1369, 1369, False), (672, 37, False)):
+    for N, M, designated in ((672, 672, True), (1369, 1369, False), (672, 37, False),
+                             (768, 768, False)):
         raw = torch.rand((1, N, M), generator=g, device=dev)
         mask = torch.rand((1, N), generator=g, device=dev) > 0.3
         kept = int(mask.sum())
@@ -293,7 +342,8 @@ def check_kernels(dev) -> dict:
             designated=designated)
 
     # K4 forward and both gradient passes at each step's keypoint count
-    for N, where, designated in ((672, "MASt3R", True), (300, "VGGT", False)):
+    for N, where, designated in ((672, "MASt3R", True), (300, "VGGT", False),
+                                 (768, "objaverse MASt3R", False)):
         h = 128
         u = torch.randn((2, N, h), generator=g, device=dev) * 0.5
         head = [torch.randn(h, generator=g, device=dev) * 0.1,
@@ -375,6 +425,7 @@ def check_kernels(dev) -> dict:
                      for _ in range(2))
 
     grid = grid_positions(21, 32, 1, device=dev)
+    grid_o = grid_positions(24, 32, 1, device=dev)  # objaverse's 384x512 frames
     pair_cases = [
         ("VGGT frame attention", 2, 1374, 16, bf16, "normed", vggt_pos(2), vggt_pos(2)),
         ("VGGT global attention", 1, 2748, 16, bf16, "normed", vggt_pos(2).reshape(1, 2748, 2),
@@ -383,6 +434,10 @@ def check_kernels(dev) -> dict:
          grid_positions(21, 32, 2, device=dev)),
         ("CroCo decoder self", 1, 672, 12, f32, "qkv", grid, grid),
         ("CroCo decoder cross", 1, 672, 12, f32, "separate", grid, grid.clone()),
+        ("objaverse CroCo encoder", 2, 768, 16, f32, "qkv", grid_positions(24, 32, 2, device=dev),
+         grid_positions(24, 32, 2, device=dev)),
+        ("objaverse CroCo decoder self", 1, 768, 12, f32, "qkv", grid_o, grid_o),
+        ("objaverse CroCo decoder cross", 1, 768, 12, f32, "separate", grid_o, grid_o.clone()),
     ]
     for where, B, N, H, dt, kind, qpos, kpos in pair_cases:
         q, k = pair(B, N, H, dt, kind)
@@ -818,6 +873,189 @@ def check_agreement(dev) -> None:
                                     priority=priority.to(device)), device))
 
 
+def run_cli(name, argv, out, expect=(), kernels=(), may_stay=(), profile=True) -> dict:
+    """One training run through gd3d_torch.cli.train (its parse_args, setup
+    and train, the steps of its main), in this process, on the card, writing
+    to `out`: the counts are set to 0 and the parameters copied after the
+    run's set-up, just before its first step. Prints each step's record, the median step time
+    and the peak memory; asserts finite metrics, the trainable tensors
+    changed (but those whose names start with one of `may_stay`), the
+    frozen and teacher ones not, every kernel of `kernels` launched, and
+    the flash launches by dtype and length in `expect` ((kernel, dtype,
+    lengths, launches a step)). Returns the launches, the step records and
+    the run's final state (final_state). With `profile`, then one more group
+    of the run's step under the profiler (profile_step). `may_stay`: name parts of trainable
+    tensors that may stay unchanged, because the loss does not reach them
+    (the depth head's depth_attention branch everywhere, the whole head in
+    ME) or, in a run of one step from the init, because their gradient is
+    zero there (LoRA A, while LoRA B starts at zero)."""
+    import statistics
+
+    import torch
+
+    from gd3d_torch.cli import train
+    from gd3d_torch.data.loader import DeviceCopier
+    from gd3d_torch.kernels import launch_counts, launch_counts_by, reset_launch_counts
+
+    def teacher_sum(teacher):
+        return sum(float(p.double().sum()) for p in teacher.parameters())
+
+    t0 = time.perf_counter()
+    run = train.setup(train.parse_args([*argv, "--output", str(out)]))
+    snap = {"trainable": {k: p.detach().clone() for k, p in run.trainable.items()},
+            "frozen": {k: p.detach().clone() for k, p in run.frozen.items()},
+            "teacher": None if run.teacher is None else teacher_sum(run.teacher)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    train.train(run)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, counts_by = launch_counts(), launch_counts_by()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    records = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    records = [r for r in records if r["epoch"] >= run.start_epoch]
+    steps = [r for r in records if "step" in r]
+    for r in steps:
+        log(f"train: {name} epoch {r['epoch']} step {r['step']} " + " ".join(
+            f"{k}={v:.6f}" for k, v in r.items() if k not in ("epoch", "step")))
+    n = len(steps)
+    finite = all(math.isfinite(v) for r in records for v in r.values())
+    changed = [k for k, p in run.trainable.items() if not torch.equal(p, snap["trainable"][k])]
+    stuck = [k for k in run.trainable if k not in changed and not any(m in k for m in may_stay)]
+    moved = [k for k, p in run.frozen.items() if not torch.equal(p, snap["frozen"][k])]
+    teacher_same = run.teacher is None or snap["teacher"] == teacher_sum(run.teacher)
+    allowed = sorted(set(run.trainable) - set(changed) - set(stuck))
+    log(f"train: {name} {n} steps in {wall:.2f} s with the set-up; median step_s "
+        f"{statistics.median(r['time_s'] for r in steps):.4f}; peak_mem_gib {peak:.3f}; "
+        f"metrics finite {finite}; trainable tensors changed {len(changed)}/"
+        f"{len(run.trainable)} ({len(allowed)} unchanged, allowed by {may_stay}); frozen tensors changed {len(moved)}/{len(run.frozen)}; teacher "
+        f"unchanged {teacher_same}")
+    by_step = {k: {f"{dt} N={m}": c / n for (dt, m), c in sorted(v.items())}
+               for k, v in counts_by.items()}
+    log(f"train: {name} launches {counts} over {n} steps; flash launches a step by dtype "
+        f"and length: {by_step}")
+    ok = finite and bool(changed) and not stuck and not moved and teacher_same
+    for kern, dt, lengths, want in expect:
+        got = sum(c for (d, m), c in counts_by[kern].items() if d == dt and m in lengths)
+        log(f"train: {name} {dt} {kern} at N in {lengths}: {got / n:g} a step (want {want}) "
+            f"{'OK' if got == want * n else 'FAIL'}")
+        ok &= got == want * n
+    silent = [k for k in kernels if counts[k] <= 0]
+    if silent or not ok:
+        raise AssertionError(f"train {name}: finite={finite} stuck={stuck[:5]} moved={moved[:5]} "
+                             f"teacher unchanged={teacher_same} never launched={silent}")
+    final = final_state(run)
+    if profile:  # one more group of the run's step, on the next epoch's first batch
+        _, batch = next(train.host_batches(run, run.epochs))
+        profile_step(name, run.run_step, DeviceCopier(run.device)(batch).ready())
+    return {"counts": counts, "steps": steps, "final": final}
+
+
+def final_state(run) -> dict:
+    """A copy of what the run's restart state holds, as the run ends: the
+    trainable tensors and the optimizer's state (AdamW's moments and step
+    counts, the call counts, the accumulation buffer)."""
+    import copy
+
+    return {"trainable": {k: p.detach().clone() for k, p in run.trainable.items()},
+            "optimizer": copy.deepcopy(run.optimizer.state_dict())}
+
+
+def resume_errors(straight: dict, resumed: dict) -> tuple:
+    """Two final_state()s -> ({kind: (||resumed - straight|| / ||straight||,
+    the tensor with the largest such error, its error)} for the trainable
+    tensors, the accumulation buffer and AdamW's exp_avg and exp_avg_sq,
+    each over all its tensors; whether the step counts, AdamW's of every
+    tensor and the optimizer's own, are equal)."""
+    so, ro = straight["optimizer"], resumed["optimizer"]
+    ss, rs = so["adamw"]["state"], ro["adamw"]["state"]
+    names = list(straight["trainable"])  # the optimizer's parameter order
+
+    def rel(pairs):
+        num = den = 0.0
+        worst = (None, 0.0)
+        for name, a, b in pairs:
+            d = float((a.double() - b.double()).square().sum())
+            n = float(b.double().square().sum())
+            num, den = num + d, den + n
+            e = math.sqrt(d / n) if n else math.sqrt(d)
+            worst = max(worst, (name, e), key=lambda w: w[1])
+        return (math.sqrt(num / den) if den else math.sqrt(num), *worst)
+
+    errs = {"trainable": rel((k, resumed["trainable"][k], p)
+                             for k, p in straight["trainable"].items()),
+            "acc": rel((names[i], a, b) for i, (a, b) in enumerate(zip(ro["acc"], so["acc"])))}
+    for m in ("exp_avg", "exp_avg_sq"):
+        errs[m] = rel((names[i], rs[i][m], ss[i][m]) for i in ss)
+    counts = (so["calls"] == ro["calls"] and so["mini_step"] == ro["mini_step"]
+              and ss.keys() == rs.keys()
+              and all(float(ss[i]["step"]) == float(rs[i]["step"]) for i in ss))
+    return errs, counts
+
+
+def check_train(dev) -> dict:
+    """The train phase: gd3d_torch.cli.train at full width on synthetic
+    data, with the named configs' fp32 students and seeded random weights.
+    (a) ME: two epochs of one step straight, and one epoch resumed to two,
+    which must give the straight run's epoch-1 record and final state
+    (resume_errors); (b) objaverse
+    MASt3R, --dev --multistep 2 (one group of two steps, the batch's depth
+    maps); (c) VGGT ScanNet++, --dev. Returns the launches of all runs."""
+    import tempfile
+    from pathlib import Path
+
+    fp32 = "float32"
+    me_expect = (("K1", fp32, (6401,), 24), ("K2", fp32, (6401,), 8))
+    mast3r_expect = (("K1", fp32, (4801, 769), 20), ("K2", fp32, (4801, 769), 12),
+                     ("K1", fp32, (768,), 48))
+    vggt_expect = (("K1", fp32, (6401, 1370), 20), ("K2", fp32, (6401, 1370), 12))
+    every = tuple(REPLACES)
+    total = {k: 0 for k in REPLACES}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        me = ["--config", "finetune_timm_me_objaverse", "--synthetic", "--steps-per-epoch", "1"]
+        runs = [
+            ("ME straight", [*me, "--epochs", "2"], root / "me_straight", me_expect, ("K1", "K2"),
+             ("depth_diff_head.",), True),
+            ("ME first epoch", [*me, "--epochs", "1"], root / "me_split", me_expect,
+             ("K1", "K2"), ("depth_diff_head.", ".lora_a_"), False),
+            ("ME resumed", [*me, "--epochs", "2", "--resume", str(root / "me_split" / "last")],
+             root / "me_split", me_expect, ("K1", "K2"), ("depth_diff_head.",), False),
+            ("objaverse MASt3R", ["--config", "finetune_timm_mast3r_objaverse", "--dev",
+                                  "--multistep", "2"], root / "mast3r", mast3r_expect, every,
+             ("depth_diff_head.depth_attention.",), True),
+            ("VGGT", ["--config", "finetune_timm_vggt_scannetpp", "--dev"], root / "vggt",
+             vggt_expect, every, ("depth_diff_head.depth_attention.",), True),
+        ]
+        results = {}
+        for name, argv, out, expect, kernels, may_stay, profile in runs:
+            results[name] = run_cli(name, argv, out, expect, kernels, may_stay, profile)
+            for k, c in results[name]["counts"].items():
+                total[k] += c
+            log(f"phase: train {name} done")
+    straight = [r for r in results["ME straight"]["steps"] if r["epoch"] == 1]
+    resumed = results["ME resumed"]["steps"]
+    keys = [k for k in straight[0] if k != "time_s"]
+    same = [{k: r[k] for k in keys} for r in straight] == [{k: r[k] for k in keys}
+                                                          for r in resumed]
+    err = max(abs(a["loss"] - b["loss"]) / abs(a["loss"]) for a, b in zip(straight, resumed))
+    log(f"train: ME epoch 1 resumed against straight: loss {resumed[0]['loss']!r} / "
+        f"{straight[0]['loss']!r}, records equal {same}, loss rel err {err:.3e} (tol "
+        f"{RESUME_TOL:g}) {'OK' if err <= RESUME_TOL else 'FAIL'}")
+    errs, counts = resume_errors(results["ME straight"]["final"], results["ME resumed"]["final"])
+    tols = {"trainable": RESUME_TOL, "acc": RESUME_TOL, "exp_avg": STATE_TOL,
+            "exp_avg_sq": STATE_TOL}
+    state_ok = counts and all(errs[k][0] <= tol for k, tol in tols.items())
+    log(f"train: ME final state resumed against straight: step counts equal {counts}; rel err "
+        + "; ".join(f"{k} {e:.3e} (tol {tols[k]:g}; worst {w} {we:.3e})"
+                    for k, (e, w, we) in errs.items())
+        + f" {'OK' if state_ok else 'FAIL'}")
+    if err > RESUME_TOL or not state_ok:
+        raise AssertionError("ME: the resumed run differs from the straight run")
+    return total
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -862,6 +1100,9 @@ def main() -> int:
     with no_tf32():
         check_agreement(dev)
     log(f"phase: agree done at {time.perf_counter() - t_start:.1f} s")
+    for k, n in check_train(dev).items():
+        counts[k] += n
+    log(f"phase: train done at {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

@@ -1,14 +1,17 @@
 """Typed configuration of the ported train step.
 
 Counterpart of gd3d/core/config.py: the same dataclasses with the same field
-names and defaults. They are copied rather than imported because importing
-gd3d pulls in JAX. The mesh and eval sections of DistillConfig arrive with
-the parts of the port that read them.
+names and defaults, the named configs and the bundled YAML files
+(gd3d_torch/configs/*.yaml). They are copied rather than imported because
+importing gd3d pulls in JAX. The mesh and eval sections are kept for field
+parity; the port runs on one card and refuses the options that need more
+(gd3d_torch/cli/train.py).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Tuple
+import os
+from typing import Dict, List, Tuple
 
 import torch
 
@@ -109,8 +112,37 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """gd3d's device-mesh fields; the port reads none of them."""
+
+    data: int = -1
+    model: int = 1
+    sequence_parallel: bool = False
+    fsdp_teacher: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class EvalConfig:
+    """gd3d's eval-harness constants (the eval is not ported yet)."""
+
+    pck_img_size: int = 640
+    pck_alphas: Tuple[float, ...] = (0.10, 0.05, 0.15)
+    tracking_size: Tuple[int, int] = (476, 854)
+    tracking_stride: int = 8
+    tracking_num_videos: int = 30
+    anchor_cos_threshold: float = 0.7
+    cos_threshold: float = 0.6
+    argmax_radius: int = 35
+    pose_reproj_px: float = 8.0
+    pose_ransac_iters: int = 10000
+    pose_grid_stride: int = 4
+    pose_template_cap: int = 120_000
+    seed: int = 42
+
+
+@dataclasses.dataclass(frozen=True)
 class DistillConfig:
-    teacher: str = "mast3r"
+    teacher: str = "mast3r"  # mast3r | vggt | me
     dataset: str = "scannetpp"
     evaluation_methods: Tuple[str, ...] = (
         "semantic_transfer", "tracking", "pose",
@@ -119,6 +151,8 @@ class DistillConfig:
     loss_weights: LossWeights = dataclasses.field(default_factory=LossWeights)
     keypoints: KeypointConfig = dataclasses.field(default_factory=KeypointConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
+    eval: EvalConfig = dataclasses.field(default_factory=EvalConfig)
     teacher_dtype: str = "float32"
 
     @property
@@ -127,6 +161,25 @@ class DistillConfig:
 
     def replace(self, **kw) -> "DistillConfig":
         return dataclasses.replace(self, **kw)
+
+
+def me_objaverse() -> DistillConfig:
+    """finetune_timm_me_objaverse: LoRA on the last 4 blocks, no adapters,
+    the AP loss alone."""
+    return DistillConfig(
+        teacher="me",
+        dataset="objaverse",
+        student=StudentConfig(lora_start_block=8, use_adapters=False),
+        loss_weights=LossWeights(ap=1.0, depth=0.0, intra_depth=0.0, kl=0.0),
+    )
+
+
+def mast3r_scannetpp() -> DistillConfig:
+    return DistillConfig(teacher="mast3r", dataset="scannetpp")
+
+
+def mast3r_objaverse() -> DistillConfig:
+    return DistillConfig(teacher="mast3r", dataset="objaverse")
 
 
 def vggt_scannetpp() -> DistillConfig:
@@ -138,3 +191,82 @@ def vggt_scannetpp() -> DistillConfig:
         loss_weights=LossWeights(ap=1.0, depth=1.0, intra_depth=1.0, kl=1.0),
         teacher_dtype="bfloat16",
     )
+
+
+def vggt_objaverse() -> DistillConfig:
+    return vggt_scannetpp().replace(dataset="objaverse")
+
+
+NAMED_CONFIGS = {
+    "finetune_timm_me_objaverse": me_objaverse,
+    "finetune_timm_mast3r_scannetpp": mast3r_scannetpp,
+    "finetune_timm_mast3r_objaverse": mast3r_objaverse,
+    "finetune_timm_vggt_scannetpp": vggt_scannetpp,
+    "finetune_timm_vggt_objaverse": vggt_objaverse,
+}
+
+
+def _read_yaml_subset(path: str) -> Dict[str, object]:
+    """The YAML the bundled configs use: `key: scalar` lines and `key:`
+    followed by `  - item` lines, with # comments. Raises ValueError on any
+    other line, flow collections, anchors and block scalars included
+    (PyYAML is not a dependency of the port)."""
+    out: Dict[str, object] = {}
+    current: List[str] | None = None
+    with open(path) as f:
+        for lineno, raw in enumerate(f, 1):
+            line = raw.split(" #")[0].rstrip() if not raw.lstrip().startswith("#") else ""
+            if not line.strip():
+                continue
+            if line.startswith((" ", "\t")):
+                item = line.strip()
+                if current is None or not item.startswith("- "):
+                    raise ValueError(f"{path}:{lineno}: cannot read {raw.rstrip()!r}")
+                current.append(item[2:].strip().strip("'\""))
+                continue
+            key, sep, value = line.partition(":")
+            if not sep or not key.strip() or " " in key.strip():
+                raise ValueError(f"{path}:{lineno}: cannot read {raw.rstrip()!r}")
+            value = value.strip()
+            if value.startswith(("[", "{", "&", "*", "!", "|", ">")):
+                raise ValueError(f"{path}:{lineno}: cannot read {raw.rstrip()!r}")
+            if value:
+                out[key.strip()] = value.strip("'\"")
+                current = None
+            else:
+                current = []
+                out[key.strip()] = current
+    return out
+
+
+def load_yaml_config(path: str) -> DistillConfig:
+    """One of the bundled YAMLs (the reference's config/*.yaml): `matcher`
+    and `dataset` select the NAMED_CONFIGS factory, which supplies every
+    other hyper-parameter, and `evaluation_methods` overrides its list."""
+    raw = _read_yaml_subset(path)
+    matcher = raw.get("matcher", "mast3r")
+    dataset = raw.get("dataset", "scannetpp")
+    name = f"finetune_timm_{matcher}_{dataset}"
+    if name not in NAMED_CONFIGS:
+        raise ValueError(
+            f"{path}: no named config for matcher={matcher!r} "
+            f"dataset={dataset!r} (expected one of {sorted(NAMED_CONFIGS)})")
+    cfg = NAMED_CONFIGS[name]()
+    methods = raw.get("evaluation_methods")
+    if methods is not None:
+        if isinstance(methods, str):
+            raise ValueError(f"{path}: evaluation_methods must be a list")
+        cfg = cfg.replace(evaluation_methods=tuple(methods))
+    return cfg
+
+
+def resolve_config(name_or_path: str) -> DistillConfig:
+    """A NAMED_CONFIGS key, a bundled config name
+    (gd3d_torch/configs/<name>.yaml) or an explicit .yaml path."""
+    if name_or_path.endswith((".yaml", ".yml")):
+        return load_yaml_config(name_or_path)
+    bundled = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                           "configs", f"{name_or_path}.yaml")
+    if os.path.exists(bundled):
+        return load_yaml_config(bundled)
+    return NAMED_CONFIGS[name_or_path]()

@@ -6,10 +6,13 @@ pts3d); reciprocal-NN keypoints with border/confidence filtering; depth
 maps rasterized from the teacher point cloud and post-processed; one fused
 student forward over both views plus a cost pass; four losses (smooth-AP, depth L1, intra-depth ranking,
 cost-volume KL through K3); then clip + AdamW on the trainable parameters.
-Attention runs through K1/K2 in both the teacher and the student.
+Attention runs through K1/K2 in both the teacher and the student. On the
+objaverse path (has_depth=True) the depth maps come from the batch instead
+of the teacher's point cloud.
 
-gd3d's lax.scan multistep (build_mast3r_train_multistep) is not ported:
-CUDA graphs take its place in a later revision.
+build_mast3r_train_multistep runs K steps over a (K, ...) batch stack, the
+semantics of gd3d's lax.scan trainer: one step after another, the metrics
+stacked to (K,) on the device.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ from typing import Callable, Dict, Tuple
 import torch
 
 from gd3d_torch.core.config import DistillConfig
+from gd3d_torch.distill.group import stack_metrics, unstack
 from gd3d_torch.distill.keypoints import filter_and_match_keypoints
 from gd3d_torch.distill.train_state import ClippedAdamW
 from gd3d_torch.kernels.cost_kl import masked_softmax_kl_rows
@@ -40,11 +44,10 @@ def mast3r_distill_loss(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Loss for a batch of B pairs. Batch keys (NHWC float32): rgb_1/rgb_2
     (B, Hr, Wr, 3) in [0, 1]; rgb_mast3r_1/2 (B, H, W, 3) in [-1, 1] with
-    W >= H; intrinsic (B, 3, 3). Only the ScanNet++ path (has_depth=False,
-    depth rasterized from the teacher) is ported; the objaverse path with
-    batch depth maps arrives with its data loader."""
-    if has_depth:
-        raise NotImplementedError("has_depth=True (batch depth maps) is not ported yet")
+    W >= H; intrinsic (B, 3, 3); with has_depth (objaverse) also depth_1/2
+    (B, Hd, Wd), bilinear-resized to (H, W) when their size differs.
+    Without it (ScanNet++) the depth maps are rasterized from the teacher's
+    point clouds."""
     kcfg = cfg.keypoints
     ps = cfg.student.patch_size
     B, H, W, _ = batch["rgb_mast3r_1"].shape
@@ -66,15 +69,20 @@ def mast3r_distill_loss(
     rgb_resized = torch.cat([resize_bilinear(batch["rgb_1"], (H, W)),
                              resize_bilinear(batch["rgb_2"], (H, W))], dim=0)
 
-    # depth maps rasterized from the teacher's point clouds
-    def raster(pts3d, K):
-        return post_process_depth(
-            point_cloud_to_depth(pts3d.reshape(-1, 3), K, W, H), kernel_size=3)
+    if has_depth:
+        depth_1, depth_2 = batch["depth_1"], batch["depth_2"]
+        if tuple(depth_1.shape[-2:]) != (H, W):
+            depth_1 = resize_bilinear(depth_1[..., None], (H, W))[..., 0]
+            depth_2 = resize_bilinear(depth_2[..., None], (H, W))[..., 0]
+    else:  # depth maps rasterized from the teacher's point clouds
+        def raster(pts3d, K):
+            return post_process_depth(
+                point_cloud_to_depth(pts3d.reshape(-1, 3), K, W, H), kernel_size=3)
 
-    depth_1 = torch.stack([raster(feats["pts3d_1"][b], batch["intrinsic"][b])
-                           for b in range(B)])
-    depth_2 = torch.stack([raster(feats["pts3d_2"][b], batch["intrinsic"][b])
-                           for b in range(B)])
+        depth_1 = torch.stack([raster(feats["pts3d_1"][b], batch["intrinsic"][b])
+                               for b in range(B)])
+        depth_2 = torch.stack([raster(feats["pts3d_2"][b], batch["intrinsic"][b])
+                               for b in range(B)])
 
     # 3. depth losses: one student forward over both views
     desc_all, kp_feat_all = student.get_feature_and_intermediates(
@@ -151,8 +159,7 @@ def build_mast3r_train_step(
     """Put the student and the teacher on `device` (the card unless the
     caller asks for another), and return step(batch, temperature) ->
     detached metrics, which updates the student's trainable parameters in
-    place; the temperature is a runtime scalar. has_depth=True raises (see
-    mast3r_distill_loss)."""
+    place; the temperature is a runtime scalar."""
     device = torch.device(device)
     student.to(device)
     teacher.to(device)
@@ -166,6 +173,25 @@ def build_mast3r_train_step(
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def build_mast3r_train_multistep(
+    student: Student,
+    teacher: Mast3rTeacher,
+    cfg: DistillConfig,
+    optimizer: ClippedAdamW,
+    has_depth: bool,
+    device="cuda",
+) -> Callable[[Dict[str, torch.Tensor], float], Dict[str, torch.Tensor]]:
+    """K optimizer steps over a (K, B, ...) batch stack:
+    group(batches, temperature) -> metrics stacked to (K,), equal to K
+    calls of the single step (gd3d's lax.scan over build_mast3r_train_step)."""
+    step = build_mast3r_train_step(student, teacher, cfg, optimizer, has_depth, device)
+
+    def multi_step(batches, temperature):
+        return stack_metrics([step(b, temperature) for b in unstack(batches)])
+
+    return multi_step
 
 
 def temperature_schedule(cfg: DistillConfig, epoch: int) -> float:

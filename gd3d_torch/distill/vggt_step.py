@@ -11,8 +11,9 @@ through K4, cost-volume KL through K3, smooth-AP with the VGGT module's
 legacy rpos1), then clip + AdamW on the trainable parameters. Attention
 runs through K1 (and K2 in the student's backward), RoPE through K5.
 
-gd3d's lax.scan multistep (build_vggt_train_multistep) is not ported, as
-for MASt3R.
+build_vggt_train_multistep runs K steps over a (K, ...) batch stack, as
+build_mast3r_train_multistep does; the NMS draws come from the one
+generator in the order K single steps draw them.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from gd3d_torch.core.config import DistillConfig
+from gd3d_torch.distill.group import stack_metrics, unstack
 from gd3d_torch.distill.train_state import ClippedAdamW
 from gd3d_torch.kernels.cost_kl import masked_softmax_kl_rows
 from gd3d_torch.models.student import Student, resize_bilinear
@@ -136,17 +138,17 @@ def build_vggt_train_step(
     cfg: DistillConfig,
     optimizer: ClippedAdamW,
     device="cuda",
+    generator: Optional[torch.Generator] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Put the student and the teacher on `device` (the card unless the
     caller asks for another), and return
     step(batch, temperature, priority=None) -> detached metrics, which
     updates the trainable parameters in place. Without a priority the NMS
-    tie-break draws from a torch.Generator on `device` seeded with
-    cfg.train.seed."""
+    tie-break draws from `generator`, or from a torch.Generator on `device`
+    seeded with cfg.train.seed when none is given."""
     device = torch.device(device)
     student.to(device)
     teacher.to(device)
-    generator = None
 
     def train_step(batch, temperature, priority=None):
         nonlocal generator
@@ -160,3 +162,25 @@ def build_vggt_train_step(
         return {k: v.detach() for k, v in metrics.items()}
 
     return train_step
+
+
+def build_vggt_train_multistep(
+    student: Student,
+    teacher: VggtTeacher,
+    cfg: DistillConfig,
+    optimizer: ClippedAdamW,
+    device="cuda",
+    generator: Optional[torch.Generator] = None,
+) -> Callable[..., Dict[str, torch.Tensor]]:
+    """K optimizer steps over a (K, B, ...) batch stack:
+    group(batches, temperature, priorities=None) -> metrics stacked to (K,),
+    equal to K calls of the single step; priorities (K, B, H*W) or None (the
+    draws then come from the generator, step after step)."""
+    step = build_vggt_train_step(student, teacher, cfg, optimizer, device, generator)
+
+    def multi_step(batches, temperature, priorities=None):
+        return stack_metrics([
+            step(b, temperature, None if priorities is None else priorities[i])
+            for i, b in enumerate(unstack(batches))])
+
+    return multi_step

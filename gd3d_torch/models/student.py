@@ -59,13 +59,17 @@ def target_grid(h: int, w: int, target_res: int, downsample: int) -> Tuple[int, 
 
 class Student(nn.Module):
     """ViT + refine conv (gd3d's RefineConv: a 3x3 same-padding conv on NHWC
-    features) + depth-difference head."""
+    features) + depth-difference head. me_interp_quirk: the ME baseline's
+    get_feature samples its keypoints with DINO-era 14-px patch constants
+    (the reference's finetune_timm_me keeps them; gd3d's flag of the same
+    name)."""
 
-    def __init__(self, cfg: StudentConfig):
+    def __init__(self, cfg: StudentConfig, me_interp_quirk: bool = False):
         super().__init__()
         if cfg.remat or cfg.bf16_stream:
             raise NotImplementedError("remat and bf16_stream are not ported yet")
         self.cfg = cfg
+        self.me_interp_quirk = me_interp_quirk
         C = cfg.embed_dim
         self.vit = ViT(cfg)
         self.refine_conv = nn.Conv2d(C, C, 3, padding=1)
@@ -104,11 +108,32 @@ class Student(nn.Module):
                               device=pts.device)
         return resized, ph, pw, pts * factor
 
-    def _interp(self, grid_nhwc, pts, ph, pw):
-        ps = self.cfg.patch_size
+    def _interp(self, grid_nhwc, pts, ph, pw, quirk: bool | None = None):
+        """Sample the (B, ph, pw, C) grid at pts; the descriptor branches
+        take the ME quirk when the student has it, the intermediate-feature
+        branch never (quirk=False), as in gd3d."""
+        quirk = self.me_interp_quirk if quirk is None else quirk
+        ps = 14 if quirk else self.cfg.patch_size
         feat = interpolate_features(grid_nhwc.permute(0, 3, 1, 2), pts, h=ph * ps,
                                     w=pw * ps, patch_size=ps)
         return feat.transpose(1, 2)  # (B, N, C)
+
+    def get_feature(self, rgbs: torch.Tensor, pts: torch.Tensor, normalize: bool = True,
+                    global_feature: bool = False):
+        """Per-keypoint descriptors after the refine conv: rgbs (B, H, W, 3)
+        in [0, 1], pts (B, N, 2) as (x, y) input pixels. Returns (B, N, C),
+        L2-normalized when `normalize`, and with global_feature also the
+        final class token (B, C)."""
+        resized, ph, pw, pts_s = self._resize_for_target(rgbs, pts)
+        tokens = self.forward_tokens(normalize_img(resized))["tokens"]
+        npfx = self.cfg.num_prefix_tokens
+        grid = self.apply_refine(tokens[:, npfx:].reshape(-1, ph, pw, self.cfg.embed_dim))
+        feat = self._interp(grid, pts_s, ph, pw)
+        if normalize:
+            feat = l2_normalize(feat, axis=-1)
+        if global_feature:
+            return feat, tokens[:, 0]
+        return feat
 
     def get_feature_cost(self, rgbs: torch.Tensor) -> torch.Tensor:
         """Mean of the raw intermediate layers [4, 5, 6, 7] as a
@@ -150,7 +175,7 @@ class Student(nn.Module):
         desc = l2_normalize(self._interp(grid, pts_s, ph, pw), axis=-1)
         feats = [
             self._interp(self.apply_norm(t)[:, npfx:].reshape(-1, ph, pw, C),
-                         pts_s, ph, pw)
+                         pts_s, ph, pw, quirk=False)
             for t in out["intermediates"]
         ]
         return desc, torch.stack(feats, 0).mean(0)

@@ -1,0 +1,142 @@
+"""The port's training CLI on the CPU at --tiny sizes (gd3d's --tiny
+overrides) with synthetic data, driven in-process through
+gd3d_torch.cli.train.main:
+
+- each of the five named configs trains and writes gd3d's metrics.jsonl
+  record keys, the adapter checkpoint and the restart state;
+- --multistep 4 over 5 steps rounds the epoch up and logs steps 0-7;
+- two epochs straight equal one epoch plus --resume, exactly (every
+  logged number but the timings);
+- --student-ckpt and --teacher-ckpt load upstream-layout state dicts that
+  the test writes (only LoRA and adapter keys may be missing);
+- every flag the port does not bring raises at start, as do --device cuda
+  without a card and an eval epoch whose data exist.
+"""
+import json
+
+import pytest
+import torch
+
+from gd3d_torch.cli import train
+from gd3d_torch.core.config import NAMED_CONFIGS
+
+TEACHER_KEYS = {"loss", "ap_loss", "depth_loss", "intra_depth_loss", "kl_loss", "num_kps"}
+ME_KEYS = {"loss", "ap_pos_overflow"}
+
+
+def _main(tmp_path, *argv, name="run"):
+    out = tmp_path / name
+    run = train.main(["--tiny", "--synthetic", "--device", "cpu", "--output", str(out), *argv])
+    records = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    return run, out, records
+
+
+@pytest.mark.parametrize("config", sorted(NAMED_CONFIGS))
+def test_each_config_trains_and_writes_gd3ds_records(tmp_path, config):
+    run, out, records = _main(tmp_path, "--config", config, "--epochs", "1",
+                              "--steps-per-epoch", "2")
+    keys = ME_KEYS if "_me_" in config else TEACHER_KEYS
+    steps = [r for r in records if "step" in r]
+    epochs = [r for r in records if "step" not in r]
+    assert [r["step"] for r in steps] == [0, 1]
+    for r in steps:
+        assert set(r) == keys | {"epoch", "step", "time_s", "temperature"}
+        assert all(isinstance(v, (int, float)) for v in r.values())
+        assert r["temperature"] == 1.0 and r["epoch"] == 0
+    assert len(epochs) == 1
+    assert set(epochs[0]) == {f"epoch/{k}" for k in keys} | {
+        "epoch", "epoch/host_wait_s", "epoch/wall_s"}
+    assert (out / "ckpt_epoch_0001").exists() and (out / "last").exists()
+    assert run.optimizer.calls == 2
+
+
+def test_multistep_rounds_the_epoch_up(tmp_path):
+    run, _, records = _main(tmp_path, "--config", "finetune_timm_mast3r_objaverse",
+                            "--epochs", "1", "--steps-per-epoch", "5", "--multistep", "4")
+    assert [r["step"] for r in records if "step" in r] == list(range(8))
+    assert run.K == 4 and run.optimizer.calls == 8
+
+
+@pytest.mark.parametrize("config", ["finetune_timm_me_objaverse",
+                                    "finetune_timm_vggt_scannetpp"])
+def test_resume_equals_the_straight_run(tmp_path, config):
+    common = ["--config", config, "--steps-per-epoch", "2"]
+    _, _, straight = _main(tmp_path, *common, "--epochs", "2", name="straight")
+    _, first, _ = _main(tmp_path, *common, "--epochs", "1", name="split")
+    run, _, resumed = _main(tmp_path, *common, "--epochs", "2", "--resume",
+                            str(first / "last"), name="split")
+    assert run.start_epoch == 1
+
+    def numbers(records):
+        return [{k: v for k, v in r.items() if k not in ("time_s", "epoch/host_wait_s",
+                                                          "epoch/wall_s")} for r in records]
+
+    assert len(straight) == len(resumed) == 6
+    assert numbers(straight) == numbers(resumed)
+    assert [r["temperature"] for r in resumed if "step" in r] == [1.0, 1.0, 0.75, 0.75]
+
+
+def test_upstream_checkpoints_load(tmp_path):
+    """A timm-layout student file (no LoRA keys, an extra classifier head)
+    and a MASt3R file nested under 'model', written by the test from the
+    port's own modules, load as they are."""
+    run, _, _ = _main(tmp_path, "--config", "finetune_timm_mast3r_scannetpp", "--epochs", "1",
+                      "--steps-per-epoch", "1", name="source")
+    g = torch.Generator().manual_seed(3)
+    vit = {k: torch.randn(v.shape, generator=g) for k, v in run.student.vit.state_dict().items()
+           if ".lora_" not in k}
+    vit["head.weight"] = torch.zeros(10, 32)
+    teacher = {k: torch.randn(v.shape, generator=g) * 0.05
+               for k, v in run.teacher.model.state_dict().items()}
+    torch.save(vit, tmp_path / "timm.pth")
+    torch.save({"model": teacher}, tmp_path / "mast3r.pth")
+    loaded = train.setup(train.parse_args([
+        "--tiny", "--synthetic", "--device", "cpu", "--output", str(tmp_path / "loaded"),
+        "--config", "finetune_timm_mast3r_scannetpp", "--student-ckpt",
+        str(tmp_path / "timm.pth"), "--teacher-ckpt", str(tmp_path / "mast3r.pth")]))
+    for k, v in loaded.student.vit.state_dict().items():
+        if ".lora_" not in k:
+            assert torch.equal(v, vit[k]), k
+    for k, v in loaded.teacher.model.state_dict().items():
+        assert torch.equal(v, teacher[k]), k
+    del vit["blocks.0.attn.qkv.weight"]
+    torch.save(vit, tmp_path / "short.pth")
+    with pytest.raises(KeyError, match="blocks.0.attn.qkv.weight"):
+        train.setup(train.parse_args([
+            "--tiny", "--synthetic", "--device", "cpu", "--output", str(tmp_path / "x"),
+            "--student-ckpt", str(tmp_path / "short.pth")]))
+
+
+@pytest.mark.parametrize("flags,error,match", [
+    (["--workers", "2"], NotImplementedError, "grain"),
+    (["--tensorboard"], NotImplementedError, "TensorFlow"),
+    (["--fsdp-teacher"], NotImplementedError, "multi-GPU"),
+    (["--multihost"], NotImplementedError, "multi-GPU"),
+])
+def test_refused_flags_raise(tmp_path, flags, error, match):
+    with pytest.raises(error, match=match):
+        train.main(["--tiny", "--synthetic", "--device", "cpu", "--output",
+                    str(tmp_path / "r"), *flags])
+    assert not (tmp_path / "r").exists()  # refused before any work
+
+
+def test_real_data_and_missing_card_raise(tmp_path):
+    (tmp_path / "data").mkdir()
+    with pytest.raises(NotImplementedError, match="--synthetic or --dev"):
+        train.main(["--tiny", "--device", "cpu", "--data-root", str(tmp_path / "data"),
+                    "--output", str(tmp_path / "r")])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="sees none"):
+            train.main(["--tiny", "--synthetic", "--output", str(tmp_path / "r")])
+
+
+def test_eval_epoch_raises_where_its_data_exist(tmp_path):
+    root = tmp_path / "evaldata"
+    root.mkdir()
+    _, _, records = _main(tmp_path, "--epochs", "1", "--steps-per-epoch", "1",
+                          "--eval-every", "1", "--data-root", str(root), "--debug-nans")
+    assert all("eval" not in k for r in records for k in r)  # no data: no summary
+    (root / "PF-dataset-PASCAL").mkdir()
+    with pytest.raises(NotImplementedError, match="semantic_transfer"):
+        _main(tmp_path, "--epochs", "1", "--steps-per-epoch", "1", "--eval-every", "1",
+              "--data-root", str(root), name="with_data")
