@@ -73,10 +73,29 @@ report), then runs these phases in order, one or more printed lines each:
               teacher ones, and its kernel launches (counts set to 0 after
               the run's set-up, before its first step): fp32 K1 and K2 at
               the students' lengths, and every kernel on the teacher paths;
-              then profiles one more group of each run's step, as phase 3.
+              then profiles one more group of each run's step, as phase 3;
+  6. eval     (a) the JPEG decoder and the Lanczos resize on the committed
+              fixtures (gd3d_torch/eval/testdata/) against PIL's SHA-256
+              digests, with host ms per decode and resize, and the
+              progressive fixture refused; (b) the fp32 K1 at the eval's
+              shapes, (8,1601,12,64) and (4,5986,12,64), in the kernels
+              phase's format; (c) the card against the CPU plain path on
+              shared weights: dense_grid_features at stride 8 on a 464x848
+              frame and at stride 16 on a 640^2 canvas (TOL), and
+              infer_tracks on identical features (TRACK_PX, TRACK_SHARE);
+              (d) the evaluation entry point, gd3d_torch.cli.evaluate.main,
+              in this process at full width (ViT-B/16 fp32 student, seeded
+              weights, refine conv): --transfer and --tracking on fabricated
+              PF-PASCAL (2 categories x 8 pairs) and DAVIS (2 videos x 12
+              frames, the fixtures' known shifts as ground truth) trees;
+              gd3d's CSV headers, finite values, exactly 24 K1 launches at N
+              = 1601 a batch of 8 pairs and 12 at N = 5986 a batch of 4
+              frames (counts set to 0 just before the run); pairs/s,
+              frames/s, the decode share of each wall, peak memory; then one
+              tracking feature batch under the profiler.
 
-Then one JSON line of the kernels (launches: the steps and train phases'
-runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
+Then one JSON line of the kernels (launches: the steps, train and eval
+phases' runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The kernels and agree phases compare fp32 results too, so they
 run without TF32; the steps run with PyTorch's defaults (the teachers turn TF32
 off themselves).
@@ -701,13 +720,19 @@ def run_steps(name, setup, dev, n_steps: int, check_teacher=None, expect=()) -> 
 def profile_step(name, step, batch) -> None:
     """Device time by kernel over one step, and the device's idle share of
     the step's wall time."""
+    profile_call(name, lambda: step(batch, 1.0), "step")
+
+
+def profile_call(name, fn, what: str) -> None:
+    """profile_step for any call: device time by kernel over one call of
+    `fn`, and the device's idle share of its wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step(batch, 1.0)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     # device-side rows only: a host op's device time repeats its kernels'
@@ -725,7 +750,7 @@ def profile_step(name, step, batch) -> None:
             end = b
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
-    log(f"profile: {name} step wall {wall_ms:.2f} ms, kernel time {total:.2f} ms, device "
+    log(f"profile: {name} {what} wall {wall_ms:.2f} ms, kernel time {total:.2f} ms, device "
         f"busy {covered / 1e3:.2f} ms, idle share {1 - covered / 1e3 / wall_ms:.3f}")
     # the 20 longest, and every hand-written kernel (namespace gd3d) after them
     for i, (kname, ms, count) in enumerate(rows):
@@ -1056,6 +1081,373 @@ def check_train(dev) -> dict:
     return total
 
 
+# The eval phase. The CSV headers that gd3d's DataFrame.to_csv writes for its
+# two tables (gd3d/eval/pck.py::semantic_transfer, gd3d/eval/tracking.py::tracking)
+PCK_HEADER = ["categories", "PCK0.05", "PCK0.10", "PCK0.15", "Weighted PCK0.05",
+              "Weighted PCK0.10", "Weighted PCK0.15"]
+TRACKING_HEADER = (["video_idx", "occlusion_accuracy"]
+                   + [f"{m}_{t}" for t in (1, 2, 4, 8, 16) for m in ("pts_within", "jaccard")]
+                   + ["average_jaccard", "average_pts_within_thresh"])
+# Card against CPU, eval features: the fp32 tolerance of the kernels,
+# TOL["float32"] * max(1, max |feature|), after 12 ViT-B blocks whose fp32 sums
+# run in another order (cuBLAS against the CPU's GEMMs, K1 against its twin).
+# The tracker on identical features, card against CPU: a soft argmax is a
+# weighted mean over 5985 patch centres (x < 848); fp32 sums in another order
+# move it by ~1e-3 px, and a near-tie of the hard argmax (a different
+# radius-35 mask) by pixels. At least TRACK_SHARE of the points within
+# TRACK_PX, and at most 1 - TRACK_SHARE of the occlusion flags differing.
+TRACK_PX, TRACK_SHARE = 0.01, 0.99
+
+
+def testdata_dir():
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / "gd3d_torch" / "eval" / "testdata"
+
+
+def check_codec() -> dict:
+    """The committed JPEG fixtures decoded by gd3d_torch/data/jpeg.py and
+    resized by gd3d_torch/data/resample.py, to the SHA-256 digests PIL gave
+    (testdata/digests.json, written and checked by tests/test_torch_jpeg.py);
+    the progressive file refused. Returns the decoded images by name."""
+    import hashlib
+    import statistics
+
+    import numpy as np
+
+    from gd3d_torch.data.jpeg import decode_jpeg
+    from gd3d_torch.data.resample import resize_lanczos
+
+    def sha(a):
+        return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+    root = testdata_dir()
+    digests = json.loads((root / "digests.json").read_text())["files"]
+    images, ok = {}, True
+    decode_ms, resize_ms = {}, {}
+    for name, entry in sorted(digests.items()):
+        t0 = time.perf_counter()
+        img = decode_jpeg(root / name)
+        decode_ms[name] = (time.perf_counter() - t0) * 1e3
+        same = list(img.shape) == entry["shape"] and sha(img) == entry["rgb"]
+        for size, digest in entry["lanczos"].items():
+            w, h = map(int, size.split("x"))
+            t0 = time.perf_counter()
+            out = resize_lanczos(img, (w, h))
+            resize_ms[f"{name} -> {size}"] = (time.perf_counter() - t0) * 1e3
+            same &= sha(out) == digest
+        log(f"eval: codec {name} {img.shape[1]}x{img.shape[0]} decode and Lanczos "
+            f"{list(entry['lanczos'])} equal PIL's digests {same} {'OK' if same else 'FAIL'}")
+        ok &= same
+        images[name] = img
+    try:
+        decode_jpeg(root / "progressive.jpg")
+        refused = False
+    except ValueError as e:
+        refused = "progressive" in str(e)
+    log(f"eval: codec progressive.jpg refused with a ValueError {refused} "
+        f"{'OK' if refused else 'FAIL'}")
+    frames = [v for k, v in decode_ms.items() if k.startswith("frame_")]
+    frame_resize = [v for k, v in resize_ms.items() if k.startswith("frame_")]
+    pascal_resize = [v for k, v in resize_ms.items() if k.startswith("pascal_")]
+    log(f"eval: codec host ms per 854x480 4:2:0 decode (median of {len(frames)}) "
+        f"{statistics.median(frames):.1f}; per 500x375 decode "
+        f"{statistics.median(v for k, v in decode_ms.items() if k.startswith('pascal_')):.1f}; "
+        f"per Lanczos 854x480 -> 848x464 {statistics.median(frame_resize):.1f}; per "
+        f"500x375 -> 640x480 {statistics.median(pascal_resize):.1f}")
+    if not (ok and refused):
+        raise AssertionError("eval: the JPEG decoder or the Lanczos resize disagrees with PIL")
+    return images
+
+
+def check_eval_kernels(dev) -> None:
+    """K1 (fp32) at the eval's two shapes against its plain twin, in the
+    kernels phase's format: the PCK batch (8 canvases of 640^2, 1 + 40^2
+    tokens) and the tracking batch (4 frames of 464x848 at stride 8, 1 + 57 *
+    105 tokens)."""
+    import torch
+    import torch.nn.functional as F
+
+    from gd3d_torch.kernels.flash_fwd import flash_attention_fwd, flash_attention_fwd_plain
+
+    g = torch.Generator(device=dev).manual_seed(4321)
+    rep = KernelReport()
+    for where, B, N in (("PCK canvas batch", 8, 1601), ("tracking frame batch", 4, 5986)):
+        H, D = 12, 64
+        qkv = torch.randn((B, N, 3, H, D), generator=g, device=dev)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        scale = D ** -0.5
+        o, lse = flash_attention_fwd(q, k, v, scale)
+        o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
+        rep.check("K1", f"eval {where} B={B} N={N} H={H} D={D} float32",
+                  [("o", o, o_ref, "float32"), ("lse", lse, lse_ref, "float32")],
+                  lambda: flash_attention_fwd(q, k, v, scale),
+                  lambda: flash_attention_fwd_plain(q, k, v, scale),
+                  nbytes=4 * B * N * H * D * 4 + B * H * N * 4, ops=4.0 * B * H * N * N * D,
+                  dtype="float32", iters=10,
+                  run_library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
+        del qkv, q, k, v, o, o_ref, lse, lse_ref
+    if not rep.ok:
+        raise AssertionError("eval: K1 disagrees with its plain twin at an eval shape")
+
+
+def eval_student(dev):
+    """The full-width ViT-B/16 student in fp32 with the CLI's seeded
+    weights, as gd3d_torch.cli.evaluate builds it for the default matcher."""
+    from gd3d_torch.cli import evaluate
+
+    return evaluate.build_student(evaluate.parse_args(["--device", str(dev)]), dev)
+
+
+def check_eval_agreement(dev, images) -> None:
+    """Card against CPU plain path on shared weights: dense_grid_features at
+    stride 8 on a 464x848 frame and at stride 16 on a 640^2 canvas; then
+    infer_tracks on identical features (the four fixture frames' features
+    from the card, copied to the CPU) with strided queries."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gd3d_torch.data.resample import resize_lanczos
+    from gd3d_torch.eval.images import resize_to_canvas
+    from gd3d_torch.eval.tracker import TrackerConfig, infer_tracks
+    from gd3d_torch.eval.tracking import video_features
+    from gd3d_torch.teachers.mast3r import no_tf32
+
+    student = eval_student(dev)
+    cpu_student = copy.deepcopy(student).cpu()
+    frames = np.stack([resize_lanczos(images[f"frame_{i}.jpg"], (848, 464)) for i in range(4)])
+    canvas = resize_to_canvas(images["pascal_444.jpg"], 640)
+    ok = True
+    with no_tf32(), torch.no_grad():
+        for what, img, stride in (("464x848 frame, stride 8", frames[0], 8),
+                                  ("640^2 canvas, stride 16", canvas, 16)):
+            x = torch.from_numpy(img[None]).float() / 255.0
+            t0 = time.perf_counter()
+            want = cpu_student.dense_grid_features(x, stride=stride)
+            cpu_s = time.perf_counter() - t0
+            got = student.dense_grid_features(x.to(dev), stride=stride).cpu()
+            err, mag = max_err(got, want)
+            tol = TOL["float32"] * max(1.0, mag)
+            line_ok = got.shape == want.shape and err <= tol
+            ok &= line_ok
+            log(f"eval: agree dense_grid_features {what} {tuple(got.shape)}: max err "
+                f"{err:.3e} of max {mag:.3e} (tol {tol:.1e}; CPU {cpu_s:.1f} s) "
+                f"{'OK' if line_ok else 'FAIL'}")
+        feats = video_features(student, frames)
+        cfg = TrackerConfig()
+        ys, xs = np.meshgrid(np.arange(40, 440, 80), np.arange(40, 820, 130), indexing="ij")
+        q = np.stack([xs.ravel(), ys.ravel(), (np.arange(xs.size) % 2) * 2],
+                     1).astype(np.float32)  # queries in frames 0 and 2
+        q_t = torch.from_numpy(q)
+        t_gpu, o_gpu = infer_tracks(feats, q_t, cfg)
+        t_cpu, o_cpu = infer_tracks(feats.cpu(), q_t, cfg)
+    diff = (t_gpu.cpu() - t_cpu).abs().amax(-1)
+    within = float((diff <= TRACK_PX).float().mean())
+    flips = int((o_gpu.cpu() != o_cpu).sum())
+    track_ok = within >= TRACK_SHARE and flips <= (1 - TRACK_SHARE) * o_cpu.numel()
+    log(f"eval: agree infer_tracks on the card's features of 4 frames, {len(q)} queries: "
+        f"max coordinate difference {float(diff.max()):.3e} px, median "
+        f"{float(diff.median()):.3e} px, {within:.4f} of the points within {TRACK_PX:g} px "
+        f"(want >= {TRACK_SHARE}); occlusion flags differing {flips} of {o_cpu.numel()} "
+        f"(occluded on the CPU {int(o_cpu.sum())}) {'OK' if track_ok else 'FAIL'}")
+    if not (ok and track_ok):
+        raise AssertionError("eval: the card disagrees with the CPU plain path")
+
+
+# The DAVIS tree's videos: (frames, query points a query frame as a grid of
+# cols x rows, query frames every QUERY_STRIDE-th). Videos 0 and 1 are short;
+# video 2 has a real DAVIS video's length (~70 frames) and strided queries
+# every 5th frame as TAP-Vid's strided mode samples them, so its (T, T)
+# anchor maps outgrow MAP_BYTES and the tracker runs them in chunks.
+EVAL_VIDEOS = ((12, (4, 3)), (12, (4, 3)), (70, (6, 4)))
+QUERY_STRIDE = 5
+
+
+def write_eval_trees(root, images_dir):
+    """A PF-PASCAL tree (the five 500x375 fixtures; 2 categories x 8 pairs
+    with 10 keypoints each, in the vendored CSV format) and a DAVIS tree
+    (the EVAL_VIDEOS, cycling through the four shifted fixture frames,
+    forwards in videos 0 and 2, backwards in video 1; a strided benchmark
+    pkl whose ground truth is the frames' known shifts)."""
+    import pickle
+    import shutil
+
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    pdir = root / "PF-dataset-PASCAL" / "JPEGImages"
+    pdir.mkdir(parents=True)
+    names = sorted(p.name for p in images_dir.glob("pascal_*.jpg"))
+    for n in names:
+        shutil.copy(images_dir / n, pdir / n)
+
+    def coords():
+        return (";".join(f"{v:.6f}" for v in rng.uniform(5, 495, 10)),
+                ";".join(f"{v:.6f}" for v in rng.uniform(5, 370, 10)))
+
+    rows = []
+    for cls in (1, 2):  # aeroplane, bicycle: PASCAL_CATEGORIES[:2]
+        for i in range(8):
+            a, b = names[i % len(names)], names[(i + 1 + cls) % len(names)]
+            rows.append([f"PF-dataset-PASCAL/JPEGImages/{a}", f"PF-dataset-PASCAL/JPEGImages/{b}",
+                         str(cls), *coords(), *coords()])
+    lines = ["source_image,target_image,class,XA,YA,XB,YB"] + [",".join(r) for r in rows]
+    for view in ("same", "different"):
+        (root / "PF-dataset-PASCAL" / f"test_pairs_pf_{view}_views.csv").write_text(
+            "\n".join(lines) + "\n")
+
+    shifts = json.loads((images_dir / "digests.json").read_text())["frame_shifts"]
+    videos = []
+    for vid, (T, (cols, rows)) in enumerate(EVAL_VIDEOS):
+        order = [3 - t % 4 if vid == 1 else t % 4 for t in range(T)]
+        vdir = root / "davis_480" / str(vid) / "video"
+        vdir.mkdir(parents=True)
+        for t, f in enumerate(order):
+            shutil.copy(images_dir / f"frame_{f}.jpg", vdir / f"{t:05d}.jpg")
+        pts = np.stack(np.meshgrid(np.linspace(100, 750, cols), np.linspace(80, 400, rows)),
+                       -1).reshape(-1, 2)
+        qp, tp, occ = {}, {}, {}
+        for qf in range(0, T, QUERY_STRIDE):
+            s_q = np.asarray(shifts[order[qf]], np.float64)
+            qp[qf] = pts.tolist()
+            tp[qf] = np.stack([pts + s_q - np.asarray(shifts[order[t]]) for t in range(T)], 1)
+            occ[qf] = np.zeros((len(pts), T), bool)
+        videos.append({"video_idx": vid, "h": 480, "w": 854, "query_points": qp,
+                       "target_points": tp, "occluded": occ})
+    with open(root / "tapvid_davis_data_strided.pkl", "wb") as f:
+        pickle.dump({"videos": videos}, f)
+
+
+def check_eval_cli(dev) -> dict:
+    """gd3d_torch.cli.evaluate.main in this process, on the card, at full
+    width (the ViT-B/16 fp32 student, seeded weights, refine conv): --transfer
+    and --tracking on the fabricated trees. Counts set to 0 just before the
+    run and read just after: 24 fp32 K1 launches at N = 1601 a batch of 8
+    pairs and 12 at N = 5986 a batch of 4 frames, and no other launch; the
+    anchor stage's chunks counted as they run, equal to what MAP_BYTES
+    gives, more than one a query frame in the 70-frame video. Then one
+    70-frame video's tracking_single under the profiler. Returns the run's
+    launches."""
+    import csv as csvlib
+    import math
+    import pickle
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from gd3d_torch.cli import evaluate
+    from gd3d_torch.eval import tracker
+    from gd3d_torch.eval.images import eval_workers, make_pool
+    from gd3d_torch.eval.tracking import tracking_single
+    from gd3d_torch.kernels import launch_counts, launch_counts_by, reset_launch_counts
+
+    anchor_chunks = []  # queries in each chunk of anchor maps, (n, T, T, gh, gw)
+    soft_argmax = tracker._soft_argmax_batch
+
+    def counted_soft_argmax(corr, cfg):
+        if corr.dim() == 5:
+            anchor_chunks.append(corr.shape[0])
+        return soft_argmax(corr, cfg)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        write_eval_trees(root / "data", testdata_dir())
+        argv = ["--transfer", "--tracking", "--num-cats", "2",
+                "--num-videos", str(len(EVAL_VIDEOS)),
+                "--data-root", str(root / "data"), "--out", str(root / "out")]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tracker._soft_argmax_batch = counted_soft_argmax
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            res = evaluate.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            tracker._soft_argmax_batch = soft_argmax
+        wall = time.perf_counter() - t0
+        counts, counts_by = launch_counts(), launch_counts_by()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        headers_ok, finite = True, True
+        for name, want in (("semantic_transfer.csv", PCK_HEADER), ("tracking.csv", TRACKING_HEADER)):
+            rows = list(csvlib.reader(open(res["out_dir"] / name)))
+            headers_ok &= rows[0] == want
+            finite &= all(np.isfinite(float(v)) for r in rows[1:] for v in r[1:])
+            for r in rows:
+                log(f"eval: cli {name}: {','.join(r)}")
+        with open(root / "data" / "tapvid_davis_data_strided.pkl", "rb") as f:
+            bench = pickle.load(f)
+        st, tr = res["stats"]["semantic_transfer"], res["stats"]["tracking"]
+        pck_batches = 2  # one batch of 8 pairs a category
+        track_batches = sum(-(-T // 4) for T, _ in EVAL_VIDEOS)
+        k1 = counts_by["K1"]
+        want = {("float32", 1601): 24 * pck_batches, ("float32", 5986): 12 * track_batches}
+        launches_ok = k1 == want and all(n == 0 for k, n in counts.items() if k != "K1")
+        want_chunks, long_chunks = 0, []
+        for (T, _), video in zip(EVAL_VIDEOS, bench["videos"]):
+            step = tracker._chunk(T * T, 57, 105)
+            for q in video["query_points"].values():
+                want_chunks += math.ceil(len(q) / step)
+                if T == max(t for t, _ in EVAL_VIDEOS):
+                    long_chunks.append(math.ceil(len(q) / step))
+        chunks_ok = len(anchor_chunks) == want_chunks and min(long_chunks) > 1
+        log(f"eval: cli wall {wall:.2f} s with the set-up; semantic transfer {st['pairs']} pairs "
+            f"in {st['wall_s']:.2f} s ({st['pairs'] / st['wall_s']:.2f} pairs/s, decode "
+            f"{st['decode_s']:.2f} s = {st['decode_s'] / st['wall_s']:.3f} of it); tracking "
+            f"{tr['frames']} frames in {tr['wall_s']:.2f} s ({tr['frames'] / tr['wall_s']:.2f} "
+            f"frames/s, decode {tr['decode_s']:.2f} s = {tr['decode_s'] / tr['wall_s']:.3f} of "
+            f"it); {eval_workers(False)} decode processes, one pool for the run; "
+            f"peak_mem_gib {peak:.3f}")
+        for v in tr["videos"]:
+            log(f"eval: cli video {v['video_idx']}: {v['frames']} frames, {v['queries']} "
+                f"queries, wall {v['wall_s']:.3f} s ({v['frames'] / v['wall_s']:.2f} frames/s): "
+                f"decode {v['decode_s']:.3f} s, features {v['features_s']:.3f} s (device "
+                f"synchronized), tracker {v['tracker_s']:.3f} s, metrics and rest "
+                f"{v['wall_s'] - v['decode_s'] - v['features_s'] - v['tracker_s']:.3f} s")
+        log(f"eval: cli anchor chunks {len(anchor_chunks)} (want {want_chunks}; the "
+            f"{max(t for t, _ in EVAL_VIDEOS)}-frame video {sum(long_chunks)} in "
+            f"{len(long_chunks)} query frames; queries a chunk {sorted(set(anchor_chunks))}) "
+            f"{'OK' if chunks_ok else 'FAIL'}")
+        log(f"eval: cli headers equal gd3d's {headers_ok}, values finite {finite}; launches "
+            f"{counts}; K1 by dtype and length {k1} (want {want}) "
+            f"{'OK' if headers_ok and finite and launches_ok else 'FAIL'}")
+        if not (headers_ok and finite and launches_ok and chunks_ok):
+            raise AssertionError("eval: the CLI run's tables, launch counts or anchor "
+                                 "chunks are wrong")
+        # the long video once more under the profiler (outside the counted run),
+        # its decode pool started before
+        student = eval_student(dev)
+        long_vid = len(EVAL_VIDEOS) - 1
+        with make_pool(eval_workers(False)) as pool:
+            list(pool.map(abs, range(eval_workers(False))))
+            profile_call("eval tracking_single", lambda: tracking_single(
+                student, long_vid, bench, str(root / "data" / "davis_480"), pool=pool),
+                f"{EVAL_VIDEOS[long_vid][0]}-frame video")
+    return counts
+
+
+def check_eval(dev) -> dict:
+    """The eval phase: codec, K1 at the eval shapes, card against CPU (these
+    two without TF32, as the kernels and agree phases), the entry point.
+    Returns the entry point's launches."""
+    import torch
+
+    from gd3d_torch.teachers.mast3r import no_tf32
+
+    images = check_codec()
+    with no_tf32():
+        check_eval_kernels(dev)
+        torch.cuda.empty_cache()
+        check_eval_agreement(dev, images)
+    torch.cuda.empty_cache()
+    return check_eval_cli(dev)
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -1103,6 +1495,9 @@ def main() -> int:
     for k, n in check_train(dev).items():
         counts[k] += n
     log(f"phase: train done at {time.perf_counter() - t_start:.1f} s")
+    for k, n in check_eval(dev).items():
+        counts[k] += n
+    log(f"phase: eval done at {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

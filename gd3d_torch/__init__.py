@@ -5,7 +5,10 @@ The package mirrors gd3d's module paths and public names
 so on) and keeps gd3d's layouts at its public functions: NHWC images and
 (B, N, H, D) attention inputs. It imports torch and numpy only, never JAX.
 
-Two train steps are ported: the MASt3R and the VGGT distillation steps.
+The training entry point (`gd3d_torch.cli.train`: the ME baseline, the
+MASt3R and the VGGT distillation steps) and the evaluation entry point
+(`gd3d_torch.cli.evaluate`: PF-PASCAL PCK and TAP-Vid DAVIS tracking, with
+the package's own JPEG decoder and Lanczos resize) are ported.
 Every Pallas kernel of gd3d (K1 flash forward, K2 flash backward, K3
 masked-softmax KL, K4 pairwise ranking, K5 RoPE2D) is a hand-written CUDA
 kernel under `gd3d_torch/csrc/`, built at first use

@@ -17,14 +17,19 @@ otherwise; asking for cuda without one raises.
 
 Refused at start, with the reason: --workers > 0 (grain), --tensorboard
 (TensorFlow), --fsdp-teacher and --multihost (multi-GPU is not ported), and
-real data (the dataset readers are not ported: pass --synthetic or --dev).
-An eval epoch whose methods have no data on disk does nothing, as gd3d's
-callback; one whose data exist raises, naming the method.
+real data (the dataset readers are not ported: pass --synthetic or --dev),
+and a config whose eval methods include "pose" when OnePose data exist under
+--data-root (OnePose++ needs cv2's PnP RANSAC). The eval epoch runs gd3d's
+callback (gd3d_torch/eval/callback.py): PF-PASCAL PCK and TAP-Vid DAVIS
+tracking where their data exist, nothing where none do.
 
 Without --teacher-ckpt the teacher has seeded random weights, and the
 set-ups that keep its losses live on random weights
 (Mast3rTeacher.face_forward; bias_params_for_live_keypoints and
 VggtTeacher.spread_depth for VGGT) run once on the first batch of epoch 0.
+
+The module imports torch inside its functions only: the eval epoch's JPEG
+decode processes are spawned, re-run this top level, and so start without it.
 """
 from __future__ import annotations
 
@@ -33,19 +38,16 @@ import dataclasses
 import json
 import time
 from pathlib import Path
-from typing import Callable, Dict, Optional
+from typing import TYPE_CHECKING, Callable, Dict, Optional
 
 import numpy as np
-import torch
 
-from gd3d_torch.core import config as cfglib
-from gd3d_torch.core.checkpoint import restore_train_state, save_checkpoint, save_train_state
-from gd3d_torch.data.loader import DeviceCopier, PrefetchIterator
-from gd3d_torch.data.synthetic import synthetic_me_batch, synthetic_teacher_batch
-from gd3d_torch.distill.mast3r_step import temperature_schedule
-from gd3d_torch.distill.train_state import ClippedAdamW, make_optimizer
-from gd3d_torch.models.student import Student, split_params
-from gd3d_torch.models.vit import init_params_
+if TYPE_CHECKING:
+    import torch
+
+    from gd3d_torch.core import config as cfglib
+    from gd3d_torch.distill.train_state import ClippedAdamW
+    from gd3d_torch.models.student import Student
 
 
 def parse_args(argv=None):
@@ -93,6 +95,9 @@ def parse_args(argv=None):
 
 def check_flags(args) -> None:
     """Raise for what this port does not bring, before any work."""
+    from gd3d_torch.core import config as cfglib
+    from gd3d_torch.eval.callback import pose_data_exists
+
     if args.workers > 0:
         raise NotImplementedError(
             "--workers > 0 needs grain's worker processes, which the port does not use; "
@@ -112,11 +117,19 @@ def check_flags(args) -> None:
             "exists in this repository and holds metadata only.")
     if args.multistep < 1:
         raise ValueError("--multistep must be at least 1")
+    if ("pose" in cfglib.resolve_config(args.config).evaluation_methods
+            and pose_data_exists(args.data_root)):
+        raise NotImplementedError(
+            f"the config's eval methods include 'pose', and its data exist under "
+            f"{args.data_root}: OnePose++ is not ported (gd3d uses cv2.solvePnPRansac, "
+            f"which the card's machine lacks); move that data away to train")
 
 
 def load_torch_state(path: str) -> Dict[str, torch.Tensor]:
     """An upstream torch checkpoint's tensors, unwrapped from 'model' or
     'state_dict' where it nests them."""
+    import torch
+
     state = torch.load(path, map_location="cpu", weights_only=False)
     if isinstance(state, dict) and "model" in state:
         state = state["model"]
@@ -160,6 +173,8 @@ class Run:
 
 
 def tiny_config(cfg: cfglib.DistillConfig) -> cfglib.DistillConfig:
+    from gd3d_torch.core import config as cfglib
+
     return cfg.replace(
         student=cfglib.StudentConfig(
             embed_dim=32, depth=4, num_heads=2, patch_size=16, pretrain_img_size=32,
@@ -171,6 +186,8 @@ def build_teacher(cfg, args, device: torch.device, first_batch: Callable[[], Dic
     """The frozen teacher on `device`: upstream weights from --teacher-ckpt,
     or seeded random ones made on the device, with the live-loss set-ups
     run on the first batch."""
+    import torch
+
     if cfg.teacher == "mast3r":
         from gd3d_torch.models.croco import CrocoConfig
         from gd3d_torch.models.mast3r import Mast3rConfig
@@ -216,12 +233,21 @@ def build_teacher(cfg, args, device: torch.device, first_batch: Callable[[], Dic
 
 
 def setup(args) -> Run:
+    import torch
+
+    from gd3d_torch.core import config as cfglib
+    from gd3d_torch.core.checkpoint import restore_train_state
+    from gd3d_torch.data.synthetic import synthetic_me_batch, synthetic_teacher_batch
+    from gd3d_torch.distill.train_state import make_optimizer
+    from gd3d_torch.models.student import Student, split_params
+    from gd3d_torch.models.vit import init_params_
+
     check_flags(args)
+    cfg = cfglib.resolve_config(args.config)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asks for a card, and torch sees none "
                            "(pass --device cpu to train on the CPU)")
-    cfg = cfglib.resolve_config(args.config)
     if args.tiny:
         cfg = tiny_config(cfg)
     if args.epochs:
@@ -312,25 +338,35 @@ def host_batches(run: Run, epoch: int):
         yield live, batch
 
 
-def eval_epoch(methods, data_root: str) -> Dict[str, float]:
-    """The in-training eval: with no method's data on disk, nothing and an
-    empty summary (gd3d/eval/callback.py); with a method's data, raise."""
-    root = Path(data_root)
-    needs = {
-        "semantic_transfer": (root / "PF-dataset-PASCAL",),
-        "tracking": (root / "tapvid_davis_data_strided.pkl", root / "davis_480"),
-        "pose": (root / "lowtexture_test_data",
-                 root / "sfm_output" / "outputs_softmax_loftr_loftr"),
-    }
-    for method in methods:
-        if method in needs and all(p.exists() for p in needs[method]):
-            raise NotImplementedError(
-                f"eval method {method!r}: its data exist under {data_root}, and the "
-                f"port's eval is not written yet")
-    return {}
+def eval_epoch(run: Run, epoch: int) -> Dict[str, float]:
+    """The in-training eval (gd3d_torch/eval/callback.py): every configured
+    method whose data exist under --data-root, its CSVs under
+    <output>/epoch_<N>/, its means as the summary; with no method's data on
+    disk, nothing and an empty summary. JPEGs are decoded in one pool of
+    min(8, CPUs) spawned processes for the epoch; --tiny evaluates at the
+    tiny sizes (a 64^2 PCK canvas, 64 x 96 tracking frames) and decodes in
+    this process."""
+    from gd3d_torch.eval.callback import run_eval_callback
+    from gd3d_torch.eval.images import eval_workers, make_pool
+
+    sizes = dict(img_size=64, tracking_size=(64, 96)) if run.args.tiny else {}
+    run.student.eval()
+    try:
+        with make_pool(eval_workers(run.args.tiny)) as pool:
+            return run_eval_callback(run.student, run.cfg.evaluation_methods,
+                                     run.args.data_root, str(run.out_dir), epoch + 1,
+                                     pool=pool, **sizes)
+    finally:
+        run.student.train()
 
 
 def train(run: Run) -> None:
+    import torch
+
+    from gd3d_torch.core.checkpoint import save_checkpoint, save_train_state
+    from gd3d_torch.data.loader import DeviceCopier, PrefetchIterator
+    from gd3d_torch.distill.mast3r_step import temperature_schedule
+
     args, cfg = run.args, run.cfg
     copier = DeviceCopier(run.device)
 
@@ -379,7 +415,7 @@ def train(run: Run) -> None:
                 save_train_state(str(run.out_dir / "last"), run.trainable, run.optimizer,
                                  epoch, run.generator)
             if (epoch + 1) % cfg.train.eval_every_epochs == 0:
-                summary = eval_epoch(cfg.evaluation_methods, args.data_root)
+                summary = eval_epoch(run, epoch)
                 if summary:
                     summary["epoch"] = epoch
                     mf.write(json.dumps(summary) + "\n")

@@ -1,6 +1,6 @@
 """Student stack: ViT backbone + refine conv + depth head + feature APIs
-(counterpart of the parts of gd3d/models/student.py that the MASt3R step
-uses).
+(counterpart of gd3d/models/student.py: the training steps' surfaces and the
+eval harness's, `dense_grid_features` and `get_intermediate_feature`).
 
 Images are NHWC floats in [0, 1] at the public functions, as in gd3d. With
 compute_dtype "bfloat16" the ViT trunk and the depth head run under
@@ -28,12 +28,15 @@ from gd3d_torch.ops.losses import pairwise_logistic_ranking_loss
 
 CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
 CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
 
 
-def normalize_img(x: torch.Tensor) -> torch.Tensor:
-    """CLIP (OpenAI) channel statistics, the training-side input transform."""
-    m = torch.tensor(CLIP_MEAN, dtype=x.dtype, device=x.device)
-    s = torch.tensor(CLIP_STD, dtype=x.dtype, device=x.device)
+def normalize_img(x: torch.Tensor, mean=CLIP_MEAN, std=CLIP_STD) -> torch.Tensor:
+    """Channel normalization: CLIP (OpenAI) statistics by default, the
+    training-side input transform; the eval harness passes ImageNet's."""
+    m = torch.tensor(mean, dtype=x.dtype, device=x.device)
+    s = torch.tensor(std, dtype=x.dtype, device=x.device)
     return (x - m) / s
 
 
@@ -81,15 +84,16 @@ class Student(nn.Module):
                               enabled=self.cfg.compute_dtype == "bfloat16")
 
     # ------------------------------------------------------------ backbone
-    def forward_tokens(self, imgs, take_indices=(), final_tokens=True):
-        """Run the ViT on already-normalized NHWC images. When only
-        intermediates are tapped, the trunk stops after the deepest tap."""
+    def forward_tokens(self, imgs, take_indices=(), final_tokens=True, stride=None):
+        """Run the ViT on already-normalized NHWC images, with the patch conv
+        at `stride` (default the patch size). When only intermediates are
+        tapped, the trunk stops after the deepest tap."""
         n_need = self.cfg.depth
         if not final_tokens and take_indices:
             n_need = max(int(i) % self.cfg.depth for i in take_indices) + 1
         with self._autocast(imgs.device):
             return self.vit(imgs, take_indices=tuple(take_indices),
-                            final_tokens=final_tokens, n_layers=n_need)
+                            final_tokens=final_tokens, n_layers=n_need, stride=stride)
 
     def apply_norm(self, tokens: torch.Tensor) -> torch.Tensor:
         """The final LayerNorm alone (the reference's model.norm)."""
@@ -115,7 +119,7 @@ class Student(nn.Module):
         quirk = self.me_interp_quirk if quirk is None else quirk
         ps = 14 if quirk else self.cfg.patch_size
         feat = interpolate_features(grid_nhwc.permute(0, 3, 1, 2), pts, h=ph * ps,
-                                    w=pw * ps, patch_size=ps)
+                                    w=pw * ps, normalize=False, patch_size=ps, stride=ps)
         return feat.transpose(1, 2)  # (B, N, C)
 
     def get_feature(self, rgbs: torch.Tensor, pts: torch.Tensor, normalize: bool = True,
@@ -179,6 +183,44 @@ class Student(nn.Module):
             for t in out["intermediates"]
         ]
         return desc, torch.stack(feats, 0).mean(0)
+
+    def get_intermediate_feature(self, rgbs: torch.Tensor, pts: torch.Tensor,
+                                 n: Sequence[int] = (0, 1, 2, 3),
+                                 return_class_token: bool = False, normalize: bool = True):
+        """Keypoint features averaged over the intermediate layers `n`, each
+        through the final LayerNorm when `normalize` (no refine conv):
+        (B, N, C), and with return_class_token also the layers' mean class
+        token (B, C)."""
+        resized, ph, pw, pts_s = self._resize_for_target(rgbs, pts)
+        out = self.forward_tokens(normalize_img(resized), take_indices=tuple(n),
+                                  final_tokens=False)["intermediates"]
+        C, npfx = self.cfg.embed_dim, self.cfg.num_prefix_tokens
+        feats, prefixes = [], []
+        for t in out:
+            if normalize:
+                t = self.apply_norm(t)
+            prefixes.append(t[:, 0])
+            feats.append(self._interp(t[:, npfx:].reshape(-1, ph, pw, C), pts_s, ph, pw,
+                                      quirk=False))
+        feat = torch.stack(feats, 0).mean(0)
+        if return_class_token:
+            return feat, torch.stack(prefixes, 0).mean(0)
+        return feat
+
+    def dense_grid_features(self, imgs: torch.Tensor, stride: int | None = None,
+                            refine: bool = True, mean=IMAGENET_MEAN,
+                            std=IMAGENET_STD) -> torch.Tensor:
+        """The eval harness's dense features: ImageNet-normalized images
+        (B, H, W, 3) in [0, 1] through the ViT with the patch conv at
+        `stride`, the final tokens as a (B, ph, pw, C) grid, then the refine
+        conv when `refine`."""
+        ps = self.cfg.patch_size
+        st = stride or ps
+        B, H, W, _ = imgs.shape
+        tokens = self.forward_tokens(normalize_img(imgs, mean, std), stride=st)["tokens"]
+        ph, pw = 1 + (H - ps) // st, 1 + (W - ps) // st
+        grid = tokens[:, self.cfg.num_prefix_tokens:].reshape(B, ph, pw, self.cfg.embed_dim)
+        return self.apply_refine(grid) if refine else grid
 
     # ----------------------------------------------------------- depth head
     def depth_diff(self, features: torch.Tensor) -> torch.Tensor:

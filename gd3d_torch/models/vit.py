@@ -185,14 +185,21 @@ class PatchEmbed(nn.Module):
         ps = cfg.patch_size
         self.proj = nn.Conv2d(3, cfg.embed_dim, ps, stride=ps, bias=not cfg.pre_norm)
 
-    def forward(self, imgs_nhwc):
-        return self.proj(imgs_nhwc.permute(0, 3, 1, 2))
+    def forward(self, imgs_nhwc, stride: Optional[int] = None):
+        """The patch conv at `stride` (default: the patch size; the eval's
+        tracking features take patch / 2, overlapping patches)."""
+        x = imgs_nhwc.permute(0, 3, 1, 2)
+        if stride is None or stride == self.proj.stride[0]:
+            return self.proj(x)
+        return F.conv2d(x, self.proj.weight, self.proj.bias, stride=stride)
 
 
 class ViT(nn.Module):
     """ViT-B/16 trunk. forward(imgs NHWC, channel-normalized) -> dict with
     'tokens' (B, 1+P, C) after the final LayerNorm (when final_tokens) and
-    'intermediates', the raw block outputs at take_indices.
+    'intermediates', the raw block outputs at take_indices. `stride` is the
+    patch conv's (default the patch size); the position embedding is
+    resampled to whatever grid it gives.
 
     n_layers runs only the first n_layers blocks (the caller's truncation
     when it taps intermediates only)."""
@@ -219,10 +226,11 @@ class ViT(nn.Module):
         take_indices: Sequence[int] = (),
         final_tokens: bool = True,
         n_layers: Optional[int] = None,
+        stride: Optional[int] = None,
     ) -> dict:
         cfg = self.cfg
         B = imgs.shape[0]
-        x = self.patch_embed(imgs)
+        x = self.patch_embed(imgs, stride)
         gh, gw = x.shape[2], x.shape[3]
         x = x.flatten(2).transpose(1, 2)
         pos = resample_pos_embed(self.pos_embed, (gh, gw), cfg.num_prefix_tokens)

@@ -4,6 +4,8 @@ from __future__ import annotations
 
 import torch
 
+from gd3d_torch.ops.basic import l2_normalize
+
 
 def grid_sample_bilinear(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     """Sample img (B, C, H, W) at normalized coords (B, N, 2) in [-1, 1].
@@ -37,18 +39,22 @@ def grid_sample_bilinear(img: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
 
 
 def interpolate_features(
-    descriptors: torch.Tensor, pts: torch.Tensor, h: int, w: int, patch_size: int,
+    descriptors: torch.Tensor, pts: torch.Tensor, h: int, w: int, normalize: bool = True,
+    patch_size: int = 14, stride: int = 14,
 ) -> torch.Tensor:
     """Per-keypoint features from a (B, C, ph, pw) patch map at pts (B, N, 2)
-    in (x, y) pixels of the h x w image, patch centres at patch_size / 2 +
-    k * patch_size. Returns (B, C, N), unnormalized (gd3d's normalize=False,
-    stride = patch_size: the only form the step uses)."""
-    last_coord_h = ((h - patch_size) // patch_size) * patch_size + (patch_size / 2)
-    last_coord_w = ((w - patch_size) // patch_size) * patch_size + (patch_size / 2)
+    in (x, y) pixels of the h x w image. Patch centres sit at patch_size / 2
+    + k * stride, so keypoint (patch_size / 2, patch_size / 2) lands on grid
+    node (0, 0). Returns (B, C, N), L2-normalized over C when `normalize`.
+    gd3d's signature and defaults (the DINO-era 14-px patch, which the PCK
+    harness keeps as a quirk)."""
+    last_coord_h = ((h - patch_size) // stride) * stride + (patch_size / 2)
+    last_coord_w = ((w - patch_size) // stride) * stride + (patch_size / 2)
     ah = 2.0 / (last_coord_h - (patch_size / 2))
     aw = 2.0 / (last_coord_w - (patch_size / 2))
     bh = 1.0 - last_coord_h * 2.0 / (last_coord_h - (patch_size / 2))
     bw = 1.0 - last_coord_w * 2.0 / (last_coord_w - (patch_size / 2))
     a = torch.tensor([aw, ah], dtype=pts.dtype, device=pts.device)
     b = torch.tensor([bw, bh], dtype=pts.dtype, device=pts.device)
-    return grid_sample_bilinear(descriptors, a * pts + b)
+    out = grid_sample_bilinear(descriptors, a * pts + b)
+    return l2_normalize(out, axis=1) if normalize else out

@@ -10,7 +10,8 @@ gd3d_torch.cli.train.main:
 - --student-ckpt and --teacher-ckpt load upstream-layout state dicts that
   the test writes (only LoRA and adapter keys may be missing);
 - every flag the port does not bring raises at start, as do --device cuda
-  without a card and an eval epoch whose data exist.
+  without a card and a config whose eval methods include "pose" when
+  OnePose data exist (the eval epoch itself is tests/test_torch_eval.py's).
 """
 import json
 
@@ -136,7 +137,10 @@ def test_eval_epoch_raises_where_its_data_exist(tmp_path):
     _, _, records = _main(tmp_path, "--epochs", "1", "--steps-per-epoch", "1",
                           "--eval-every", "1", "--data-root", str(root), "--debug-nans")
     assert all("eval" not in k for r in records for k in r)  # no data: no summary
-    (root / "PF-dataset-PASCAL").mkdir()
-    with pytest.raises(NotImplementedError, match="semantic_transfer"):
+    # OnePose data present: refused before any step (pose is not ported)
+    (root / "lowtexture_test_data").mkdir()
+    (root / "sfm_output" / "outputs_softmax_loftr_loftr").mkdir(parents=True)
+    with pytest.raises(NotImplementedError, match="pose"):
         _main(tmp_path, "--epochs", "1", "--steps-per-epoch", "1", "--eval-every", "1",
               "--data-root", str(root), name="with_data")
+    assert not (tmp_path / "with_data").exists()

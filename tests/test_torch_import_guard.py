@@ -1,7 +1,11 @@
-"""The port needs neither JAX nor gd3d: in a fresh interpreter with `jax`
-and `gd3d` (and their submodules) blocked on sys.meta_path, every module of
-gd3d_torch imports, the training CLI included, and the CLI trains one tiny
-step on the CPU."""
+"""The port needs neither JAX nor gd3d, nor the packages the card's machine
+lacks: in a fresh interpreter where `jax`, `gd3d`, PIL, cv2, pandas,
+torchvision and timm (and their submodules) are absent (None in
+sys.modules: importing them raises, and importlib.util.find_spec, which
+torch probes them with, finds nothing), every
+module of gd3d_torch imports, the training and evaluation CLIs included, and
+the training CLI trains one tiny step on the CPU. The CLI modules import no
+torch at their top level, which their spawned JPEG decode processes re-run."""
 import os
 import subprocess
 import sys
@@ -12,23 +16,22 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys, tempfile
 
-    class Block:
-        def find_spec(self, name, path=None, target=None):
-            if name.split(".")[0] in ("jax", "jaxlib", "gd3d", "flax", "optax", "orbax"):
-                raise ImportError(f"blocked: {name}")
-            return None
-
-    sys.meta_path.insert(0, Block())
+    BLOCKED = ("jax", "jaxlib", "gd3d", "flax", "optax", "orbax", "PIL", "cv2", "pandas",
+               "torchvision", "timm")
+    for name in BLOCKED:
+        sys.modules[name] = None
     import gd3d_torch
     names = [m.name for m in pkgutil.walk_packages(gd3d_torch.__path__, "gd3d_torch.")]
     for name in names:
         importlib.import_module(name)
     assert "gd3d_torch.cli.train" in names and "gd3d_torch.data.loader" in names
+    assert "gd3d_torch.cli.evaluate" in names and "gd3d_torch.data.jpeg" in names
     from gd3d_torch.cli import train
     with tempfile.TemporaryDirectory() as out:
         train.main(["--tiny", "--synthetic", "--device", "cpu", "--epochs", "1",
                     "--steps-per-epoch", "1", "--output", out])
-    leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "gd3d"))
+    leaked = sorted(m for m, mod in sys.modules.items()
+                    if mod is not None and m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
     print("imported", len(names))
 """)
@@ -40,3 +43,14 @@ def test_port_imports_without_jax_or_gd3d():
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]
     assert "imported" in res.stdout
+
+
+def test_cli_modules_import_without_torch():
+    script = ("import sys, gd3d_torch.cli.evaluate, gd3d_torch.cli.train, "
+              "gd3d_torch.eval.images; print(sorted(m for m in sys.modules "
+              "if m.split('.')[0] == 'torch' or m.startswith('gd3d_torch.models')))")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert res.stdout.strip() == "[]"

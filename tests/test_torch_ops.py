@@ -69,7 +69,7 @@ def test_interpolate_features_border_and_inside():
     pts = rng.uniform(-20, 150, size=(2, 9, 2)).astype(np.float32)
     pts[:, 0] = [8.0, 8.0]
     close(ti.interpolate_features(torch.from_numpy(desc), torch.from_numpy(pts), 96, 128,
-                                  patch_size=16),
+                                  normalize=False, patch_size=16, stride=16),
           ji.interpolate_features(jnp.asarray(desc), jnp.asarray(pts), 96, 128,
                                   normalize=False, patch_size=16, stride=16))
 
