@@ -92,10 +92,25 @@ report), then runs these phases in order, one or more printed lines each:
               = 1601 a batch of 8 pairs and 12 at N = 5986 a batch of 4
               frames (counts set to 0 just before the run); pairs/s,
               frames/s, the decode share of each wall, peak memory; then one
-              tracking feature batch under the profiler.
+              tracking feature batch under the profiler;
+  7. data     the real-data readers (gd3d_torch/data/, check_data): (a) the
+              committed PNG, JPEG, loader and augmentation fixtures
+              (gd3d_torch/data/testdata/) against the digests of cv2's,
+              PIL's and gd3d's outputs, and one worker's host seconds a pair
+              by stage; (b) finetune_timm_mast3r_scannetpp (fp32 student)
+              through the CLI on a fabricated ScanNet++ tree of 1752x1168
+              JPEGs, --workers min(8, CPUs), 6 steps: 20 fp32 K1 at the
+              student's lengths and 48 at the teacher's, 12 fp32 K2, 2 K3,
+              1 K4, 1 K4b, 72 K5 a step, asserted; the steady step time, the
+              host-wait share of the epoch and the idle share of one more
+              epoch under the profiler; (c) finetune_timm_me_objaverse and
+              finetune_timm_vggt_objaverse, 2 steps each, on a fabricated
+              Objaverse tree (PNG colour, depth and mask); (d) the first two
+              host batches at --workers 0 against gd3d's committed digests,
+              and at --workers W against --workers 1.
 
-Then one JSON line of the kernels (launches: the steps, train and eval
-phases' runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
+Then one JSON line of the kernels (launches: the steps, train, eval and
+data phases' runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The kernels and agree phases compare fp32 results too, so they
 run without TF32; the steps run with PyTorch's defaults (the teachers turn TF32
 off themselves).
@@ -717,15 +732,15 @@ def run_steps(name, setup, dev, n_steps: int, check_teacher=None, expect=()) -> 
     return counts
 
 
-def profile_step(name, step, batch) -> None:
+def profile_step(name, step, batch) -> float:
     """Device time by kernel over one step, and the device's idle share of
-    the step's wall time."""
-    profile_call(name, lambda: step(batch, 1.0), "step")
+    the step's wall time (returned)."""
+    return profile_call(name, lambda: step(batch, 1.0), "step")
 
 
-def profile_call(name, fn, what: str) -> None:
+def profile_call(name, fn, what: str) -> float:
     """profile_step for any call: device time by kernel over one call of
-    `fn`, and the device's idle share of its wall time."""
+    `fn`, and the device's idle share of its wall time (returned)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -750,13 +765,15 @@ def profile_call(name, fn, what: str) -> None:
             end = b
     rows.sort(key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
+    idle = 1 - covered / 1e3 / wall_ms
     log(f"profile: {name} {what} wall {wall_ms:.2f} ms, kernel time {total:.2f} ms, device "
-        f"busy {covered / 1e3:.2f} ms, idle share {1 - covered / 1e3 / wall_ms:.3f}")
+        f"busy {covered / 1e3:.2f} ms, idle share {idle:.3f}")
     # the 20 longest, and every hand-written kernel (namespace gd3d) after them
     for i, (kname, ms, count) in enumerate(rows):
         if i < 20 or "gd3d::" in kname:
             log(f"profile: {name} {ms:9.3f} ms {100 * ms / total:5.1f}% x{count:<5d} "
                 f"{kname[:90]}")
+    return idle
 
 
 def _compare(name, dev, run_loss, loss_tol=1e-4, grad_tol=1e-3, grad_l2=False,
@@ -898,7 +915,8 @@ def check_agreement(dev) -> None:
                                     priority=priority.to(device)), device))
 
 
-def run_cli(name, argv, out, expect=(), kernels=(), may_stay=(), profile=True) -> dict:
+def run_cli(name, argv, out, expect=(), kernels=(), may_stay=(), profile=True, exact=None,
+            profile_epoch=False) -> dict:
     """One training run through gd3d_torch.cli.train (its parse_args, setup
     and train, the steps of its main), in this process, on the card, writing
     to `out`: the counts are set to 0 and the parameters copied after the
@@ -913,7 +931,23 @@ def run_cli(name, argv, out, expect=(), kernels=(), may_stay=(), profile=True) -
     tensors that may stay unchanged, because the loss does not reach them
     (the depth head's depth_attention branch everywhere, the whole head in
     ME) or, in a run of one step from the init, because their gradient is
-    zero there (LoRA A, while LoRA B starts at zero)."""
+    zero there (LoRA A, while LoRA B starts at zero). `exact`: {kernel:
+    launches a step} that must hold exactly. With `profile_epoch`, then one
+    more epoch of the training loop itself under the profiler (its data
+    workers, prefetch and steps: the device's idle share of the loop, in
+    "idle"). The run's data workers stop at the end."""
+    from gd3d_torch.cli import train
+
+    t0 = time.perf_counter()
+    run = train.setup(train.parse_args([*argv, "--output", str(out)]))
+    try:
+        return _run_cli(name, run, out, t0, expect, kernels, may_stay, profile, exact or {},
+                        profile_epoch)
+    finally:
+        run.close()
+
+
+def _run_cli(name, run, out, t0, expect, kernels, may_stay, profile, exact, profile_epoch):
     import statistics
 
     import torch
@@ -925,8 +959,6 @@ def run_cli(name, argv, out, expect=(), kernels=(), may_stay=(), profile=True) -
     def teacher_sum(teacher):
         return sum(float(p.double().sum()) for p in teacher.parameters())
 
-    t0 = time.perf_counter()
-    run = train.setup(train.parse_args([*argv, "--output", str(out)]))
     snap = {"trainable": {k: p.detach().clone() for k, p in run.trainable.items()},
             "frozen": {k: p.detach().clone() for k, p in run.frozen.items()},
             "teacher": None if run.teacher is None else teacher_sum(run.teacher)}
@@ -966,15 +998,24 @@ def run_cli(name, argv, out, expect=(), kernels=(), may_stay=(), profile=True) -
         log(f"train: {name} {dt} {kern} at N in {lengths}: {got / n:g} a step (want {want}) "
             f"{'OK' if got == want * n else 'FAIL'}")
         ok &= got == want * n
+    for kern, want in exact.items():
+        log(f"train: {name} {kern} {counts[kern] / n:g} launches a step (want {want}) "
+            f"{'OK' if counts[kern] == want * n else 'FAIL'}")
+        ok &= counts[kern] == want * n
     silent = [k for k in kernels if counts[k] <= 0]
     if silent or not ok:
         raise AssertionError(f"train {name}: finite={finite} stuck={stuck[:5]} moved={moved[:5]} "
                              f"teacher unchanged={teacher_same} never launched={silent}")
     final = final_state(run)
+    idle = None
     if profile:  # one more group of the run's step, on the next epoch's first batch
         _, batch = next(train.host_batches(run, run.epochs))
-        profile_step(name, run.run_step, DeviceCopier(run.device)(batch).ready())
-    return {"counts": counts, "steps": steps, "final": final}
+        idle = profile_step(name, run.run_step, DeviceCopier(run.device)(batch).ready())
+    if profile_epoch:  # one more epoch of the loop, data workers and all
+        run.start_epoch, run.epochs = run.epochs, run.epochs + 1
+        idle = profile_call(name, lambda: train.train(run), "epoch")
+    epochs = [r for r in records if "step" not in r]
+    return {"counts": counts, "steps": steps, "final": final, "epochs": epochs, "idle": idle}
 
 
 def final_state(run) -> dict:
@@ -1448,6 +1489,160 @@ def check_eval(dev) -> dict:
     return check_eval_cli(dev)
 
 
+# The data phase. Launches a step of the named configs' fp32-student steps on
+# real-format data: the student's flash kernels at its lengths, the teacher's
+# K1 at its own, and K3-K5 once or more a step.
+SCANNETPP_EXACT = {"K3": 2, "K4": 1, "K4b": 1, "K5": 72}
+
+
+def stage_seconds() -> dict:
+    """One worker's host seconds a pair by stage, in this process: a
+    ScanNet++ pair (the 1752x1168 fixture twice: decode, the square and
+    MASt3R resizes, the colour augmentations, the uint8 packing and
+    collation) and an Objaverse ME pair (colour, depth and mask PNGs of two
+    views: decode, keypoint lift and pad, augmentations)."""
+    import numpy as np
+
+    from gd3d_torch.data import augment, exif, fixtures, images, objaverse, pipeline, png
+    from gd3d_torch.data.resample import resize_bicubic
+
+    rng = np.random.RandomState(0)
+    t = {}
+
+    def timed(stage, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        t[stage] = t.get(stage, 0.0) + time.perf_counter() - t0
+        return out
+
+    sample = {}
+    for v in ("1", "2"):
+        data = timed("read", lambda: images.read_bytes(fixtures.TESTDATA / "dslr.jpg"))
+        raw = timed("decode", lambda: images.decode_rgb(data))
+        square = timed("resize", lambda: (resize_bicubic(raw, (512, 512)) / 255.0)
+                       .astype(np.float32))
+        m = timed("resize", lambda: images.load_image_mast3r(
+            exif.transpose(raw, images.file_orientation(data)), 512))
+        sample[f"rgb_{v}"] = timed("augment", lambda: (augment.color_augs_scannetpp(
+            (square * 255).astype(np.uint8), rng) / 255.0).astype(np.float32))
+        sample[f"rgb_mast3r_{v}"] = m["img"]
+    timed("pack", lambda: pipeline.collate([pipeline.pack_u8(sample)]))
+    scannetpp = dict(t)
+    t.clear()
+    for v in range(2):
+        kinds = {k: fixtures.TESTDATA / f"render_{v}_{k}.png" for k in ("color", "depth", "mask")}
+        dec = {k: timed("decode", lambda p=p: png.decode_png(p)) for k, p in kinds.items()}
+        rgb = png.cv2_view(dec["color"])[..., ::-1].copy()
+        depth = png.cv2_view(dec["depth"], png.IMREAD_ANYDEPTH).astype(np.float64) / 1000.0
+        mask = png.cv2_view(dec["mask"], png.IMREAD_GRAYSCALE)
+        kp = timed("keypoints", lambda: np.stack(np.where(mask > 0), -1)[:, ::-1][
+            rng.choice(int((mask > 0).sum()), 3000)])
+        timed("keypoints", lambda: pipeline.pad_keypoints(
+            kp.astype(np.float32), objaverse.img_coord_2_obj_coord(
+                kp, depth, objaverse.OBJAVERSE_INTRINSIC, fixtures.objaverse_poses()[v]), 3000))
+        timed("augment", lambda: augment.color_augs_objaverse(augment.shift_scale_rotate(
+            rgb, kp.astype(np.float32), mask > 0, rng, p=1.0)[0], rng, p=1.0))
+    return {"scannetpp": scannetpp, "objaverse_me": dict(t)}
+
+
+def check_data(dev) -> dict:
+    """The data phase: the port's readers on real-format data. (a) the PNG,
+    JPEG, loader and augmentation fixtures against the committed digests of
+    cv2's, PIL's and gd3d's outputs, and one worker's host seconds a pair
+    by stage; (b) the default config, finetune_timm_mast3r_scannetpp with its
+    fp32 student, through the CLI on a fabricated ScanNet++ tree of the
+    1752x1168 fixture with --workers min(8, CPUs), 6 steps: its launches a
+    step exactly, the steady step time, epoch/host_wait_s over epoch/wall_s,
+    and the device's idle share over one more epoch of the loop under the
+    profiler; (c) finetune_timm_me_objaverse (2 steps) and
+    finetune_timm_vggt_objaverse (2 steps: load_images_vggt) on a
+    fabricated Objaverse tree with the same workers; (d) the first two
+    host batches at --workers 0 of the three configs against gd3d's
+    committed digests, and at --workers W against --workers 1. Returns the
+    launches of (b) and (c)."""
+    import os
+    import statistics
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from gd3d_torch.data import fixtures
+
+    gpu = gpu_line()
+    workers = min(8, os.cpu_count() or 1)
+    ref = json.loads((fixtures.TESTDATA / "digests.json").read_text())
+    t0 = time.perf_counter()
+    got = fixtures.port_digests(("png", "jpeg", "loaders", "augment"))
+    ok = True
+    for section, records in got.items():
+        bad = fixtures.mismatches(records, ref[section])
+        log(f"data: {section} fixtures ({len(records)}) equal the committed digests of cv2's, "
+            f"PIL's and gd3d's outputs: {not bad} {'OK' if not bad else 'FAIL ' + str(bad[:4])}")
+        ok &= not bad
+    log(f"data: fixtures checked in {time.perf_counter() - t0:.2f} s")
+    stages = stage_seconds()
+    for kind, by_stage in stages.items():
+        log(f"data: one worker's host s a pair, {kind}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in by_stage.items())
+            + f"; total {sum(by_stage.values()):.3f} ({os.cpu_count()} CPUs; {gpu})")
+    if not ok:
+        raise AssertionError("data: a reader disagrees with its committed digests")
+
+    fp32 = "float32"
+    every = tuple(REPLACES)
+    total = {k: 0 for k in REPLACES}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp) / "data"
+        fixtures.write_scannetpp_tree(root)
+        fixtures.write_objaverse_tree(root)
+        real = ["--data-root", str(root), "--epochs", "1", "--workers", str(workers)]
+        runs = [
+            ("data ScanNet++ MASt3R", ["--config", "finetune_timm_mast3r_scannetpp",
+                                       "--steps-per-epoch", "6", *real],
+             (("K1", fp32, (4161, 673), 20), ("K2", fp32, (4161, 673), 12),
+              ("K1", fp32, (672,), 48)), every, SCANNETPP_EXACT, True),
+            ("data Objaverse ME", ["--config", "finetune_timm_me_objaverse",
+                                   "--steps-per-epoch", "2", *real],
+             (("K1", fp32, (6401,), 24), ("K2", fp32, (6401,), 8)), ("K1", "K2"), {}, False),
+            ("data Objaverse VGGT", ["--config", "finetune_timm_vggt_objaverse",
+                                     "--steps-per-epoch", "2", *real],
+             (("K1", fp32, (6401, 1370), 20), ("K2", fp32, (6401, 1370), 12)), every, {},
+             False),
+        ]
+        for name, argv, expect, kernels, exact, window in runs:
+            may_stay = ("depth_diff_head.",) if "ME" in name else (
+                "depth_diff_head.depth_attention.",)
+            res = run_cli(name, argv, Path(tmp) / name.split()[-1], expect, kernels, may_stay,
+                          profile=False, exact=exact, profile_epoch=window)
+            for k, c in res["counts"].items():
+                total[k] += c
+            steady = [r["time_s"] for r in res["steps"][1:]] or [res["steps"][0]["time_s"]]
+            ep = res["epochs"][0]
+            log(f"data: {name} --workers {workers}: steady step_s (median after the first) "
+                f"{statistics.median(steady):.4f}; host wait {ep['epoch/host_wait_s']:.3f} s of "
+                f"the epoch's {ep['epoch/wall_s']:.3f} s (share "
+                f"{ep['epoch/host_wait_s'] / ep['epoch/wall_s']:.3f})"
+                + (f"; profiled idle share of one more epoch {res['idle']:.3f}"
+                   if res["idle"] is not None else "") + f" ({gpu})")
+            torch.cuda.empty_cache()
+            log(f"phase: {name} done")
+
+    t0 = time.perf_counter()
+    seq = fixtures.port_digests(("batches",), workers=0)["batches"]
+    bad = fixtures.mismatches(seq, ref["batches"])
+    log(f"data: first two host batches at --workers 0 of {sorted(seq)} equal gd3d's committed "
+        f"digests: {not bad} {'OK' if not bad else 'FAIL ' + str(bad[:4])}")
+    one = fixtures.port_digests(("batches",), workers=1)["batches"]
+    many = fixtures.port_digests(("batches",), workers=workers)["batches"]
+    same = not fixtures.mismatches(many, one)
+    log(f"data: first two host batches at --workers {workers} equal those at --workers 1: "
+        f"{same} {'OK' if same else 'FAIL'} ({time.perf_counter() - t0:.2f} s)")
+    if bad or not same:
+        raise AssertionError("data: the host batches differ from gd3d's or across workers")
+    return total
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -1498,6 +1693,9 @@ def main() -> int:
     for k, n in check_eval(dev).items():
         counts[k] += n
     log(f"phase: eval done at {time.perf_counter() - t_start:.1f} s")
+    for k, n in check_data(dev).items():
+        counts[k] += n
+    log(f"phase: data done at {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

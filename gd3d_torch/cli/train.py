@@ -4,8 +4,8 @@ Usage:
   python -m gd3d_torch.cli.train --config finetune_timm_mast3r_scannetpp \\
       [--synthetic | --dev] [--epochs 500] [--steps-per-epoch 100] \\
       [--batch-per-device 1] [--multistep K] [--output outputs/run1] \\
-      [--student-ckpt timm.pth] [--teacher-ckpt mast3r.pth] [--resume <run>/last] \\
-      [--device cuda]
+      [--data-root data] [--workers N] [--student-ckpt timm.pth] \\
+      [--teacher-ckpt mast3r.pth] [--resume <run>/last] [--device cuda]
 
 gd3d's flags and behaviour: seed 42, the named configs and bundled YAMLs,
 the --tiny overrides, the linear teacher-temperature schedule, K optimizer
@@ -15,21 +15,31 @@ batches, metrics.jsonl with gd3d's record keys, the adapter checkpoint
 <out>/last, and --resume from it. It runs on the card unless --device says
 otherwise; asking for cuda without one raises.
 
-Refused at start, with the reason: --workers > 0 (grain), --tensorboard
-(TensorFlow), --fsdp-teacher and --multihost (multi-GPU is not ported), and
-real data (the dataset readers are not ported: pass --synthetic or --dev),
-and a config whose eval methods include "pose" when OnePose data exist under
---data-root (OnePose++ needs cv2's PnP RANSAC). The eval epoch runs gd3d's
-callback (gd3d_torch/eval/callback.py): PF-PASCAL PCK and TAP-Vid DAVIS
-tracking where their data exist, nothing where none do.
+Data, as gd3d reads it: with neither --synthetic nor --dev, an existing
+--data-root is read as real data (gd3d_torch/data/pipeline.py): the ME
+config from <root>/objaverse_renderings, 10k.txt and obj_poses.npy; the
+MASt3R and VGGT configs from <root>/scannetpp or the Objaverse renders. A
+missing root gives a warning and synthetic data. Real-data images cross to
+the device as uint8 and become float32 there. --workers N decodes in one
+pool of N spawned processes for the run: --workers 0 is gd3d's sequential
+stream (step s of epoch e equals gd3d's), N >= 1 seeds each step's datasets
+from (seed + epoch, s), so that every N >= 1 gives the same batches.
+
+Refused at start, with the reason: --tensorboard (TensorFlow),
+--fsdp-teacher and --multihost (multi-GPU is not ported), and a config
+whose eval methods include "pose" when OnePose data exist under --data-root
+(OnePose++ needs cv2's PnP RANSAC). The eval epoch runs gd3d's callback
+(gd3d_torch/eval/callback.py): PF-PASCAL PCK and TAP-Vid DAVIS tracking
+where their data exist, nothing where none do.
 
 Without --teacher-ckpt the teacher has seeded random weights, and the
 set-ups that keep its losses live on random weights
 (Mast3rTeacher.face_forward; bias_params_for_live_keypoints and
 VggtTeacher.spread_depth for VGGT) run once on the first batch of epoch 0.
 
-The module imports torch inside its functions only: the eval epoch's JPEG
-decode processes are spawned, re-run this top level, and so start without it.
+The module imports torch inside its functions only: the data workers and
+the eval epoch's JPEG decode processes are spawned, re-run this top level,
+and so start without it.
 """
 from __future__ import annotations
 
@@ -38,7 +48,7 @@ import dataclasses
 import json
 import time
 from pathlib import Path
-from typing import TYPE_CHECKING, Callable, Dict, Optional
+from typing import TYPE_CHECKING, Callable, Dict, Iterator, Optional
 
 import numpy as np
 
@@ -46,6 +56,7 @@ if TYPE_CHECKING:
     import torch
 
     from gd3d_torch.core import config as cfglib
+    from gd3d_torch.data.pipeline import EpochSource
     from gd3d_torch.distill.train_state import ClippedAdamW
     from gd3d_torch.models.student import Student
 
@@ -83,7 +94,8 @@ def parse_args(argv=None):
                    help="resume from a save_train_state file (e.g. <run>/last); "
                         "restores adapters + optimizer + epoch")
     p.add_argument("--workers", type=int, default=0,
-                   help="refused above 0: it needs grain worker processes")
+                   help="real data: decode in N spawned processes (0: gd3d's sequential "
+                        "stream in the prefetch thread)")
     p.add_argument("--fsdp-teacher", action="store_true",
                    help="refused: multi-GPU is not ported")
     p.add_argument("--multihost", action="store_true",
@@ -98,10 +110,8 @@ def check_flags(args) -> None:
     from gd3d_torch.core import config as cfglib
     from gd3d_torch.eval.callback import pose_data_exists
 
-    if args.workers > 0:
-        raise NotImplementedError(
-            "--workers > 0 needs grain's worker processes, which the port does not use; "
-            "its host pipeline is the prefetch thread (--workers 0)")
+    if args.workers < 0:
+        raise ValueError("--workers must be at least 0")
     if args.tensorboard:
         raise NotImplementedError(
             "--tensorboard needs TensorFlow; the metrics are in <output>/metrics.jsonl")
@@ -109,12 +119,6 @@ def check_flags(args) -> None:
         raise NotImplementedError(
             "--fsdp-teacher and --multihost need multi-GPU training, which is not "
             "ported yet; the port trains on one card")
-    if not args.synthetic and not args.dev and Path(args.data_root).exists():
-        raise NotImplementedError(
-            f"--data-root {args.data_root!r} exists, so gd3d would read real data, and "
-            "the port's dataset readers are not written yet (gd3d's decode with cv2 "
-            "and PIL). Pass --synthetic or --dev. gd3d's default --data-root 'data' "
-            "exists in this repository and holds metadata only.")
     if args.multistep < 1:
         raise ValueError("--multistep must be at least 1")
     if ("pose" in cfglib.resolve_config(args.config).evaluation_methods
@@ -163,13 +167,31 @@ class Run:
     frozen: Dict[str, torch.nn.Parameter]
     optimizer: ClippedAdamW
     run_step: Callable
-    fetch: Callable[[int, int], Dict[str, np.ndarray]]
+    source: SyntheticSource | EpochSource
     generator: Optional[torch.Generator]
     out_dir: Path
     epochs: int
     steps: int
     K: int
     start_epoch: int = 0
+
+    def close(self) -> None:
+        """Stop the data workers, if any."""
+        self.source.close()
+
+
+class SyntheticSource:
+    """gd3d's synthetic batches: step s of epoch e from fetch(e, s)."""
+
+    def __init__(self, fetch: Callable[[int, int], Dict[str, np.ndarray]]):
+        self.fetch = fetch
+
+    def batches(self, epoch: int, n_steps: int) -> Iterator[Dict[str, np.ndarray]]:
+        for step in range(n_steps):
+            yield self.fetch(epoch, step)
+
+    def close(self) -> None:
+        pass
 
 
 def tiny_config(cfg: cfglib.DistillConfig) -> cfglib.DistillConfig:
@@ -220,10 +242,12 @@ def build_teacher(cfg, args, device: torch.device, first_batch: Callable[[], Dic
     if args.teacher_ckpt:
         load_upstream(teacher.model, args.teacher_ckpt)
         return teacher
+    from gd3d_torch.data.loader import DeviceCopier
+
     print(f"WARNING: no --teacher-ckpt; random {cfg.teacher} teacher weights, with the "
           f"live-loss set-ups on the first batch")
     teacher.init_params(torch.Generator(device=device).manual_seed(1))
-    batch = {k: torch.from_numpy(v).to(device) for k, v in first_batch().items()}
+    batch = DeviceCopier(device)(first_batch()).ready()
     if cfg.teacher == "mast3r":
         teacher.face_forward(batch["rgb_mast3r_1"], batch["rgb_mast3r_2"])
     else:
@@ -237,6 +261,7 @@ def setup(args) -> Run:
 
     from gd3d_torch.core import config as cfglib
     from gd3d_torch.core.checkpoint import restore_train_state
+    from gd3d_torch.data.pipeline import DataSpec, EpochSource
     from gd3d_torch.data.synthetic import synthetic_me_batch, synthetic_teacher_batch
     from gd3d_torch.distill.train_state import make_optimizer
     from gd3d_torch.models.student import Student, split_params
@@ -255,7 +280,8 @@ def setup(args) -> Run:
     if args.eval_every:
         cfg = cfg.replace(train=dataclasses.replace(cfg.train,
                                                     eval_every_epochs=args.eval_every))
-    if not args.synthetic and not args.dev:
+    real_data = not args.synthetic and not args.dev and Path(args.data_root).exists()
+    if not args.synthetic and not args.dev and not real_data:
         print(f"WARNING: data root {args.data_root} missing; synthetic data")
     epochs = 1 if args.dev else cfg.train.max_epochs
     steps = 2 if args.dev else args.steps_per_epoch
@@ -274,16 +300,19 @@ def setup(args) -> Run:
     batch_size = args.batch_per_device
     K = args.multistep if cfg.teacher in ("mast3r", "vggt") else 1
 
-    if cfg.teacher == "me":
+    if real_data:
+        source = EpochSource(DataSpec(cfg.teacher, cfg.dataset, cfg.train.seed,
+                                      str(args.data_root), batch_size), args.workers)
+    elif cfg.teacher == "me":
         img, kps = (64, 64) if args.tiny else (512, 3000)
-
-        def fetch(epoch, step):
-            return synthetic_me_batch(seed=cfg.train.seed + epoch * 10000 + step,
-                                      batch=batch_size, img=img, n_kps=kps)
+        source = SyntheticSource(lambda epoch, step: synthetic_me_batch(
+            seed=cfg.train.seed + epoch * 10000 + step, batch=batch_size, img=img, n_kps=kps))
     else:
-        def fetch(epoch, step):
-            return synthetic_teacher_batch(cfg.teacher, cfg.dataset, batch_size,
-                                           epoch * 10000 + step, tiny=args.tiny)
+        source = SyntheticSource(lambda epoch, step: synthetic_teacher_batch(
+            cfg.teacher, cfg.dataset, batch_size, epoch * 10000 + step, tiny=args.tiny))
+
+    def first_batch():
+        return next(iter(source.batches(0, 1)))
 
     teacher, generator = None, None
     if cfg.teacher == "me":
@@ -296,14 +325,14 @@ def setup(args) -> Run:
     elif cfg.teacher == "mast3r":
         from gd3d_torch.distill import mast3r_step
 
-        teacher = build_teacher(cfg, args, device, lambda: fetch(0, 0))
+        teacher = build_teacher(cfg, args, device, first_batch)
         build = (mast3r_step.build_mast3r_train_multistep if K > 1
                  else mast3r_step.build_mast3r_train_step)
         run_step = build(student, teacher, cfg, optimizer, cfg.dataset == "objaverse", device)
     elif cfg.teacher == "vggt":
         from gd3d_torch.distill import vggt_step
 
-        teacher = build_teacher(cfg, args, device, lambda: fetch(0, 0))
+        teacher = build_teacher(cfg, args, device, first_batch)
         generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
         build = (vggt_step.build_vggt_train_multistep if K > 1
                  else vggt_step.build_vggt_train_step)
@@ -313,7 +342,7 @@ def setup(args) -> Run:
 
     run = Run(args=args, cfg=cfg, device=device, student=student, teacher=teacher,
               trainable=trainable, frozen=frozen, optimizer=optimizer, run_step=run_step,
-              fetch=fetch, generator=generator, out_dir=out_dir, epochs=epochs,
+              source=source, generator=generator, out_dir=out_dir, epochs=epochs,
               steps=steps, K=K)
     if args.resume:
         run.start_epoch = restore_train_state(args.resume, trainable, optimizer, generator)
@@ -331,9 +360,10 @@ def host_batches(run: Run, epoch: int):
     if steps_run != steps and epoch == run.start_epoch:
         print(f"steps_per_epoch {steps} rounded up to {steps_run} "
               f"(multiple of --multistep {K})")
+    batches = run.source.batches(epoch, steps_run)
     for step0 in range(0, steps_run, K):
         live = list(range(step0, step0 + K))
-        raw = [run.fetch(epoch, s) for s in live]
+        raw = [next(batches) for _ in live]
         batch = {k: np.stack([b[k] for b in raw]) for k in raw[0]} if K > 1 else raw[0]
         yield live, batch
 
@@ -424,9 +454,12 @@ def train(run: Run) -> None:
 
 
 def main(argv=None) -> Run:
-    """Parse, set up, train, and return the run."""
+    """Parse, set up, train, stop the data workers, and return the run."""
     run = setup(parse_args(argv))
-    train(run)
+    try:
+        train(run)
+    finally:
+        run.close()
     return run
 
 

@@ -1,5 +1,7 @@
 """Host data pipeline: batching, padding, background prefetch and the
-host-to-device copy (counterpart of gd3d/data/loader.py).
+host-to-device copy (counterpart of gd3d/data/loader.py; pad_keypoints and
+collate live in data/pipeline.py, which worker processes import without
+torch).
 
 The prefetch thread assembles fixed-shape numpy batches and, for a CUDA
 device, copies them to the card itself: pinned host tensors, then
@@ -8,47 +10,22 @@ copy is ordered before the step by an event recorded after it, on which
 the consumer's stream waits (`DeviceBatch.ready`); the tensors are marked
 as used on that stream, so the allocator does not hand their memory to
 the next copy while the step still reads them.
+
+Real-data images cross as uint8 (data/pipeline.py::pack_u8) and become
+float32 on the device with gd3d's formulas (gd3d/cli/train.py::_unpack_u8):
+u8 / 127.5 - 1 for rgb_mast3r*, u8 / 255 for the other rgb* keys.
 """
 from __future__ import annotations
 
 import queue
 import threading
 import time
-from typing import Callable, Dict, Iterator, Optional, Sequence
+from typing import Callable, Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
-
-def pad_keypoints(kps: np.ndarray, pts3d: np.ndarray, capacity: int,
-                  valid: Optional[np.ndarray] = None):
-    """Pad (N, 2)/(N, 3) keypoint arrays to `capacity` with a validity mask,
-    or truncate them to it."""
-    n = kps.shape[0]
-    if valid is None:
-        valid = np.ones((n,), bool)
-    if n >= capacity:
-        return (kps[:capacity].astype(np.float32), pts3d[:capacity].astype(np.float32),
-                valid[:capacity])
-    pad = capacity - n
-    # cast before concatenating, so both branches give float32
-    return (
-        np.concatenate([kps.astype(np.float32), np.zeros((pad, kps.shape[1]), np.float32)]),
-        np.concatenate([pts3d.astype(np.float32),
-                        np.zeros((pad, pts3d.shape[1]), np.float32)]),
-        np.concatenate([valid.astype(bool), np.zeros((pad,), bool)]),
-    )
-
-
-def collate(samples: Sequence[Dict]) -> Dict[str, np.ndarray]:
-    """Stack a list of dict samples into batched numpy arrays (string and
-    None values dropped)."""
-    out = {}
-    for k, v in samples[0].items():
-        if v is None or isinstance(v, str):
-            continue
-        out[k] = np.stack([np.asarray(s[k]) for s in samples])
-    return out
+from gd3d_torch.data.pipeline import collate, pad_keypoints  # noqa: F401  (gd3d's loader API)
 
 
 class PrefetchIterator:
@@ -138,7 +115,8 @@ class DeviceBatch(dict):
 class DeviceCopier:
     """Copies numpy batches to `device` from the thread that calls it: on
     the CPU a zero-copy torch.from_numpy; on a CUDA device pinned tensors
-    copied on this copier's own stream, with an event recorded after them."""
+    copied on this copier's own stream, with an event recorded after them.
+    uint8 images become float32 there (unpack_u8)."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -147,13 +125,23 @@ class DeviceCopier:
 
     def __call__(self, batch: Dict[str, np.ndarray]) -> DeviceBatch:
         if self.stream is None:
-            return DeviceBatch({k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
-                                for k, v in batch.items()})
+            return DeviceBatch({k: unpack_u8(k, torch.from_numpy(np.ascontiguousarray(v)).to(
+                self.device)) for k, v in batch.items()})
         with torch.cuda.stream(self.stream):
             out = DeviceBatch({
-                k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
-                    self.device, non_blocking=True)
+                k: unpack_u8(k, torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
+                    self.device, non_blocking=True))
                 for k, v in batch.items()})
             out.event = torch.cuda.Event()
             out.event.record(self.stream)
         return out
+
+
+def unpack_u8(key: str, t: torch.Tensor) -> torch.Tensor:
+    """A uint8 image tensor as float32 with gd3d's formulas (see the module
+    docstring); any other tensor as it is."""
+    if t.dtype != torch.uint8 or not key.startswith("rgb"):
+        return t
+    if key.startswith("rgb_mast3r"):
+        return t.to(torch.float32) / 127.5 - 1.0
+    return t.to(torch.float32) / 255.0

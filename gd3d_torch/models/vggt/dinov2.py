@@ -69,7 +69,10 @@ class DinoV2(nn.Module):
         gh, gw = x.shape[2], x.shape[3]
         x = x.flatten(2).transpose(1, 2)
         x = torch.cat([self.cls_token.expand(B, -1, -1), x], dim=1)
-        x = x + interp_pos_embed(self.pos_embed, (gh, gw))
+        # a resized pos-embed is fp32; with the aggregator's weights in bf16
+        # (teacher_dtype bfloat16) the tokens stay bf16, where gd3d's would be
+        # promoted to fp32 (non-square frames, e.g. ScanNet++'s 350x518)
+        x = x + interp_pos_embed(self.pos_embed, (gh, gw)).to(x.dtype)
         # registers go in after the pos-embed add
         x = torch.cat([x[:, :1], self.register_tokens.expand(B, -1, -1).to(x.dtype),
                        x[:, 1:]], dim=1)

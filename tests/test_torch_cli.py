@@ -11,10 +11,17 @@ gd3d_torch.cli.train.main:
   the test writes (only LoRA and adapter keys may be missing);
 - every flag the port does not bring raises at start, as do --device cuda
   without a card and a config whose eval methods include "pose" when
-  OnePose data exist (the eval epoch itself is tests/test_torch_eval.py's).
+  OnePose data exist (the eval epoch itself is tests/test_torch_eval.py's);
+- on fabricated ScanNet++ and Objaverse trees (gd3d_torch/data/fixtures.py)
+  the ME, ScanNet++ MASt3R and Objaverse VGGT configs train a step on real
+  data; --workers 2 and --workers 1 give the same host batches; an error in
+  a worker is raised; a missing --data-root falls back to synthetic data
+  with gd3d's warning.
 """
 import json
+import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -109,7 +116,7 @@ def test_upstream_checkpoints_load(tmp_path):
 
 
 @pytest.mark.parametrize("flags,error,match", [
-    (["--workers", "2"], NotImplementedError, "grain"),
+    (["--workers", "-1"], ValueError, "--workers"),
     (["--tensorboard"], NotImplementedError, "TensorFlow"),
     (["--fsdp-teacher"], NotImplementedError, "multi-GPU"),
     (["--multihost"], NotImplementedError, "multi-GPU"),
@@ -122,8 +129,10 @@ def test_refused_flags_raise(tmp_path, flags, error, match):
 
 
 def test_real_data_and_missing_card_raise(tmp_path):
+    """An existing --data-root is real data, as in gd3d: without the
+    config's files the first batch raises."""
     (tmp_path / "data").mkdir()
-    with pytest.raises(NotImplementedError, match="--synthetic or --dev"):
+    with pytest.raises(FileNotFoundError, match="10k.txt"):
         train.main(["--tiny", "--device", "cpu", "--data-root", str(tmp_path / "data"),
                     "--output", str(tmp_path / "r")])
     if not torch.cuda.is_available():
@@ -144,3 +153,87 @@ def test_eval_epoch_raises_where_its_data_exist(tmp_path):
         _main(tmp_path, "--epochs", "1", "--steps-per-epoch", "1", "--eval-every", "1",
               "--data-root", str(root), name="with_data")
     assert not (tmp_path / "with_data").exists()
+
+
+@pytest.fixture(scope="module")
+def data_root(tmp_path_factory):
+    """A fabricated tree of both datasets, its ScanNet++ frames a 584x389
+    JPEG (the 1752x1168 fixture is chip_smoke.py's)."""
+    import numpy as np
+    from PIL import Image
+
+    from gd3d_torch.data import fixtures
+
+    root = tmp_path_factory.mktemp("data")
+    frame = root / "frame.jpg"
+    rng = np.random.RandomState(0)
+    Image.fromarray(rng.randint(0, 256, (389, 584, 3), dtype=np.uint8)).save(frame)
+    fixtures.write_scannetpp_tree(root, jpeg=frame)
+    fixtures.write_objaverse_tree(root)
+    return root
+
+
+def _real(tmp_path, data_root, config, *argv, name="run"):
+    out = tmp_path / name
+    run = train.main(["--tiny", "--device", "cpu", "--config", config, "--data-root",
+                      str(data_root), "--epochs", "1", "--steps-per-epoch", "1",
+                      "--output", str(out), *argv])
+    records = [json.loads(line) for line in (out / "metrics.jsonl").read_text().splitlines()]
+    return run, records
+
+
+@pytest.mark.parametrize("config,workers", [
+    ("finetune_timm_me_objaverse", "0"),
+    ("finetune_timm_mast3r_scannetpp", "2"),
+    ("finetune_timm_vggt_objaverse", "0"),
+])
+def test_real_data_trains_a_step(tmp_path, data_root, config, workers):
+    run, records = _real(tmp_path, data_root, config, "--workers", workers)
+    steps = [r for r in records if "step" in r]
+    assert len(steps) == 1 and run.optimizer.calls == 1
+    assert all(math.isfinite(v) for v in steps[0].values())
+    if workers == "0":  # (main() stopped a pool's workers)
+        _, batch = next(train.host_batches(run, 0))
+        assert all(v.dtype == np.uint8 for k, v in batch.items() if k.startswith("rgb"))
+
+
+def _host_batches(data_root, tmp_path, workers, steps=2):
+    run = train.setup(train.parse_args([
+        "--tiny", "--device", "cpu", "--config", "finetune_timm_mast3r_objaverse",
+        "--data-root", str(data_root), "--steps-per-epoch", str(steps), "--workers",
+        str(workers), "--output", str(tmp_path / f"w{workers}")]))
+    try:
+        return [b for _, b in train.host_batches(run, 0)]
+    finally:
+        run.close()
+
+
+def test_workers_give_the_same_batches(tmp_path, data_root):
+    one, two = _host_batches(data_root, tmp_path, 1), _host_batches(data_root, tmp_path, 2)
+    assert len(one) == len(two) == 2
+    for a, b in zip(one, two):
+        assert a.keys() == b.keys()
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_an_error_in_a_worker_is_raised(tmp_path, data_root):
+    import shutil
+
+    broken = tmp_path / "broken"
+    shutil.copytree(data_root, broken)
+    for p in (broken / "scannetpp" / "scenes").rglob("*.JPG"):
+        p.write_bytes(b"\xff\xd8 not a jpeg")
+    with pytest.raises(ValueError, match="JPEG"):
+        _real(tmp_path, broken, "finetune_timm_mast3r_scannetpp", "--workers", "2")
+
+
+def test_a_missing_data_root_falls_back_to_synthetic_data(tmp_path, capsys):
+    run, _, records = _main(tmp_path, "--epochs", "1", "--steps-per-epoch", "1")
+    assert "WARNING: data root" not in capsys.readouterr().out  # --synthetic: no warning
+    out = tmp_path / "fallback"
+    run = train.main(["--tiny", "--device", "cpu", "--data-root", str(tmp_path / "none"),
+                      "--epochs", "1", "--steps-per-epoch", "1", "--output", str(out)])
+    assert f"WARNING: data root {tmp_path / 'none'} missing; synthetic data" in \
+        capsys.readouterr().out
+    assert run.optimizer.calls == 1

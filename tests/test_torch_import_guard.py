@@ -4,8 +4,11 @@ torchvision and timm (and their submodules) are absent (None in
 sys.modules: importing them raises, and importlib.util.find_spec, which
 torch probes them with, finds nothing), every
 module of gd3d_torch imports, the training and evaluation CLIs included, and
-the training CLI trains one tiny step on the CPU. The CLI modules import no
-torch at their top level, which their spawned JPEG decode processes re-run."""
+the training CLI trains one tiny step on the CPU, on synthetic data and on
+a fabricated Objaverse tree (the real-data readers: PNG decoding, the
+augmentations, the dataset). The CLI modules import no torch at their top
+level, which their spawned decode processes re-run, and neither do the data
+modules a worker imports."""
 import os
 import subprocess
 import sys
@@ -26,10 +29,18 @@ SCRIPT = textwrap.dedent("""
         importlib.import_module(name)
     assert "gd3d_torch.cli.train" in names and "gd3d_torch.data.loader" in names
     assert "gd3d_torch.cli.evaluate" in names and "gd3d_torch.data.jpeg" in names
+    for m in ("png", "exif", "images", "augment", "objaverse", "scannetpp", "pipeline",
+              "fixtures"):
+        assert f"gd3d_torch.data.{m}" in names, m
     from gd3d_torch.cli import train
     with tempfile.TemporaryDirectory() as out:
         train.main(["--tiny", "--synthetic", "--device", "cpu", "--epochs", "1",
                     "--steps-per-epoch", "1", "--output", out])
+    from gd3d_torch.data import fixtures
+    with tempfile.TemporaryDirectory() as root:
+        fixtures.write_objaverse_tree(root)
+        train.main(["--tiny", "--device", "cpu", "--epochs", "1", "--steps-per-epoch", "1",
+                    "--data-root", root, "--output", root + "/out"])
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
@@ -46,8 +57,12 @@ def test_port_imports_without_jax_or_gd3d():
 
 
 def test_cli_modules_import_without_torch():
+    """Nor do the modules a data worker imports (data/pipeline.py and the
+    readers it calls)."""
     script = ("import sys, gd3d_torch.cli.evaluate, gd3d_torch.cli.train, "
-              "gd3d_torch.eval.images; print(sorted(m for m in sys.modules "
+              "gd3d_torch.eval.images, gd3d_torch.data.pipeline, gd3d_torch.data.objaverse, "
+              "gd3d_torch.data.scannetpp, gd3d_torch.data.fixtures; "
+              "print(sorted(m for m in sys.modules "
               "if m.split('.')[0] == 'torch' or m.startswith('gd3d_torch.models')))")
     env = dict(os.environ, PYTHONPATH=ROOT)
     res = subprocess.run([sys.executable, "-c", script], cwd=ROOT, env=env,

@@ -1,11 +1,12 @@
-"""The port's Lanczos resize (gd3d_torch/data/resample.py) against Pillow's
-Image.resize(..., LANCZOS), which gd3d's eval resizes with: the same bytes,
-up and down, at the eval's sizes and at random ones."""
+"""The port's Lanczos and bicubic resizes (gd3d_torch/data/resample.py)
+against Pillow's Image.resize(..., LANCZOS), which gd3d's eval resizes with,
+and Image.resize(..., BICUBIC), which its training loaders use: the same
+bytes, up and down, at the eval's and the loaders' sizes and at random ones."""
 import numpy as np
 import pytest
 from PIL import Image
 
-from gd3d_torch.data.resample import PRECISION_BITS, lanczos_coeffs, resize_lanczos
+from gd3d_torch.data.resample import PRECISION_BITS, lanczos_coeffs, resize_bicubic, resize_lanczos
 
 
 def _pil(img, size):
@@ -52,3 +53,27 @@ def test_coefficients_are_normalized():
         sums = w.sum(axis=1)
         assert np.all(np.abs(sums - (1 << PRECISION_BITS)) <= w.shape[1])
         assert first.min() >= 0 and first.max() < n_in
+
+
+@pytest.mark.parametrize("hw,size", [
+    ((1168, 1752), (512, 512)),  # ScanNet++'s _square_rgb
+    ((1168, 1752), (518, 350)),  # load_images_vggt, crop
+    ((341, 512), (512, 512)),
+    ((200, 300), (512, 341)),  # load_image_mast3r upscaling
+    ((37, 53), (20, 11)),
+    ((9, 17), (518, 294)),
+])
+def test_bicubic_matches_pil(hw, size):
+    img = np.random.RandomState(sum(hw)).randint(0, 256, (*hw, 3), dtype=np.uint8)
+    want = np.asarray(Image.fromarray(img).resize(size, Image.BICUBIC))
+    np.testing.assert_array_equal(resize_bicubic(img, size), want)
+    # Image.resize's default filter is bicubic, as gd3d's _square_rgb relies on
+    np.testing.assert_array_equal(resize_bicubic(img, size),
+                                  np.asarray(Image.fromarray(img).resize(size)))
+
+
+def test_a_resize_to_the_same_size_is_a_copy():
+    img = np.random.RandomState(0).randint(0, 256, (512, 512, 3), dtype=np.uint8)
+    out = resize_bicubic(img, (512, 512))
+    assert out is not img
+    np.testing.assert_array_equal(out, np.asarray(Image.fromarray(img).resize((512, 512))))
