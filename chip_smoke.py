@@ -107,10 +107,27 @@ report), then runs these phases in order, one or more printed lines each:
               finetune_timm_vggt_objaverse, 2 steps each, on a fabricated
               Objaverse tree (PNG colour, depth and mask); (d) the first two
               host batches at --workers 0 against gd3d's committed digests,
-              and at --workers W against --workers 1.
+              and at --workers W against --workers 1;
+  8. pose     OnePose-LowTexture, FiT3D and the DUSt3R tracker
+              (check_pose): (a) gd3d_torch/eval/pnp.py against cv2 5.0.0's
+              solvePnPRansac answers on ~40 recorded scenes
+              (gd3d_torch/eval/testdata/pnp_cv2.npz): the same inlier sets,
+              poses within 1e-6 of their norm, host ms a RANSAC call and its
+              iterations; (b) the fp32 K1 at (1,4097,12,64) in the kernels
+              phase's format, and the card against the CPU plain path:
+              frame_descriptors of a 512^2 frame (TOL) and mutual_nn_match
+              on identical descriptors (equal indices); (c)
+              gd3d_torch.cli.evaluate.main(["--pose", ...]) at full width on
+              a fabricated tree (a known-answer object, asserted 1.0 at every
+              threshold, and a 128 000-row template bank): 12 fp32 K1
+              launches at N = 4097 a frame, seconds a frame by stage, RANSAC
+              iterations, frames/s, peak memory; (d) the FiT3D harness's
+              compare with run_pose (refine=False asserted); (e) the DUSt3R
+              tracker on 4 frames of 336x512: 48 K1 and 72 K5 a pair
+              forward, tracks against the plain twins' (TRACK_EQUAL_SHARE).
 
-Then one JSON line of the kernels (launches: the steps, train, eval and
-data phases' runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
+Then one JSON line of the kernels (launches: the steps, train, eval, data
+and pose phases' runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The kernels and agree phases compare fp32 results too, so they
 run without TF32; the steps run with PyTorch's defaults (the teachers turn TF32
 off themselves).
@@ -1643,6 +1660,370 @@ def check_data(dev) -> dict:
     return total
 
 
+# The pose phase. OnePose-LowTexture at full width on a fabricated tree
+# (gd3d_torch/data/fixtures.py::write_onepose_tree): a known-answer object
+# and a template bank of 40 frames x 3200 keypoints (128 000 rows, sampled to
+# gd3d's cap of 120 000); every frame 512^2, resized to 1024^2, so the fp32
+# K1 runs at N = 1 + 64^2 = 4097, 12 launches a frame.
+POSE_TREE = dict(size=(512, 512), known_kps=2000, bank_frames=40, bank_kps=3200, bank_tests=3)
+POSE_N = 4097
+# Tracks of the DUSt3R tracker on K1 and K5 against the same tracker on their
+# plain twins (random teacher weights): an argmin over a 336x512 map of
+# distances whose near-equal minima fp32 sums in another order may swap.
+TRACK_EQUAL_SHARE = 0.75
+
+
+def pose_frames(tree: dict) -> int:
+    """The frames whose descriptors a --pose run computes on the tree: the
+    templates and the test frames of both objects."""
+    return 1 + 2 + tree["bank_frames"] + tree["bank_tests"]
+
+
+def check_pnp_records() -> None:
+    """(a) gd3d_torch/eval/pnp.py against cv2 5.0.0's answers, recorded by
+    tests/test_torch_pnp.py (the card's machine has no cv2): the same retval
+    and inlier set, rvec and tvec within 1e-6 of their norm, and solve_pose's
+    4x4 (on the port's own RANSAC answer) within 1e-6 of gd3d's."""
+    import numpy as np
+
+    from gd3d_torch.eval import pnp
+
+    rec = np.load(testdata_dir() / "pnp_cv2.npz")
+    K = rec["K"]
+    scenes = sorted(int(k[1:].split("_")[0]) for k in rec.files if k.endswith("_pts"))
+    ok, total_s, lines = True, 0.0, []
+
+    def close(got, want):
+        got, want = np.asarray(got, np.float64).ravel(), np.asarray(want, np.float64).ravel()
+        return float(np.abs(got - want).max() / max(np.linalg.norm(want), 1e-12))
+
+    for i in scenes:
+        pts, img = rec[f"s{i}_pts"], rec[f"s{i}_img"]
+        want_pose = rec[f"s{i}_pose"]
+        if len(pts) == 4:  # cv2's P3P: refused; solve_pose's identity
+            try:
+                pnp.solve_pnp_ransac(pts * 1000.0, img, K)
+                refused = False
+            except NotImplementedError:
+                refused = True
+            good = refused and np.array_equal(pnp.solve_pose(img, pts, K), want_pose)
+            log(f"pose: pnp scene {i} n=4: P3P refused {refused}, solve_pose the identity "
+                f"{'OK' if good else 'FAIL'}")
+            ok &= good
+            continue
+        stats = {}
+        t0 = time.perf_counter()
+        answer = pnp.solve_pnp_ransac(pts * 1000.0, img.reshape(-1, 1, 2), K, 8.0, 10000,
+                                      stats=stats)
+        ms = (time.perf_counter() - t0) * 1e3
+        total_s += ms / 1e3
+        got_ok, rvec, tvec, inliers = answer
+        inl = np.zeros((0, 1), np.int32) if inliers is None else inliers
+        same = got_ok == bool(rec[f"s{i}_ok"]) and np.array_equal(inl, rec[f"s{i}_inliers"])
+        r_err = close(rvec, rec[f"s{i}_rvec"]) if got_ok else 0.0
+        t_err = close(tvec, rec[f"s{i}_tvec"]) if got_ok else 0.0
+        solve = pnp.solve_pnp_ransac
+        pnp.solve_pnp_ransac = lambda *a, **k: answer  # solve_pose on this answer
+        try:
+            pose = pnp.solve_pose(img, pts, K)
+        finally:
+            pnp.solve_pnp_ransac = solve
+        p_err = max(close(pose[:3, :3], want_pose[:3, :3]), close(pose[:3, 3], want_pose[:3, 3]))
+        good = same and max(r_err, t_err, p_err) <= 1e-6
+        ok &= good
+        lines.append((ms, stats["iterations"]))
+        log(f"pose: pnp scene {i} n={len(pts)}: retval {got_ok} inliers {len(inl)} equal "
+            f"{same}; rvec {r_err:.1e} tvec {t_err:.1e} pose {p_err:.1e} of the norm; "
+            f"{stats['iterations']} iterations ({stats['hypotheses']} hypotheses computed), "
+            f"host {ms:.1f} ms {'OK' if good else 'FAIL'}")
+    full = [ms for ms, it in lines if it == 10000]
+    log(f"pose: pnp {len(scenes)} scenes, host {total_s:.2f} s in all; a 10000-iteration "
+        f"RANSAC {np.median(full):.0f} ms (median of {len(full)}); iterations "
+        f"{sorted(it for _, it in lines)}")
+    if not ok:
+        raise AssertionError("pose: the port's PnP RANSAC disagrees with cv2's records")
+
+
+def check_pose_kernels(dev) -> None:
+    """(b) K1 (fp32) at the pose descriptors' shape against its plain twin,
+    in the kernels phase's format: one 512^2 frame resized to 1024^2."""
+    import torch
+    import torch.nn.functional as F
+
+    from gd3d_torch.kernels.flash_fwd import flash_attention_fwd, flash_attention_fwd_plain
+
+    g = torch.Generator(device=dev).manual_seed(4097)
+    rep = KernelReport()
+    B, N, H, D = 1, POSE_N, 12, 64
+    qkv = torch.randn((B, N, 3, H, D), generator=g, device=dev)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    scale = D ** -0.5
+    o, lse = flash_attention_fwd(q, k, v, scale)
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
+    rep.check("K1", f"pose frame B={B} N={N} H={H} D={D} float32",
+              [("o", o, o_ref, "float32"), ("lse", lse, lse_ref, "float32")],
+              lambda: flash_attention_fwd(q, k, v, scale),
+              lambda: flash_attention_fwd_plain(q, k, v, scale),
+              nbytes=4 * B * N * H * D * 4 + B * H * N * 4, ops=4.0 * B * H * N * N * D,
+              dtype="float32", iters=20,
+              run_library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
+    if not rep.ok:
+        raise AssertionError("pose: K1 disagrees with its plain twin at the pose shape")
+
+
+def check_pose_agreement(dev) -> None:
+    """(b) The card against the CPU plain path on shared weights (the CLI's
+    seeded ViT-B/16 fp32 student, refine conv): frame_descriptors of a 512^2
+    frame at its 16384 grid keypoints (TOL), the float64 resize on the card
+    bit for bit the host's; then mutual_nn_match on identical descriptors
+    (the CPU's queries against 8000 bank rows) on both, with equal indices."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from gd3d_torch.data.fixtures import texture
+    from gd3d_torch.data.resample import resize_linear_cv
+    from gd3d_torch.eval.onepose import frame_descriptors, grid_keypoints, mutual_nn_match
+
+    student = eval_student(dev)
+    cpu_student = copy.deepcopy(student).cpu()
+    rng = np.random.RandomState(5)
+    rgb, bank_rgb = texture(rng, 512, 512), texture(rng, 512, 512)
+    kp = grid_keypoints(512, 512)
+    img = rgb.astype(np.float64) / 255.0
+    resized = resize_linear_cv(torch.from_numpy(img).to(dev), (1024, 1024)).cpu().numpy()
+    same_resize = np.array_equal(resized, resize_linear_cv(img, (1024, 1024)))
+    t0 = time.perf_counter()
+    want = frame_descriptors(cpu_student, rgb, kp)
+    cpu_s = time.perf_counter() - t0
+    got = frame_descriptors(student, rgb, kp).cpu()
+    err, mag = max_err(got, want)
+    tol = TOL["float32"] * max(1.0, mag)
+    desc_ok = got.shape == want.shape == (16384, 768) and err <= tol
+    log(f"pose: agree 1024^2 resize on the card equal to the host's {same_resize}; "
+        f"frame_descriptors 512^2 frame {tuple(got.shape)}: max err {err:.3e} of max {mag:.3e} "
+        f"(tol {tol:.1e}; CPU {cpu_s:.1f} s) {'OK' if desc_ok and same_resize else 'FAIL'}")
+    bank_kp = rng.uniform(0, 511, (8000, 2))
+    bank = frame_descriptors(cpu_student, bank_rgb, bank_kp)
+    t0 = time.perf_counter()
+    nn_cpu = mutual_nn_match(want, bank)
+    cpu_s = time.perf_counter() - t0
+    nn_gpu = mutual_nn_match(want.to(dev), bank.to(dev))
+    nn_ok = np.array_equal(nn_gpu, nn_cpu)
+    log(f"pose: agree mutual_nn_match 16384 queries x 8000 bank rows on identical "
+        f"descriptors: equal indices {nn_ok} ({int((nn_gpu != nn_cpu).sum())} differ; "
+        f"{int((nn_cpu >= 0).sum())} mutual on the CPU; CPU {cpu_s:.1f} s) "
+        f"{'OK' if nn_ok else 'FAIL'}")
+    if not (desc_ok and same_resize and nn_ok):
+        raise AssertionError("pose: the card disagrees with the CPU plain path")
+
+
+def _counted_run(fn):
+    """fn() with the launch counts set to 0 just before and read just after;
+    returns (fn's result, counts, counts by dtype and length, wall s, peak GiB)."""
+    import torch
+
+    from gd3d_torch.kernels import launch_counts, launch_counts_by, reset_launch_counts
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return (res, launch_counts(), launch_counts_by(), wall,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def check_pose_cli(dev, root) -> dict:
+    """(c) gd3d_torch.cli.evaluate.main(["--pose", ...]) in this process on
+    the card at full width (ViT-B/16 fp32, seeded weights, refine conv) on
+    the fabricated tree: gd3d's header, the known answer at 1.0 on every
+    threshold, finite values, exactly 12 fp32 K1 launches at N = 4097 a
+    frame and no other launch. Returns the run's launches."""
+    import csv as csvlib
+
+    import numpy as np
+
+    from gd3d_torch.cli import evaluate
+    from gd3d_torch.data.fixtures import ONEPOSE_KNOWN
+
+    argv = ["--pose", "--data-root", str(root / "data"), "--out", str(root / "out")]
+    res, counts, counts_by, wall, peak = _counted_run(lambda: evaluate.main(argv))
+    rows = list(csvlib.reader(open(res["out_dir"] / "pose_estimation.csv")))
+    for r in rows:
+        log(f"pose: cli pose_estimation.csv: {','.join(r)}")
+    header_ok = rows[0] == ["objs", "threshold_1", "threshold_3", "threshold_5"]
+    known_ok = rows[1] == [ONEPOSE_KNOWN, "1.0", "1.0", "1.0"]
+    finite = all(np.isfinite(float(v)) for r in rows[1:] for v in r[1:])
+    frames = pose_frames(POSE_TREE)
+    want = {("float32", POSE_N): 12 * frames}
+    launches_ok = (counts_by["K1"] == want
+                   and all(n == 0 for k, n in counts.items() if k != "K1"))
+    st = res["stats"]["pose"]
+    tests = st["frames_detail"]
+    log(f"pose: cli wall {wall:.2f} s with the set-up; {frames} frames ({st['templates']} "
+        f"templates, {st['frames']} test frames, {st['template_rows']} template rows after the "
+        f"cap) in {st['wall_s']:.2f} s = {frames / st['wall_s']:.2f} frames/s; decode "
+        f"{st['decode_s']:.2f} s, template bank {st['bank_s']:.2f} s "
+        f"({st['bank_s'] / st['templates']:.3f} s a template frame); peak_mem_gib {peak:.3f}")
+    for j, f in enumerate(tests):
+        log(f"pose: cli test frame {j}: {f['matches']} mutual matches, descriptors "
+            f"{f['descriptors_s']:.3f} s (device synchronized), NN {f['nn_s']:.3f} s, PnP "
+            f"{f['pnp_s']:.3f} s ({f['ransac_iterations']} RANSAC iterations, best "
+            f"{f['inliers']} inliers)")
+    log(f"pose: cli header equal gd3d's {header_ok}, known answer 1.0 {known_ok}, finite "
+        f"{finite}; launches {counts}; K1 by dtype and length {counts_by['K1']} (want {want}) "
+        f"{'OK' if header_ok and known_ok and finite and launches_ok else 'FAIL'}")
+    if not (header_ok and known_ok and finite and launches_ok):
+        raise AssertionError("pose: the --pose run's table or launch counts are wrong")
+    return counts
+
+
+def check_fit3d(dev, root) -> dict:
+    """(d) gd3d_torch.eval.fit3d.compare with the CLI's seeded vanilla
+    student saved as a local .pth (the 'vanilla' column, with no checkpoint,
+    is the same seeded init), run_pose=True on the tree: the keys
+    pose/fit3d and pose/vanilla, equal tables, refine=False in every
+    descriptor pass (the refine conv never called), 12 fp32 K1 at N = 4097
+    a frame of each model. Returns the run's launches."""
+    import torch
+
+    from gd3d_torch.eval import fit3d
+    from gd3d_torch.models.student import Student
+
+    ckpt = root / "vanilla_seeded.pth"
+    torch.save(fit3d.load_fit3d_student(None, device=dev).vit.state_dict(), ckpt)
+    refines = []
+    apply_refine = Student.apply_refine
+
+    def spy(self, grid):
+        refines.append(grid.shape)
+        return apply_refine(self, grid)
+
+    Student.apply_refine = spy
+    try:
+        res, counts, counts_by, wall, peak = _counted_run(lambda: fit3d.compare(
+            str(ckpt), None, str(root / "data"), run_transfer=False, run_pose=True,
+            device=dev))
+    finally:
+        Student.apply_refine = apply_refine
+    keys_ok = list(res) == ["pose/fit3d", "pose/vanilla"]
+    same = keys_ok and (res["pose/fit3d"].columns == res["pose/vanilla"].columns)
+    want = {("float32", POSE_N): 2 * 12 * pose_frames(POSE_TREE)}
+    launches_ok = (counts_by["K1"] == want
+                   and all(n == 0 for k, n in counts.items() if k != "K1"))
+    for name, table in res.items():
+        log(f"pose: fit3d {name}: {table.columns}")
+    good = keys_ok and same and not refines and launches_ok
+    log(f"pose: fit3d compare keys {list(res)}, tables equal {same}, refine conv calls "
+        f"{len(refines)} (want 0); wall {wall:.2f} s, peak_mem_gib {peak:.3f}; K1 "
+        f"{counts_by['K1']} (want {want}) {'OK' if good else 'FAIL'}")
+    if not good:
+        raise AssertionError("pose: the FiT3D harness's tables, refine or launches are wrong")
+    return counts
+
+
+def check_dust3r_tracker(dev) -> dict:
+    """(e) Dust3rTracker on the full-width MASt3R teacher (seeded weights,
+    face_forward on the frames) over 4 frames of 336x512 with 8 queries
+    from frame 0: 4 pair forwards, each 48 fp32 K1 at N = 672 and 72 K5
+    launches; then the same tracker with K1 and K5's plain twins in their
+    place, on the card: the share of equal positions, at least
+    TRACK_EQUAL_SHARE. Returns the kernels run's launches."""
+    import numpy as np
+    import torch
+
+    from gd3d_torch.data.fixtures import texture
+    from gd3d_torch.eval.dust3r_tracker import Dust3rTracker
+    from gd3d_torch.kernels import rope2d as krope
+    from gd3d_torch.kernels.flash_fwd import flash_attention_fwd_plain
+    from gd3d_torch.ops import attention
+    from gd3d_torch.teachers.mast3r import Mast3rTeacher
+
+    rng = np.random.RandomState(7)
+    frames = np.stack([texture(rng, 336, 512) for _ in range(4)]).astype(np.float32) / 255.0
+    with torch.device(dev):
+        teacher = Mast3rTeacher()
+    teacher.init_params(torch.Generator(device=dev).manual_seed(7))
+    teacher.eval()
+    x = torch.from_numpy(frames * 2.0 - 1.0).to(dev)
+    teacher.face_forward(x[:1], x[1:2])
+    q = np.column_stack([rng.randint(0, 512, 8), rng.randint(0, 336, 8),
+                         np.zeros(8)]).astype(np.float32)
+    tracker = Dust3rTracker(teacher)
+    tracks, counts, counts_by, wall, peak = _counted_run(lambda: tracker.track(frames, q))
+    pairs = 4
+    want_k1 = {("float32", 672): 48 * pairs}
+    launches_ok = (counts_by["K1"] == want_k1 and counts["K5"] == 72 * pairs
+                   and all(n == 0 for k, n in counts.items() if k not in ("K1", "K5")))
+    kernel_fwd, qk_fwd, one_fwd = attention.flash_attention_fwd, krope.rope2d_qk_fwd, krope.rope2d_fwd
+    attention.flash_attention_fwd = flash_attention_fwd_plain
+    krope.rope2d_qk_fwd = lambda q_, qp, k_, kp, base=100.0, f0=1.0: (
+        krope.rope2d_plain(q_, qp, base, f0), krope.rope2d_plain(k_, kp, base, f0))
+    krope.rope2d_fwd = krope.rope2d_plain
+    try:
+        twin = Dust3rTracker(teacher).track(frames, q)
+    finally:
+        attention.flash_attention_fwd = kernel_fwd
+        krope.rope2d_qk_fwd, krope.rope2d_fwd = qk_fwd, one_fwd
+    equal = float((tracks == twin).all(-1).mean())
+    inside = bool((tracks[..., 0] < 512).all() and (tracks[..., 1] < 336).all()
+                  and (tracks >= 0).all())
+    good = launches_ok and inside and equal >= TRACK_EQUAL_SHARE
+    log(f"pose: dust3r tracker 4 frames of 336x512, 8 queries: wall {wall:.2f} s "
+        f"({pairs} pair forwards, {wall / pairs:.3f} s a pair with the argmins), peak_mem_gib "
+        f"{peak:.3f}; launches {counts}, K1 {counts_by['K1']} (want {want_k1}, and 72 K5 a "
+        f"pair); positions inside the frame {inside}; tracks on K1 and K5 equal to the plain "
+        f"twins' at {equal:.3f} of the positions (want >= {TRACK_EQUAL_SHARE}) "
+        f"{'OK' if good else 'FAIL'}")
+    if not good:
+        raise AssertionError("pose: the DUSt3R tracker's launches or tracks are wrong")
+    return counts
+
+
+def check_pose(dev) -> dict:
+    """The pose phase: (a) PnP against cv2's records, (b) K1 at the pose
+    shape and the card against the CPU, (c) the --pose entry point, (d) the
+    FiT3D harness, (e) the DUSt3R tracker. (b) and (e)'s twin run without
+    TF32. Returns the launches of (c), (d) and (e)'s kernel runs."""
+    import tempfile
+    from pathlib import Path
+
+    import torch
+
+    from gd3d_torch.data.fixtures import write_onepose_tree
+    from gd3d_torch.teachers.mast3r import no_tf32
+
+    t0 = time.perf_counter()
+    check_pnp_records()
+    log(f"pose: (a) done in {time.perf_counter() - t0:.1f} s")
+    with no_tf32():
+        check_pose_kernels(dev)
+        check_pose_agreement(dev)
+    torch.cuda.empty_cache()
+    log(f"pose: (b) done at {time.perf_counter() - t0:.1f} s")
+    counts = {k: 0 for k in REPLACES}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t1 = time.perf_counter()
+        write_onepose_tree(root / "data", **POSE_TREE)
+        log(f"pose: wrote the OnePose tree in {time.perf_counter() - t1:.1f} s")
+        for run in (check_pose_cli, check_fit3d):
+            for k, n in run(dev, root).items():
+                counts[k] += n
+            torch.cuda.empty_cache()
+            log(f"pose: ({'c' if run is check_pose_cli else 'd'}) done at "
+                f"{time.perf_counter() - t0:.1f} s")
+    for k, n in check_dust3r_tracker(dev).items():
+        counts[k] += n
+    log(f"pose: (e) done at {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -1696,6 +2077,9 @@ def main() -> int:
     for k, n in check_data(dev).items():
         counts[k] += n
     log(f"phase: data done at {time.perf_counter() - t_start:.1f} s")
+    for k, n in check_pose(dev).items():
+        counts[k] += n
+    log(f"phase: pose done at {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

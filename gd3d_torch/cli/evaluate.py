@@ -2,12 +2,13 @@
 
 Usage:
   python -m gd3d_torch.cli.evaluate [--ckpt <run>/ckpt_epoch_0010] \\
-      [--matcher mast3r|vggt|me|vanilla] [--transfer] [--tracking] \\
+      [--matcher mast3r|vggt|me|vanilla] [--transfer] [--tracking] [--pose] \\
       [--same-view] [--data-root data] [--out evaluation_output] [--device cuda]
 
 gd3d's flags and output layout, <out>/timm/<matcher>/ViT-B-16/<dataset>/<ts>/
-with semantic_transfer.csv (PF-PASCAL PCK, one view mode) and tracking.csv
-(TAP-Vid DAVIS), written as gd3d's DataFrame.to_csv writes them. The matcher
+with pose_estimation.csv (OnePose-LowTexture), tracking.csv (TAP-Vid DAVIS)
+and semantic_transfer.csv (PF-PASCAL PCK, one view mode), in that order,
+written as gd3d's DataFrame.to_csv writes them. The matcher
 sets the student: `me` has LoRA from block 8 and no adapters, `vanilla` LoRA
 from block 12 (none) and no refine conv, the others the default student.
 Weights: seeded with torch.Generator(42) (gd3d's key 42), then
@@ -16,12 +17,16 @@ port's own adapter checkpoint) or --adapter-ckpt (the reference's Lightning
 layout). It runs on the card unless --device says otherwise; asking for
 cuda without one raises.
 
---pose is refused before any work: OnePose++ needs cv2.solvePnPRansac, which
-the card's machine lacks and which a port cannot reproduce draw for draw.
+--pose estimates poses with gd3d_torch/eval/pnp.py, which repeats
+cv2.solvePnPRansac (EPnP, 8 px, 10 000 iterations) operation for operation:
+OpenCV's RANSAC seeds its own generator with a constant, so its subsets
+depend only on the point count, and tests/test_torch_pnp.py holds the port
+to cv2's inlier sets and poses on seeded scenes. The descriptors and the
+matching run on the device, the RANSAC on the host.
 --tiny (a 4-block, 32-wide student with a 64^2 PCK canvas and 64 x 96
 tracking frames, decoded in this process) is the port's own; otherwise
-JPEGs are decoded in one pool of min(8, CPUs) spawned processes for the
-run. The module imports torch inside its functions only, so those
+JPEGs and PNGs are decoded in one pool of min(8, CPUs) spawned processes
+for the run. The module imports torch inside its functions only, so those
 processes, which re-run its top level, start without it.
 """
 from __future__ import annotations
@@ -51,8 +56,7 @@ def parse_args(argv=None):
                    help="torch state_dict (.pth) of the pretrained timm student")
     p.add_argument("--transfer", action="store_true", help="PF-PASCAL semantic transfer (PCK)")
     p.add_argument("--tracking", action="store_true", help="TAP-Vid DAVIS tracking")
-    p.add_argument("--pose", action="store_true",
-                   help="refused: OnePose++ needs cv2's PnP RANSAC")
+    p.add_argument("--pose", action="store_true", help="OnePose-LowTexture pose estimation")
     p.add_argument("--same-view", action="store_true")
     p.add_argument("--num-cats", type=int, default=None)
     p.add_argument("--num-videos", type=int, default=30)
@@ -65,15 +69,6 @@ def parse_args(argv=None):
     p.add_argument("--tiny", action="store_true",
                    help="tiny student and sizes (CPU smoke testing)")
     return p.parse_args(argv)
-
-
-def check_flags(args) -> None:
-    """Raise for what this port does not bring, before any work."""
-    if args.pose:
-        raise NotImplementedError(
-            "--pose (OnePose++) is not ported: gd3d estimates poses with "
-            "cv2.solvePnPRansac (EPnP, 8 px, 10000 iterations), which the card's machine "
-            "lacks, and a port cannot draw RANSAC's samples as cv2 does")
 
 
 def student_config(matcher: str, tiny: bool = False) -> StudentConfig:
@@ -126,11 +121,11 @@ def main(argv=None) -> dict:
     """Parse, build the student, run the asked evals. Returns the output
     dir, the tables by method and each method's stats (decode_s, wall_s,
     pairs or frames; tracking's also features_s, tracker_s and each
-    video's own under "videos")."""
+    video's own under "videos"; pose's also descriptors_s, nn_s, pnp_s,
+    ransac_iterations and each test frame's under "frames_detail")."""
     import torch
 
     args = parse_args(argv)
-    check_flags(args)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asks for a card, and torch sees none "
@@ -144,6 +139,17 @@ def main(argv=None) -> dict:
     tables, stats = {}, {}
 
     with make_pool(eval_workers(args.tiny)) as pool:
+        if args.pose:
+            from gd3d_torch.eval.onepose import oneposepp
+
+            stats["pose"] = {}
+            tables["pose"] = oneposepp(
+                student, root=f"{args.data_root}/lowtexture_test_data",
+                sfm_dir=f"{args.data_root}/sfm_output/outputs_softmax_loftr_loftr",
+                refine=refine, pool=pool, stats=stats["pose"])
+            tables["pose"].to_csv(out_dir / "pose_estimation.csv")
+            print(tables["pose"].mean())
+
         if args.tracking:
             from gd3d_torch.eval.tracking import tracking
 

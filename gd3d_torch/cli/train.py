@@ -26,11 +26,10 @@ stream (step s of epoch e equals gd3d's), N >= 1 seeds each step's datasets
 from (seed + epoch, s), so that every N >= 1 gives the same batches.
 
 Refused at start, with the reason: --tensorboard (TensorFlow),
---fsdp-teacher and --multihost (multi-GPU is not ported), and a config
-whose eval methods include "pose" when OnePose data exist under --data-root
-(OnePose++ needs cv2's PnP RANSAC). The eval epoch runs gd3d's callback
-(gd3d_torch/eval/callback.py): PF-PASCAL PCK and TAP-Vid DAVIS tracking
-where their data exist, nothing where none do.
+--fsdp-teacher and --multihost (multi-GPU is not ported). The eval epoch
+runs gd3d's callback (gd3d_torch/eval/callback.py): PF-PASCAL PCK, TAP-Vid
+DAVIS tracking and OnePose-LowTexture pose where their data exist, nothing
+where none do.
 
 Without --teacher-ckpt the teacher has seeded random weights, and the
 set-ups that keep its losses live on random weights
@@ -107,9 +106,6 @@ def parse_args(argv=None):
 
 def check_flags(args) -> None:
     """Raise for what this port does not bring, before any work."""
-    from gd3d_torch.core import config as cfglib
-    from gd3d_torch.eval.callback import pose_data_exists
-
     if args.workers < 0:
         raise ValueError("--workers must be at least 0")
     if args.tensorboard:
@@ -121,12 +117,6 @@ def check_flags(args) -> None:
             "ported yet; the port trains on one card")
     if args.multistep < 1:
         raise ValueError("--multistep must be at least 1")
-    if ("pose" in cfglib.resolve_config(args.config).evaluation_methods
-            and pose_data_exists(args.data_root)):
-        raise NotImplementedError(
-            f"the config's eval methods include 'pose', and its data exist under "
-            f"{args.data_root}: OnePose++ is not ported (gd3d uses cv2.solvePnPRansac, "
-            f"which the card's machine lacks); move that data away to train")
 
 
 def load_torch_state(path: str) -> Dict[str, torch.Tensor]:
@@ -142,15 +132,18 @@ def load_torch_state(path: str) -> Dict[str, torch.Tensor]:
     return {k: v for k, v in state.items() if torch.is_tensor(v)}
 
 
-def load_upstream(module: torch.nn.Module, path: str, may_miss=()) -> None:
-    """Load an upstream state dict into a port module that keeps its key
-    layout. Keys the module has and the file lacks raise, except those
-    containing one of `may_miss`; keys the module lacks are reported."""
-    missing, unexpected = module.load_state_dict(load_torch_state(path), strict=False)
+def load_upstream(module: torch.nn.Module, path, may_miss=()) -> None:
+    """Load an upstream state dict (a file, or its tensors by key) into a
+    port module that keeps its key layout. Keys the module has and the state
+    lacks raise, except those containing one of `may_miss`; keys the module
+    lacks are reported."""
+    state = path if isinstance(path, dict) else load_torch_state(path)
+    name = "the state dict" if isinstance(path, dict) else path
+    missing, unexpected = module.load_state_dict(state, strict=False)
     bad = [k for k in missing if not any(m in k for m in may_miss)]
     if bad:
-        raise KeyError(f"{path} lacks {len(bad)} parameters of the model: {bad[:8]}")
-    print(f"loaded {path}" + (f"; ignored {len(unexpected)} keys the model lacks: "
+        raise KeyError(f"{name} lacks {len(bad)} parameters of the model: {bad[:8]}")
+    print(f"loaded {name}" + (f"; ignored {len(unexpected)} keys the model lacks: "
                               f"{unexpected[:8]}" if unexpected else ""))
 
 

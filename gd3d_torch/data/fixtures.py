@@ -24,6 +24,12 @@ fixtures and the reference digests anew (cv2, PIL and gd3d needed).
     <root>/objaverse_renderings/<obj>/{color,depth,mask}_%06d.png, the
     view's render fixtures (render_<k>_{color,depth,mask}.png, k = view mod
     RENDERS).
+  - `write_onepose_tree(root)`: <root>/lowtexture_test_data and
+    <root>/sfm_output/outputs_softmax_loftr_loftr, gd3d's OnePose-LowTexture
+    layout, with two objects (see its docstring): a known answer, whose test
+    frames are copies of its one template frame under that frame's pose,
+    and a template bank of `bank_frames` x `bank_kps` rows. PNGs are written
+    with png.encode_png_rgb.
 """
 from __future__ import annotations
 
@@ -242,3 +248,106 @@ def mismatches(got: Dict, want: Dict, path: str = "") -> list:
         return [m for i, (g, w) in enumerate(zip(got, want))
                 for m in mismatches(g, w, f"{path}[{i}]")]
     return [] if got == want else [path]
+
+
+ONEPOSE_KNOWN, ONEPOSE_BANK = "0501-known", "0502-bank"
+
+
+def texture(rng: np.random.RandomState, h: int, w: int) -> np.ndarray:
+    """A smooth random uint8 RGB texture (noise at 1/8 size, upsampled)."""
+    small = rng.rand((h + 7) // 8, (w + 7) // 8, 3)
+    big = np.repeat(np.repeat(small, 8, 0), 8, 1)[:h, :w]
+    big = (big + np.roll(big, 4, 0) + np.roll(big, 4, 1) + rng.rand(h, w, 3) * 0.5) / 2.5
+    return (big * 255).astype(np.uint8)
+
+
+def _write_sequence(seq_dir: Path, png: bytes, copies: int, K: np.ndarray, pose: np.ndarray,
+                    every_nth: int = 10) -> None:
+    """color/<i>.png for i < copies (the same bytes), and intrin_ba and
+    poses_ba for the frames the evaluation reads (every `every_nth` of the
+    sorted names)."""
+    for sub in ("color", "intrin_ba", "poses_ba"):
+        (seq_dir / sub).mkdir(parents=True, exist_ok=True)
+    names = [f"{i:03d}" for i in range(copies)]
+    for name in names:
+        (seq_dir / "color" / f"{name}.png").write_bytes(png)
+    for name in sorted(names)[::every_nth]:
+        np.savetxt(seq_dir / "intrin_ba" / f"{name}.txt", K)
+        np.savetxt(seq_dir / "poses_ba" / f"{name}.txt", pose)
+
+
+def write_onepose_tree(root, size=(512, 512), known_kps: int = 2000, bank_frames: int = 40,
+                       bank_kps: int = 3200, bank_tests: int = 3, seed: int = 0) -> Dict:
+    """gd3d's OnePose-LowTexture layout under `root` with two objects.
+
+    ONEPOSE_KNOWN: one template frame (a smooth random texture, `size` =
+    (H, W)) whose `known_kps` LoFTR keypoints are interior patch centres of
+    the stride-4 query grid,
+    their 3D points back-projected from a curved depth map through K and a
+    seeded object-to-camera pose, and 11 copies of the frame as sequence 2
+    (frames 0 and 10 read) with that pose as ground truth. Identical
+    descriptors at identical pixels match each other, and EPnP on exact
+    correspondences recovers the pose, so all three thresholds are 1.0.
+
+    ONEPOSE_BANK: `bank_frames` template frames of `bank_kps` random
+    keypoints each (random 3D points), filling the bank to 128 000 rows at
+    the defaults (gd3d samples 120 000), and 10 * (bank_tests - 1) + 1 test
+    frames (bank_tests read) of another texture.
+
+    Returns K, the known pose and the known object's 2D and 3D points."""
+    root = Path(root)
+    rng = np.random.RandomState(seed)
+    H, W = size
+    lt = root / "lowtexture_test_data"
+    sfm = root / "sfm_output" / "outputs_softmax_loftr_loftr"
+    K = np.array([[0.9 * W, 0.0, W / 2.0], [0.0, 0.9 * W, H / 2.0], [0.0, 0.0, 1.0]])
+
+    # the known answer
+    from gd3d_torch.data.png import encode_png_rgb
+    from gd3d_torch.eval.pnp import rodrigues_to_matrix
+
+    R = rodrigues_to_matrix(np.array([[0.3, -0.2, 0.1]]))[0]
+    t = np.array([0.01, -0.02, 0.05])
+    pose = np.eye(4)
+    pose[:3, :3], pose[:3, 3] = R, t
+    # interior patch centres (x, y = 4 + 8k in the frame): the query grid
+    # holds them, and no other grid point has their descriptor (the grid's
+    # first row and column are clamped copies of the first centres)
+    gx, gy = np.meshgrid(np.arange(12, W - 11, 8), np.arange(12, H - 11, 8))
+    grid = np.column_stack([gx.ravel(), gy.ravel()]).astype(float)
+    kp2d = grid[np.sort(rng.choice(len(grid), known_kps, replace=False))]
+    depth = 0.6 + 0.1 * (kp2d[:, 0] / W - 0.5) + 0.05 * np.sin(kp2d[:, 1] / H * np.pi)
+    cam = depth[:, None] * np.column_stack([(kp2d[:, 0] - K[0, 2]) / K[0, 0],
+                                            (kp2d[:, 1] - K[1, 2]) / K[1, 1], np.ones(len(kp2d))])
+    kp3d = (cam - t) @ R
+    name = ONEPOSE_KNOWN.split("-")[1]
+    (lt / ONEPOSE_KNOWN / f"{name}-1" / "anno_loftr").mkdir(parents=True)
+    (lt / ONEPOSE_KNOWN / f"{name}-1" / "color").mkdir(parents=True)
+    (sfm / ONEPOSE_KNOWN / "anno").mkdir(parents=True)
+    np.savez(sfm / ONEPOSE_KNOWN / "anno" / "anno_3d_average.npz", keypoints3d=kp3d)
+    with open(lt / ONEPOSE_KNOWN / f"{name}-1" / "anno_loftr" / "0.json", "w") as f:
+        json.dump({"keypoints2d": kp2d.tolist(),
+                   "assign_matrix": [list(range(known_kps)), list(range(known_kps))]}, f)
+    png = encode_png_rgb(texture(rng, H, W))
+    (lt / ONEPOSE_KNOWN / f"{name}-1" / "color" / "0.png").write_bytes(png)
+    _write_sequence(lt / ONEPOSE_KNOWN / f"{name}-2", png, 11, K, pose)
+
+    # the bank
+    name = ONEPOSE_BANK.split("-")[1]
+    seq1 = lt / ONEPOSE_BANK / f"{name}-1"
+    (seq1 / "anno_loftr").mkdir(parents=True)
+    (seq1 / "color").mkdir(parents=True)
+    (sfm / ONEPOSE_BANK / "anno").mkdir(parents=True)
+    n3d = bank_frames * bank_kps
+    np.savez(sfm / ONEPOSE_BANK / "anno" / "anno_3d_average.npz",
+             keypoints3d=rng.uniform(-0.1, 0.1, (n3d, 3)))
+    for i in range(bank_frames):
+        kp = rng.uniform(0, [W - 1, H - 1], (bank_kps, 2))
+        with open(seq1 / "anno_loftr" / f"{i:03d}.json", "w") as f:
+            json.dump({"keypoints2d": kp.tolist(),
+                       "assign_matrix": [list(range(bank_kps)),
+                                         list(range(i * bank_kps, (i + 1) * bank_kps))]}, f)
+        (seq1 / "color" / f"{i:03d}.png").write_bytes(encode_png_rgb(texture(rng, H, W)))
+    _write_sequence(lt / ONEPOSE_BANK / f"{name}-2", encode_png_rgb(texture(rng, H, W)),
+                    10 * (bank_tests - 1) + 1, K, pose)
+    return {"K": K, "pose": pose, "kp2d": kp2d, "kp3d": kp3d}

@@ -279,3 +279,19 @@ def pil_rgb(png: Png) -> np.ndarray:
     if png.color_type == 6 or (png.color_type == 4 and png.bit_depth == 16):  # PIL's RGBA
         return _composite_on_white(rgb, _high_byte(alpha))
     return np.ascontiguousarray(rgb)
+
+
+def encode_png_rgb(rgb: np.ndarray) -> bytes:
+    """An 8-bit RGB PNG of a uint8 (H, W, 3) array: every row filter 0, one
+    zlib IDAT at level 1 (the fabricated OnePose trees' frames)."""
+    h, w, c = rgb.shape
+    if c != 3 or rgb.dtype != np.uint8:
+        raise ValueError(f"encode_png_rgb takes uint8 (H, W, 3), got {rgb.dtype} {rgb.shape}")
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], 1).tobytes()
+
+    def chunk(kind: bytes, data: bytes) -> bytes:
+        return (struct.pack(">I", len(data)) + kind + data
+                + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))

@@ -1,4 +1,5 @@
-"""PIL's Lanczos and bicubic resizes of 8-bit images, without PIL.
+"""PIL's Lanczos and bicubic resizes of 8-bit images, without PIL, and
+cv2's bilinear resize of float64 images, without cv2.
 
 gd3d's eval resizes with `Image.resize((w, h), Image.LANCZOS)` (PF-PASCAL
 canvases, DAVIS frames), and its training images with LANCZOS or BICUBIC
@@ -18,6 +19,13 @@ channel.
     one (where the height changes), each summing from 2^21, shifting right
     by 22 and clipping to [0, 255]; a resize to the same size is a copy, as
     Pillow's Image.resize returns one.
+
+gd3d's OnePose descriptors resize a float64 frame with `cv2.resize`
+(INTER_LINEAR). `resize_linear_cv` gives OpenCV 5's bits: the source
+coordinate fma(d + 0.5, in / out, -0.5), the taps clamped at the borders,
+each sample fma(b - a, frac, a), rows first. numpy has no fused multiply-add,
+so `fma64` emulates one exactly; it also runs on torch tensors, so that the
+eval resizes on the card.
 """
 from __future__ import annotations
 
@@ -134,3 +142,83 @@ def resize_lanczos(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
 def resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """resize(img, size, "bicubic"): Image.BICUBIC, Image.resize's default."""
     return resize(img, size, "bicubic")
+
+
+
+# ------------------------------------------------- cv2.resize, INTER_LINEAR
+_SPLIT = 134217729.0  # 2^27 + 1, Veltkamp's splitter for doubles
+
+
+def _two_sum(a, b):
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _two_prod(a, b):
+    p = a * b
+    ca, cb = _SPLIT * a, _SPLIT * b
+    ah, bh = ca - (ca - a), cb - (cb - b)
+    al, bl = a - ah, b - bh
+    return p, ((ah * bh - p) + ah * bl + al * bh) + al * bl
+
+
+def fma64(a, b, c):
+    """a * b + c in float64 with one rounding (std::fma), for finite values
+    far from overflow: the exact product as two doubles, its exact sum with
+    c, the low parts added rounding to odd, then one rounding to nearest
+    (Boldo and Melquiond's emulation). numpy arrays, or torch tensors on any
+    device, where each operation is its own exactly rounded kernel."""
+    if any(type(x).__module__.startswith("torch") for x in (a, b, c)):
+        import torch
+
+        dev = next(x.device for x in (a, b, c) if isinstance(x, torch.Tensor))
+        a, b, c = torch.broadcast_tensors(*(torch.as_tensor(x, dtype=torch.float64, device=dev)
+                                            for x in (a, b, c)))
+        where, nextafter, bits = torch.where, torch.nextafter, lambda v: v.view(torch.int64)
+        inf = torch.tensor(np.inf, dtype=torch.float64, device=dev)
+    else:
+        a, b, c = np.broadcast_arrays(*(np.asarray(x, np.float64) for x in (a, b, c)))
+        where, nextafter, bits, inf = np.where, np.nextafter, lambda v: v.view(np.int64), np.inf
+    uh, ul = _two_prod(a, b)
+    th, tl = _two_sum(c, uh)
+    v, e = _two_sum(tl, ul)
+    inexact_even = (e != 0) & ((bits(v) & 1) == 0)
+    v = where(inexact_even, nextafter(v, where(e > 0, inf, -inf)), v)
+    return th + v
+
+
+def linear_taps_cv(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """cv::resize's INTER_LINEAR taps along one axis for float64 images: the
+    source coordinate fma(d + 0.5, in / out, -0.5), its floor and the next
+    index (clamped), and the fraction, 0 where the floor lies left of the
+    image or on its last sample."""
+    f = fma64(np.arange(out_size) + 0.5, in_size / out_size, -0.5)
+    s = np.floor(f)
+    frac = np.where((s < 0) | (s >= in_size - 1), 0.0, f - s)
+    s = np.clip(s.astype(np.int64), 0, in_size - 1)
+    return s, np.minimum(s + 1, in_size - 1), frac
+
+
+def resize_linear_cv(img, size: Tuple[int, int]):
+    """cv2.resize(img, size) (INTER_LINEAR) of a float64 (H, W) or (H, W, C)
+    image, size = (width, height), as OpenCV 5's CPU path computes it: each
+    row first, then the rows, every sample fma(b - a, frac, a) of its two
+    taps. `img` is a numpy array or a torch tensor (then computed on its
+    device, to the same bits). A C = 1 image keeps its channel axis (cv2
+    drops it)."""
+    is_torch = type(img).__module__.startswith("torch")
+    if str(img.dtype) not in ("float64", "torch.float64"):
+        raise ValueError(f"resize_linear_cv takes float64 images, got {img.dtype}")
+    w, h = size
+    if w <= 0 or h <= 0:
+        raise ValueError(f"resize_linear_cv: bad size {size}")
+    extra = (None,) * (img.ndim - 2)
+    x0, x1, fx = linear_taps_cv(img.shape[1], w)
+    y0, y1, fy = linear_taps_cv(img.shape[0], h)
+    if is_torch:
+        import torch
+
+        x0, x1, fx, y0, y1, fy = (torch.from_numpy(t).to(img.device) for t in (x0, x1, fx, y0, y1, fy))
+    rows = fma64(img[:, x1] - img[:, x0], fx[(None, slice(None)) + extra], img[:, x0])
+    return fma64(rows[y1] - rows[y0], fy[(slice(None), None) + extra], rows[y0])

@@ -2,9 +2,10 @@
 
 Each configured method runs when its dataset exists under `data_root`,
 writes its CSVs under <out_dir>/epoch_<N>/, and adds its column means to the
-returned summary (keys eval/pck_{same,diff}/<col> and eval/tracking/<col>).
-"pose" (OnePose++) is not ported: it needs cv2's PnP RANSAC. With its data
-present it raises before any work; the train CLI refuses such a run at start.
+returned summary (keys eval/pck_{same,diff}/<col>, eval/tracking/<col> and
+eval/pose/<col>). "pose" is OnePose-LowTexture (gd3d_torch/eval/onepose.py),
+its RANSAC gd3d_torch/eval/pnp.py, which repeats cv2.solvePnPRansac
+operation for operation and is held to cv2 by tests/test_torch_pnp.py.
 """
 from __future__ import annotations
 
@@ -26,16 +27,12 @@ def run_eval_callback(student: Student, methods: Sequence[str], data_root: str,
                       out_dir: str, epoch: int, refine: bool = True, num_videos: int = 30,
                       pck_categories: Optional[Sequence[str]] = None, img_size: int = 640,
                       tracking_size: Tuple[int, int] = (476, 854),
+                      num_pose_objs: Optional[int] = None,
                       pool: Optional[concurrent.futures.Executor] = None) -> Dict[str, float]:
     """Run every configured eval whose data exist. Returns scalar means keyed
     'eval/<method>/<metric>'. img_size and tracking_size are gd3d's harness
-    sizes (640 canvas, 476 x 854 frames); JPEGs are decoded in `pool` when
+    sizes (640 canvas, 476 x 854 frames); images are decoded in `pool` when
     one is given."""
-    if "pose" in methods and pose_data_exists(data_root):
-        raise NotImplementedError(
-            "eval method 'pose' (OnePose++): its data exist under "
-            f"{data_root}, and the port has no PnP RANSAC (gd3d uses "
-            "cv2.solvePnPRansac, which the card's machine lacks)")
     root = Path(data_root)
     edir = Path(out_dir) / f"epoch_{epoch}"
     summary: Dict[str, float] = {}
@@ -64,5 +61,16 @@ def run_eval_callback(student: Student, methods: Sequence[str], data_root: str,
         table.to_csv(edir / "tracking.csv")
         for col, v in table.mean().items():
             summary[f"eval/tracking/{col}"] = float(v)
+
+    if "pose" in methods and pose_data_exists(data_root):
+        from gd3d_torch.eval.onepose import oneposepp
+
+        edir.mkdir(parents=True, exist_ok=True)
+        table = oneposepp(student, root=str(root / "lowtexture_test_data"),
+                          sfm_dir=str(root / "sfm_output" / "outputs_softmax_loftr_loftr"),
+                          num_objs=num_pose_objs, refine=refine, pool=pool)
+        table.to_csv(edir / "pose_estimation.csv")
+        for col, v in table.mean().items():
+            summary[f"eval/pose/{col}"] = float(v)
 
     return summary

@@ -1,6 +1,6 @@
 """Image loading of the eval harness: JPEG decode and PIL-exact Lanczos
-resizes (gd3d_torch/data/{jpeg,resample}.py), optionally spread over a
-process pool.
+resizes (gd3d_torch/data/{jpeg,resample}.py) and cv2-exact PNG reads
+(gd3d_torch/data/png.py), optionally spread over a process pool.
 
 A spawned worker imports this module (numpy only) and re-runs the top level
 of the parent's __main__ module. The eval and train CLI modules import torch
@@ -19,6 +19,7 @@ from typing import Callable, ContextManager, Optional, Sequence
 import numpy as np
 
 from gd3d_torch.data.jpeg import decode_jpeg
+from gd3d_torch.data.png import imread
 from gd3d_torch.data.resample import resize_lanczos
 
 
@@ -47,6 +48,12 @@ def load_canvas(path: str, target_res: int) -> np.ndarray:
 def load_frame(path: str, w: int, h: int) -> np.ndarray:
     """decode_jpeg, then the Lanczos resize to (w, h) (a DAVIS frame)."""
     return resize_lanczos(decode_jpeg(path), (w, h))
+
+
+def load_png_rgb(path: str) -> np.ndarray:
+    """cv2.imread(path)[..., ::-1].copy(): a PNG as 8-bit RGB (an OnePose
+    frame)."""
+    return imread(path)[..., ::-1].copy()
 
 
 def make_pool(workers: int) -> ContextManager[Optional[concurrent.futures.Executor]]:

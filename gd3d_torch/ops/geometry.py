@@ -1,10 +1,11 @@
 """Depth rasterization, keypoint depth and co-view masks (counterpart of
 the device-side part of gd3d/ops/geometry.py that the MASt3R and VGGT steps
-call)."""
+call), and the OnePose++ pose error, on the host in numpy."""
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -88,3 +89,20 @@ def extract_kp_depth(
     x = torch.clamp(kp[..., 0].long(), 0, W - 1)
     y = torch.clamp(kp[..., 1].long(), 0, H - 1)
     return patch_means[y, x]
+
+
+def query_pose_error(pose_pred, pose_gt, unit: str = "m") -> Tuple[float, float]:
+    """Angular (degrees) and translation (cm) error of a 3 x 4 or 4 x 4 pose,
+    in numpy (gd3d/ops/geometry.py::query_pose_error): the trace clamped at
+    3, and arccos NaN below -1, which an accuracy threshold counts as a miss."""
+    if pose_pred.shape[0] == 4:
+        pose_pred = pose_pred[:3]
+    if pose_gt.shape[0] == 4:
+        pose_gt = pose_gt[:3]
+    scale = {"m": 100.0, "cm": 1.0, "mm": 0.1}[unit]
+    translation_distance = np.linalg.norm(pose_pred[:, 3] - pose_gt[:, 3]) * scale
+    rotation_diff = np.dot(pose_pred[:, :3], pose_gt[:, :3].T)
+    trace = min(np.trace(rotation_diff), 3.0)
+    with np.errstate(invalid="ignore"):
+        angular_distance = np.rad2deg(np.arccos((trace - 1.0) / 2.0))
+    return float(angular_distance), float(translation_distance)

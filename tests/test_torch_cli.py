@@ -9,9 +9,10 @@ gd3d_torch.cli.train.main:
   logged number but the timings);
 - --student-ckpt and --teacher-ckpt load upstream-layout state dicts that
   the test writes (only LoRA and adapter keys may be missing);
-- every flag the port does not bring raises at start, as do --device cuda
-  without a card and a config whose eval methods include "pose" when
-  OnePose data exist (the eval epoch itself is tests/test_torch_eval.py's);
+- every flag the port does not bring raises at start, as does --device
+  cuda without a card; with OnePose data under --data-root the eval epoch
+  runs the pose evaluation (the other evaluations' epoch is
+  tests/test_torch_eval.py's);
 - on fabricated ScanNet++ and Objaverse trees (gd3d_torch/data/fixtures.py)
   the ME, ScanNet++ MASt3R and Objaverse VGGT configs train a step on real
   data; --workers 2 and --workers 1 give the same host batches; an error in
@@ -140,19 +141,26 @@ def test_real_data_and_missing_card_raise(tmp_path):
             train.main(["--tiny", "--synthetic", "--output", str(tmp_path / "r")])
 
 
-def test_eval_epoch_raises_where_its_data_exist(tmp_path):
+def test_eval_epoch_runs_pose_where_its_data_exist(tmp_path):
+    """No eval data: no summary. A fabricated OnePose-LowTexture tree
+    (gd3d_torch/data/fixtures.py::write_onepose_tree): the eval epoch runs
+    the pose evaluation and logs eval/pose/<col>."""
+    from gd3d_torch.data.fixtures import write_onepose_tree
+
     root = tmp_path / "evaldata"
     root.mkdir()
     _, _, records = _main(tmp_path, "--epochs", "1", "--steps-per-epoch", "1",
                           "--eval-every", "1", "--data-root", str(root), "--debug-nans")
     assert all("eval" not in k for r in records for k in r)  # no data: no summary
-    # OnePose data present: refused before any step (pose is not ported)
-    (root / "lowtexture_test_data").mkdir()
-    (root / "sfm_output" / "outputs_softmax_loftr_loftr").mkdir(parents=True)
-    with pytest.raises(NotImplementedError, match="pose"):
-        _main(tmp_path, "--epochs", "1", "--steps-per-epoch", "1", "--eval-every", "1",
-              "--data-root", str(root), name="with_data")
-    assert not (tmp_path / "with_data").exists()
+    write_onepose_tree(root, size=(64, 80), known_kps=30, bank_frames=2, bank_kps=30,
+                       bank_tests=2)
+    _, out, records = _main(tmp_path, "--epochs", "1", "--steps-per-epoch", "1",
+                            "--eval-every", "1", "--data-root", str(root), name="with_data")
+    summary = [r for r in records if any(k.startswith("eval/") for k in r)]
+    assert len(summary) == 1
+    assert {f"eval/pose/threshold_{t}" for t in (1, 3, 5)} <= set(summary[0])
+    assert summary[0]["eval/pose/threshold_1"] == 0.5  # the known answer's 1.0 in the mean
+    assert (out / "epoch_1" / "pose_estimation.csv").exists()
 
 
 @pytest.fixture(scope="module")

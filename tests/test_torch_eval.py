@@ -12,8 +12,8 @@ gd3d_torch/convert.py::student_state_dict, and the same numpy-seeded inputs:
 - tracking_single on a fabricated DAVIS tree at a small size: metrics
   within 1e-6; both drivers' tables the same with their JPEGs decoded in a
   pool of spawned processes;
-- gd3d_torch.cli.evaluate --device cpu --tiny writes gd3d's CSV headers and
-  refuses --pose; the train CLI's eval epoch runs with eval data present.
+- gd3d_torch.cli.evaluate --device cpu --tiny writes gd3d's CSV headers,
+  --pose among them; the train CLI's eval epoch runs with eval data present.
 
 Tolerances: fp32 sums in another order (the features' 1e-5; coordinates are
 weighted means of pixel positions < 128, 1e-4 px); the PCK and the
@@ -337,10 +337,28 @@ def test_evaluate_cli_writes_gd3ds_csvs(tmp_path):
     assert res["stats"]["semantic_transfer"]["pairs"] == 3
 
 
-def test_evaluate_cli_refuses_pose_before_any_work(tmp_path):
-    with pytest.raises(NotImplementedError, match="solvePnPRansac"):
-        evaluate.main(["--device", "cpu", "--tiny", "--pose", "--out", str(tmp_path / "out")])
-    assert not (tmp_path / "out").exists()
+def test_evaluate_cli_runs_pose_with_the_other_evals(tmp_path):
+    """--pose beside --transfer and --tracking: all three CSVs, gd3d's pose
+    header, the known-answer object at 1.0 (gd3d's bytes are
+    tests/test_torch_onepose.py's)."""
+    from gd3d_torch.data.fixtures import ONEPOSE_KNOWN, write_onepose_tree
+
+    rng = np.random.RandomState(7)
+    _pascal_tree(tmp_path, rng)
+    _davis_tree(tmp_path, rng)
+    write_onepose_tree(tmp_path, size=(64, 80), known_kps=30, bank_frames=2, bank_kps=30,
+                       bank_tests=2)
+    res = evaluate.main(["--device", "cpu", "--tiny", "--pose", "--transfer", "--tracking",
+                         "--num-videos", "1", "--data-root", str(tmp_path), "--out",
+                         str(tmp_path / "out")])
+    out = res["out_dir"]
+    for name in ("pose_estimation.csv", "semantic_transfer.csv", "tracking.csv"):
+        assert (out / name).exists()
+    rows = list(csv.reader(open(out / "pose_estimation.csv")))
+    assert rows[0] == ["objs", "threshold_1", "threshold_3", "threshold_5"]
+    assert rows[1] == [ONEPOSE_KNOWN, "1.0", "1.0", "1.0"]
+    assert list(res["tables"]) == ["pose", "tracking", "semantic_transfer"]
+    assert res["stats"]["pose"]["frames"] == 4
 
 
 def test_train_cli_eval_epoch_runs_with_eval_data(tmp_path):
