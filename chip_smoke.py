@@ -126,8 +126,27 @@ report), then runs these phases in order, one or more printed lines each:
               tracker on 4 frames of 336x512: 48 K1 and 72 K5 a pair
               forward, tracks against the plain twins' (TRACK_EQUAL_SHARE).
 
-Then one JSON line of the kernels (launches: the steps, train, eval, data
-and pose phases' runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
+  9. surface gd3d's step options, TensorBoard and data-parallel training
+              (check_surface): (a) three MASt3R steps in bench.py's bf16
+              envelope (bf16 student with bf16_stream, teacher_dtype
+              bfloat16): 48 bf16 K1 and 72 bf16 K5 launches a step at the
+              CroCo length 672, no fp32 K1 there, and the bf16 teacher's
+              features against the fp32 teacher's (BF16_TEACHER_TOL); (b) the
+              default-config loss and backward with StudentConfig.remat
+              against the plain student on shared weights (REMAT_TOL), both
+              peak memories, and one more fp32 K1 for each K2; (c)
+              gd3d_torch.cli.train --tensorboard --multihost --fsdp-teacher
+              on finetune_timm_vggt_scannetpp --dev at world size 1 against
+              the train phase's plain run of the same batches, and its event
+              file against metrics.jsonl; (d) that config's step (fp32
+              student) on ScanNet++'s 350x518 frames: its teacher runs the
+              fp32 K1 at N = 930 (48 a step) and 1860 (24), no bf16 K1 there,
+              and the step time. The kernels phase holds the new shapes:
+              bf16 K1 at the CroCo shapes, bf16 K5 on the CroCo q and k, fp32
+              K1 at the 350x518 VGGT shapes.
+
+Then one JSON line of the kernels (launches: the steps, train, eval, data,
+pose and surface phases' runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The kernels and agree phases compare fp32 results too, so they
 run without TF32; the steps run with PyTorch's defaults (the teachers turn TF32
 off themselves).
@@ -311,6 +330,12 @@ def check_kernels(dev) -> dict:
         ("K1", "DINOv2 + VGGT frame attention", 2, 1374, 16, 64, bf16, False),
         ("K1", "VGGT global attention", 1, 2748, 16, 64, bf16, False),
         ("K1", "VGGT camera trunk", 1, 2, 16, 128, f32, False),
+        # the bf16 MASt3R teacher (bench.py's bf16 envelope), and the VGGT
+        # teacher on ScanNet++'s 350x518 frames, whose aggregator runs fp32
+        ("K1", "CroCo encoder (bf16 teacher)", 2, 672, 16, 64, bf16, False),
+        ("K1", "CroCo decoder (bf16 teacher)", 2, 672, 12, 64, bf16, False),
+        ("K1", "DINOv2 + VGGT frame attention 350x518", 2, 930, 16, 64, f32, False),
+        ("K1", "VGGT global attention 350x518", 1, 1860, 16, 64, f32, False),
         *[("K2", where, B, N, 12, 64, dt, N == 4161)
           for dt in (bf16, f32) for where, B, N in student],
         # the train phase's own shapes: the ME student (one view a call,
@@ -489,6 +514,11 @@ def check_kernels(dev) -> dict:
          grid_positions(24, 32, 2, device=dev)),
         ("objaverse CroCo decoder self", 1, 768, 12, f32, "qkv", grid_o, grid_o),
         ("objaverse CroCo decoder cross", 1, 768, 12, f32, "separate", grid_o, grid_o.clone()),
+        ("CroCo encoder (bf16 teacher)", 2, 672, 16, bf16, "qkv",
+         grid_positions(21, 32, 2, device=dev), grid_positions(21, 32, 2, device=dev)),
+        ("CroCo decoder self (bf16 teacher)", 1, 672, 12, bf16, "qkv", grid, grid),
+        ("CroCo decoder cross (bf16 teacher)", 1, 672, 12, bf16, "separate", grid,
+         grid.clone()),
     ]
     for where, B, N, H, dt, kind, qpos, kpos in pair_cases:
         q, k = pair(B, N, H, dt, kind)
@@ -512,11 +542,14 @@ def check_kernels(dev) -> dict:
     return rep.results
 
 
-def mast3r_setup(dev, seed: int = 0, student_dtype: str = "bfloat16"):
+def mast3r_setup(dev, seed: int = 0, student_dtype: str = "bfloat16",
+                 teacher_dtype: str = "float32", bf16_stream: bool = False):
     """Full-width student and MASt3R teacher with seeded random weights, on
     `dev` through the step builder, and one ScanNet++-geometry batch (as
     bench.py builds it). The student computes in `student_dtype`: bf16 as
-    bench.py runs it, or fp32, the named config's own compute_dtype."""
+    bench.py runs it, or fp32, the named config's own compute_dtype; the
+    teacher's trunk in `teacher_dtype` (bench.py's bf16 envelope:
+    bfloat16 with bf16_stream)."""
     import dataclasses
 
     import torch
@@ -529,8 +562,9 @@ def mast3r_setup(dev, seed: int = 0, student_dtype: str = "bfloat16"):
     from gd3d_torch.models.vit import init_params_
     from gd3d_torch.teachers.mast3r import Mast3rTeacher
 
-    cfg = DistillConfig(teacher="mast3r", dataset="scannetpp")
-    cfg = cfg.replace(student=dataclasses.replace(cfg.student, compute_dtype=student_dtype))
+    cfg = DistillConfig(teacher="mast3r", dataset="scannetpp", teacher_dtype=teacher_dtype)
+    cfg = cfg.replace(student=dataclasses.replace(
+        cfg.student, compute_dtype=student_dtype, bf16_stream=bf16_stream))
     student, teacher = Student(cfg.student), Mast3rTeacher(Mast3rConfig())
     trainable, frozen = split_params(student)
     step = build_mast3r_train_step(student, teacher, cfg,
@@ -552,12 +586,14 @@ def mast3r_setup(dev, seed: int = 0, student_dtype: str = "bfloat16"):
     return step, student, teacher, trainable, frozen, batch
 
 
-def vggt_setup(dev, seed: int = 1):
+def vggt_setup(dev, seed: int = 1, student_dtype: str = "bfloat16", hw=(518, 518)):
     """The finetune_timm_vggt_scannetpp configuration at full width: the
-    ViT-B/16 bf16 student and the VGGT-1B teacher (bf16 aggregator, fp32
+    ViT-B/16 student in `student_dtype` (bf16 as bench.py runs it, fp32 the
+    config's own) and the VGGT-1B teacher (bf16 aggregator weights, fp32
     heads), seeded random weights with the two pinned heads of
-    bias_params_for_live_keypoints, on `dev` through the step builder; 518^2
-    teacher and 512^2 student frames (bench.py's VGGT line)."""
+    bias_params_for_live_keypoints, on `dev` through the step builder; `hw`
+    teacher frames (518^2 as bench.py's VGGT line; ScanNet++'s 350x518, where
+    gd3d's aggregator runs in fp32) and 512^2 student frames."""
     import dataclasses
 
     import torch
@@ -571,7 +607,7 @@ def vggt_setup(dev, seed: int = 1):
     from gd3d_torch.teachers.vggt import VggtTeacher, bias_params_for_live_keypoints
 
     cfg = vggt_scannetpp()
-    cfg = cfg.replace(student=dataclasses.replace(cfg.student, compute_dtype="bfloat16"))
+    cfg = cfg.replace(student=dataclasses.replace(cfg.student, compute_dtype=student_dtype))
     student, teacher = Student(cfg.student), VggtTeacher(VggtConfig())
     trainable, frozen = split_params(student)
     step = build_vggt_train_step(student, teacher, cfg,
@@ -583,7 +619,7 @@ def vggt_setup(dev, seed: int = 1):
     batch = {
         "rgb_1": torch.rand((1, 512, 512, 3), generator=g, device=dev),
         "rgb_2": torch.rand((1, 512, 512, 3), generator=g, device=dev),
-        "rgb_vggt": torch.rand((1, 2, 518, 518, 3), generator=g, device=dev),
+        "rgb_vggt": torch.rand((1, 2, *hw, 3), generator=g, device=dev),
     }
     teacher.spread_depth(batch["rgb_vggt"], dtype=cfg.teacher_dtype)
     return step, student, teacher, trainable, frozen, batch
@@ -973,8 +1009,9 @@ def _run_cli(name, run, out, t0, expect, kernels, may_stay, profile, exact, prof
     from gd3d_torch.data.loader import DeviceCopier
     from gd3d_torch.kernels import launch_counts, launch_counts_by, reset_launch_counts
 
-    def teacher_sum(teacher):
-        return sum(float(p.double().sum()) for p in teacher.parameters())
+    def teacher_sum(teacher):  # a sharded teacher's weights gathered first
+        return sum(float(getattr(p, "full_tensor", lambda: p)().double().sum())
+                   for p in teacher.parameters())
 
     snap = {"trainable": {k: p.detach().clone() for k, p in run.trainable.items()},
             "frozen": {k: p.detach().clone() for k, p in run.frozen.items()},
@@ -1084,7 +1121,8 @@ def check_train(dev) -> dict:
     which must give the straight run's epoch-1 record and final state
     (resume_errors); (b) objaverse
     MASt3R, --dev --multistep 2 (one group of two steps, the batch's depth
-    maps); (c) VGGT ScanNet++, --dev. Returns the launches of all runs."""
+    maps); (c) VGGT ScanNet++, --dev. Returns the launches of all runs, and
+    the VGGT run's step records (the surface phase's plain run)."""
     import tempfile
     from pathlib import Path
 
@@ -1136,7 +1174,7 @@ def check_train(dev) -> dict:
         + f" {'OK' if state_ok else 'FAIL'}")
     if err > RESUME_TOL or not state_ok:
         raise AssertionError("ME: the resumed run differs from the straight run")
-    return total
+    return total, results["VGGT"]["steps"]
 
 
 # The eval phase. The CSV headers that gd3d's DataFrame.to_csv writes for its
@@ -2024,6 +2062,195 @@ def check_pose(dev) -> dict:
     return counts
 
 
+# The surface phase. The bf16 MASt3R teacher against the fp32 one on the
+# card, per feature: max |diff| <= BF16_TEACHER_TOL * max(1, max |fp32|), the
+# bound of the CPU lock against gd3d (tests/test_torch_mast3r_bf16.py): the
+# trunk's weights and activations rounded to bf16 (2^-8 relative) through
+# 24 + 12 layers.
+BF16_TEACHER_TOL = 5e-2
+# remat against the plain step (the default config, fp32 student): the same
+# forward, so equal losses (relative error REMAT_TOL at most, bit-equality
+# printed), and gradients within REMAT_TOL of each tensor's max |grad|: the
+# recomputed blocks give the same operands, but the keypoint
+# interpolation's backward scatter-adds with atomics, which may order its
+# sums otherwise (as in the resume check, RESUME_TOL).
+REMAT_TOL = 1e-5
+SURFACE_FEATURES = ("desc_1", "desc_2", "pts3d_1", "pts3d_2_from_1", "pts3d_2", "conf_1",
+                    "conf_2", "cost_1", "cost_2")
+
+
+def check_bf16_teacher(teacher, batch) -> None:
+    """The full-width MASt3R teacher with its trunk in bf16 against the same
+    teacher in fp32, on the step's batch."""
+    import torch
+
+    images = batch["rgb_mast3r_1"], batch["rgb_mast3r_2"]
+    bf16 = teacher.extract_features(*images, 1.0, dtype="bfloat16")
+    fp32 = teacher.extract_features(*images, 1.0)
+    ok, parts = True, []
+    for key in SURFACE_FEATURES:
+        err, mag = max_err(bf16[key], fp32[key])
+        ok &= bf16[key].dtype == torch.float32 and err <= BF16_TEACHER_TOL * max(1.0, mag)
+        parts.append(f"{key} err={err:.3e} of {mag:.3e}")
+    log(f"surface: bf16 MASt3R teacher against fp32 (tol {BF16_TEACHER_TOL:g} of max(1, max)): "
+        f"{' '.join(parts)} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("surface: the bf16 MASt3R teacher drifts from the fp32 one")
+
+
+def check_remat(dev) -> dict:
+    """The default-config MASt3R loss and backward (fp32 student, fp32
+    teacher, full width) with StudentConfig.remat against the same student
+    without it, on shared weights: losses, gradients, peak memory, seconds,
+    and K1's launches at the student's lengths (remat recomputes a block's
+    forward, K1 included, for each block that takes a backward: one more K1
+    for each K2). Returns the launches of both runs."""
+    import dataclasses
+
+    import torch
+
+    from gd3d_torch.core.config import DistillConfig
+    from gd3d_torch.distill.mast3r_step import mast3r_distill_loss
+    from gd3d_torch.kernels import launch_counts, launch_counts_by, reset_launch_counts
+    from gd3d_torch.models.student import Student, split_params
+
+    _, plain, teacher, _, _, batch = mast3r_setup(dev, student_dtype="float32")
+    twin = Student(dataclasses.replace(plain.cfg, remat=True)).to(dev)
+    twin.load_state_dict(plain.state_dict())
+    split_params(twin)
+    counts, out = {k: 0 for k in REPLACES}, {}
+    for name, st in (("plain", plain), ("remat", twin)):
+        cfg = DistillConfig(teacher="mast3r", dataset="scannetpp", student=st.cfg)
+        st.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loss, metrics = mast3r_distill_loss(st, teacher, cfg, batch, 1.0, has_depth=False)
+        loss.backward()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        by = launch_counts_by()
+        k1 = sum(c for (d, n), c in by["K1"].items() if d == "float32" and n in (4161, 673))
+        k2 = sum(c for (d, n), c in by["K2"].items() if d == "float32" and n in (4161, 673))
+        for k, c in launch_counts().items():
+            counts[k] += c
+        out[name] = ({k: float(v) for k, v in metrics.items()},
+                     {k: p.grad.detach().clone() for k, p in st.named_parameters()
+                      if p.grad is not None},
+                     torch.cuda.max_memory_allocated(dev) / 2 ** 30, secs, k1, k2)
+        log(f"surface: default-config MASt3R loss + backward, {name}: "
+            + " ".join(f"{k}={v:.6f}" for k, v in out[name][0].items())
+            + f" peak_mem_gib={out[name][2]:.3f} s={secs:.4f} fp32 K1 at the student's "
+            f"lengths {k1}, K2 {k2}")
+    (m0, g0, *_, k1_0, k2_0), (m1, g1, *_, k1_1, _) = out["plain"], out["remat"]
+    loss_err = max(abs(m1[k] - m0[k]) / max(abs(m0[k]), 1e-12) for k in m0)
+    grad_err = max(max_err(g1[k], g0[k])[0] / max(float(g0[k].abs().max()), 1e-30)
+                   for k in g0)
+    ok = (g0.keys() == g1.keys() and len(g0) > 0 and loss_err <= REMAT_TOL
+          and grad_err <= REMAT_TOL and k1_1 == k1_0 + k2_0)
+    log(f"surface: remat against plain: losses bit-equal {m0 == m1}, worst loss rel err "
+        f"{loss_err:.3e}, worst gradient err / max {grad_err:.3e} (tol {REMAT_TOL:g}) over "
+        f"{len(g0)} tensors; peak_mem_gib {out['plain'][2]:.3f} -> {out['remat'][2]:.3f}; "
+        f"fp32 K1 at the student's lengths {k1_0} -> {k1_1} (want + {k2_0}) "
+        f"{'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("surface: remat changes the default-config step")
+    return counts
+
+
+def check_multihost_cli(dev, plain_steps) -> dict:
+    """gd3d_torch.cli.train --tensorboard --multihost --fsdp-teacher on
+    finetune_timm_vggt_scannetpp --dev at world size 1 (the environment set
+    here as torchrun would), against the train phase's plain run of the same
+    batches (RESUME_TOL relative per loss; the same bits are expected), and
+    its event file decoded with the port's reader (every CRC checked) against
+    metrics.jsonl (each value as float32). Returns the run's launches."""
+    import os
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+
+    from gd3d_torch.core.tensorboard import read_events
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(port)}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "vggt"
+            res = run_cli("VGGT --multihost --fsdp-teacher --tensorboard",
+                          ["--config", "finetune_timm_vggt_scannetpp", "--dev", "--tensorboard",
+                           "--multihost", "--fsdp-teacher"], out,
+                          (("K1", "float32", (6401, 1370), 20), ("K2", "float32", (6401, 1370), 12)),
+                          tuple(REPLACES), ("depth_diff_head.depth_attention.",), profile=False)
+            (event_file,) = (out / "tb").glob("events.out.tfevents.*")
+            version, scalars = read_events(event_file)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    want = sorted((r["epoch"] * 2 + r["step"], k, float(np.float32(v)))
+                  for r in res["steps"] for k, v in r.items())
+    events_ok = version == "brain.Event:2" and sorted(scalars) == want and len(want) > 0
+    keys = ("loss", "ap_loss", "depth_loss", "intra_depth_loss", "kl_loss", "num_kps")
+    errs = [abs(a[k] - b[k]) / max(abs(b[k]), 1e-12)
+            for a, b in zip(res["steps"], plain_steps) for k in keys]
+    same = len(res["steps"]) == len(plain_steps) == 2 and max(errs) <= RESUME_TOL
+    log(f"surface: VGGT --multihost --fsdp-teacher (world 1) against the plain run: worst loss "
+        f"rel err {max(errs):.3e} (tol {RESUME_TOL:g}); event file {event_file.name}: "
+        f"{len(scalars)} scalars equal to metrics.jsonl {events_ok} "
+        f"{'OK' if same and events_ok else 'FAIL'}")
+    if not (same and events_ok):
+        raise AssertionError("surface: the multihost run or its event file is wrong")
+    return res["counts"]
+
+
+def check_surface(dev, vggt_plain_steps) -> dict:
+    """The surface phase: (a) three MASt3R steps in bench.py's bf16
+    envelope (bf16 student with bf16_stream, bf16 teacher) with the bf16 K1
+    and K5 launches at the CroCo shapes asserted and the bf16 teacher held to
+    the fp32 one; (b) remat against the plain default-config step; (c) the
+    train CLI with --tensorboard --multihost --fsdp-teacher at world size 1;
+    (d) the finetune_timm_vggt_scannetpp step (fp32 student) on ScanNet++'s
+    350x518 frames, whose teacher runs the fp32 K1 (gd3d's dtype route),
+    asserted by launches. The new shapes' kernel rows are in the kernels
+    phase. Returns the launches of every run."""
+    import torch
+
+    counts = {k: 0 for k in REPLACES}
+    t0 = time.perf_counter()
+
+    def add(more):
+        for k, n in more.items():
+            counts[k] += n
+        torch.cuda.empty_cache()
+        log(f"surface: done at {time.perf_counter() - t0:.1f} s")
+
+    croco = (672,)
+    add(run_steps("MASt3R bf16 envelope",
+                  lambda d: mast3r_setup(d, teacher_dtype="bfloat16", bf16_stream=True), dev,
+                  n_steps=3, check_teacher=check_bf16_teacher,
+                  expect=(("K1", "bfloat16", croco, 48), ("K5", "bfloat16", croco, 72),
+                          ("K1", "float32", croco, 0))))
+    add(check_remat(dev))
+    add(check_multihost_cli(dev, vggt_plain_steps))
+    add(run_steps("VGGT ScanNet++ 350x518 fp32 student",
+                  lambda d: vggt_setup(d, student_dtype="float32", hw=(350, 518)), dev,
+                  n_steps=2, expect=(("K1", "float32", (930,), 48),
+                                     ("K1", "float32", (1860,), 24),
+                                     ("K1", "bfloat16", (930, 1860), 0))))
+    return counts
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -2068,7 +2295,8 @@ def main() -> int:
     with no_tf32():
         check_agreement(dev)
     log(f"phase: agree done at {time.perf_counter() - t_start:.1f} s")
-    for k, n in check_train(dev).items():
+    train_counts, vggt_steps = check_train(dev)
+    for k, n in train_counts.items():
         counts[k] += n
     log(f"phase: train done at {time.perf_counter() - t_start:.1f} s")
     for k, n in check_eval(dev).items():
@@ -2080,6 +2308,9 @@ def main() -> int:
     for k, n in check_pose(dev).items():
         counts[k] += n
     log(f"phase: pose done at {time.perf_counter() - t_start:.1f} s")
+    for k, n in check_surface(dev, vggt_steps).items():
+        counts[k] += n
+    log(f"phase: surface done at {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

@@ -6,9 +6,14 @@ so on) and keeps gd3d's layouts at its public functions: NHWC images and
 (B, N, H, D) attention inputs. It imports torch and numpy only, never JAX.
 
 The training entry point (`gd3d_torch.cli.train`: the ME baseline, the
-MASt3R and the VGGT distillation steps) and the evaluation entry point
-(`gd3d_torch.cli.evaluate`: PF-PASCAL PCK and TAP-Vid DAVIS tracking, with
-the package's own JPEG decoder and Lanczos resize) are ported.
+MASt3R and the VGGT distillation steps, with gd3d's step options, TensorBoard
+event files and data-parallel training over torch.distributed ranks with an
+optionally sharded teacher) and the evaluation entry point
+(`gd3d_torch.cli.evaluate`: PF-PASCAL PCK, TAP-Vid DAVIS tracking and
+OnePose-LowTexture pose with an EPnP RANSAC of its own, with the package's
+own JPEG decoder and Lanczos resize) are ported, as are the FiT3D harness
+(`gd3d_torch.eval.fit3d`) and the DUSt3R point tracker
+(`gd3d_torch.eval.dust3r_tracker`).
 Every Pallas kernel of gd3d (K1 flash forward, K2 flash backward, K3
 masked-softmax KL, K4 pairwise ranking, K5 RoPE2D) is a hand-written CUDA
 kernel under `gd3d_torch/csrc/`, built at first use

@@ -5,7 +5,9 @@ Usage:
       [--synthetic | --dev] [--epochs 500] [--steps-per-epoch 100] \\
       [--batch-per-device 1] [--multistep K] [--output outputs/run1] \\
       [--data-root data] [--workers N] [--student-ckpt timm.pth] \\
-      [--teacher-ckpt mast3r.pth] [--resume <run>/last] [--device cuda]
+      [--teacher-ckpt mast3r.pth] [--resume <run>/last] [--device cuda] \\
+      [--tensorboard] [--multihost [--fsdp-teacher]]
+  torchrun --nproc-per-node 4 -m gd3d_torch.cli.train --multihost ...
 
 gd3d's flags and behaviour: seed 42, the named configs and bundled YAMLs,
 the --tiny overrides, the linear teacher-temperature schedule, K optimizer
@@ -25,11 +27,26 @@ pool of N spawned processes for the run: --workers 0 is gd3d's sequential
 stream (step s of epoch e equals gd3d's), N >= 1 seeds each step's datasets
 from (seed + epoch, s), so that every N >= 1 gives the same batches.
 
-Refused at start, with the reason: --tensorboard (TensorFlow),
---fsdp-teacher and --multihost (multi-GPU is not ported). The eval epoch
-runs gd3d's callback (gd3d_torch/eval/callback.py): PF-PASCAL PCK, TAP-Vid
-DAVIS tracking and OnePose-LowTexture pose where their data exist, nothing
-where none do.
+--tensorboard writes every metric record as a TF2 scalar event under
+<out>/tb at step epoch * steps + step, as gd3d does, with the port's own
+event writer (gd3d_torch/core/tensorboard.py; no TensorFlow).
+
+--multihost trains data-parallel over the torch.distributed ranks that the
+environment describes (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, as
+torchrun sets them; NCCL on the card, gloo on the CPU), one process per
+card: every rank builds the same global batch of world x --batch-per-device
+pairs and keeps its rows, the losses are the global batch's and the adapter
+gradients are summed over the ranks before the clip (gd3d_torch/core/mesh.py).
+Each rank but 0 writes its metrics under <out>/proc<rank>; only rank 0
+writes checkpoints; --resume reads the same file on every rank.
+--fsdp-teacher (with --multihost) shards the frozen teacher's large weights
+over the ranks with FSDP2 (gd3d_torch/parallel/fsdp.py). The config's
+mesh.model > 1 (tensor parallelism) and mesh.sequence_parallel are not
+ported and raise.
+
+The eval epoch runs gd3d's callback (gd3d_torch/eval/callback.py):
+PF-PASCAL PCK, TAP-Vid DAVIS tracking and OnePose-LowTexture pose where
+their data exist, nothing where none do.
 
 Without --teacher-ckpt the teacher has seeded random weights, and the
 set-ups that keep its losses live on random weights
@@ -55,6 +72,8 @@ if TYPE_CHECKING:
     import torch
 
     from gd3d_torch.core import config as cfglib
+    from gd3d_torch.core.mesh import DataParallel
+    from gd3d_torch.core.tensorboard import EventWriter
     from gd3d_torch.data.pipeline import EpochSource
     from gd3d_torch.distill.train_state import ClippedAdamW
     from gd3d_torch.models.student import Student
@@ -86,7 +105,7 @@ def parse_args(argv=None):
                    help="MASt3R/VGGT: K optimizer steps per group over a (K, ...) "
                         "batch stack")
     p.add_argument("--tensorboard", action="store_true",
-                   help="refused: it needs TensorFlow")
+                   help="also write the step metrics as TensorBoard scalars under <out>/tb")
     p.add_argument("--eval-every", type=int, default=None,
                    help="override cfg.train.eval_every_epochs (default 10)")
     p.add_argument("--resume", default=None, metavar="CKPT",
@@ -96,9 +115,11 @@ def parse_args(argv=None):
                    help="real data: decode in N spawned processes (0: gd3d's sequential "
                         "stream in the prefetch thread)")
     p.add_argument("--fsdp-teacher", action="store_true",
-                   help="refused: multi-GPU is not ported")
+                   help="with --multihost: shard the frozen teacher's weights over the "
+                        "ranks (FSDP2, per block)")
     p.add_argument("--multihost", action="store_true",
-                   help="refused: multi-GPU is not ported")
+                   help="train data-parallel over the torch.distributed ranks that RANK, "
+                        "WORLD_SIZE, MASTER_ADDR and MASTER_PORT describe (torchrun)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the card)")
     return p.parse_args(argv)
@@ -108,13 +129,9 @@ def check_flags(args) -> None:
     """Raise for what this port does not bring, before any work."""
     if args.workers < 0:
         raise ValueError("--workers must be at least 0")
-    if args.tensorboard:
-        raise NotImplementedError(
-            "--tensorboard needs TensorFlow; the metrics are in <output>/metrics.jsonl")
-    if args.fsdp_teacher or args.multihost:
-        raise NotImplementedError(
-            "--fsdp-teacher and --multihost need multi-GPU training, which is not "
-            "ported yet; the port trains on one card")
+    if args.fsdp_teacher and not args.multihost:
+        raise ValueError("--fsdp-teacher shards over the ranks of --multihost: the port "
+                         "runs one process per card (WORLD_SIZE=1 for one card)")
     if args.multistep < 1:
         raise ValueError("--multistep must be at least 1")
 
@@ -166,11 +183,17 @@ class Run:
     epochs: int
     steps: int
     K: int
+    dp: DataParallel
+    tb: Optional[EventWriter] = None
     start_epoch: int = 0
 
     def close(self) -> None:
-        """Stop the data workers, if any."""
+        """Stop the data workers, if any, close the event file, and leave
+        the process group that --multihost joined."""
         self.source.close()
+        if self.tb is not None:
+            self.tb.close()
+        self.dp.close()
 
 
 class SyntheticSource:
@@ -254,6 +277,8 @@ def setup(args) -> Run:
 
     from gd3d_torch.core import config as cfglib
     from gd3d_torch.core.checkpoint import restore_train_state
+    from gd3d_torch.core.mesh import DataParallel, init_distributed, local_device
+    from gd3d_torch.core.tensorboard import EventWriter
     from gd3d_torch.data.pipeline import DataSpec, EpochSource
     from gd3d_torch.data.synthetic import synthetic_me_batch, synthetic_teacher_batch
     from gd3d_torch.distill.train_state import make_optimizer
@@ -262,10 +287,22 @@ def setup(args) -> Run:
 
     check_flags(args)
     cfg = cfglib.resolve_config(args.config)
+    if args.fsdp_teacher:
+        cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, fsdp_teacher=True))
+    if cfg.mesh.model > 1 or cfg.mesh.sequence_parallel:
+        raise NotImplementedError(
+            "mesh.model > 1 (tensor parallelism) and mesh.sequence_parallel are not ported "
+            "(ROADMAP.md, Queue 1: they wait until one card's memory needs them)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asks for a card, and torch sees none "
                            "(pass --device cpu to train on the CPU)")
+    dp = DataParallel()
+    if args.multihost:
+        device = local_device(device)
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        dp = init_distributed(device)
     if args.tiny:
         cfg = tiny_config(cfg)
     if args.epochs:
@@ -279,6 +316,8 @@ def setup(args) -> Run:
     epochs = 1 if args.dev else cfg.train.max_epochs
     steps = 2 if args.dev else args.steps_per_epoch
     out_dir = Path(args.output or f"outputs/{args.config}/{time.strftime('%Y%m%d_%H%M%S')}")
+    if not dp.is_main:  # per-rank metric streams; checkpoints are rank 0's
+        out_dir = out_dir / f"proc{dp.rank}"
     out_dir.mkdir(parents=True, exist_ok=True)
     np.random.seed(cfg.train.seed)
     torch.manual_seed(cfg.train.seed)
@@ -289,8 +328,8 @@ def setup(args) -> Run:
     if args.student_ckpt:
         load_upstream(student.vit, args.student_ckpt, may_miss=(".lora_", ".adapter."))
     trainable, frozen = split_params(student)
-    optimizer = make_optimizer(cfg.train, trainable.values())
-    batch_size = args.batch_per_device
+    optimizer = make_optimizer(cfg.train, trainable.values(), dp)
+    batch_size = dp.world * args.batch_per_device  # the global batch
     K = args.multistep if cfg.teacher in ("mast3r", "vggt") else 1
 
     if real_data:
@@ -311,7 +350,7 @@ def setup(args) -> Run:
     if cfg.teacher == "me":
         from gd3d_torch.distill.me import build_me_train_step
 
-        step_fn = build_me_train_step(student, cfg, optimizer, device)
+        step_fn = build_me_train_step(student, cfg, optimizer, device, dp)
 
         def run_step(batch, temperature):
             return step_fn(batch)
@@ -321,7 +360,8 @@ def setup(args) -> Run:
         teacher = build_teacher(cfg, args, device, first_batch)
         build = (mast3r_step.build_mast3r_train_multistep if K > 1
                  else mast3r_step.build_mast3r_train_step)
-        run_step = build(student, teacher, cfg, optimizer, cfg.dataset == "objaverse", device)
+        run_step = build(student, teacher, cfg, optimizer, cfg.dataset == "objaverse", device,
+                         dp)
     elif cfg.teacher == "vggt":
         from gd3d_torch.distill import vggt_step
 
@@ -329,14 +369,22 @@ def setup(args) -> Run:
         generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
         build = (vggt_step.build_vggt_train_multistep if K > 1
                  else vggt_step.build_vggt_train_step)
-        run_step = build(student, teacher, cfg, optimizer, device, generator)
+        run_step = build(student, teacher, cfg, optimizer, device, generator, dp)
     else:
         raise ValueError(f"teacher {cfg.teacher!r} has no train step")
+    if cfg.mesh.fsdp_teacher and teacher is not None:
+        from gd3d_torch.parallel.fsdp import shard_teacher
+
+        sharded, total = shard_teacher(
+            teacher, dp, device, torch.bfloat16 if cfg.teacher_dtype == "bfloat16" else None)
+        print(f"fsdp teacher: {sharded / 2 ** 20:.0f} / {total / 2 ** 20:.0f} MiB sharded "
+              f"over {dp.world} ranks")
 
     run = Run(args=args, cfg=cfg, device=device, student=student, teacher=teacher,
               trainable=trainable, frozen=frozen, optimizer=optimizer, run_step=run_step,
               source=source, generator=generator, out_dir=out_dir, epochs=epochs,
-              steps=steps, K=K)
+              steps=steps, K=K, dp=dp,
+              tb=EventWriter(out_dir / "tb") if args.tensorboard else None)
     if args.resume:
         run.start_epoch = restore_train_state(args.resume, trainable, optimizer, generator)
         print(f"resumed from {args.resume}; continuing at epoch {run.start_epoch}")
@@ -345,9 +393,11 @@ def setup(args) -> Run:
 
 def host_batches(run: Run, epoch: int):
     """(live step indices, numpy batch) for one epoch, K steps a group,
-    stacked (K, ...) when K > 1. The epoch is rounded up to a multiple of K
-    with fresh batches, never padded with a repeated one (each slice of a
-    group runs a real update)."""
+    stacked (K, ...) when K > 1, this rank's rows of the global batch. The
+    epoch is rounded up to a multiple of K with fresh batches, never padded
+    with a repeated one (each slice of a group runs a real update)."""
+    from gd3d_torch.core.mesh import shard_batch
+
     K, steps = run.K, run.steps
     steps_run = -(-steps // K) * K
     if steps_run != steps and epoch == run.start_epoch:
@@ -358,7 +408,7 @@ def host_batches(run: Run, epoch: int):
         live = list(range(step0, step0 + K))
         raw = [next(batches) for _ in live]
         batch = {k: np.stack([b[k] for b in raw]) for k in raw[0]} if K > 1 else raw[0]
-        yield live, batch
+        yield live, shard_batch(batch, run.dp, axis=1 if K > 1 else 0)
 
 
 def eval_epoch(run: Run, epoch: int) -> Dict[str, float]:
@@ -422,7 +472,11 @@ def train(run: Run) -> None:
                         epoch_metrics.setdefault(k, []).append(v)
                     rec.update(epoch=epoch, step=step, time_s=dt / len(live), temperature=temp)
                     mf.write(json.dumps(rec) + "\n")
+                    if run.tb is not None:
+                        run.tb.scalars(epoch * run.steps + step, rec)
                 mf.flush()
+                if run.tb is not None:
+                    run.tb.flush()
                 print(f"epoch {epoch} step {live[-1]}: loss={float(stacked['loss'][-1]):.4f} "
                       f"({dt:.2f}s / {len(live)} steps)")
             epoch_wall = time.perf_counter() - epoch_t0
@@ -432,7 +486,7 @@ def train(run: Run) -> None:
             means["epoch/wall_s"] = round(epoch_wall, 4)
             mf.write(json.dumps(means) + "\n")
             mf.flush()
-            if (epoch + 1) % cfg.train.ckpt_every_epochs == 0:
+            if run.dp.is_main and (epoch + 1) % cfg.train.ckpt_every_epochs == 0:
                 save_checkpoint(str(run.out_dir / f"ckpt_epoch_{epoch + 1:04d}"),
                                 run.trainable, cfg.student)
                 save_train_state(str(run.out_dir / "last"), run.trainable, run.optimizer,

@@ -11,7 +11,10 @@ at the top level of its Lightning checkpoint (refine_conv under
 'state_dict'). save_checkpoint writes that nesting, so
 load_reference_checkpoint reads the port's own files as well as the
 reference's. `trainable` is the student's name -> parameter dict
-(models/student.py::split_params), whose names are timm's.
+(models/student.py::split_params), whose names are timm's. Under
+data-parallel training (cli/train.py --multihost) every rank holds the same
+state: rank 0 alone writes these files, and --resume restores the same file
+on every rank.
 """
 from __future__ import annotations
 

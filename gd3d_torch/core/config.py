@@ -113,7 +113,11 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """gd3d's device-mesh fields; the port reads none of them."""
+    """gd3d's device-mesh fields. The port trains data-parallel over the
+    ranks of torch.distributed (gd3d_torch/core/mesh.py) and shards the
+    frozen teacher over them with fsdp_teacher (gd3d_torch/parallel/fsdp.py);
+    `data` is the world size there. model > 1 (tensor parallelism) and
+    sequence_parallel are not ported (ROADMAP.md, Queue 1)."""
 
     data: int = -1
     model: int = 1
@@ -123,7 +127,7 @@ class MeshConfig:
 
 @dataclasses.dataclass(frozen=True)
 class EvalConfig:
-    """gd3d's eval-harness constants (the eval is not ported yet)."""
+    """gd3d's eval-harness constants, which gd3d_torch/eval reads."""
 
     pck_img_size: int = 640
     pck_alphas: Tuple[float, ...] = (0.10, 0.05, 0.15)

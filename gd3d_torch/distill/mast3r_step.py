@@ -13,14 +13,19 @@ of the teacher's point cloud.
 build_mast3r_train_multistep runs K steps over a (K, ...) batch stack, the
 semantics of gd3d's lax.scan trainer: one step after another, the metrics
 stacked to (K,) on the device.
+
+With `dp` (core/mesh.py::DataParallel) the batch is this rank's rows of the
+global batch, each loss is this rank's share of the global batch's loss, and
+the step returns the global metrics, as gd3d's step over its data axis.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from gd3d_torch.core.config import DistillConfig
+from gd3d_torch.core.mesh import DataParallel
 from gd3d_torch.distill.group import stack_metrics, unstack
 from gd3d_torch.distill.keypoints import filter_and_match_keypoints
 from gd3d_torch.distill.train_state import ClippedAdamW
@@ -41,9 +46,11 @@ def mast3r_distill_loss(
     batch: Dict[str, torch.Tensor],
     temperature,
     has_depth: bool,
+    dp: Optional[DataParallel] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """Loss for a batch of B pairs. Batch keys (NHWC float32): rgb_1/rgb_2
-    (B, Hr, Wr, 3) in [0, 1]; rgb_mast3r_1/2 (B, H, W, 3) in [-1, 1] with
+    """Loss for a batch of B pairs (this rank's share under `dp`). Batch
+    keys (NHWC float32): rgb_1/rgb_2 (B, Hr, Wr, 3) in [0, 1];
+    rgb_mast3r_1/2 (B, H, W, 3) in [-1, 1] with
     W >= H; intrinsic (B, 3, 3); with has_depth (objaverse) also depth_1/2
     (B, Hd, Wd), bilinear-resized to (H, W) when their size differs.
     Without it (ScanNet++) the depth maps are rasterized from the teacher's
@@ -51,10 +58,11 @@ def mast3r_distill_loss(
     kcfg = cfg.keypoints
     ps = cfg.student.patch_size
     B, H, W, _ = batch["rgb_mast3r_1"].shape
+    dp = dp or DataParallel()
 
     # 1. frozen teacher
     feats = teacher.extract_features(batch["rgb_mast3r_1"], batch["rgb_mast3r_2"],
-                                     temperature, dtype=cfg.teacher_dtype)
+                                     temperature, dtype=cfg.teacher_dtype, dp=dp)
 
     # 2. keypoints, per pair
     kps = [
@@ -96,11 +104,11 @@ def mast3r_distill_loss(
 
     pred_depth_diff = student.depth_diff(kp_feat_1 - kp_feat_2)
     gt_diff = torch.tanh(kp_depth_1 - kp_depth_2).detach()
-    depth_loss = _masked_mean(torch.abs(pred_depth_diff - gt_diff), valid)
+    depth_loss = _masked_mean(torch.abs(pred_depth_diff - gt_diff), valid, dp)
 
     intra_depth_loss = student.intra_depth_loss(
         kp_feat_all, torch.cat([kp_depth_1, kp_depth_2], dim=0),
-        torch.cat([valid, valid], dim=0), kcfg.depth_rank_threshold)
+        torch.cat([valid, valid], dim=0), kcfg.depth_rank_threshold, dp)
 
     # 4. cost-volume KL; both views in one cost forward
     fc_all = student.get_feature_cost(rgb_resized)
@@ -119,8 +127,8 @@ def mast3r_distill_loss(
     mcost_t2 = torch.stack([masked_patch_cost(feats["cost_2"][b][None], mask_2[b])[0]
                             for b in range(B)])
     # student side fused: masked softmax + per-row KL in one kernel (K3)
-    kl_loss = (masked_softmax_kl_rows(mcost_t1, cost_12, mask_1).mean()
-               + masked_softmax_kl_rows(mcost_t2, cost_21, mask_2).mean()) / 2.0
+    kl_loss = dp.share((masked_softmax_kl_rows(mcost_t1, cost_12, mask_1).mean()
+                        + masked_softmax_kl_rows(mcost_t2, cost_21, mask_2).mean()) / 2.0)
 
     # 5. matching AP loss
     def gather_pts(pts3d, kp):
@@ -132,7 +140,7 @@ def mast3r_distill_loss(
     pts3d_2 = torch.stack([gather_pts(feats["pts3d_2_from_1"][b], kp_2[b])
                            for b in range(B)])
     ap_loss = ap_loss_paired(desc_1, desc_2, pts3d_1, pts3d_2, valid,
-                             thres3d_neg=kcfg.thres3d_neg, temp=kcfg.ap_sigmoid_temp)
+                             thres3d_neg=kcfg.thres3d_neg, temp=kcfg.ap_sigmoid_temp, dp=dp)
 
     w = cfg.loss_weights
     loss = (w.ap * ap_loss + w.depth * depth_loss + w.intra_depth * intra_depth_loss
@@ -143,7 +151,7 @@ def mast3r_distill_loss(
         "depth_loss": depth_loss,
         "intra_depth_loss": intra_depth_loss,
         "kl_loss": kl_loss,
-        "num_kps": valid.float().sum() / B,
+        "num_kps": dp.share(valid.float().sum() / B),
     }
     return loss, metrics
 
@@ -155,22 +163,25 @@ def build_mast3r_train_step(
     optimizer: ClippedAdamW,
     has_depth: bool,
     device="cuda",
+    dp: Optional[DataParallel] = None,
 ) -> Callable[[Dict[str, torch.Tensor], float], Dict[str, torch.Tensor]]:
     """Put the student and the teacher on `device` (the card unless the
     caller asks for another), and return step(batch, temperature) ->
     detached metrics, which updates the student's trainable parameters in
-    place; the temperature is a runtime scalar."""
+    place; the temperature is a runtime scalar. Under `dp` the optimizer
+    must sum the gradients over the ranks (make_optimizer(..., dp))."""
     device = torch.device(device)
     student.to(device)
     teacher.to(device)
+    dp = dp or DataParallel()
 
     def train_step(batch, temperature):
         optimizer.zero_grad()
         loss, metrics = mast3r_distill_loss(student, teacher, cfg, batch,
-                                            temperature, has_depth)
+                                            temperature, has_depth, dp)
         loss.backward()
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return dp.sum_metrics({k: v.detach() for k, v in metrics.items()})
 
     return train_step
 
@@ -182,11 +193,12 @@ def build_mast3r_train_multistep(
     optimizer: ClippedAdamW,
     has_depth: bool,
     device="cuda",
+    dp: Optional[DataParallel] = None,
 ) -> Callable[[Dict[str, torch.Tensor], float], Dict[str, torch.Tensor]]:
     """K optimizer steps over a (K, B, ...) batch stack:
     group(batches, temperature) -> metrics stacked to (K,), equal to K
     calls of the single step (gd3d's lax.scan over build_mast3r_train_step)."""
-    step = build_mast3r_train_step(student, teacher, cfg, optimizer, has_depth, device)
+    step = build_mast3r_train_step(student, teacher, cfg, optimizer, has_depth, device, dp)
 
     def multi_step(batches, temperature):
         return stack_metrics([step(b, temperature) for b in unstack(batches)])

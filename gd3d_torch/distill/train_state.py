@@ -8,21 +8,28 @@ With grad_accum = k > 1 it follows optax.MultiSteps(every_k_schedule=k):
 each call folds its gradients into a running mean (Welford's update, as
 optax), and every k-th call clips and steps AdamW once on that mean; the
 k - 1 calls in between leave the parameters and AdamW's step counts as
-they are.
+they are. Under data parallelism (`dp`, core/mesh.py) each call first sums
+the gradients over the ranks, in one all-reduce, so the clip sees the
+global batch's gradient, as in gd3d's step over its data axis.
 """
 from __future__ import annotations
 
-from typing import Iterable
+from typing import TYPE_CHECKING, Iterable, Optional
 
 import torch
 
 from gd3d_torch.core.config import TrainConfig
 
+if TYPE_CHECKING:
+    from gd3d_torch.core.mesh import DataParallel
+
 
 class ClippedAdamW:
-    def __init__(self, params: Iterable[torch.nn.Parameter], cfg: TrainConfig):
+    def __init__(self, params: Iterable[torch.nn.Parameter], cfg: TrainConfig,
+                 dp: Optional[DataParallel] = None):
         self.params = list(params)
         self.cfg = cfg
+        self.dp = dp
         self.adamw = torch.optim.AdamW(
             self.params, lr=cfg.lr, betas=(cfg.adam_b1, cfg.adam_b2),
             eps=cfg.adam_eps, weight_decay=cfg.weight_decay)
@@ -40,6 +47,8 @@ class ClippedAdamW:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        if self.dp is not None:
+            self.dp.sum_grads_(self.params)
         self.calls += 1
         k = self.cfg.grad_accum
         if k > 1:
@@ -68,5 +77,6 @@ class ClippedAdamW:
                 a.copy_(saved)
 
 
-def make_optimizer(cfg: TrainConfig, params: Iterable[torch.nn.Parameter]) -> ClippedAdamW:
-    return ClippedAdamW(params, cfg)
+def make_optimizer(cfg: TrainConfig, params: Iterable[torch.nn.Parameter],
+                   dp: Optional[DataParallel] = None) -> ClippedAdamW:
+    return ClippedAdamW(params, cfg, dp)

@@ -14,6 +14,12 @@ runs through K1 (and K2 in the student's backward), RoPE through K5.
 build_vggt_train_multistep runs K steps over a (K, ...) batch stack, as
 build_mast3r_train_multistep does; the NMS draws come from the one
 generator in the order K single steps draw them.
+
+With `dp` (core/mesh.py::DataParallel) the batch is this rank's rows of the
+global batch, each loss is this rank's share of the global batch's loss
+(mast3r_step.py), the NMS draws are the global batch's (each rank draws
+them all, pair after pair, and keeps its own), and the step returns the
+global metrics.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 
 from gd3d_torch.core.config import DistillConfig
+from gd3d_torch.core.mesh import DataParallel
 from gd3d_torch.distill.group import stack_metrics, unstack
 from gd3d_torch.distill.train_state import ClippedAdamW
 from gd3d_torch.kernels.cost_kl import masked_softmax_kl_rows
@@ -49,12 +56,19 @@ def vggt_distill_loss(
     temperature,
     priority: Optional[torch.Tensor] = None,
     generator: Optional[torch.Generator] = None,
+    dp: Optional[DataParallel] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: rgb_1/rgb_2 (B, Hr, Wr, 3) in [0, 1]; rgb_vggt (B, 2, H, W, 3)
     in [0, 1]. priority (B, H*W): the NMS tie-break draw, or None to draw
-    it from `generator`."""
+    it from `generator` (this rank's rows of the global batch's draws under
+    `dp`)."""
     kcfg = cfg.keypoints
     B, S, H, W, _ = batch["rgb_vggt"].shape
+    dp = dp or DataParallel()
+    if priority is None and dp.world > 1:
+        draws = [torch.rand(H * W, generator=generator, device=batch["rgb_vggt"].device)
+                 for _ in range(B * dp.world)]
+        priority = torch.stack(draws[dp.rank * B:(dp.rank + 1) * B])
     vp = teacher.cfg.patch_size
     ph, pw = H // vp, W // vp
 
@@ -82,11 +96,11 @@ def vggt_distill_loss(
                                                kcfg.depth_window)[0] for b in range(B)])
     pred_depth_diff = student.depth_diff(kp_feat_1 - kp_feat_2)
     gt_diff = torch.tanh(kp_depth_1 - kp_depth_2).detach()
-    depth_loss = _masked_mean(torch.abs(pred_depth_diff - gt_diff), valid)
+    depth_loss = _masked_mean(torch.abs(pred_depth_diff - gt_diff), valid, dp)
 
     intra_depth_loss = student.intra_depth_loss(
         kp_feat_all, torch.cat([kp_depth_1, kp_depth_2], dim=0),
-        torch.cat([valid, valid], dim=0), kcfg.depth_rank_threshold)
+        torch.cat([valid, valid], dim=0), kcfg.depth_rank_threshold, dp)
 
     # 3. cost-volume KL at the /14 grid; the student side through K3
     fc_all = student.get_feature_cost_vggt(rgb_resized, vp)
@@ -104,7 +118,7 @@ def vggt_distill_loss(
     # a masked-out row contributes 0; the mean keeps the all-rows denominator
     kl_rows_1 = masked_softmax_kl_rows(t_1, cost_12, mp_1) * mp_1
     kl_rows_2 = masked_softmax_kl_rows(t_2, cost_21, mp_2) * mp_2
-    kl_loss = (kl_rows_1.mean() + kl_rows_2.mean()) / 2.0
+    kl_loss = dp.share((kl_rows_1.mean() + kl_rows_2.mean()) / 2.0)
 
     # 4. matching AP on the world points
     def gather_pts(pts3d, kp):
@@ -116,7 +130,7 @@ def vggt_distill_loss(
     pts3d_2 = torch.stack([gather_pts(feats["point_map_view_2"][b], kp_2[b]) for b in range(B)])
     ap_loss = ap_loss_paired(desc_1, desc_2, pts3d_1, pts3d_2, valid,
                              thres3d_neg=kcfg.thres3d_neg, temp=kcfg.ap_sigmoid_temp,
-                             legacy_rpos1=True)
+                             legacy_rpos1=True, dp=dp)
 
     w = cfg.loss_weights
     loss = (w.ap * ap_loss + w.depth * depth_loss + w.intra_depth * intra_depth_loss
@@ -127,7 +141,7 @@ def vggt_distill_loss(
         "depth_loss": depth_loss,
         "intra_depth_loss": intra_depth_loss,
         "kl_loss": kl_loss,
-        "num_kps": valid.float().sum() / B,
+        "num_kps": dp.share(valid.float().sum() / B),
     }
     return loss, metrics
 
@@ -139,16 +153,19 @@ def build_vggt_train_step(
     optimizer: ClippedAdamW,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    dp: Optional[DataParallel] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """Put the student and the teacher on `device` (the card unless the
     caller asks for another), and return
     step(batch, temperature, priority=None) -> detached metrics, which
     updates the trainable parameters in place. Without a priority the NMS
     tie-break draws from `generator`, or from a torch.Generator on `device`
-    seeded with cfg.train.seed when none is given."""
+    seeded with cfg.train.seed when none is given. Under `dp` the optimizer
+    must sum the gradients over the ranks (make_optimizer(..., dp))."""
     device = torch.device(device)
     student.to(device)
     teacher.to(device)
+    dp = dp or DataParallel()
 
     def train_step(batch, temperature, priority=None):
         nonlocal generator
@@ -156,10 +173,10 @@ def build_vggt_train_step(
             generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
         optimizer.zero_grad()
         loss, metrics = vggt_distill_loss(student, teacher, cfg, batch, temperature,
-                                          priority=priority, generator=generator)
+                                          priority=priority, generator=generator, dp=dp)
         loss.backward()
         optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return dp.sum_metrics({k: v.detach() for k, v in metrics.items()})
 
     return train_step
 
@@ -171,12 +188,13 @@ def build_vggt_train_multistep(
     optimizer: ClippedAdamW,
     device="cuda",
     generator: Optional[torch.Generator] = None,
+    dp: Optional[DataParallel] = None,
 ) -> Callable[..., Dict[str, torch.Tensor]]:
     """K optimizer steps over a (K, B, ...) batch stack:
     group(batches, temperature, priorities=None) -> metrics stacked to (K,),
     equal to K calls of the single step; priorities (K, B, H*W) or None (the
     draws then come from the generator, step after step)."""
-    step = build_vggt_train_step(student, teacher, cfg, optimizer, device, generator)
+    step = build_vggt_train_step(student, teacher, cfg, optimizer, device, generator, dp)
 
     def multi_step(batches, temperature, priorities=None):
         return stack_metrics([

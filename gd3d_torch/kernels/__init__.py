@@ -2,8 +2,8 @@
 
 Each wrapper adds one to its `launches` count where it launches its kernel,
 and nowhere else, so a run can show that its main path went through the
-kernels. The flash wrappers (K1, K2) also count by dtype and length
-(`launches_by`), at the same place.
+kernels. The flash wrappers (K1, K2) and K5 also count by dtype and
+length (`launches_by`), at the same place.
 """
 from __future__ import annotations
 
@@ -43,7 +43,8 @@ def launch_counts() -> Dict[str, int]:
 
 
 def launch_counts_by() -> Dict[str, Dict[Tuple[str, int], int]]:
-    """The flash kernels' launches split by operand dtype and sequence
-    length N (the query count): kernel id -> {(dtype, N): launches}."""
+    """The flash kernels' and K5's launches split by operand dtype and
+    sequence length N (the query count; q's for K5): kernel id ->
+    {(dtype, N): launches}."""
     return {k: dict(fn.launches_by) for k, fn in wrappers().items()
             if hasattr(fn, "launches_by")}

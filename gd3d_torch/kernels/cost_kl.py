@@ -82,7 +82,9 @@ def masked_softmax_kl_rows(teacher_p, student_cost, row_mask, eps: float = 1e-8)
     """Per-row KL(teacher || masked-softmax(student)) -> (B, N).
 
     teacher_p (B, N, M) row-normalized, student_cost (B, N, M) raw
-    similarities, row_mask (B, N) bool. Inputs are taken to fp32."""
-    return _MaskedSoftmaxKL.apply(
-        teacher_p.float().contiguous(), student_cost.float().contiguous(),
-        row_mask.contiguous(), eps)
+    similarities, row_mask (B, N) bool. Inputs are taken to fp32, and a map
+    off a 16-byte address is copied (K3 reads both maps in 16-byte vectors
+    at one index)."""
+    maps = [t.float().contiguous() for t in (teacher_p, student_cost)]
+    maps = [t.clone() if t.data_ptr() % 16 else t for t in maps]
+    return _MaskedSoftmaxKL.apply(*maps, row_mask.contiguous(), eps)

@@ -16,6 +16,8 @@ steps must be multiples of that many elements; a view that is not raises.
 """
 from __future__ import annotations
 
+from collections import Counter
+
 import torch
 
 from gd3d_torch.kernels import build
@@ -118,6 +120,7 @@ def _launch(what, tokens, tasks, vec, base, f0):
         stream)
     build.check(err, what)
     rope2d_fwd.launches += 1
+    rope2d_fwd.launches_by[(str(tokens.dtype).removeprefix("torch."), tokens.shape[2])] += 1
 
 
 def rope2d_fwd(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.0,
@@ -136,6 +139,7 @@ def rope2d_fwd(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.
 
 
 rope2d_fwd.launches = 0
+rope2d_fwd.launches_by = Counter()  # (dtype, N of q) -> launches
 
 
 def rope2d_qk_fwd(q: torch.Tensor, qpos: torch.Tensor, k: torch.Tensor, kpos: torch.Tensor,

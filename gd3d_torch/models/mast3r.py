@@ -75,8 +75,11 @@ class Mast3rHead(nn.Module):
     def forward(self, hooked_tokens, enc_out, dec_out, grid_hw):
         cfg = self.cfg
         gh, gw = grid_hw
+        # a bf16 trunk's tokens meet the heads' fp32 weights: flax promotes
+        # them to fp32 (gd3d's teacher_dtype "bfloat16")
+        hooked_tokens = [t.float() for t in hooked_tokens]
         dpt_out = self.dpt(hooked_tokens, grid_hw)
-        lf = self.head_local_features(torch.cat([enc_out, dec_out], dim=-1))
+        lf = self.head_local_features(torch.cat([enc_out, dec_out], dim=-1).float())
         lf = pixel_shuffle_nhwc(lf.reshape(lf.shape[0], gh, gw, -1), cfg.croco.patch_size)
         out = torch.cat([dpt_out, lf], dim=-1)
 
@@ -119,10 +122,12 @@ class Mast3r(CrocoEncoder):
         out2[-1] = self.dec_norm(out2[-1])
         return out1, out2, cams1, cams2
 
-    def forward(self, img1: torch.Tensor, img2: torch.Tensor,
-                temperature=1.0) -> Dict[str, Dict[str, torch.Tensor]]:
+    def forward(self, img1: torch.Tensor, img2: torch.Tensor, temperature=1.0,
+                batch_min=None) -> Dict[str, Dict[str, torch.Tensor]]:
         """img1, img2 (B, H, W, 3) in [-1, 1], W >= H. Returns res1/res2 over
-        the symmetrized batch of 2B."""
+        the symmetrized batch of 2B. The cost maps' column 0 is each layer's
+        minimum over the batch; `batch_min` maps this batch's per-layer
+        minima to the global batch's under data parallelism."""
         B, H, W, _ = img1.shape
         ps = self.cfg.croco.patch_size
         gh, gw = H // ps, W // ps
@@ -144,6 +149,8 @@ class Mast3r(CrocoEncoder):
         m = (torch.stack(cams1, 0) + torch.stack(cams2, 0).transpose(-1, -2)) / 2.0
         m = torch.softmax(m / temperature, dim=-1)
         layer_min = m.amin(dim=(1, 2, 3))
+        if batch_min is not None:
+            layer_min = batch_min(layer_min)
         m[:, :, :, 0] = layer_min[:, None, None]
         res2["tgt_attn_map"] = m.mean(0)
         res2["pts3d_in_other_view"] = res2.pop("pts3d")

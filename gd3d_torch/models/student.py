@@ -5,7 +5,9 @@ eval harness's, `dense_grid_features` and `get_intermediate_feature`).
 Images are NHWC floats in [0, 1] at the public functions, as in gd3d. With
 compute_dtype "bfloat16" the ViT trunk and the depth head run under
 autocast (bf16 matmuls and convs; LayerNorms, the residual stream and the
-refine conv stay fp32), which is gd3d's mixed-precision policy.
+refine conv stay fp32), which is gd3d's mixed-precision policy; with
+bf16_stream the residual stream is bf16 too, and `remat` recomputes the
+blocks in the backward (models/vit.py).
 
 Parameter names: `vit.*` is a timm ViT state dict, `refine_conv.*` and
 `depth_diff_head.*` follow the reference checkpoint layout
@@ -69,8 +71,6 @@ class Student(nn.Module):
 
     def __init__(self, cfg: StudentConfig, me_interp_quirk: bool = False):
         super().__init__()
-        if cfg.remat or cfg.bf16_stream:
-            raise NotImplementedError("remat and bf16_stream are not ported yet")
         self.cfg = cfg
         self.me_interp_quirk = me_interp_quirk
         C = cfg.embed_dim
@@ -232,14 +232,15 @@ class Student(nn.Module):
             return self.depth_diff_head.pairwise_score_diff(features)
 
     def intra_depth_loss(self, kp_feat_all, kp_depth_all, valid_all,
-                         depth_threshold: float) -> torch.Tensor:
+                         depth_threshold: float, dp=None) -> torch.Tensor:
         """Mean of the two per-view pairwise logistic ranking losses over the
         stacked views (2B, N, ...), through K4 in the form of gd3d's fused
         path (gd3d/models/student.py:430-454): u = feat . W + b in fp32, the
         head's first bias passed again (it commutes with the pair
         subtraction), and the mean of the per-view masked means. The whole
         pair chain is fp32, also when the student computes in bf16. A head
-        without tanh takes the plain score path, as in gd3d."""
+        without tanh takes the plain score path, as in gd3d. Under `dp`
+        (core/mesh.py) each view's pair count is the global batch's."""
         B = kp_feat_all.shape[0] // 2
         if self.cfg.depth_head_tanh:
             fin, ln, fout = (self.depth_diff_head.fusion_layer[i] for i in (0, 1, 3))
@@ -249,16 +250,16 @@ class Student(nn.Module):
                 kp_depth_all, valid_all, depth_threshold)
 
             def view_mean(s, c):
-                tot, cnt = s.sum(), c.sum()
+                tot, cnt = s.sum(), c.sum() if dp is None else dp.count(c.sum())
                 return torch.where(cnt > 0, tot / torch.clamp(cnt, min=1.0),
                                    torch.zeros_like(tot))
 
             return (view_mean(sums[:B], cnts[:B]) + view_mean(sums[B:], cnts[B:])) / 2.0
         score_all = self.pairwise_score_diff(kp_feat_all)
         intra_1 = pairwise_logistic_ranking_loss(
-            score_all[:B], kp_depth_all[:B], depth_threshold, valid_all[:B])
+            score_all[:B], kp_depth_all[:B], depth_threshold, valid_all[:B], dp)
         intra_2 = pairwise_logistic_ranking_loss(
-            score_all[B:], kp_depth_all[B:], depth_threshold, valid_all[B:])
+            score_all[B:], kp_depth_all[B:], depth_threshold, valid_all[B:], dp)
         return (intra_1 + intra_2) / 2.0
 
 

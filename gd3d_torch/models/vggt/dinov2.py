@@ -14,6 +14,7 @@ import torch
 import torch.nn as nn
 
 from gd3d_torch.models.vggt.config import VggtConfig
+from gd3d_torch.models.promote import LayerNorm
 from gd3d_torch.models.vggt.layers import VggtBlock
 from gd3d_torch.models.vit import _bicubic_resize_matrix
 
@@ -60,7 +61,7 @@ class DinoV2(nn.Module):
             VggtBlock(C, cfg.dino_num_heads, 4.0, init_values=cfg.dino_init_values,
                       eps=cfg.layernorm_eps)
             for _ in range(cfg.dino_depth)])
-        self.norm = nn.LayerNorm(C, eps=cfg.layernorm_eps)
+        self.norm = LayerNorm(C, eps=cfg.layernorm_eps)
 
     def forward(self, imgs: torch.Tensor) -> torch.Tensor:
         """imgs (B, H, W, 3) -> patch tokens (B, gh*gw, C) after the norm."""
@@ -69,10 +70,11 @@ class DinoV2(nn.Module):
         gh, gw = x.shape[2], x.shape[3]
         x = x.flatten(2).transpose(1, 2)
         x = torch.cat([self.cls_token.expand(B, -1, -1), x], dim=1)
-        # a resized pos-embed is fp32; with the aggregator's weights in bf16
-        # (teacher_dtype bfloat16) the tokens stay bf16, where gd3d's would be
-        # promoted to fp32 (non-square frames, e.g. ScanNet++'s 350x518)
-        x = x + interp_pos_embed(self.pos_embed, (gh, gw)).to(x.dtype)
+        # a resized pos-embed is fp32: with the aggregator's weights in bf16
+        # (teacher_dtype bfloat16) the add promotes the tokens to fp32 on a
+        # non-square grid (ScanNet++'s 350x518), and every layer after it
+        # runs in fp32 on the bf16-rounded weights, as in gd3d
+        x = x + interp_pos_embed(self.pos_embed, (gh, gw))
         # registers go in after the pos-embed add
         x = torch.cat([x[:, :1], self.register_tokens.expand(B, -1, -1).to(x.dtype),
                        x[:, 1:]], dim=1)

@@ -5,6 +5,11 @@ gd3d/models/vggt/layers.py).
 Attention goes through the flash dispatch (K1, and K2 under autograd);
 RoPE through K5. The cross-frame map export stays a plain einsum, as in
 gd3d, where it is not Pallas either.
+
+The Linear and LayerNorm layers compute in the promotion of their input's
+and their weights' dtypes (models/promote.py): under the bf16 teacher (bf16
+weights) fp32 tokens run in fp32 against the bf16-rounded weights, which is
+gd3d's route on non-square frames (dinov2.py).
 """
 from __future__ import annotations
 
@@ -14,6 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from gd3d_torch.models.promote import LayerNorm, Linear
 from gd3d_torch.ops.attention import scaled_dot_attention
 from gd3d_torch.ops.rope2d import rope2d_qk
 
@@ -32,8 +38,8 @@ class VggtMlp(nn.Module):
 
     def __init__(self, dim: int, hidden: int, out_dim: Optional[int] = None):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim if out_dim is None else out_dim)
+        self.fc1 = Linear(dim, hidden)
+        self.fc2 = Linear(hidden, dim if out_dim is None else out_dim)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x)))
@@ -54,10 +60,10 @@ class VggtAttention(nn.Module):
         self.rope_freq = rope_freq
         self.special_tokens = special_tokens
         D = dim // num_heads
-        self.qkv = nn.Linear(dim, 3 * dim)
-        self.proj = nn.Linear(dim, dim)
-        self.q_norm = nn.LayerNorm(D, eps=eps) if qk_norm else None
-        self.k_norm = nn.LayerNorm(D, eps=eps) if qk_norm else None
+        self.qkv = Linear(dim, 3 * dim)
+        self.proj = Linear(dim, dim)
+        self.q_norm = LayerNorm(D, eps=eps) if qk_norm else None
+        self.k_norm = LayerNorm(D, eps=eps) if qk_norm else None
 
     def forward(self, x, pos=None, return_attn: bool = False, temperature=1.0):
         B, N, C = x.shape
@@ -93,11 +99,11 @@ class VggtBlock(nn.Module):
                  init_values: float = 1.0, qk_norm: bool = False,
                  use_rope: bool = False, rope_freq: float = 100.0, eps: float = 1e-6):
         super().__init__()
-        self.norm1 = nn.LayerNorm(dim, eps=eps)
+        self.norm1 = LayerNorm(dim, eps=eps)
         self.attn = VggtAttention(dim, num_heads, qk_norm=qk_norm, use_rope=use_rope,
                                   rope_freq=rope_freq, eps=eps)
         self.ls1 = LayerScale(dim, init_values)
-        self.norm2 = nn.LayerNorm(dim, eps=eps)
+        self.norm2 = LayerNorm(dim, eps=eps)
         self.mlp = VggtMlp(dim, int(dim * mlp_ratio))
         self.ls2 = LayerScale(dim, init_values)
 

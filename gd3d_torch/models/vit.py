@@ -19,8 +19,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from gd3d_torch.core.config import StudentConfig
+from gd3d_torch.models.promote import LayerNorm
 from gd3d_torch.ops.attention import scaled_dot_attention
 
 
@@ -165,9 +167,9 @@ class Block(nn.Module):
     def __init__(self, cfg: StudentConfig, lora: bool = False, adapter: bool = False):
         super().__init__()
         C = cfg.embed_dim
-        self.norm1 = nn.LayerNorm(C, eps=cfg.layernorm_eps)
+        self.norm1 = LayerNorm(C, eps=cfg.layernorm_eps)
         self.attn = Attention(C, cfg.num_heads, cfg.lora_rank if lora else 0)
-        self.norm2 = nn.LayerNorm(C, eps=cfg.layernorm_eps)
+        self.norm2 = LayerNorm(C, eps=cfg.layernorm_eps)
         self.mlp = Mlp(C, int(C * cfg.mlp_ratio))
         self.adapter = Adapter(C, cfg.adapter_bottleneck) if adapter else None
 
@@ -202,7 +204,15 @@ class ViT(nn.Module):
     resampled to whatever grid it gives.
 
     n_layers runs only the first n_layers blocks (the caller's truncation
-    when it taps intermediates only)."""
+    when it taps intermediates only).
+
+    cfg.remat recomputes each block's activations in the backward
+    (torch.utils.checkpoint around each block call, gd3d's nn.remat of the
+    scanned block): K1 then runs twice for a block that takes a gradient.
+    cfg.bf16_stream with compute_dtype "bfloat16" carries the residual
+    stream, and so the residual adds and the tapped intermediates, in bf16
+    after norm_pre; the LayerNorms still compute and emit fp32, promoting
+    their input to their fp32 weights as gd3d's do (models/promote.py)."""
 
     def __init__(self, cfg: StudentConfig):
         super().__init__()
@@ -212,13 +222,13 @@ class ViT(nn.Module):
         self.cls_token = nn.Parameter(torch.zeros(1, 1, C))
         self.pos_embed = nn.Parameter(
             torch.zeros(1, cfg.pos_grid ** 2 + cfg.num_prefix_tokens, C))
-        self.norm_pre = (nn.LayerNorm(C, eps=cfg.layernorm_eps)
+        self.norm_pre = (LayerNorm(C, eps=cfg.layernorm_eps)
                          if cfg.pre_norm else None)
         n_plain = min(cfg.lora_start_block, cfg.depth)
         self.blocks = nn.ModuleList(
             [Block(cfg, lora=i >= n_plain, adapter=i >= n_plain and cfg.use_adapters)
              for i in range(cfg.depth)])
-        self.norm = nn.LayerNorm(C, eps=cfg.layernorm_eps)
+        self.norm = LayerNorm(C, eps=cfg.layernorm_eps)
 
     def forward(
         self,
@@ -234,16 +244,20 @@ class ViT(nn.Module):
         gh, gw = x.shape[2], x.shape[3]
         x = x.flatten(2).transpose(1, 2)
         pos = resample_pos_embed(self.pos_embed, (gh, gw), cfg.num_prefix_tokens)
-        # the residual stream is fp32 whatever the compute dtype
+        # the residual stream is fp32 whatever the compute dtype, unless
+        # bf16_stream asks for bf16 after norm_pre
         x = torch.cat([self.cls_token.expand(B, -1, -1), x.float()], dim=1)
         x = x + pos
         if self.norm_pre is not None:
             x = self.norm_pre(x)
+        if cfg.bf16_stream and cfg.compute_dtype == "bfloat16":
+            x = x.to(torch.bfloat16)
         n_layers = cfg.depth if n_layers is None else n_layers
         want = {int(i) % cfg.depth for i in take_indices}
         taps = {}
+        remat = cfg.remat and torch.is_grad_enabled()
         for i, blk in enumerate(self.blocks[:n_layers]):
-            x = blk(x)
+            x = checkpoint(blk, x, use_reentrant=False) if remat else blk(x)
             if i in want:
                 taps[i] = x
         out = {"intermediates": tuple(taps[int(i) % cfg.depth] for i in take_indices)}

@@ -17,7 +17,7 @@ from typing import Optional
 import torch
 
 from gd3d_torch.kernels.flash_bwd_fused import flash_attention_bwd_fused
-from gd3d_torch.kernels.flash_fwd import flash_attention_fwd
+from gd3d_torch.kernels.flash_fwd import aligned_16, flash_attention_fwd
 
 
 class FlashAttention(torch.autograd.Function):
@@ -46,4 +46,7 @@ def scaled_dot_attention(
     """(B, N, H, D) x (B, M, H, D) -> (B, N, H, D), non-causal."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
+    # the kernels copy 16 bytes at a time: a view off that grid is copied
+    # first (the kernels raise on one; the models' views are on it)
+    q, k, v = (t if aligned_16(t) else t.contiguous() for t in (q, k, v))
     return FlashAttention.apply(q, k, v, float(scale))

@@ -1,18 +1,26 @@
 """Distillation losses with padded-keypoint validity masks (counterpart of
-the parts of gd3d/ops/losses.py that the MASt3R, VGGT and ME steps call)."""
+the parts of gd3d/ops/losses.py that the MASt3R, VGGT and ME steps call).
+
+Every mean over a batch-wide count takes `dp` (core/mesh.py::DataParallel):
+under data parallelism the count is summed over the ranks and the result is
+this rank's share of the global batch's mean; None is one device."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import TYPE_CHECKING, Optional, Tuple
 
 import torch
 
 from gd3d_torch.ops.basic import temp_sigmoid
 
+if TYPE_CHECKING:
+    from gd3d_torch.core.mesh import DataParallel
 
-def _masked_mean(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+
+def _masked_mean(x: torch.Tensor, mask: torch.Tensor,
+                 dp: Optional[DataParallel] = None) -> torch.Tensor:
     """mean(x[mask]), or 0 when the mask is empty."""
     mask = mask.to(x.dtype)
-    count = mask.sum()
+    count = mask.sum() if dp is None else dp.count(mask.sum())
     total = (x * mask).sum()
     return torch.where(count > 0, total / torch.clamp(count, min=1.0),
                        torch.zeros_like(total))
@@ -23,6 +31,7 @@ def pairwise_logistic_ranking_loss(
     gt_depths: torch.Tensor,
     depth_threshold: float,
     valid: torch.Tensor,
+    dp: Optional[DataParallel] = None,
 ) -> torch.Tensor:
     """Masked mean of log(1 + exp(-sign(d_j - d_i) * score[b, i, j])) over
     pairs with |d_j - d_i| > threshold."""
@@ -32,7 +41,7 @@ def pairwise_logistic_ranking_loss(
     pair_valid = ((torch.abs(depth_j - depth_i) > depth_threshold)
                   & valid[:, :, None] & valid[:, None, :])
     loss = torch.log1p(torch.exp(-alpha * score_diff))
-    return _masked_mean(loss, pair_valid)
+    return _masked_mean(loss, pair_valid, dp)
 
 
 def ap_loss_paired(
@@ -44,6 +53,7 @@ def ap_loss_paired(
     thres3d_neg: float = 0.1,
     temp: float = 0.01,
     legacy_rpos1: bool = False,
+    dp: Optional[DataParallel] = None,
 ) -> torch.Tensor:
     """Smooth-AP matching loss for 1:1-paired keypoints: positives on the
     diagonal, negatives farther than thres3d_neg in 3D, two ranking
@@ -67,7 +77,7 @@ def ap_loss_paired(
     rall2 = rpos2 + (temp_sigmoid(sim - pos_sim[:, :, None], temp) * negf).sum(-1)
     ap2 = rpos2 / rall2
 
-    return _masked_mean(1.0 - (ap1 + ap2) / 2.0, valid)
+    return _masked_mean(1.0 - (ap1 + ap2) / 2.0, valid, dp)
 
 
 def first_true_indices(mask: torch.Tensor, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -97,13 +107,15 @@ def ap_loss_me(
     temp: float = 0.01,
     max_pos: int = 8192,
     return_overflow: bool = False,
+    dp: Optional[DataParallel] = None,
 ):
     """Smooth-AP loss with distance-derived positives (the ME baseline):
     every (i, j) with 3D distance < thresh3d_pos is a positive, the
     negatives of source row i are the targets farther than thres3d_neg, two
     ranking directions averaged, mean over the positives. The first max_pos
     positives of each pair in row-major order are kept (a static cap, as in
-    gd3d); with return_overflow also the count of positives beyond it."""
+    gd3d); with return_overflow also the count of positives beyond it
+    (this rank's part of the batch's count under `dp`)."""
     B, S, _ = desc_1.shape
     T = desc_2.shape[1]
     sim = torch.einsum("bsc,btc->bst", desc_1, desc_2)
@@ -135,6 +147,8 @@ def ap_loss_me(
         sums.append(((1.0 - ap) * pvalid).sum())
         counts.append(pvalid.sum())
     total, count = torch.stack(sums).sum(), torch.stack(counts).sum()
+    if dp is not None:
+        count = dp.count(count)
     loss = torch.where(count > 0, total / torch.clamp(count, min=1.0), torch.zeros_like(total))
     if return_overflow:
         true_pos = pos_mask.to(torch.float32).sum(dim=(1, 2))

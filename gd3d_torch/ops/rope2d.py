@@ -14,21 +14,30 @@ from __future__ import annotations
 
 import torch
 
-from gd3d_torch.kernels.rope2d import RoPE2DQK
+from gd3d_torch.kernels.rope2d import RoPE2DQK, _aligned, vec_width
+
+
+def _on_vectors(t: torch.Tensor) -> torch.Tensor:
+    """t, or a contiguous copy where K5's vector loads could not read the
+    view (the kernel raises on one; the models' views are on the grid)."""
+    if t.shape[-1] % 4 or t.stride(-1) != 1 or _aligned(t, vec_width(t.shape[-1], t.dtype)):
+        return t
+    return t.contiguous()
 
 
 def rope2d(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.0,
            f0: float = 1.0) -> torch.Tensor:
     """tokens (B, H, N, D) with D % 4 == 0, positions (B, N, 2) as (y, x)
     integers. The result is stored in (B, N, H, D) order (see K5)."""
-    return RoPE2DQK.apply(tokens, positions, None, None, float(base), float(f0))[0]
+    return RoPE2DQK.apply(_on_vectors(tokens), positions, None, None, float(base),
+                          float(f0))[0]
 
 
 def rope2d_qk(q: torch.Tensor, qpos: torch.Tensor, k: torch.Tensor, kpos: torch.Tensor,
               base: float = 100.0, f0: float = 1.0):
     """(rope2d(q, qpos), rope2d(k, kpos)) in one K5 launch. q and k share the
     dtype and D; their B, H, N and positions may differ (cross attention)."""
-    return RoPE2DQK.apply(q, qpos, k, kpos, float(base), float(f0))
+    return RoPE2DQK.apply(_on_vectors(q), qpos, _on_vectors(k), kpos, float(base), float(f0))
 
 
 def grid_positions(h: int, w: int, batch: int = 1, device=None) -> torch.Tensor:

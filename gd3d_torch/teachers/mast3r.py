@@ -13,6 +13,7 @@ from typing import Dict, Iterator
 
 import torch
 import torch.nn as nn
+from torch.func import functional_call
 
 from gd3d_torch.models.mast3r import Mast3r, Mast3rConfig
 from gd3d_torch.models.vit import init_params_
@@ -34,6 +35,12 @@ def no_tf32() -> Iterator[None]:
 
 
 class Mast3rTeacher(nn.Module):
+    # the parameters gd3d casts to bf16 under teacher_dtype "bfloat16"
+    # (`encoder`, `decoder_embed`, `dec_pairs`, `dec_norm` of its tree); the
+    # DPT and local-feature heads stay fp32 and promote the trunk's tokens
+    TRUNK = ("patch_embed.", "enc_blocks.", "enc_norm.", "decoder_embed.", "dec_blocks.",
+             "dec_blocks2.", "dec_norm.")
+
     def __init__(self, cfg: Mast3rConfig = Mast3rConfig()):
         super().__init__()
         self.cfg = cfg
@@ -77,16 +84,34 @@ class Mast3rTeacher(nn.Module):
         rgb_mast3r_2: torch.Tensor,
         temperature=1.0,
         dtype: str | None = None,
+        dp=None,
     ) -> Dict[str, torch.Tensor]:
         """Images (B, H, W, 3) in [-1, 1], W >= H. Returns desc_1/2,
         pts3d_1, pts3d_2_from_1, pts3d_2, conf_1/2 (B, H, W, ...) and
-        cost_1/2 (B, N, N). The trunk runs fp32 (gd3d's teacher_dtype
-        "bfloat16" option is not ported yet), without TF32."""
-        if dtype not in (None, "float32"):
-            raise NotImplementedError(f"teacher dtype {dtype!r} is not ported yet")
+        cost_1/2 (B, N, N), all fp32. dtype None or "float32" runs the model
+        in fp32 without TF32; "bfloat16" runs the trunk (TRUNK) and
+        the images in bf16, the heads in fp32, as gd3d's teacher_dtype
+        option. A Python-float temperature keeps the cost maps' softmax in
+        the trunk's dtype, as gd3d's weakly typed one does. Under data
+        parallelism (`dp`, core/mesh.py) the cost maps' per-layer floor is
+        the global batch's minimum, as in gd3d's step over its data axis."""
         B = rgb_mast3r_1.shape[0]
+        images = (rgb_mast3r_1, rgb_mast3r_2)
+        cast = {}
+        if dtype == "bfloat16":
+            # parameters stored in bf16 already (a sharded teacher) stay put
+            cast = {n: p.to(torch.bfloat16) for n, p in self.model.named_parameters()
+                    if n.startswith(self.TRUNK) and p.dtype != torch.bfloat16}
+            images = tuple(x.to(torch.bfloat16) for x in images)
+        elif dtype not in (None, "float32"):
+            raise ValueError(f"teacher dtype must be float32 or bfloat16, got {dtype!r}")
+        batch_min = dp.min if dp is not None and dp.world > 1 else None
         with no_tf32():
-            out = self.model(rgb_mast3r_1, rgb_mast3r_2, temperature)
+            if cast:
+                out = functional_call(self.model, cast, (*images, temperature, batch_min))
+            else:
+                out = self.model(*images, temperature, batch_min)
+        out = {k: {n: t.float() for n, t in res.items()} for k, res in out.items()}
         res1, res2 = out["res1"], out["res2"]
         return {
             "desc_1": res1["desc"][B:],

@@ -2,8 +2,10 @@
 
 extract_features() runs the aggregator, in bf16 with dtype="bfloat16" (a
 bf16 copy of the aggregator's weights only, made per call, as gd3d casts
-them inside its step), and the camera, depth and point heads in fp32
-without TF32; it returns fp32 features: world point maps unprojected on the
+them inside its step; on non-square frames gd3d's fp32 resized pos-embed
+promotes the tokens, and the aggregator then runs in fp32 on the
+bf16-rounded weights, models/vggt/dinov2.py), and the camera, depth and
+point heads in fp32 without TF32; it returns fp32 features: world point maps unprojected on the
 device, the decoded cameras, the depth maps and the layer-mean cross-frame
 cost volumes. sample_keypoints() takes co-view masks, NMS keypoints in
 view 1 and their track-head correspondences in view 2 from the saved
@@ -29,6 +31,8 @@ from gd3d_torch.teachers.mast3r import no_tf32
 
 
 class VggtTeacher(nn.Module):
+    TRUNK = ("aggregator.",)  # the parameters teacher_dtype "bfloat16" casts
+
     def __init__(self, cfg: VggtConfig = VggtConfig()):
         super().__init__()
         self.cfg = cfg
@@ -89,10 +93,13 @@ class VggtTeacher(nn.Module):
         keep = self.model.head_layers
         with no_tf32():
             if dtype == "bfloat16":
-                bf16 = {n: p.to(torch.bfloat16) for n, p in agg.named_parameters()}
-                tokens_list, attn = functional_call(
-                    agg, bf16, (rgb_vggt.to(torch.bfloat16),),
-                    {"temperature": temperature, "keep_layers": keep})
+                # parameters stored in bf16 already (a sharded teacher) stay put
+                bf16 = {n: p.to(torch.bfloat16) for n, p in agg.named_parameters()
+                        if p.dtype != torch.bfloat16}
+                args = (rgb_vggt.to(torch.bfloat16),)
+                kwargs = {"temperature": temperature, "keep_layers": keep}
+                tokens_list, attn = (functional_call(agg, bf16, args, kwargs) if bf16
+                                     else agg(*args, **kwargs))
             elif dtype in (None, "float32"):
                 tokens_list, attn = agg(rgb_vggt, temperature=temperature, keep_layers=keep)
             else:

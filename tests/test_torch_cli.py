@@ -118,9 +118,9 @@ def test_upstream_checkpoints_load(tmp_path):
 
 @pytest.mark.parametrize("flags,error,match", [
     (["--workers", "-1"], ValueError, "--workers"),
-    (["--tensorboard"], NotImplementedError, "TensorFlow"),
-    (["--fsdp-teacher"], NotImplementedError, "multi-GPU"),
-    (["--multihost"], NotImplementedError, "multi-GPU"),
+    (["--multistep", "0"], ValueError, "--multistep"),
+    (["--fsdp-teacher"], ValueError, "--multihost"),
+    (["--multihost"], RuntimeError, "MASTER_ADDR"),
 ])
 def test_refused_flags_raise(tmp_path, flags, error, match):
     with pytest.raises(error, match=match):

@@ -25,6 +25,7 @@ places, through 2 + 2 + 2 layers.
 """
 import dataclasses
 
+import flax.linen
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -170,25 +171,46 @@ def test_two_steps_match_gd3d(shared):
                                    rtol=0, atol=1e-6, err_msg=name)
 
 
-def test_bf16_aggregator_drift_from_gd3d(shared):
-    """Features of the bf16-aggregator teacher against gd3d's bf16 path.
-    Tolerance: max |diff| <= 5e-2 * max(1, max |gd3d|) per feature (a few
-    bf16 roundings of 2^-8 relative each, compounded over the layers)."""
+@pytest.mark.parametrize("hw", [(28, 28), (28, 42)], ids=["square", "non_square"])
+def test_bf16_aggregator_drift_from_gd3d(shared, hw):
+    """Features of the bf16-aggregator teacher against gd3d's bf16 path, on
+    square frames (the pos-embed is not resized) and on non-square ones
+    (finetune_timm_vggt_scannetpp's 350x518 is one), where gd3d's resized
+    fp32 pos-embed promotes the DINOv2 tokens to fp32 and the rest of the
+    aggregator runs in fp32 on the bf16-rounded weights: the port's patch
+    tokens must take gd3d's dtype. Tolerance: max |diff| <= 5e-2 *
+    max(1, max |gd3d|) per feature (a few bf16 roundings of 2^-8 relative
+    each, compounded over the layers)."""
     _, tparams = shared
     assert vggt_scannetpp().teacher_dtype == "bfloat16"
     jte = JVggtTeacher(JVggtConfig(**TINY_KW))
     jtp = jbias_params(jax.tree_util.tree_map(jnp.asarray, tparams), jte.cfg)
-    rgb = _batch()["rgb_vggt"]
-    want = jte.extract_features(jtp, jnp.asarray(rgb), 0.9, dtype="bfloat16")
-    got = _port_teacher(tparams).extract_features(torch.from_numpy(rgb), 0.9,
-                                                  dtype="bfloat16")
+    rgb = np.random.RandomState(4).rand(1, 2, *hw, 3).astype(np.float32)
+    seen = {}
+
+    def catch_dino(next_fun, args, kwargs, context):
+        out = next_fun(*args, **kwargs)
+        if type(context.module).__name__ == "DinoV2" and context.method_name == "__call__":
+            seen["gd3d"] = str(out.dtype)
+        return out
+
+    with flax.linen.intercept_methods(catch_dino):
+        want = jte.extract_features(jtp, jnp.asarray(rgb), 0.9, dtype="bfloat16")
+    te = _port_teacher(tparams)
+    hook = te.model.aggregator.patch_embed.register_forward_hook(
+        lambda m, i, o: seen.__setitem__("port", str(o.dtype).split(".")[-1]))
+    try:
+        got = te.extract_features(torch.from_numpy(rgb), 0.9, dtype="bfloat16")
+    finally:
+        hook.remove()
+    assert seen["port"] == seen["gd3d"] == ("bfloat16" if hw[0] == hw[1] else "float32"), seen
     drift = {}
     for k in ("depth_pred_1", "depth_pred_2", "point_map_view_1", "point_conf_view_1",
               "extrinsic_1", "intrinsic_1", "cost_1", "cost_2"):
         w = np.asarray(want[k])
         err = float(np.abs(got[k].numpy() - w).max())
         drift[k] = err / max(1.0, float(np.abs(w).max()))
-    print(f"bf16 aggregator drift from gd3d (max |diff| / max(1, max |gd3d|)): {drift}")
+    print(f"bf16 aggregator drift from gd3d at {hw} (max |diff| / max(1, max |gd3d|)): {drift}")
     assert max(drift.values()) <= 5e-2, drift
 
 
