@@ -144,9 +144,32 @@ report), then runs these phases in order, one or more printed lines each:
               and the step time. The kernels phase holds the new shapes:
               bf16 K1 at the CroCo shapes, bf16 K5 on the CroCo q and k, fp32
               K1 at the 350x518 VGGT shapes.
+ 10. align    multi-view reconstruction (check_align): (a) global_align on
+              the card, 300 cosine steps, on gd3d's synthetic scene at the
+              align CLI's working size (4 views of 384x512, 12 ordered edges,
+              196 608 points a view): gd3d's recovery bounds (relative
+              rotation and translation direction < 2 degrees, focal within
+              10%), the loop's ms a step, peak memory and profiled idle share;
+              (b) the card against the port's CPU run on that scene with 0.03
+              noise (ALIGN_AGREE_ITERS steps; losses 1e-3, outputs 1e-2);
+              (c) the teacher call of the path (the full MASt3R, seeded
+              weights, face_forward; all 12 ordered pairs of 4 frames in one
+              extract_features): fp32 K1 and K5 on the operands it hands them
+              (N = 768) against their plain twins in the kernels phase's
+              format, and the call on both twins on the card (pts3d_1, conf_1,
+              desc_1 within TOL); (d) the entry points in this process on 4
+              windows of the DSLR fixture (gd3d_torch/data/testdata/dslr.jpg,
+              512x384 after the resize): gd3d_torch.cli.align.main dense
+              (--sparse 0 --tsdf 0.3 --colmap --colmap-db --ply --html; its
+              launches exactly one teacher call's, 48 fp32 K1 at N = 768 and
+              72 K5) and by default (auto-sparse), gd3d_torch.cli.localize.main
+              for 2 queries with --coarse-to-fine, and one upload of 2 frames to
+              gd3d_torch.cli.demo's server: every file, gd3d's keys and shapes,
+              finite values, the COLMAP database read back through sqlite3; the
+              teacher call's, alignment's, TSDF's and a query's seconds.
 
 Then one JSON line of the kernels (launches: the steps, train, eval, data,
-pose and surface phases' runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
+pose, surface and align phases' runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The kernels and agree phases compare fp32 results too, so they
 run without TF32; the steps run with PyTorch's defaults (the teachers turn TF32
 off themselves).
@@ -2251,6 +2274,454 @@ def check_surface(dev, vggt_plain_steps) -> dict:
     return counts
 
 
+# The align phase. gd3d's multi-view reconstruction at the align CLI's
+# working size: 4:3 frames resized to 512 on the long side (384x512, N = 768
+# CroCo tokens), 4 views, the complete graph of 12 ordered pairs. The known
+# answer is gd3d's synthetic scene (tests/test_global_align.py's
+# _make_scene: white-noise depths in [2, 3], camera k rotated 0.15 k rad about
+# a random axis and moved (0.4, 0.1, 0.05) k) at that size, with a focal of
+# ALIGN_FOCAL px and every ordered pair; gd3d's recovery bounds hold it:
+# relative rotation and translation direction within ALIGN_DEG, the focal
+# within ALIGN_FOCAL_RTOL. The card against the port's CPU run of the same
+# scene with ALIGN_NOISE fp32 noise on every point, ALIGN_AGREE_ITERS steps
+# of the same cosine schedule: the noiseless scene's tree init is exact and
+# its first gradient fp32 rounding noise that Adam scales to full steps, so
+# two correct runs part there (tests/test_torch_align.py); on the noisy one
+# the losses agree within ALIGN_LOSS_TOL and the poses, focals, depths and
+# points within ALIGN_OUT_TOL of their largest value, the bounds of that
+# file's 150-step parity with gd3d.
+ALIGN_HW = (384, 512)
+ALIGN_VIEWS = 4
+ALIGN_FOCAL = 400.0
+ALIGN_DEG = 2.0
+ALIGN_FOCAL_RTOL = 0.1
+ALIGN_NOISE = 0.03
+ALIGN_AGREE_ITERS = 50
+ALIGN_LOSS_TOL = 1e-3
+ALIGN_OUT_TOL = 1e-2
+# the frames: 1440x1080 windows of the committed 1752x1168 DSLR JPEG,
+# (x, y) offsets; 4 views and 2 localization queries between them
+ALIGN_WINDOW = (1440, 1080)
+ALIGN_VIEW_OFFSETS = ((0, 0), (104, 29), (208, 58), (312, 88))
+ALIGN_QUERY_OFFSETS = ((52, 14), (260, 73))
+# the teacher call of the dense CLI run: one extract_features over 12 pairs
+ALIGN_TEACHER_LAUNCHES = {"K1": {("float32", 768): 48}, "K5": 72}
+
+
+def align_scene(device, noise: float = 0.0, seed: int = 0):
+    """gd3d's _make_scene at ALIGN_HW with every ordered pair (see above):
+    (Scene on `device`, gt cam2world poses, gt depths)."""
+    import numpy as np
+
+    from gd3d_torch.align import Scene
+
+    H, W = ALIGN_HW
+    n = ALIGN_VIEWS
+    rng = np.random.RandomState(seed)
+    depths = 2.0 + rng.rand(n, H, W)
+    poses = np.tile(np.eye(4), (n, 1, 1))
+    for k in range(n):
+        axis = rng.randn(3)
+        axis = axis / np.linalg.norm(axis)
+        K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]])
+        a = 0.15 * k
+        poses[k, :3, :3] = np.eye(3) + np.sin(a) * K + (1 - np.cos(a)) * K @ K
+        poses[k, :3, 3] = [0.4 * k, 0.1 * k, 0.05 * k]
+    ys, xs = np.mgrid[0:H, 0:W]
+    pts = np.stack([(xs - W / 2) / ALIGN_FOCAL * depths, (ys - H / 2) / ALIGN_FOCAL * depths,
+                    depths], -1).reshape(n, -1, 3)
+    edges, pred_i, pred_j = [], [], []
+    for i in range(n):
+        for j in range(n):
+            if i != j:
+                rel = np.linalg.inv(poses[i]) @ poses[j]  # frame j -> frame i
+                edges.append((i, j))
+                pred_i.append(pts[i].astype(np.float32))
+                pred_j.append((pts[j] @ rel[:3, :3].T + rel[:3, 3]).astype(np.float32))
+    if noise:
+        pred_i = [p + (noise * rng.randn(*p.shape)).astype(np.float32) for p in pred_i]
+        pred_j = [p + (noise * rng.randn(*p.shape)).astype(np.float32) for p in pred_j]
+    conf = [np.full(H * W, 3.0, np.float32)] * len(edges)
+    shape = lambda ps: [p.reshape(H, W, 3) for p in ps]  # noqa: E731
+    scene = Scene.from_pairs(edges, shape(pred_i), shape(pred_j),
+                             [c.reshape(H, W) for c in conf], [c.reshape(H, W) for c in conf],
+                             device=device)
+    return scene, poses, depths
+
+
+def rel_pose_errors(got, gt):
+    """gd3d's _rel_pose_errors: the worst rotation and translation-direction
+    error (degrees) over consecutive relative poses, gauge-free."""
+    import numpy as np
+
+    rot, direc = [], []
+    for k in range(len(gt) - 1):
+        rel_got = np.linalg.inv(got[k]) @ got[k + 1]
+        rel_gt = np.linalg.inv(gt[k]) @ gt[k + 1]
+        Rg = rel_got[:3, :3] / np.cbrt(max(np.linalg.det(rel_got[:3, :3]), 1e-12))
+        dR = Rg @ rel_gt[:3, :3].T
+        rot.append(np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1))))
+        tg, tt = rel_got[:3, 3], rel_gt[:3, 3]
+        cos = tg @ tt / max(np.linalg.norm(tg) * np.linalg.norm(tt), 1e-12)
+        direc.append(np.degrees(np.arccos(np.clip(cos, -1, 1))))
+    return max(rot), max(direc)
+
+
+def check_align_known(dev, gpu: str) -> None:
+    """(a) global_align on the card (300 steps, cosine) recovers the
+    synthetic scene; the alignment loop profiled once more; (b) the card
+    against the CPU on the noisy scene."""
+    import numpy as np
+    import torch
+
+    from gd3d_torch.align import global_align
+
+    t0 = time.perf_counter()
+    scene, gt_poses, gt_depths = align_scene(dev)
+    build_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = global_align(scene, niter=300)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    poses = out["poses"].double().cpu().numpy()
+    rot, direc = rel_pose_errors(poses, gt_poses)
+    focal_err = float((out["focals"].cpu() / ALIGN_FOCAL - 1).abs().max())
+    ratio = out["depthmaps"].double().cpu().numpy() / gt_depths
+    spread = float(ratio.std() / ratio.mean())
+    losses = out["losses"].cpu()
+    finite = all(bool(torch.isfinite(v).all()) for v in out.values())
+    ok = finite and rot < ALIGN_DEG and direc < ALIGN_DEG and focal_err < ALIGN_FOCAL_RTOL
+    log(f"align: known answer {ALIGN_VIEWS} views of {ALIGN_HW[0]}x{ALIGN_HW[1]}, "
+        f"{len(scene.edges)} ordered edges, {scene.pred_i.shape[1]} points a view (scene "
+        f"built in {build_s:.2f} s): global_align 300 steps {wall:.3f} s "
+        f"({wall * 1e3 / 300:.3f} ms a step with the tree init), peak_mem_gib "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f}; loss {float(losses[0]):.3e} -> "
+        f"{float(losses[-1]):.3e}; relative rotation {rot:.4f} deg, translation direction "
+        f"{direc:.4f} deg (want < {ALIGN_DEG}), focal error {focal_err:.4f} (want < "
+        f"{ALIGN_FOCAL_RTOL}), depth ratio spread {spread:.4f}; finite {finite} "
+        f"{'OK' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("align: global_align did not recover the synthetic scene")
+    idle = profile_call("align", lambda: global_align(scene, niter=50), "global_align 50 steps")
+    log(f"align: the alignment loop's idle share {idle:.3f} [{gpu}]")
+    del scene, out
+    torch.cuda.empty_cache()
+
+    cpu_scene, _, _ = align_scene("cpu", noise=ALIGN_NOISE, seed=1)
+    t0 = time.perf_counter()
+    want = global_align(cpu_scene, niter=ALIGN_AGREE_ITERS)
+    cpu_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    got = global_align(cpu_scene.to(dev), niter=ALIGN_AGREE_ITERS)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    errs = {}
+    for k in ("losses", "poses", "focals", "principal_points", "depthmaps", "pts3d"):
+        g, w = got[k].cpu().double().numpy(), want[k].double().numpy()
+        errs[k] = float(np.abs(g - w).max() / max(np.abs(w).max(), 1e-12))
+    ok = all(math.isfinite(e) for e in errs.values()) and errs["losses"] <= ALIGN_LOSS_TOL and all(
+        e <= ALIGN_OUT_TOL for k, e in errs.items() if k != "losses")
+    log(f"align: card against CPU, the scene with {ALIGN_NOISE} noise, {ALIGN_AGREE_ITERS} "
+        f"steps: " + " ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (tol losses {ALIGN_LOSS_TOL:g}, the rest {ALIGN_OUT_TOL:g} of the max); CPU "
+        f"{cpu_s:.2f} s, card {card_s:.3f} s {'OK' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("align: the card's alignment disagrees with the CPU's")
+
+
+def write_align_frames(root):
+    """The views and the queries: ALIGN_WINDOW crops of the committed DSLR
+    JPEG as PNGs. Returns (view paths, query paths)."""
+    import numpy as np
+
+    from gd3d_torch.data.fixtures import TESTDATA
+    from gd3d_torch.data.images import open_rgb
+    from gd3d_torch.data.png import encode_png_rgb
+
+    rgb = open_rgb(TESTDATA / "dslr.jpg")
+    w, h = ALIGN_WINDOW
+
+    def write(name, x, y):
+        path = root / f"{name}.png"
+        path.write_bytes(encode_png_rgb(np.ascontiguousarray(rgb[y:y + h, x:x + w])))
+        return str(path)
+
+    (root / "views").mkdir(parents=True)
+    views = [write(f"views/view_{k}", x, y) for k, (x, y) in enumerate(ALIGN_VIEW_OFFSETS)]
+    queries = [write(f"query_{k}", x, y) for k, (x, y) in enumerate(ALIGN_QUERY_OFFSETS)]
+    return views, queries
+
+
+def check_align_kernels(dev, teacher, images, gpu: str) -> None:
+    """(c) the teacher call of the align path (all 12 ordered pairs in one
+    extract_features): K1 and K5 on the operands that call hands them, one
+    launch of each shape, against their plain twins in the kernels phase's
+    format; then the same call with both twins in the kernels' place on the
+    card, its pts3d_1, conf_1 and desc_1 within TOL of the kernels'."""
+    import torch
+    import torch.nn.functional as F
+
+    from gd3d_torch.kernels import rope2d as krope
+    from gd3d_torch.kernels.flash_fwd import flash_attention_fwd_plain
+    from gd3d_torch.ops import attention
+
+    n = images.shape[0]
+    pairs = [(i, j) for i in range(n) for j in range(n) if i != j]
+    ii = torch.tensor([p[0] for p in pairs], device=dev)
+    jj = torch.tensor([p[1] for p in pairs], device=dev)
+    seen = {}
+    k1, k5 = attention.flash_attention_fwd, krope.rope2d_qk_fwd
+
+    def rec_k1(q, k, v, scale):
+        seen.setdefault(("K1", tuple(q.shape), tuple(k.shape)), (q, k, v, scale))
+        return k1(q, k, v, scale)
+
+    def rec_k5(q, qpos, k, kpos, base=100.0, f0=1.0):
+        seen.setdefault(("K5", tuple(q.shape), tuple(k.shape), qpos is kpos),
+                        (q, qpos, k, kpos, base, f0))
+        return k5(q, qpos, k, kpos, base, f0)
+
+    attention.flash_attention_fwd, krope.rope2d_qk_fwd = rec_k1, rec_k5
+    try:
+        feats = teacher.extract_features(images[ii], images[jj], 1.0)
+    finally:
+        attention.flash_attention_fwd, krope.rope2d_qk_fwd = k1, k5
+    rep = KernelReport()
+    for key, args in seen.items():
+        if key[0] == "K1":
+            q, k, v, scale = args
+            B, N, H, D = q.shape
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            o, lse = k1(q, k, v, scale)
+            o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
+            rep.check("K1", f"align teacher call B={B} N={N} H={H} D={D} float32",
+                      [("o", o, o_ref, "float32"), ("lse", lse, lse_ref, "float32")],
+                      lambda: k1(q, k, v, scale), lambda: flash_attention_fwd_plain(q, k, v, scale),
+                      nbytes=4 * B * N * H * D * 4 + B * H * N * 4, ops=4.0 * B * H * N * N * D,
+                      dtype="float32", iters=10,
+                      run_library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale))
+        else:
+            q, qpos, k, kpos, base, f0 = args
+            B, H, N, D = q.shape
+            yq, yk = k5(q, qpos, k, kpos, base, f0)
+            rep.check("K5", f"align teacher call q, k (B,N,H,D)=({B},{N},{H},{D}) float32 "
+                      f"({'self' if key[3] else 'cross'})",
+                      [("q", yq, krope.rope2d_plain(q, qpos, base, f0), "float32"),
+                       ("k", yk, krope.rope2d_plain(k, kpos, base, f0), "float32")],
+                      lambda: k5(q, qpos, k, kpos, base, f0),
+                      lambda: (krope.rope2d_plain(q, qpos, base, f0),
+                               krope.rope2d_plain(k, kpos, base, f0)),
+                      nbytes=2 * (2 * B * N * H * D * 4 + B * N * 2 * 8),
+                      ops=2 * 3.0 * B * N * H * D, dtype="float32", iters=30)
+    kinds = {k[0] for k in seen}
+    del seen
+    if not rep.ok or kinds != {"K1", "K5"}:
+        raise AssertionError(f"align: a kernel disagrees with its plain twin at the align "
+                             f"path's shapes (kernels seen: {sorted(kinds)})")
+    attention.flash_attention_fwd = flash_attention_fwd_plain
+    krope.rope2d_qk_fwd = lambda q_, qp, k_, kp, base=100.0, f0=1.0: (
+        krope.rope2d_plain(q_, qp, base, f0), krope.rope2d_plain(k_, kp, base, f0))
+    try:
+        twin = teacher.extract_features(images[ii], images[jj], 1.0)
+    finally:
+        attention.flash_attention_fwd, krope.rope2d_qk_fwd = k1, k5
+    ok, parts = True, []
+    for key in ("pts3d_1", "conf_1", "desc_1"):
+        err, mag = max_err(feats[key], twin[key])
+        ok &= math.isfinite(err) and err <= TOL["float32"] * max(1.0, mag)
+        parts.append(f"{key} {tuple(feats[key].shape)} err={err:.3e} of {mag:.3e}")
+    log(f"align: the teacher call of {len(pairs)} pairs with K1 and K5 against their plain "
+        f"twins (tol {TOL['float32']:g} of max(1, max)): {' '.join(parts)} "
+        f"{'OK' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("align: the teacher on K1 and K5 disagrees with its plain twins")
+
+
+def _check_scene_npz(path, dense, n: int, niter: int) -> str:
+    """scene.npz's keys, shapes and finite values; dense None: the CLI's
+    auto rule (sparse 1024 anchors above 200 000 points)."""
+    import numpy as np
+
+    H, W = ALIGN_HW
+    if dense is None:
+        dense = n * H * W <= 200_000
+    P = H * W if dense else 1024
+    want = {"poses": (n, 4, 4), "focals": (n,), "principal_points": (n, 2),
+            "depthmaps": (n, H, W) if dense else (n, P),
+            "pts3d": (n, H, W, 3) if dense else (n, P, 3), "confidence": (n, P),
+            "images": (n, H, W, 3), "losses": (niter,)}
+    z = np.load(path)
+    shapes = {k: z[k].shape for k in z.files}
+    finite = all(np.isfinite(z[k]).all() for k in z.files)
+    if shapes != want or not finite:
+        raise AssertionError(f"align: {path}: shapes {shapes} (want {want}), finite {finite}")
+    return f"loss {float(z['losses'][0]):.4f} -> {float(z['losses'][-1]):.4f}"
+
+
+def check_align_cli(dev, root, teacher, views, queries, gpu: str) -> dict:
+    """(d) gd3d_torch.cli.align.main in this process on the card: dense with
+    every export, then the default (auto-sparse); gd3d_torch.cli.localize
+    .main for the 2 queries with --coarse-to-fine against the dense scene;
+    one upload of 2 frames to gd3d_torch.cli.demo's server. Every file
+    written, gd3d's keys and shapes, finite values, the COLMAP database read
+    back through sqlite3; the dense run's launches those of one teacher
+    call. Returns the launches of the four runs."""
+    import http.client
+    import sqlite3
+    import uuid
+
+    import numpy as np
+    import torch
+
+    from gd3d_torch.cli import align as align_cli
+    from gd3d_torch.cli import demo, localize
+
+    counts = {k: 0 for k in REPLACES}
+
+    def add(more):
+        for k, v in more.items():
+            counts[k] += v
+
+    dense_out = root / "dense"
+    res, c, c_by, wall, peak = _counted_run(lambda: align_cli.main(
+        ["--images", str(root / "views"), "--output", str(dense_out), "--sparse", "0",
+         "--tsdf", "0.3", "--colmap", "--colmap-db", "--ply", "--html"], teacher=teacher))
+    add(c)
+    st = res["stats"]
+    launches_ok = (c_by["K1"] == ALIGN_TEACHER_LAUNCHES["K1"]
+                   and c["K5"] == ALIGN_TEACHER_LAUNCHES["K5"]
+                   and all(v == 0 for k, v in c.items() if k not in ("K1", "K5")))
+    loss = _check_scene_npz(dense_out / "scene.npz", True, ALIGN_VIEWS, 300)
+    for name in ("colmap/cameras.txt", "colmap/images.txt", "colmap/points3D.txt",
+                 "pointcloud.ply", "scene.html", "database.db"):
+        if not (dense_out / name).is_file() or (dense_out / name).stat().st_size == 0:
+            raise AssertionError(f"align: the dense run wrote no {name}")
+    db = sqlite3.connect(dense_out / "database.db")
+    try:
+        rows = {t: db.execute(f"SELECT COUNT(*) FROM {t}").fetchone()[0]
+                for t in ("cameras", "images", "keypoints", "matches", "two_view_geometries")}
+        names = [r[0] for r in db.execute("SELECT name FROM images ORDER BY image_id")]
+    finally:
+        db.close()
+    ply_head = (dense_out / "pointcloud.ply").read_text().splitlines()[:3]
+    db_ok = (rows["cameras"] == rows["images"] == rows["keypoints"] == ALIGN_VIEWS
+             and names == [f"view_{k}.png" for k in range(ALIGN_VIEWS)]
+             and rows["matches"] == rows["two_view_geometries"] and ply_head[0] == "ply")
+    log(f"align: CLI dense --tsdf 0.3 --colmap --colmap-db --ply --html: {st['pairs']} pairs, "
+        f"{st['points']} points; teacher call {st['teacher_s']:.3f} s, alignment "
+        f"{st['align_s']:.3f} s ({st['align_ms_per_iter']:.3f} ms a step), TSDF "
+        f"{st['tsdf_s']:.3f} s, exports {st['export_s']:.3f} s, wall {wall:.2f} s, peak_mem_gib "
+        f"{peak:.3f}; {loss}; database rows {rows}, {st['colmap_db']}; {ply_head[2]}; "
+        f"launches {c}, K1 {c_by['K1']} (want {ALIGN_TEACHER_LAUNCHES}) "
+        f"{'OK' if launches_ok and db_ok else 'FAIL'} [{gpu}]")
+    if not (launches_ok and db_ok):
+        raise AssertionError("align: the dense CLI run's launches or database are wrong")
+
+    res, c, c_by, wall, peak = _counted_run(lambda: align_cli.main(
+        ["--images", *views, "--output", str(root / "auto")], teacher=teacher))
+    add(c)
+    st = res["stats"]
+    loss = _check_scene_npz(root / "auto" / "scene.npz", None, ALIGN_VIEWS, 300)
+    log(f"align: CLI default (auto-sparse, 1024 anchors a view): teacher call "
+        f"{st['teacher_s']:.3f} s, alignment {st['align_s']:.3f} s "
+        f"({st['align_ms_per_iter']:.3f} ms a step), wall {wall:.2f} s, peak_mem_gib "
+        f"{peak:.3f}; {loss}; launches {c} OK [{gpu}]")
+
+    res, c, c_by, wall, peak = _counted_run(lambda: localize.main(
+        ["--scene", str(dense_out / "scene.npz"), "--images", *queries, "--output",
+         str(root / "loc"), "--coarse-to-fine"], teacher=teacher))
+    add(c)
+    z = np.load(root / "loc" / "query_poses.npz")
+    loc_ok = (sorted(z.files) == ["n_matches", "names", "poses"] and z["poses"].shape == (2, 4, 4)
+              and np.isfinite(z["poses"]).all() and c["K1"] > 0 and c["K5"] > 0)
+    secs = res["stats"]["seconds"]
+    log(f"align: CLI localize 2 queries --coarse-to-fine: {[f'{s:.3f}' for s in secs]} s a "
+        f"query, matches {z['n_matches'].tolist()}, wall {wall:.2f} s, peak_mem_gib {peak:.3f}; "
+        f"launches {c} {'OK' if loc_ok else 'FAIL'} [{gpu}]")
+    if not loc_ok:
+        raise AssertionError("align: the localize CLI's output or launches are wrong")
+
+    args = demo.parse_args(["--output", str(root / "demo"), "--port", "0"])
+    srv, port = demo.serve_background(args, teacher=teacher)
+    boundary = f"----gd3d{uuid.uuid4().hex}"
+    body = bytearray()
+    for k, path in enumerate(views[:2]):
+        body += (f"--{boundary}\r\nContent-Disposition: form-data; name=\"images\"; "
+                 f"filename=\"v{k}.png\"\r\nContent-Type: image/png\r\n\r\n").encode()
+        body += open(path, "rb").read() + b"\r\n"
+    body += f"--{boundary}--\r\n".encode()
+    try:
+        def upload():
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            conn.request("POST", "/reconstruct", body=bytes(body),
+                         headers={"Content-Type": f"multipart/form-data; boundary={boundary}"})
+            r = conn.getresponse()
+            r.read()
+            loc = r.getheader("Location")
+            conn.request("GET", loc or "/")
+            page = conn.getresponse().read()
+            return r.status, loc, page
+
+        (status, loc, page), c, c_by, wall, peak = _counted_run(upload)
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    add(c)
+    demo_ok = status == 303 and loc is not None and b"<html" in page[:200].lower()
+    if demo_ok:
+        session = loc.split("/")[2]
+        loss = _check_scene_npz(root / "demo" / session / "scene.npz", None, 2, 300)
+    log(f"align: demo upload of 2 frames: status {status}, viewer {loc}, wall {wall:.2f} s, "
+        f"peak_mem_gib {peak:.3f}; {loss if demo_ok else ''}; launches {c} "
+        f"{'OK' if demo_ok else 'FAIL'} [{gpu}]")
+    if not demo_ok:
+        raise AssertionError("align: the demo server did not reconstruct the upload")
+    torch.cuda.empty_cache()
+    return counts
+
+
+def check_align(dev) -> dict:
+    """The align phase: (a) the synthetic scene's known answer on the card
+    and the alignment loop's idle share, (b) the card against the CPU, (c) K1
+    and K5 at the align path's shapes and the teacher against its plain
+    twins, (d) the align, localize and demo entry points on 4 frames of the
+    DSLR fixture. Returns the launches of (d)."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from gd3d_torch.data.images import load_image_mast3r
+    from gd3d_torch.teachers.mast3r import Mast3rTeacher, no_tf32
+
+    gpu = gpu_line()
+    t0 = time.perf_counter()
+    check_align_known(dev, gpu)
+    log(f"align: (a), (b) done in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t1 = time.perf_counter()
+        views, queries = write_align_frames(root)
+        log(f"align: wrote the frames in {time.perf_counter() - t1:.1f} s")
+        with torch.device(dev):
+            teacher = Mast3rTeacher()
+        teacher.init_params(torch.Generator(device=dev).manual_seed(12))
+        teacher.eval()
+        images = torch.from_numpy(np.stack([load_image_mast3r(v)["img"] for v in views])).to(dev)
+        assert tuple(images.shape[1:3]) == ALIGN_HW, images.shape
+        teacher.face_forward(images[:1], images[1:2])
+        with no_tf32():
+            check_align_kernels(dev, teacher, images, gpu)
+        torch.cuda.empty_cache()
+        log(f"align: (c) done at {time.perf_counter() - t0:.1f} s")
+        counts = check_align_cli(dev, root, teacher, views, queries, gpu)
+        log(f"align: (d) done at {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -2311,6 +2782,9 @@ def main() -> int:
     for k, n in check_surface(dev, vggt_steps).items():
         counts[k] += n
     log(f"phase: surface done at {time.perf_counter() - t_start:.1f} s")
+    for k, n in check_align(dev).items():
+        counts[k] += n
+    log(f"phase: align done at {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

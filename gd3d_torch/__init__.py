@@ -13,7 +13,9 @@ optionally sharded teacher) and the evaluation entry point
 OnePose-LowTexture pose with an EPnP RANSAC of its own, with the package's
 own JPEG decoder and Lanczos resize) are ported, as are the FiT3D harness
 (`gd3d_torch.eval.fit3d`) and the DUSt3R point tracker
-(`gd3d_torch.eval.dust3r_tracker`).
+(`gd3d_torch.eval.dust3r_tracker`), and so is multi-view reconstruction:
+global alignment (`gd3d_torch.align`), TSDF refinement, COLMAP exports,
+visual localization and the `align`, `localize` and `demo` entry points.
 Every Pallas kernel of gd3d (K1 flash forward, K2 flash backward, K3
 masked-softmax KL, K4 pairwise ranking, K5 RoPE2D) is a hand-written CUDA
 kernel under `gd3d_torch/csrc/`, built at first use

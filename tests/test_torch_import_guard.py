@@ -8,9 +8,11 @@ the training CLI trains one tiny step on the CPU, on synthetic data and on
 a fabricated Objaverse tree (the real-data readers: PNG decoding, the
 augmentations, the dataset), and the evaluation CLI runs --pose --tiny on a
 fabricated OnePose-LowTexture tree (PNG reads, cv2's resize, the EPnP
-RANSAC). The CLI modules import no torch at their top
-level, which their spawned decode processes re-run, and neither do the data
-modules a worker imports."""
+RANSAC), and the reconstruction CLIs run at --tiny on a fabricated
+two-frame tree: align (--niter 2, dense, with the COLMAP exports), then
+localize against its scene.npz. The CLI modules import no torch at their
+top level, which their spawned decode processes re-run, and neither do the
+data modules a worker imports."""
 import os
 import subprocess
 import sys
@@ -36,6 +38,9 @@ SCRIPT = textwrap.dedent("""
         assert f"gd3d_torch.data.{m}" in names, m
     for m in ("onepose", "pnp", "fit3d", "dust3r_tracker"):
         assert f"gd3d_torch.eval.{m}" in names, m
+    for m in ("align", "tsdf", "crops", "visloc", "colmap_export", "colmap_db",
+              "utils.html_viewer", "data.scene_graph", "cli.align", "cli.localize", "cli.demo"):
+        assert f"gd3d_torch.{m}" in names, m
     from gd3d_torch.cli import train
     with tempfile.TemporaryDirectory() as out:
         train.main(["--tiny", "--synthetic", "--device", "cpu", "--epochs", "1",
@@ -53,6 +58,21 @@ SCRIPT = textwrap.dedent("""
                              "--out", root + "/out"])
         assert (res["out_dir"] / "pose_estimation.csv").exists()
         assert res["tables"]["pose"].columns["threshold_1"][0] == 1.0
+    import numpy as np
+    from gd3d_torch.cli import align, localize
+    from gd3d_torch.data.png import encode_png_rgb
+    with tempfile.TemporaryDirectory() as root:
+        big = fixtures.texture(np.random.RandomState(0), 96, 160)
+        for k in range(2):
+            with open(f"{root}/view_{k}.png", "wb") as f:
+                f.write(encode_png_rgb(np.ascontiguousarray(big[:, 32 * k:32 * k + 128])))
+        align.main(["--images", root, "--output", root + "/scene", "--tiny", "--device", "cpu",
+                    "--size", "224", "--niter", "2", "--colmap", "--colmap-db", "--ply",
+                    "--html"])
+        res = localize.main(["--scene", root + "/scene/scene.npz", "--images",
+                             root + "/view_1.png", "--output", root + "/loc", "--tiny",
+                             "--device", "cpu", "--size", "224"])
+        assert res["poses"].shape == (1, 4, 4)
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
@@ -72,6 +92,7 @@ def test_cli_modules_import_without_torch():
     """Nor do the modules a data worker imports (data/pipeline.py and the
     readers it calls)."""
     script = ("import sys, gd3d_torch.cli.evaluate, gd3d_torch.cli.train, "
+              "gd3d_torch.cli.align, gd3d_torch.cli.localize, gd3d_torch.cli.demo, "
               "gd3d_torch.eval.images, gd3d_torch.eval.pnp, gd3d_torch.data.pipeline, "
               "gd3d_torch.data.objaverse, "
               "gd3d_torch.data.scannetpp, gd3d_torch.data.fixtures; "
