@@ -22,8 +22,10 @@ report), then runs these phases in order, one or more printed lines each:
               495 / 3 = 165 TFLOP/s, its share of the 67 TFLOP/s bound
               printed beside), with the achieved TFLOP/s (those operations
               over the kernel's time) and the share of the bound reached; K1
-              and K2 in bf16 and fp32 at the four student shapes; K2 at the
-              MASt3R student's main shape in both dtypes, and K4 and K4b at
+              and K2 in bf16 and fp32 at the four student shapes, and fp32 at
+              the CroCo-Stereo / CroCo-Flow training shapes (with K5); K2 at
+              the MASt3R student's main shape in both dtypes and at the
+              training shapes, and K4 and K4b at
               the MASt3R keypoint count, run twice and must give the same
               bits; K5 on one tensor and on each main-path layer's q and k in
               one launch;
@@ -167,9 +169,35 @@ report), then runs these phases in order, one or more printed lines each:
               gd3d_torch.cli.demo's server: every file, gd3d's keys and shapes,
               finite values, the COLMAP database read back through sqlite3; the
               teacher call's, alignment's, TSDF's and a query's seconds.
+ 11. sparse_ga MASt3R's two-stage sparse global alignment (check_sparse_ga):
+              (a) gd3d's synthetic sphere scene, 300 + 300 steps on the card,
+              held to tests/test_sparse_ga.py's recovery bounds; (b) the card
+              against the CPU on that scene with noisy correspondences and
+              the DUSt3R fallback live, 20 steps of each stage (SGA_TOL, poses
+              and points in the MST root's frame); (c)
+              gd3d_torch.cli.align.main --sparse-ga --ply --html at the CLI's
+              defaults (500 + 500 steps, subsample 8) on the align phase's 4
+              windows: its launches exactly one teacher call's (the 6 pairs in
+              one chunk), scene.npz's keys and shapes, the teacher's and each
+              stage's seconds and ms a step, the idle share of 20 + 20
+              profiled steps.
+ 12. stereoflow CroCo-Stereo / CroCo-Flow (check_stereoflow): (a)
+              gd3d_torch.cli.stereoflow.main train at full width (CroCo v2
+              ViT-L encoder, Base decoder, DPT; batch 2) for 3 steps of each
+              task on a generic tree it writes (PNG pairs, PFM disparities
+              with +inf holes, .flo flows), from a seeded init file: 36 fp32
+              K1, 36 fp32 K2, 48 K5 forward and 48 K5 backward a step at the
+              crop's length (968 stereo, 480 flow), finite losses, every
+              trained tensor moved, step time and peak memory, then one more
+              step profiled (each kernel's share); (b) one AdamW step of a
+              small model (head dim 64) on the card against the CPU: the loss
+              (SF_LOSS_TOL), the gradients, AdamW's moments and the weights
+              (SF_STATE_TOL); (c) eval on 2 pairs of a KITTI 2015 tree at
+              375x1242 (8 tiles a pair in one forward) and predict on one:
+              the files, their shapes, the launches.
 
 Then one JSON line of the kernels (launches: the steps, train, eval, data,
-pose, surface and align phases' runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
+pose, surface, align, sparse_ga and stereoflow phases' runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The kernels and agree phases compare fp32 results too, so they
 run without TF32; the steps run with PyTorch's defaults (the teachers turn TF32
 off themselves).
@@ -222,6 +250,10 @@ RESUME_TOL = 1e-5
 # straight run holds two (off by their own size), and unequal step counts,
 # which are compared exactly.
 STATE_TOL = 1e-3
+# the CroCo-Stereo / CroCo-Flow training crops' token grids (352x704 and
+# 320x384 at patch 16) and lengths
+STEREOFLOW_GRIDS = {"CroCo-Stereo": (22, 44), "CroCo-Flow": (20, 24)}
+STEREOFLOW_LENGTHS = {t: gh * gw for t, (gh, gw) in STEREOFLOW_GRIDS.items()}
 HBM_BYTES_PER_S = 3.35e12
 # H100 SXM, dense. "tf32x3": the fp32 K2's route, three TF32 products on the
 # tensor cores (495 TFLOP/s) for each fp32 product
@@ -373,6 +405,13 @@ def check_kernels(dev) -> dict:
             ("K2", "ME student (one view)", 1, 6401, 12),
             ("K2", "objaverse MASt3R student main pass", 2, 4801, 12),
             ("K2", "objaverse MASt3R student cost pass", 2, 769, 12))],
+        # CroCo-Stereo / CroCo-Flow training (the stereoflow phase): the fp32
+        # trunk fine-tuned at the crops' lengths, 352x704 -> 968 tokens and
+        # 320x384 -> 480, the encoder over both views of 2 pairs, the decoder
+        # over 2; their K2 cases also run twice and must repeat their bits
+        *[(kern, f"{task} {part}", B, N, H, 64, f32, False)
+          for kern in ("K1", "K2") for task, N in STEREOFLOW_LENGTHS.items()
+          for part, B, H in (("encoder", 4, 16), ("decoder", 2, 12))],
     ]
     for kern, where, B, N, H, D, dt, designated in attn_cases:
         # q, k, v as the strided (B, N, H, D) views of one qkv projection
@@ -400,7 +439,8 @@ def check_kernels(dev) -> dict:
             di = torch.einsum("bnhd,bnhd->bhn", o_ref.float(), do.float()).contiguous()
             grads = flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale)
             refs = flash_attention_bwd_plain(q, k, v, lse_ref, do, di, scale)
-            if designated:  # every sum runs in a fixed order: the same bits again
+            if designated or N in STEREOFLOW_LENGTHS.values():
+                # every sum runs in a fixed order: the same bits again
                 again = flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale)
                 same = all(torch.equal(a, b) for a, b in zip(grads, again))
                 log(f"kernels: K2 {tag} repeat bit-identical {same} "
@@ -542,6 +582,14 @@ def check_kernels(dev) -> dict:
         ("CroCo decoder self (bf16 teacher)", 1, 672, 12, bf16, "qkv", grid, grid),
         ("CroCo decoder cross (bf16 teacher)", 1, 672, 12, bf16, "separate", grid,
          grid.clone()),
+        # CroCo-Stereo / CroCo-Flow training, forward and (f0 < 0) backward
+        *[case for task, (gh, gw) in STEREOFLOW_GRIDS.items() for case in (
+            (f"{task} encoder", 4, gh * gw, 16, f32, "qkv", grid_positions(gh, gw, 4, device=dev),
+             grid_positions(gh, gw, 4, device=dev)),
+            (f"{task} decoder self", 2, gh * gw, 12, f32, "qkv",
+             grid_positions(gh, gw, 2, device=dev), grid_positions(gh, gw, 2, device=dev)),
+            (f"{task} decoder cross", 2, gh * gw, 12, f32, "separate",
+             grid_positions(gh, gw, 2, device=dev), grid_positions(gh, gw, 2, device=dev)))],
     ]
     for where, B, N, H, dt, kind, qpos, kpos in pair_cases:
         q, k = pair(B, N, H, dt, kind)
@@ -2722,6 +2770,561 @@ def check_align(dev) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# sparse_ga: MASt3R's two-stage sparse global alignment (gd3d_torch/sparse_ga.py)
+# ---------------------------------------------------------------------------
+# (a) gd3d's synthetic sphere scene (tests/test_sparse_ga.py::_make_synthetic:
+# 3 views of 48x48, 48 correspondences a pair), 300 + 300 steps on the card,
+# held to that test's bounds: relative rotations within 0.3 degrees after the
+# coarse stage and 6 after the fine one (whose poses wander along the
+# dolly-zoom valley), baselines' cosine above 0.99, both stages' mean
+# reprojection error under 0.5 px. (b) The card against the CPU on that scene
+# with 0.3 px of noise on the correspondences and one pair under the matching
+# gate, 20 steps of each stage: losses and outputs (poses and points in the
+# MST root's frame, the gauge both leave free) within SGA_TOL of their
+# largest value, the bound of tests/test_torch_sparse_ga.py's 20-step parity
+# with gd3d (measured 1.1e-5 there) widened by the card's other summation
+# order. (c) The align CLI with --sparse-ga at full width on the align
+# phase's 4 windows, its defaults (500 + 500 steps, subsample 8).
+SGA_TOL = 1e-3
+SGA_STEPS = 20
+
+
+def sga_synthetic(n=3, H=48, W=48, f=30.0, conf=10.0, n_corres=48, seed=0):
+    """tests/test_sparse_ga.py::_make_synthetic, the same numpy: GT cameras
+    viewing a world sphere; (build_scene kwargs, gt cam2w)."""
+    import numpy as np
+
+    def rot_y(a):
+        c, s = np.cos(a), np.sin(a)
+        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]], np.float32)
+
+    rng = np.random.RandomState(seed)
+    cx, cy = W / 2, H / 2
+    sph_c, sph_r = np.float32([0.0, 0.0, 8.0]), 7.3
+    cam2w = []
+    for k in range(n):
+        M = np.eye(4, dtype=np.float32)
+        M[:3, :3] = rot_y(0.05 * (k - 1))
+        M[:3, 3] = np.float32([0.3 * (k - 1), 0.05 * k, -0.1 * k])
+        cam2w.append(M)
+    cam2w = np.stack(cam2w)
+    us, vs = np.meshgrid(np.arange(W), np.arange(H))
+    d_cam = np.stack([(us - cx) / f, (vs - cy) / f, np.ones_like(us)], -1).astype(np.float32)
+
+    def pointmap(k):
+        R, t = cam2w[k, :3, :3], cam2w[k, :3, 3]
+        dir_w = d_cam @ R.T
+        a = (dir_w ** 2).sum(-1)
+        oc = t - sph_c
+        b = 2.0 * (dir_w @ oc)
+        c0 = (oc ** 2).sum() - sph_r ** 2
+        s = (-b - np.sqrt(b * b - 4 * a * c0)) / (2 * a)
+        return d_cam * s[..., None], t + dir_w * s[..., None]
+
+    ptmaps, confs, worlds = [], [], []
+    for k in range(n):
+        pc, pw = pointmap(k)
+        worlds.append(pw)
+        noise = rng.randn(2, H, W, 3).astype(np.float32) * 1e-3
+        ptmaps.append([pc + noise[0], pc + noise[1]])
+        confs.append([np.full((H, W), 2.0, np.float32)] * 2)
+
+    def project(k, pw):
+        R, t = cam2w[k, :3, :3], cam2w[k, :3, 3]
+        pc = (pw - t) @ R
+        return pc[..., :2] / pc[..., 2:] * f + [cx, cy], pc[..., 2]
+
+    corres, pts_in_other, confs_other = {}, {}, {}
+    for i in range(n):
+        for j in range(i + 1, n):
+            m = 4
+            xi = rng.randint(m, W - m, n_corres * 4)
+            yi = rng.randint(m, H - m, n_corres * 4)
+            uv_j, z_j = project(j, worlds[i][yi, xi])
+            ok = ((uv_j[:, 0] >= m) & (uv_j[:, 0] < W - m) & (uv_j[:, 1] >= m)
+                  & (uv_j[:, 1] < H - m) & (z_j > 0))
+            sel = np.where(ok)[0][:n_corres]
+            corres[(i, j)] = (np.stack([xi[sel], yi[sel]], -1).astype(np.float32),
+                              uv_j[sel].astype(np.float32), np.full(len(sel), conf, np.float32))
+            Ri, ti = cam2w[i, :3, :3], cam2w[i, :3, 3]
+            pts_in_other[(i, j)] = ((worlds[j] - ti) @ Ri).astype(np.float32)
+            confs_other[(i, j)] = np.full((H, W), 2.0, np.float32)
+    return dict(hw=(H, W), ptmaps=ptmaps, confs=confs, pts_in_other=pts_in_other,
+                confs_other=confs_other, corres=corres), cam2w
+
+
+def sga_recovery(scene, res, gt_cam2w) -> dict:
+    """tests/test_sparse_ga.py's measures: the worst relative rotation
+    error of each stage (degrees, gauge-aligned on camera 0), the worst
+    baseline cosine of the coarse stage, and both stages' mean reprojection
+    error (px)."""
+    import numpy as np
+
+    def gauge(est):
+        return np.einsum("ab,nbc->nac", gt_cam2w[0] @ np.linalg.inv(est[0]), est)
+
+    def rot_err(Ra, Rb):
+        return np.degrees(np.arccos(np.clip((np.trace(Ra.T @ Rb) - 1) / 2, -1, 1)))
+
+    def reproj_err(r):
+        K, w2c, errs = r["intrinsics"], np.linalg.inv(r["cam2w"]), []
+        for e in range(len(scene.e_i)):
+            i, j, v = int(scene.e_i[e]), int(scene.e_j[e]), scene.valid[e]
+            for k, pts, pix in ((i, r["pts3d_j"][e][v], scene.pix_i[e][v]),
+                                (j, r["pts3d_i"][e][v], scene.pix_j[e][v])):
+                pc = pts @ w2c[k, :3, :3].T + w2c[k, :3, 3]
+                uv = pc[:, :2] / np.clip(pc[:, 2:], 1e-8, None) * [K[k, 0, 0], K[k, 1, 1]] \
+                    + K[k, :2, 2]
+                errs.append(np.linalg.norm(uv - pix, axis=-1))
+        return float(np.concatenate(errs).mean())
+
+    out = {}
+    for stage in ("coarse", "fine"):
+        est = gauge(res[stage]["cam2w"])
+        out[f"{stage}_rot_deg"] = max(
+            rot_err(gt_cam2w[a, :3, :3].T @ gt_cam2w[b, :3, :3], est[a, :3, :3].T @ est[b, :3, :3])
+            for a in range(scene.n_imgs) for b in range(a + 1, scene.n_imgs))
+        out[f"{stage}_reproj_px"] = reproj_err(res[stage])
+    est = gauge(res["coarse"]["cam2w"])
+    gt_base = gt_cam2w[1:, :3, 3] - gt_cam2w[0, :3, 3]
+    est_base = est[1:, :3, 3] - est[0, :3, 3]
+    out["coarse_base_cos"] = min(float(g @ e / (np.linalg.norm(g) * np.linalg.norm(e) + 1e-12))
+                                 for g, e in zip(gt_base, est_base))
+    return out
+
+
+def sga_in_root_frame(res, root):
+    import numpy as np
+
+    g = np.linalg.inv(np.asarray(res["cam2w"][root], np.float64))
+    out = dict(res)
+    out["cam2w"] = np.einsum("ab,nbc->nac", g, res["cam2w"])
+    for k in ("pts3d_i", "pts3d_j"):
+        out[k] = res[k] @ g[:3, :3].T + g[:3, 3]
+    return out
+
+
+def check_sparse_ga_known(dev, gpu: str) -> None:
+    """(a) and (b)."""
+    import numpy as np
+    import torch
+
+    from gd3d_torch.sparse_ga import build_scene, dense_pts3d, sparse_scene_optimizer
+
+    kw, gt = sga_synthetic()
+    scene = build_scene(subsample=8, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    res = sparse_scene_optimizer(scene, niter1=300, niter2=300, device=dev)
+    m = sga_recovery(scene, res, gt)
+    pts, depths = dense_pts3d(scene, res["fine"])
+    ok = (m["coarse_rot_deg"] < 0.3 and m["fine_rot_deg"] < 6.0 and m["coarse_base_cos"] > 0.99
+          and m["coarse_reproj_px"] < 0.5 and m["fine_reproj_px"] < 0.5
+          and all((d > 0).all() for d in depths) and np.isfinite(pts).all())
+    secs = res["seconds"]
+    log(f"sparse_ga: known answer ({scene.n_imgs} views of 48x48, {int(scene.valid.sum())} "
+        f"correspondences) 300 + 300 steps: coarse {secs['coarse']:.3f} s "
+        f"({secs['coarse'] * 1e3 / 300:.3f} ms a step), fine {secs['fine']:.3f} s "
+        f"({secs['fine'] * 1e3 / 300:.3f} ms a step); relative rotation coarse "
+        f"{m['coarse_rot_deg']:.4f} deg (want < 0.3), fine {m['fine_rot_deg']:.4f} (want < 6); "
+        f"baseline cosine {m['coarse_base_cos']:.5f} (want > 0.99); reprojection coarse "
+        f"{m['coarse_reproj_px']:.4f} px, fine {m['fine_reproj_px']:.4f} px (want < 0.5); loss "
+        f"{res['losses']['coarse'][0]:.4f} -> {res['losses']['fine'][-1]:.4f}; peak_mem_gib "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.3f} {'OK' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("sparse_ga: the card's two stages did not recover the scene")
+
+    rng = np.random.RandomState(3)
+    for key, (xy_i, xy_j, cf) in kw["corres"].items():
+        kw["corres"][key] = (xy_i, (xy_j + 0.3 * rng.randn(*xy_j.shape)).astype(np.float32),
+                             np.full_like(cf, 0.5) if key == (0, 2) else cf)
+    scene = build_scene(subsample=8, **kw)
+    t0 = time.perf_counter()
+    want = sparse_scene_optimizer(scene, niter1=SGA_STEPS, niter2=SGA_STEPS, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    got = sparse_scene_optimizer(scene, niter1=SGA_STEPS, niter2=SGA_STEPS, device=dev)
+    errs = {}
+    for stage in ("coarse", "fine"):
+        lw = want["losses"][stage]
+        errs[f"{stage} losses"] = float(np.abs(got["losses"][stage] - lw).max() / np.abs(lw).max())
+        g, w = (sga_in_root_frame(r[stage], scene.mst_root) for r in (got, want))
+        for k in w:
+            errs[f"{stage} {k}"] = float(np.abs(g[k] - w[k]).max() / max(np.abs(w[k]).max(), 1e-12))
+    ok = all(math.isfinite(e) and e <= SGA_TOL for e in errs.values())
+    log(f"sparse_ga: card against CPU, the noisy scene with the fallback live, {SGA_STEPS} steps "
+        f"of each stage: " + " ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (tol {SGA_TOL:g} of the max); CPU {cpu_s:.2f} s {'OK' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("sparse_ga: the card's optimizer disagrees with the CPU's")
+
+
+def check_sparse_ga(dev) -> dict:
+    """The sparse_ga phase: (a), (b), then (c) gd3d_torch.cli.align.main
+    --sparse-ga in this process on the card on 4 windows of the DSLR
+    fixture, the CLI's defaults: its launches exactly one teacher call's
+    (ALIGN_TEACHER_LAUNCHES: the 6 pairs fit one pair_chunk of 8), scene.npz's
+    keys and shapes, finite values; the teacher's, each stage's and the
+    exports' seconds, and the idle share of 20 + 20 profiled steps.
+    Returns the CLI run's launches."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from gd3d_torch.cli import align as align_cli
+    from gd3d_torch.data.images import load_image_mast3r
+    from gd3d_torch.sparse_ga import sparse_scene_optimizer
+    from gd3d_torch.teachers.mast3r import Mast3rTeacher
+
+    gpu = gpu_line()
+    t0 = time.perf_counter()
+    check_sparse_ga_known(dev, gpu)
+    log(f"sparse_ga: (a), (b) done in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        views, _ = write_align_frames(root)
+        with torch.device(dev):
+            teacher = Mast3rTeacher()
+        teacher.init_params(torch.Generator(device=dev).manual_seed(12))
+        teacher.eval()
+        images = torch.from_numpy(np.stack([load_image_mast3r(v)["img"] for v in views])).to(dev)
+        teacher.face_forward(images[:1], images[1:2])
+        del images
+        out = root / "sga"
+        res, c, c_by, wall, peak = _counted_run(lambda: align_cli.main(
+            ["--images", *views, "--output", str(out), "--sparse-ga", "--ply", "--html"],
+            teacher=teacher))
+        st = res["stats"]
+        n, (H, W) = ALIGN_VIEWS, ALIGN_HW
+        want = {"poses": (n, 4, 4), "focals": (n,), "principal_points": (n, 2),
+                "depthmaps": (n, H, W), "pts3d": (n, H * W, 3), "images": (n, H, W, 3)}
+        with np.load(out / "scene.npz") as z:
+            shapes = {k: z[k].shape for k in z.files}
+            finite = all(np.isfinite(z[k]).all() for k in z.files)
+        launches_ok = (c_by["K1"] == ALIGN_TEACHER_LAUNCHES["K1"]
+                       and c["K5"] == ALIGN_TEACHER_LAUNCHES["K5"]
+                       and all(v == 0 for k, v in c.items() if k not in ("K1", "K5")))
+        files_ok = all((out / f).stat().st_size > 0 for f in ("pointcloud.ply", "scene.html"))
+        ok = shapes == want and finite and launches_ok and files_ok
+        losses = res["res"]["losses"]
+        log(f"sparse_ga: CLI --sparse-ga (500 + 500 steps, subsample 8) on {n} views of "
+            f"{H}x{W}: {st['pairs']} pairs, {st['correspondences']} correspondences; teacher "
+            f"call {st['teacher_s']:.3f} s, coarse {st['coarse_s']:.3f} s "
+            f"({st['coarse_ms_per_iter']:.3f} ms a step), fine {st['fine_s']:.3f} s "
+            f"({st['fine_ms_per_iter']:.3f} ms a step), exports {st['export_s']:.3f} s, wall "
+            f"{wall:.2f} s, peak_mem_gib {peak:.3f}; loss coarse {losses['coarse'][0]:.4f} -> "
+            f"{losses['coarse'][-1]:.4f}, fine {losses['fine'][0]:.4f} -> "
+            f"{losses['fine'][-1]:.4f}; scene.npz {shapes} finite {finite}; launches {c}, K1 "
+            f"{c_by['K1']} (want {ALIGN_TEACHER_LAUNCHES}) {'OK' if ok else 'FAIL'} [{gpu}]")
+        if not ok:
+            raise AssertionError("sparse_ga: the --sparse-ga CLI run's files or launches are wrong")
+        scene = res["scene"]
+        idle = profile_call("sparse_ga", lambda: sparse_scene_optimizer(
+            scene, niter1=20, niter2=20, device=dev), "20 + 20 steps")
+        log(f"sparse_ga: the two stages' idle share {idle:.3f} [{gpu}]")
+        del teacher
+        torch.cuda.empty_cache()
+    log(f"sparse_ga: (c) done at {time.perf_counter() - t0:.1f} s")
+    return c
+
+
+# ---------------------------------------------------------------------------
+# stereoflow: CroCo-Stereo / CroCo-Flow (gd3d_torch/cli/stereoflow.py)
+# ---------------------------------------------------------------------------
+# One step of a task at full width (CroCo v2 ViT-L encoder, Base decoder,
+# batch 2): the encoder's 24 attentions over both views (K1 forward, K2
+# backward, K5 forward and backward on q and k) and the decoder's 12 self
+# attentions (the same) and 12 cross attentions (K5 only: their product is a
+# plain einsum, as in gd3d)
+SF_STEP = {"K1": 36, "K2": 36, "K5 fwd": 48, "K5 bwd": 48}
+SF_STEPS = 3
+# the card against the CPU on a small model the kernels take (head dim 64;
+# --tiny's widths, 16 and 8, are not kernel widths and raise on the card):
+# the train phase's tolerances, fp32 loss 1e-4 relative, the gradients, the
+# AdamW moments and the updated weights 1e-3 of each tensor's largest value
+SF_LOSS_TOL = 1e-4
+SF_STATE_TOL = 1e-3
+SF_SMALL = dict(croco=dict(enc_embed_dim=128, enc_depth=2, enc_num_heads=2, dec_embed_dim=128,
+                           dec_depth=2, dec_num_heads=2),
+                hooks=(0, 1, 2, 3), dpt_layer_dims=(8, 16, 24, 32), dpt_feature_dim=16,
+                dpt_last_dim=8)
+# the eval pairs: KITTI 2015's frame size, 2 pairs (8 overlapping 352x704
+# tiles each at the default overlap 0.7)
+SF_KITTI_HW = (375, 1242)
+
+
+def write_stereoflow_tree(root, task, hw, n=2, seed=0):
+    """A generic-layout tree: textured PNG pairs (the right view the left
+    shifted), PFM disparities with +inf holes or .flo flows."""
+    import numpy as np
+
+    from gd3d_torch.data.fixtures import texture
+    from gd3d_torch.data.flowio import write_flo, write_pfm
+    from gd3d_torch.data.png import encode_png_rgb
+
+    rng = np.random.RandomState(seed)
+    H, W = hw
+    for d in ("left", "right", "gt"):
+        (root / d).mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        big = texture(rng, H, W + 16)
+        (root / "left" / f"p{i}.png").write_bytes(encode_png_rgb(np.ascontiguousarray(big[:, 16:])))
+        (root / "right" / f"p{i}.png").write_bytes(encode_png_rgb(np.ascontiguousarray(big[:, :W])))
+        if task == "stereo":
+            gt = np.full((H, W), 16.0, np.float32) + rng.rand(H, W).astype(np.float32)
+            gt[rng.rand(H, W) < 0.1] = np.inf
+            write_pfm(str(root / "gt" / f"p{i}.pfm"), gt)
+        else:
+            gt = np.zeros((H, W, 2), np.float32)
+            gt[..., 0] = 16.0
+            write_flo(str(root / "gt" / f"p{i}.flo"), gt + rng.randn(H, W, 2).astype(np.float32))
+
+
+def write_kitti_tree(root, n=2, seed=1):
+    """KITTI 2015's stereo layout at its frame size: image_2/3 PNG pairs and
+    disp_occ_0 16-bit disparities with invalid (0) pixels."""
+    import numpy as np
+
+    from gd3d_torch.data.fixtures import texture
+    from gd3d_torch.data.flowio import write_kitti_disp
+    from gd3d_torch.data.png import encode_png_rgb
+
+    rng = np.random.RandomState(seed)
+    H, W = SF_KITTI_HW
+    t = root / "training"
+    for d in ("image_2", "image_3", "disp_occ_0"):
+        (t / d).mkdir(parents=True, exist_ok=True)
+    for i in range(n):
+        big = texture(rng, H, W + 24)
+        (t / "image_2" / f"{i:06d}_10.png").write_bytes(
+            encode_png_rgb(np.ascontiguousarray(big[:, 24:])))
+        (t / "image_3" / f"{i:06d}_10.png").write_bytes(
+            encode_png_rgb(np.ascontiguousarray(big[:, :W])))
+        disp = np.full((H, W), 24.0, np.float32)
+        disp[rng.rand(H, W) < 0.3] = np.inf
+        write_kitti_disp(str(t / "disp_occ_0" / f"{i:06d}_10.png"), disp)
+
+
+def sf_launches(c) -> dict:
+    """The stereoflow launches of a counted run (read just after it): K1,
+    K2, K5 forward and backward, and the other kernels' total."""
+    from gd3d_torch.kernels import backward_launches
+
+    bwd = backward_launches()["K5"]
+    return {"K1": c["K1"], "K2": c["K2"], "K5 fwd": c["K5"] - bwd, "K5 bwd": bwd,
+            "other": sum(v for k, v in c.items() if k not in ("K1", "K2", "K5"))}
+
+
+def check_stereoflow_train(dev, root, task, gpu: str) -> dict:
+    """(a) gd3d_torch.cli.stereoflow train at full width, SF_STEPS steps of
+    batch 2 from a seeded init file: its launches SF_STEPS x SF_STEP at the
+    crop's length (fp32, counted just around the run), finite losses, every
+    trained tensor moved; then one more step profiled. Returns the run's
+    launches."""
+    import numpy as np
+    import torch
+
+    from gd3d_torch.cli import stereoflow as sf_cli
+    from gd3d_torch.data.flowio import StereoFlowPairs, discover_pairs
+    from gd3d_torch.models.stereoflow import StereoFlow
+    from gd3d_torch.models.vit import init_params_
+    from gd3d_torch.stereoflow import CRITERIA, DEFAULT_CRITERION, DEFAULT_CROP
+    from gd3d_torch.stereoflow import build_stereoflow_train_step, make_stereoflow_optimizer
+
+    tree = root / task
+    write_stereoflow_tree(tree, task, (384, 768) if task == "stereo" else (384, 512))
+    args = sf_cli.parse_args(["train", "--task", task, "--root", str(tree), "--output", "x"])
+    with torch.device(dev):
+        model = StereoFlow(sf_cli.model_config(args))
+    init_params_(model, torch.Generator(device=dev).manual_seed(21))
+    init = root / f"init_{task}.npz"
+    sf_cli.save_params(init, model)
+    n_params = sum(p.numel() for p in model.parameters())
+    del model
+    torch.cuda.empty_cache()
+    out = root / f"run_{task}"
+    res, c, c_by, wall, peak = _counted_run(lambda: sf_cli.main(
+        ["train", "--task", task, "--root", str(tree), "--output", str(out), "--steps",
+         str(SF_STEPS), "--batch", "2", "--warmup", "1", "--ckpt", str(init)]))
+    got = sf_launches(c)
+    N = STEREOFLOW_LENGTHS["CroCo-Stereo" if task == "stereo" else "CroCo-Flow"]
+    want = {k: v * SF_STEPS for k, v in SF_STEP.items()}
+    lengths_ok = (c_by["K1"] == {("float32", N): want["K1"]}
+                  and c_by["K2"] == {("float32", N): want["K2"]}
+                  and c_by["K5"] == {("float32", N): want["K5 fwd"] + want["K5 bwd"]})
+    launches_ok = all(got[k] == v for k, v in want.items()) and got["other"] == 0 and lengths_ok
+    losses = [r["loss"] for r in res["records"]]
+    with np.load(init) as a, np.load(out / "params_final.npz") as b:
+        same = [k for k in a.files if np.array_equal(a[k], b[k])]
+        n_tensors = len(a.files)
+    step_s = res["stats"]["step_s"]
+    ok = launches_ok and all(math.isfinite(v) for v in losses) and not same
+    crop = DEFAULT_CROP[task]
+    log(f"stereoflow: train {task} at full width ({n_params / 1e6:.1f} M parameters, crop "
+        f"{crop[0]}x{crop[1]}, N = {N}, batch 2) {SF_STEPS} steps: losses "
+        f"{[round(v, 4) for v in losses]}; step s {[round(v, 4) for v in step_s]} (steady "
+        f"{float(np.median(step_s[1:])):.4f} s a step), wall {wall:.2f} s, peak_mem_gib "
+        f"{peak:.3f}; {n_tensors - len(same)} of {n_tensors} trained tensors moved "
+        f"{'(unmoved: ' + str(same[:4]) + ')' if same else ''}; launches {got} (want "
+        f"{want}, by length {c_by['K1']} {c_by['K2']} {c_by['K5']}) {'OK' if ok else 'FAIL'} "
+        f"[{gpu}]")
+    if not ok:
+        raise AssertionError(f"stereoflow: the {task} training run's launches, losses or "
+                             "updates are wrong")
+
+    # one more step under the profiler: each kernel's share of its device time
+    del res
+    torch.cuda.empty_cache()
+    args = sf_cli.parse_args(["train", "--task", task, "--root", str(tree), "--output", "x",
+                              "--ckpt", str(out / "params_final.npz")])
+    model, _ = sf_cli.build_model(args, dev)
+    opt = make_stereoflow_optimizer(model, 3e-5, 10, 1)
+    step = build_stereoflow_train_step(model, CRITERIA[DEFAULT_CRITERION[task]], opt)
+    ds = StereoFlowPairs(discover_pairs(str(tree), "generic", task), task, crop_size=crop)
+    items = [ds[0], ds[1]]
+    batch = [torch.from_numpy(np.stack([it[k] for it in items])).to(dev)
+             for k in ("img1", "img2", "gt")]
+    step(*batch)  # warm
+    idle = profile_call(f"stereoflow {task}", lambda: step(*batch), "train step")
+    log(f"stereoflow: {task} train step idle share {idle:.3f} [{gpu}]")
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return c
+
+
+def check_stereoflow_agree(dev, root, gpu: str) -> None:
+    """(b) one AdamW step of a small stereo model (head dim 64) on the card
+    against the CPU plain path, from shared weights on one batch of the
+    tree: the loss, every gradient, AdamW's moments and the updated weights."""
+    import numpy as np
+    import torch
+
+    from gd3d_torch.data.flowio import StereoFlowPairs, discover_pairs
+    from gd3d_torch.models.croco import CrocoConfig
+    from gd3d_torch.models.stereoflow import StereoFlow, StereoFlowConfig
+    from gd3d_torch.models.vit import init_params_
+    from gd3d_torch.stereoflow import CRITERIA, build_stereoflow_train_step
+    from gd3d_torch.stereoflow import make_stereoflow_optimizer
+
+    cfg = StereoFlowConfig(croco=CrocoConfig(**SF_SMALL["croco"]),
+                           **{k: v for k, v in SF_SMALL.items() if k != "croco"})
+    ds = StereoFlowPairs(discover_pairs(str(root / "stereo"), "generic", "stereo"), "stereo",
+                         crop_size=(64, 96), seed=5)
+    items = [ds[0], ds[1]]
+    batch = [torch.from_numpy(np.stack([it[k] for it in items])) for k in ("img1", "img2", "gt")]
+    ref = StereoFlow(cfg)
+    init_params_(ref, torch.Generator().manual_seed(5))
+    runs = {}
+    for device in ("cpu", dev):
+        model = StereoFlow(cfg).to(device)
+        model.load_state_dict(ref.state_dict())
+        opt = make_stereoflow_optimizer(model, 1e-4, 4, 1)
+        step = build_stereoflow_train_step(model, CRITERIA["LaplacianLossBounded2()"], opt)
+        loss = float(step(*(t.to(device) for t in batch)))
+        runs[str(device)] = (loss, {k: p.grad.cpu() for k, p in opt.params.items()},
+                             {k: v.cpu() for k, v in opt.mu.items()},
+                             {k: v.cpu() for k, v in opt.nu.items()},
+                             {k: p.detach().cpu() for k, p in opt.params.items()})
+    (lc, *cpu), (lg, *card) = runs["cpu"], runs[str(dev)]
+
+    def worst(a, b):
+        return max(float((a[k] - b[k]).abs().max() / max(float(b[k].abs().max()), 1e-12))
+                   for k in b)
+
+    errs = {name: worst(g, w) for name, g, w in zip(("grads", "mu", "nu", "params"), card, cpu)}
+    loss_err = abs(lg - lc) / abs(lc)
+    ok = (loss_err <= SF_LOSS_TOL and all(math.isfinite(e) and e <= SF_STATE_TOL
+                                          for e in errs.values()))
+    log(f"stereoflow: card against CPU, one AdamW step of a small stereo model (head dim 64, "
+        f"64x96 crop, batch 2): loss {lg:.6f} vs {lc:.6f} rel {loss_err:.3e} (tol "
+        f"{SF_LOSS_TOL:g}); worst tensor " + " ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (tol {SF_STATE_TOL:g} of its max) {'OK' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("stereoflow: the card's training step disagrees with the CPU's")
+
+
+def check_stereoflow_eval(dev, root, gpu: str) -> dict:
+    """(c) eval on 2 pairs of a KITTI 2015 tree at 375x1242 (8 tiles a
+    pair, one forward each) and predict on one pair: the files, their
+    shapes, finite values, the launches (a step's forward ones a pair, 36
+    K1 and 48 K5; no backward). Returns the launches."""
+    import json as _json
+
+    import numpy as np
+    import torch
+
+    from gd3d_torch.cli import stereoflow as sf_cli
+    from gd3d_torch.data.flowio import read_pfm
+
+    write_kitti_tree(root / "kitti")
+    ckpt = str(root / "run_stereo" / "params_final.npz")
+    out = root / "eval"
+    res, c, _, wall, peak = _counted_run(lambda: sf_cli.main(
+        ["eval", "--task", "stereo", "--root", str(root / "kitti"), "--layout", "kitti15",
+         "--output", str(out), "--ckpt", ckpt, "--save", "metrics", "pred", "visu"]))
+    got = sf_launches(c)
+    H, W = SF_KITTI_HW
+    metrics = _json.loads((out / "metrics.json").read_text())
+    preds = [np.load(out / f"training_image_2_{i:06d}_10_pred.npy") for i in range(2)]
+    pngs = [(out / f"training_image_2_{i:06d}_10_pred.png").stat().st_size for i in range(2)]
+    # one forward a pair (all 8 tiles in one batch), no backward
+    want = {"K1": 2 * SF_STEP["K1"], "K2": 0, "K5 fwd": 2 * SF_STEP["K5 fwd"], "K5 bwd": 0,
+            "other": 0}
+    launches_ok = got == want
+    ok = (launches_ok and sorted(metrics) == ["L1err", "bad@0.5", "bad@1.0", "bad@2.0", "bad@3.0"]
+          and all(math.isfinite(v) for v in metrics.values())
+          and all(p.shape == (H, W, 1) and np.isfinite(p).all() for p in preds) and min(pngs) > 0)
+    log(f"stereoflow: eval 2 KITTI pairs of {H}x{W} (8 tiles a pair, overlap 0.7): wall "
+        f"{wall:.2f} s ({wall / 2:.3f} s a pair), peak_mem_gib {peak:.3f}; metrics "
+        f"{ {k: round(v, 4) for k, v in metrics.items()} }; launches {got} (want {want}) "
+        f"{'OK' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("stereoflow: the eval run's files or launches are wrong")
+    pred_path = root / "pred.pfm"
+    res, c2, _, wall, peak = _counted_run(lambda: sf_cli.main(
+        ["predict", "--task", "stereo", "--ckpt", ckpt, "--left",
+         str(root / "kitti" / "training" / "image_2" / "000000_10.png"), "--right",
+         str(root / "kitti" / "training" / "image_3" / "000000_10.png"), "--output",
+         str(pred_path), "--visu", str(root / "pred_visu.png")]))
+    got2 = sf_launches(c2)
+    disp = read_pfm(str(pred_path))[0]
+    ok = (disp.shape == (H, W) and np.isfinite(disp).all()
+          and (root / "pred_visu.png").stat().st_size > 0 and c2["K1"] == SF_STEP["K1"])
+    log(f"stereoflow: predict one KITTI pair -> .pfm {disp.shape}, wall {wall:.2f} s; "
+        f"launches {got2} {'OK' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("stereoflow: the predict run's file or launches are wrong")
+    for k in c:
+        c[k] += c2[k]
+    torch.cuda.empty_cache()
+    return c
+
+
+def check_stereoflow(dev) -> dict:
+    """The stereoflow phase: (a) train both tasks at full width through the
+    CLI, (b) the card against the CPU on a small model, (c) eval and
+    predict at KITTI's frame size. Returns the launches of (a) and (c)."""
+    import tempfile
+    from pathlib import Path
+
+    gpu = gpu_line()
+    t0 = time.perf_counter()
+    counts = {k: 0 for k in REPLACES}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        for task in ("stereo", "flow"):
+            for k, v in check_stereoflow_train(dev, root, task, gpu).items():
+                counts[k] += v
+            log(f"stereoflow: (a) {task} done at {time.perf_counter() - t0:.1f} s")
+        check_stereoflow_agree(dev, root, gpu)
+        log(f"stereoflow: (b) done at {time.perf_counter() - t0:.1f} s")
+        for k, v in check_stereoflow_eval(dev, root, gpu).items():
+            counts[k] += v
+        log(f"stereoflow: (c) done at {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -2785,6 +3388,14 @@ def main() -> int:
     for k, n in check_align(dev).items():
         counts[k] += n
     log(f"phase: align done at {time.perf_counter() - t_start:.1f} s")
+    with no_tf32():
+        sga_counts = check_sparse_ga(dev)
+    for k, n in sga_counts.items():
+        counts[k] += n
+    log(f"phase: sparse_ga done at {time.perf_counter() - t_start:.1f} s")
+    for k, n in check_stereoflow(dev).items():
+        counts[k] += n
+    log(f"phase: stereoflow done at {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

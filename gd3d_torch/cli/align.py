@@ -6,6 +6,7 @@ Usage:
       --output <dir> [--teacher-ckpt mast3r.pth] [--size 512] [--niter 300] \\
       [--pairs complete|swin-W|logwin-W|oneref-R|sliding] [--pair-filter seqN|cycN] \\
       [--sparse K] [--tsdf THRESH] [--colmap] [--colmap-db] [--ply] [--html] \\
+      [--sparse-ga [--ga-niter1 500] [--ga-niter2 500] [--ga-subsample 8]] \\
       [--device cuda]
 
 gd3d's flags and outputs: scene.npz (poses, focals, principal_points,
@@ -16,9 +17,14 @@ otherwise; asking for cuda without one raises. The teacher runs all ordered
 pairs of the scene graph in one batched call, the alignment is Adam on the
 device (gd3d_torch/align.py). Images are read by gd3d_torch/data/images.py,
 which decodes JPEG and PNG; another format (gd3d also takes .bmp and
-.webp through PIL) raises an error that names the file. --sparse-ga
-(gd3d/sparse_ga.py) is not ported: the flag exits with an error. The module
-imports torch inside its functions only.
+.webp through PIL) raises an error that names the file. --sparse-ga runs
+MASt3R's two-stage sparse global alignment instead (gd3d_torch/sparse_ga.py:
+the teacher over the unordered pairs, pair_chunk at a time, then the coarse
+and fine stages on the device) and writes gd3d's sparse-GA scene.npz (poses,
+focals, principal_points, depthmaps, pts3d densified from the anchors,
+images) with the .ply and .html on request; --tsdf and --colmap* warn and are
+ignored there, as in gd3d. The module imports torch inside its functions
+only.
 """
 from __future__ import annotations
 
@@ -60,8 +66,11 @@ def parse_args(argv=None):
                         "Default -1 = auto: sparse 1024 when the scene exceeds 200k dense "
                         "points; 0 forces dense")
     p.add_argument("--sparse-ga", action="store_true",
-                   help="MASt3R's two-stage sparse global alignment (gd3d/sparse_ga.py); not "
-                        "ported yet: the flag exits with an error")
+                   help="MASt3R's two-stage sparse global alignment (canonical pointmaps, "
+                        "kinematic-chain cameras, a coarse 3D-matching stage then a fine "
+                        "2D-reprojection stage) instead of the PointCloudOptimizer loop; "
+                        "depth maps and points are densified from the optimized anchors. "
+                        "--niter/--lr/--sparse/--tsdf/--colmap* apply to the default path only")
     p.add_argument("--ga-niter1", type=int, default=500, help="--sparse-ga coarse iterations")
     p.add_argument("--ga-niter2", type=int, default=500, help="--sparse-ga fine iterations")
     p.add_argument("--ga-subsample", type=int, default=8, help="--sparse-ga anchor stride")
@@ -176,9 +185,6 @@ def main(argv=None, teacher=None) -> dict:
     (host arrays) and stats: teacher_s, align_s, align_ms_per_iter, tsdf_s,
     export_s, pairs, points."""
     args = parse_args(argv)
-    if args.sparse_ga:
-        raise SystemExit("--sparse-ga needs gd3d/sparse_ga.py's two-stage sparse global "
-                         "alignment, which gd3d_torch does not have yet (gd3d_torch/sparse_ga.py)")
     import torch
 
     from gd3d_torch.align import _host, global_align, scene_from_mast3r, sparse_from_scene
@@ -205,6 +211,8 @@ def main(argv=None, teacher=None) -> dict:
         pairs = None  # scene_from_mast3r's complete graph
     else:
         pairs = make_pair_indices(n, graph, prefilter=args.pair_filter)
+    if args.sparse_ga:
+        return run_sparse_ga(args, teacher, images, images_np, pairs, device)
     stats = {}
     t0 = sync(device)
     desc_i = desc_j = None
@@ -313,6 +321,63 @@ def main(argv=None, teacher=None) -> dict:
         print(f"wrote {len(pts)} points -> {outdir / 'pointcloud.ply'}")
     stats["export_s"] = time.perf_counter() - t3
     return {"out_dir": outdir, "scene": scene, "out": out, "stats": stats}
+
+
+def run_sparse_ga(args, teacher, images, images_np, pairs, device) -> dict:
+    """The --sparse-ga path (gd3d's _run_sparse_ga): the two-stage sparse
+    global alignment and the anchors densified, the same scene.npz, .ply and
+    .html. Returns the output dir, the SparseScene, the alignment's result
+    and stats: teacher_s, coarse_s, fine_s, their ms a step, export_s,
+    pairs, correspondences."""
+    from gd3d_torch.sparse_ga import (build_scene_from_mast3r, dense_pts3d,
+                                      sparse_scene_optimizer)
+
+    for flag in ("tsdf", "colmap", "colmap_db"):
+        if getattr(args, flag):
+            print(f"WARNING: --{flag.replace('_', '-')} applies to the dense path; ignored "
+                  "under --sparse-ga")
+    n = int(images.shape[0])
+    t0 = sync(device)
+    scene = build_scene_from_mast3r(teacher, images, pairs, subsample=args.ga_subsample)
+    t1 = sync(device)
+    res = sparse_scene_optimizer(scene, niter1=args.ga_niter1, niter2=args.ga_niter2,
+                                 device=device)
+    t2 = time.perf_counter()
+    secs = res["seconds"]
+    stats = {"teacher_s": t1 - t0, "pairs": len(scene.e_i),
+             "correspondences": int(scene.valid.sum()),
+             "coarse_s": secs["coarse"], "fine_s": secs.get("fine", 0.0),
+             "coarse_ms_per_iter": secs["coarse"] * 1e3 / max(args.ga_niter1, 1),
+             "fine_ms_per_iter": secs.get("fine", 0.0) * 1e3 / max(args.ga_niter2, 1)}
+    best = res["fine"] if res["fine"] is not None else res["coarse"]
+    pts_list, depth_list = dense_pts3d(scene, best)
+    K = np.asarray(best["intrinsics"])
+    pts3d = np.stack(pts_list).astype(np.float32)  # (N, H*W, 3)
+
+    outdir = Path(args.output)
+    outdir.mkdir(parents=True, exist_ok=True)
+    np.savez(outdir / "scene.npz", poses=np.asarray(best["cam2w"], np.float32),
+             focals=K[:, 0, 0].astype(np.float32),
+             principal_points=K[:, :2, 2].astype(np.float32),
+             depthmaps=np.stack(depth_list).astype(np.float32), pts3d=pts3d, images=images_np)
+    stage = "fine" if res["fine"] is not None else "coarse"
+    print(f"sparse-GA aligned {n} images ({stage} stage, {int(scene.valid.sum())} "
+          f"correspondences) -> {outdir / 'scene.npz'}")
+
+    if args.ply or args.html:
+        pts = pts3d.reshape(-1, 3)
+        cols = ((images_np + 1) * 127.5).clip(0, 255).astype(np.uint8).reshape(-1, 3)
+    if args.html:
+        from gd3d_torch.utils.html_viewer import write_html_viewer
+
+        html = write_html_viewer(str(outdir / "scene.html"), pts, cols,
+                                 np.asarray(best["cam2w"]), K[:, 0, 0], hw=scene.hw)
+        print(f"browser viewer -> {html}")
+    if args.ply:
+        write_ply(outdir / "pointcloud.ply", pts, cols)
+        print(f"wrote {len(pts)} points -> {outdir / 'pointcloud.ply'}")
+    stats["export_s"] = time.perf_counter() - t2
+    return {"out_dir": outdir, "scene": scene, "res": res, "stats": stats}
 
 
 if __name__ == "__main__":

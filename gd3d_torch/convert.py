@@ -223,3 +223,99 @@ def vggt_state_dict(params: Mapping, cfg: VggtConfig = VggtConfig()) -> Dict[str
         for src, dst in _TRACKER_BLOCKS:
             _emit(sd, f"{p}.updateformer.{dst}.{i}", uf[f"{src}{i}"])
     return _to_torch(sd)
+
+
+def stereoflow_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """gd3d StereoFlow param tree -> the port's StereoFlow state dict (the
+    CroCoDownstreamBinocular layout): the inverse of gd3d's
+    convert_stereoflow. `cfg` is a models.stereoflow.StereoFlowConfig."""
+    c = cfg.croco
+    sd: dict = {}
+    enc = params["encoder"]
+    _emit(sd, "patch_embed.proj", enc["patch_embed"])
+    _emit(sd, "enc_norm", enc["enc_norm"])
+    for i in range(c.enc_depth):
+        _emit(sd, f"enc_blocks.{i}", _index(enc["enc_blocks"], i))
+    _emit(sd, "decoder_embed", params["decoder_embed"])
+    _emit(sd, "dec_norm", params["dec_norm"])
+    for i in range(c.dec_depth):
+        _emit(sd, f"dec_blocks.{i}", _index(params["dec_blocks"]["blk"], i))
+    dpt = params["head"]
+    for src, (dst, transposed) in _DPT_ACT.items():
+        _emit(sd, f"head.dpt.{dst}", dpt[src], transpose_conv=transposed)
+    for i in range(4):
+        _emit(sd, f"head.dpt.scratch.layer{i + 1}_rn", dpt[f"layer_{i}_rn"])
+    for i in range(1, 5):
+        _emit(sd, f"head.dpt.scratch.refinenet{i}", dpt[f"refinenet{i}"])
+    return _to_torch(sd)
+
+
+_DPT_ACT_INV = {dst: (src, transposed) for src, (dst, transposed) in _DPT_ACT.items()}
+
+
+def _flax_path(key: str):
+    """A StereoFlow state-dict key -> (flax path of its module, stacked
+    block index or None, transposed conv)."""
+    parts = key.split(".")[:-1]
+    if parts[0] == "patch_embed":
+        return ("encoder", "patch_embed"), None, False
+    if parts[0] == "enc_norm":
+        return ("encoder", "enc_norm"), None, False
+    if parts[0] == "enc_blocks":
+        return ("encoder", "enc_blocks", *parts[2:]), int(parts[1]), False
+    if parts[0] == "dec_blocks":
+        return ("dec_blocks", "blk", *parts[2:]), int(parts[1]), False
+    if parts[0] != "head":
+        return tuple(parts), None, False
+    rest = ".".join(parts[2:])  # under head.dpt
+    if rest in _DPT_ACT_INV:
+        src, transposed = _DPT_ACT_INV[rest]
+        return ("head", src), None, transposed
+    sub = parts[3:]  # under head.dpt.scratch
+    if sub[0].startswith("layer"):
+        return ("head", f"layer_{int(sub[0][5]) - 1}_rn"), None, False
+    return ("head", *sub), None, False
+
+
+def stereoflow_params(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """The port's StereoFlow state dict -> gd3d's param tree, flattened to
+    'a/b/c' keys of numpy arrays (the layout of gd3d's --ckpt .npz files):
+    the inverse of stereoflow_state_dict. Scanned blocks are stacked on a
+    leading layer axis."""
+    flat: Dict[str, np.ndarray] = {}
+    stacks: Dict[str, Dict[int, np.ndarray]] = {}
+    for key, t in state.items():
+        path, layer, transposed = _flax_path(key)
+        w = t.detach().cpu().numpy().astype(np.float32)
+        leaf = key.rsplit(".", 1)[1]
+        if leaf == "weight" and w.ndim == 1:
+            leaf = "scale"
+        elif leaf == "weight":
+            leaf = "kernel"
+            if w.ndim == 2:
+                w = w.T
+            elif transposed:
+                w = w.transpose(2, 3, 0, 1)[::-1, ::-1]
+            else:
+                w = w.transpose(2, 3, 1, 0)
+        name = "/".join((*path, leaf))
+        if layer is None:
+            flat[name] = np.ascontiguousarray(w)
+        else:
+            stacks.setdefault(name, {})[layer] = w
+    for name, layers in stacks.items():
+        flat[name] = np.stack([layers[i] for i in range(len(layers))])
+    return flat
+
+
+def unflatten(flat: Mapping[str, np.ndarray]) -> dict:
+    """'a/b/c' keys -> a nested dict (flax.traverse_util.unflatten_dict of
+    the split keys)."""
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree

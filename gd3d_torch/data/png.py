@@ -13,12 +13,18 @@ and `open_rgb` give what those calls give for the same file:
     libpng's fixed-point weights (rgb_to_gray_coefficients);
   * `imread(f, IMREAD_ANYDEPTH)`: one channel at the file's depth, grey
     computed as above at 16 bits where the file has 16;
+  * `imread(f, IMREAD_ANYDEPTH | IMREAD_COLOR)`: as IMREAD_COLOR, but at
+    the file's depth (the KITTI flow files' 16-bit BGR);
   * `imread(f, IMREAD_UNCHANGED)`: the file's channels (BGR, BGRA; grey with
     alpha as BGRA; a palette with transparency, or an RGB colour key, as
     BGRA) at its depth; the other three modes also apply the EXIF
     orientation of an eXIf chunk, as OpenCV does;
   * `open_rgb(f)`: PIL's RGB of the file after ImageOps.exif_transpose, with
-    RGBA first composited onto white (gd3d/data/images.py::_to_pil).
+    RGBA first composited onto white (gd3d/data/images.py::_to_pil);
+    `pil_rgb(png, composite=False)` is Image.open(f).convert("RGB") alone.
+
+`encode_png` writes 8- and 16-bit grey and RGB files (filter 0, one zlib
+IDAT), which both libraries read back to the array written.
 
 Scope: non-interlaced files of 8 or 16 bits a sample: grey, grey+alpha,
 RGB, RGBA and 8-bit palette images, with tRNS. Adam7 interlacing and depths
@@ -48,6 +54,7 @@ Source = Union[str, os.PathLike, bytes]
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # cv2.IMREAD_* values
 IMREAD_UNCHANGED, IMREAD_GRAYSCALE, IMREAD_COLOR, IMREAD_ANYDEPTH = -1, 0, 1, 2
+IMREAD_COLOR_ANYDEPTH = IMREAD_COLOR | IMREAD_ANYDEPTH
 # colour type -> samples a pixel
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
@@ -247,6 +254,8 @@ def _cv2_pixels(png: Png, flags: int) -> np.ndarray:
         return np.ascontiguousarray(np.concatenate([rgb[..., ::-1], alpha[..., None]], -1))
     if flags == IMREAD_COLOR:
         return np.ascontiguousarray(_high_byte(rgb)[..., ::-1])
+    if flags == IMREAD_COLOR_ANYDEPTH:
+        return np.ascontiguousarray(rgb[..., ::-1])
     if flags in (IMREAD_GRAYSCALE, IMREAD_ANYDEPTH):
         if png.color_type in (0, 4):
             grey = png.samples[..., 0]
@@ -266,17 +275,20 @@ def _composite_on_white(rgb: np.ndarray, alpha: np.ndarray) -> np.ndarray:
     return np.where(a == 0, 255, out).astype(np.uint8)
 
 
-def pil_rgb(png: Png) -> np.ndarray:
+def pil_rgb(png: Png, composite: bool = True) -> np.ndarray:
     """(H, W, 3) uint8: Pillow's image of the file composited onto white
-    when it is RGBA, then convert("RGB") (gd3d/data/images.py::_to_pil). PIL
-    keeps the high byte of 16-bit colour and grey+alpha samples (it opens
-    16-bit grey+alpha as RGBA) and clips 16-bit grey (mode I;16) to 255."""
+    when it is RGBA (gd3d/data/images.py::_to_pil; with composite False
+    the alpha is dropped, as convert("RGB") alone does), then
+    convert("RGB"). PIL keeps the high byte of 16-bit colour and grey+alpha
+    samples (it opens 16-bit grey+alpha as RGBA) and clips 16-bit grey
+    (mode I;16) to 255."""
     if png.color_type == 0 and png.bit_depth == 16:
         grey = np.minimum(png.samples[..., 0], 255).astype(np.uint8)
         return np.repeat(grey[..., None], 3, axis=-1)
     rgb, alpha = _rgb_alpha(png)
     rgb = _high_byte(rgb)
-    if png.color_type == 6 or (png.color_type == 4 and png.bit_depth == 16):  # PIL's RGBA
+    rgba = png.color_type == 6 or (png.color_type == 4 and png.bit_depth == 16)  # PIL's RGBA
+    if composite and rgba:
         return _composite_on_white(rgb, _high_byte(alpha))
     return np.ascontiguousarray(rgb)
 
@@ -284,14 +296,29 @@ def pil_rgb(png: Png) -> np.ndarray:
 def encode_png_rgb(rgb: np.ndarray) -> bytes:
     """An 8-bit RGB PNG of a uint8 (H, W, 3) array: every row filter 0, one
     zlib IDAT at level 1 (the fabricated OnePose trees' frames)."""
-    h, w, c = rgb.shape
-    if c != 3 or rgb.dtype != np.uint8:
+    if rgb.ndim != 3 or rgb.shape[2] != 3 or rgb.dtype != np.uint8:
         raise ValueError(f"encode_png_rgb takes uint8 (H, W, 3), got {rgb.dtype} {rgb.shape}")
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rgb.reshape(h, w * 3)], 1).tobytes()
+    return encode_png(rgb)
+
+
+def encode_png(img: np.ndarray) -> bytes:
+    """A PNG of a uint8 or uint16 (H, W) grey or (H, W, 3) RGB array, at
+    the array's depth: every row filter 0, one zlib IDAT at level 1."""
+    if img.dtype not in (np.uint8, np.uint16) or not (
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
+        raise ValueError(f"encode_png takes uint8 or uint16 (H, W) or (H, W, 3), got "
+                         f"{img.dtype} {img.shape}")
+    h, w = img.shape[:2]
+    c = 1 if img.ndim == 2 else 3
+    depth = 8 * img.dtype.itemsize
+    rows = img.astype(">u2" if depth == 16 else np.uint8).reshape(h, -1).view(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows.reshape(h, w * c * depth // 8)],
+                         1).tobytes()
 
     def chunk(kind: bytes, data: bytes) -> bytes:
         return (struct.pack(">I", len(data)) + kind + data
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
-    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+    return (SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0 if c == 1 else 2,
+                                                   0, 0, 0))
             + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))

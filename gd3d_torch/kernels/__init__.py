@@ -3,7 +3,8 @@
 Each wrapper adds one to its `launches` count where it launches its kernel,
 and nowhere else, so a run can show that its main path went through the
 kernels. The flash wrappers (K1, K2) and K5 also count by dtype and
-length (`launches_by`), at the same place.
+length (`launches_by`), at the same place, and K5 counts its backward
+launches (-f0) apart as well (`launches_bwd`).
 """
 from __future__ import annotations
 
@@ -36,6 +37,8 @@ def reset_launch_counts() -> None:
         fn.launches = 0
         if hasattr(fn, "launches_by"):
             fn.launches_by.clear()
+        if hasattr(fn, "launches_bwd"):
+            fn.launches_bwd = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -48,3 +51,9 @@ def launch_counts_by() -> Dict[str, Dict[Tuple[str, int], int]]:
     {(dtype, N): launches}."""
     return {k: dict(fn.launches_by) for k, fn in wrappers().items()
             if hasattr(fn, "launches_by")}
+
+
+def backward_launches() -> Dict[str, int]:
+    """Of each kernel's launches, those of a backward where the kernel also
+    runs forward (K5 with -f0): kernel id -> launches."""
+    return {k: fn.launches_bwd for k, fn in wrappers().items() if hasattr(fn, "launches_bwd")}

@@ -120,6 +120,7 @@ def _launch(what, tokens, tasks, vec, base, f0):
         stream)
     build.check(err, what)
     rope2d_fwd.launches += 1
+    rope2d_fwd.launches_bwd += int(f0 < 0)
     rope2d_fwd.launches_by[(str(tokens.dtype).removeprefix("torch."), tokens.shape[2])] += 1
 
 
@@ -139,6 +140,7 @@ def rope2d_fwd(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.
 
 
 rope2d_fwd.launches = 0
+rope2d_fwd.launches_bwd = 0  # of `launches`, those with -f0: a backward
 rope2d_fwd.launches_by = Counter()  # (dtype, N of q) -> launches
 
 

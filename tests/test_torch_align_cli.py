@@ -150,9 +150,6 @@ def test_align_cli_exports(inputs):
 
 def test_align_cli_refusals(inputs, tmp_path):
     root, views, _ = inputs
-    base = ["--images", *views, "--output", str(tmp_path), "--tiny", "--device", "cpu"]
-    with pytest.raises(SystemExit, match="sparse_ga"):
-        align.main(base + ["--sparse-ga"])
     bmp = tmp_path / "view.bmp"
     bmp.write_bytes(b"BM")
     with pytest.raises(ValueError, match="view.bmp"):
