@@ -121,7 +121,7 @@ def build_model(args, device):
     """The model on `device` with the flags' weights."""
     import torch
 
-    from gd3d_torch.convert import stereoflow_state_dict, unflatten
+    from gd3d_torch.convert import load_flat_npz, stereoflow_state_dict
     from gd3d_torch.models.stereoflow import StereoFlow, convert_stereoflow
     from gd3d_torch.models.vit import init_params_
 
@@ -134,9 +134,7 @@ def build_model(args, device):
         ckpt = torch.load(args.torch_ckpt, map_location="cpu", weights_only=False)
         model.load_state_dict(convert_stereoflow(ckpt.get("model", ckpt), cfg))
     elif args.ckpt:
-        with np.load(args.ckpt) as z:
-            flat = {k: z[k] for k in z.files}
-        model.load_state_dict(stereoflow_state_dict(unflatten(flat), cfg))
+        model.load_state_dict(stereoflow_state_dict(load_flat_npz(args.ckpt), cfg))
     else:
         print("WARNING: no --ckpt or --torch-ckpt; random CroCo-Stereo/Flow weights")
         init_params_(model, torch.Generator(device=device).manual_seed(0))

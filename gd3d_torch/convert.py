@@ -17,7 +17,12 @@ head):
                                            frame_blocks.{i}, global_blocks.{i}
 
 With them one seeded gd3d init loads into both packages, which is how the
-parity tests share weights.
+parity tests share weights. The inverses (`stereoflow_params`,
+`mast3r_params`, `croco_pretrain_params`) flatten a state dict into gd3d's
+'a/b/c'-keyed .npz layout, which `load_flat_npz` reads back, so either
+package loads the other's checkpoint files; `croco_pretrain_state_dict`
+takes gd3d's CrocoPretrain tree and `mast3r_trunk_state_dict` a Mast3r
+trunk (a dust3r_trunk.npz).
 """
 from __future__ import annotations
 
@@ -123,10 +128,8 @@ _DPT_ACT = {
 }
 
 
-def mast3r_state_dict(params: Mapping, cfg: Mast3rConfig = Mast3rConfig()) -> Dict[str, torch.Tensor]:
-    """gd3d Mast3rTeacher.init_params tree -> naver-named Mast3r state dict."""
+def _mast3r_trunk(sd: dict, params: Mapping, cfg: Mast3rConfig) -> None:
     c = cfg.croco
-    sd: dict = {}
     enc = params["encoder"]
     _emit(sd, "patch_embed.proj", enc["patch_embed"])
     _emit(sd, "enc_norm", enc["enc_norm"])
@@ -137,6 +140,22 @@ def mast3r_state_dict(params: Mapping, cfg: Mast3rConfig = Mast3rConfig()) -> Di
     for i in range(c.dec_depth):
         _emit(sd, f"dec_blocks.{i}", _index(params["dec_pairs"]["blk1"], i))
         _emit(sd, f"dec_blocks2.{i}", _index(params["dec_pairs"]["blk2"], i))
+
+
+def mast3r_trunk_state_dict(params: Mapping, cfg: Mast3rConfig = Mast3rConfig()
+                            ) -> Dict[str, torch.Tensor]:
+    """A gd3d Mast3r trunk tree (encoder, decoder_embed, dec_pairs,
+    dec_norm: the layout of gd3d's croco_to_dust3r and of a
+    dust3r_trunk.npz) -> the Mast3r state dict's trunk keys."""
+    sd: dict = {}
+    _mast3r_trunk(sd, params, cfg)
+    return _to_torch(sd)
+
+
+def mast3r_state_dict(params: Mapping, cfg: Mast3rConfig = Mast3rConfig()) -> Dict[str, torch.Tensor]:
+    """gd3d Mast3rTeacher.init_params tree -> naver-named Mast3r state dict."""
+    sd: dict = {}
+    _mast3r_trunk(sd, params, cfg)
     for hid in (1, 2):
         head = params[f"head{hid}"]
         p = f"downstream_head{hid}"
@@ -253,6 +272,19 @@ def stereoflow_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
 _DPT_ACT_INV = {dst: (src, transposed) for src, (dst, transposed) in _DPT_ACT.items()}
 
 
+def _dpt_path(prefix: tuple, parts):
+    """A DPT key's module path under `prefix` (parts: the key's module names
+    after `dpt`)."""
+    rest = ".".join(parts)
+    if rest in _DPT_ACT_INV:
+        src, transposed = _DPT_ACT_INV[rest]
+        return (*prefix, src), None, transposed
+    sub = parts[1:]  # under scratch
+    if sub[0].startswith("layer"):
+        return (*prefix, f"layer_{int(sub[0][5]) - 1}_rn"), None, False
+    return (*prefix, *sub), None, False
+
+
 def _flax_path(key: str):
     """A StereoFlow state-dict key -> (flax path of its module, stacked
     block index or None, transposed conv)."""
@@ -267,14 +299,39 @@ def _flax_path(key: str):
         return ("dec_blocks", "blk", *parts[2:]), int(parts[1]), False
     if parts[0] != "head":
         return tuple(parts), None, False
-    rest = ".".join(parts[2:])  # under head.dpt
-    if rest in _DPT_ACT_INV:
-        src, transposed = _DPT_ACT_INV[rest]
-        return ("head", src), None, transposed
-    sub = parts[3:]  # under head.dpt.scratch
-    if sub[0].startswith("layer"):
-        return ("head", f"layer_{int(sub[0][5]) - 1}_rn"), None, False
-    return ("head", *sub), None, False
+    return _dpt_path(("head",), parts[2:])  # under head.dpt
+
+
+def _mast3r_path(key: str):
+    """A Mast3r state-dict key -> (flax path, stacked block index or None,
+    transposed conv): gd3d's Mast3r tree (encoder, dec_pairs/blk1|blk2,
+    head1|head2)."""
+    parts = key.split(".")[:-1]
+    if parts[0] in ("patch_embed", "enc_norm", "enc_blocks"):
+        return _flax_path(key)
+    if parts[0] in ("dec_blocks", "dec_blocks2"):
+        blk = "blk1" if parts[0] == "dec_blocks" else "blk2"
+        return ("dec_pairs", blk, *parts[2:]), int(parts[1]), False
+    if parts[0].startswith("downstream_head"):
+        head = "head" + parts[0][-1]
+        if parts[1] == "head_local_features":
+            return (head, "lf_" + parts[2]), None, False
+        return _dpt_path((head, "dpt"), parts[2:])
+    return tuple(parts), None, False
+
+
+def _croco_pretrain_path(key: str):
+    """A CrocoPretrain state-dict key -> (flax path, stacked block index or
+    None, False): gd3d's CrocoPretrain tree (top-level enc_blocks,
+    dec_blocks/blk)."""
+    parts = key.split(".")[:-1]
+    if parts[0] == "patch_embed":
+        return ("patch_embed",), None, False
+    if parts[0] == "enc_blocks":
+        return ("enc_blocks", *parts[2:]), int(parts[1]), False
+    if parts[0] == "dec_blocks":
+        return ("dec_blocks", "blk", *parts[2:]), int(parts[1]), False
+    return tuple(parts), None, False
 
 
 def stereoflow_params(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -282,10 +339,30 @@ def stereoflow_params(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray
     'a/b/c' keys of numpy arrays (the layout of gd3d's --ckpt .npz files):
     the inverse of stereoflow_state_dict. Scanned blocks are stacked on a
     leading layer axis."""
+    return _flax_params(state, _flax_path)
+
+
+def mast3r_params(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A Mast3r state dict, or its trunk's keys alone -> gd3d's Mast3r tree
+    flattened to 'a/b/c' keys (the inverse of mast3r_state_dict; a trunk
+    gives the layout of gd3d's dust3r_trunk.npz)."""
+    return _flax_params(state, _mast3r_path)
+
+
+def croco_pretrain_params(state: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """A CrocoPretrain state dict -> gd3d's CrocoPretrain tree flattened to
+    'a/b/c' keys (the inverse of croco_pretrain_state_dict)."""
+    return _flax_params(state, _croco_pretrain_path)
+
+
+def _flax_params(state: Mapping[str, torch.Tensor], path_of) -> Dict[str, np.ndarray]:
     flat: Dict[str, np.ndarray] = {}
     stacks: Dict[str, Dict[int, np.ndarray]] = {}
     for key, t in state.items():
-        path, layer, transposed = _flax_path(key)
+        if "." not in key:  # a bare parameter (mask_token)
+            flat[key] = t.detach().cpu().numpy().astype(np.float32)
+            continue
+        path, layer, transposed = path_of(key)
         w = t.detach().cpu().numpy().astype(np.float32)
         leaf = key.rsplit(".", 1)[1]
         if leaf == "weight" and w.ndim == 1:
@@ -319,3 +396,29 @@ def unflatten(flat: Mapping[str, np.ndarray]) -> dict:
             node = node.setdefault(p, {})
         node[leaf] = v
     return tree
+
+
+def croco_pretrain_state_dict(params: Mapping, cfg) -> Dict[str, torch.Tensor]:
+    """gd3d's CrocoPretrain tree (nn.scan-stacked enc_blocks and
+    dec_blocks/blk) -> the port's CrocoPretrain state dict (naver's CroCoNet
+    names). `cfg` is a models.croco.CrocoConfig."""
+    sd: dict = {}
+    _emit(sd, "patch_embed.proj", params["patch_embed"])
+    for i in range(cfg.enc_depth):
+        _emit(sd, f"enc_blocks.{i}", _index(params["enc_blocks"], i))
+    _emit(sd, "enc_norm", params["enc_norm"])
+    _emit(sd, "decoder_embed", params["decoder_embed"])
+    sd["mask_token"] = params["mask_token"]
+    for i in range(cfg.dec_depth):
+        _emit(sd, f"dec_blocks.{i}", _index(params["dec_blocks"]["blk"], i))
+    _emit(sd, "dec_norm", params["dec_norm"])
+    _emit(sd, "prediction_head", params["prediction_head"])
+    return _to_torch(sd)
+
+
+def load_flat_npz(path) -> dict:
+    """A gd3d flax-flattened .npz tree ('a/b/c' keys: params_final.npz,
+    params_%06d.npz, dust3r_trunk.npz, whichever package wrote it) -> the
+    nested tree."""
+    with np.load(path) as z:
+        return unflatten({k: z[k] for k in z.files})

@@ -30,6 +30,12 @@ fixtures and the reference digests anew (cv2, PIL and gd3d needed).
     frames are copies of its one template frame under that frame's pose,
     and a template bank of `bank_frames` x `bank_kps` rows. PNGs are written
     with png.encode_png_rgb.
+  - `write_co3d_tree(root)`: a preprocessed Co3D-v2 tree (the pretraining
+    CLI's --co3d-root, gd3d/data/stereo_views.py's layout): one sequence of
+    frames that cycle through the 192x144 JPEG fixtures co3d/frame_<k>.jpg, each
+    with a metadata npz (intrinsics, an orbit's cam2world pose,
+    maximum_depth), a 16-bit depth PNG and an 8-bit mask PNG, and
+    selected_seqs_train.json.
 """
 from __future__ import annotations
 
@@ -49,6 +55,8 @@ SCANNETPP_IMAGES = 4
 OBJAVERSE_OBJECTS = ("000-017/0b5d3f9e8a2c4e61", "000-042/7c1e2f4d9a3b5c60")
 OBJAVERSE_VIEWS = 6
 DSLR_SIZE = (1752, 1168)
+CO3D_JPEGS = 4
+CO3D_SIZE = (192, 144)
 
 
 def write_scannetpp_tree(root, scenes=SCANNETPP_SCENES, images: int = SCANNETPP_IMAGES,
@@ -351,3 +359,39 @@ def write_onepose_tree(root, size=(512, 512), known_kps: int = 2000, bank_frames
     _write_sequence(lt / ONEPOSE_BANK / f"{name}-2", encode_png_rgb(texture(rng, H, W)),
                     10 * (bank_tests - 1) + 1, K, pose)
     return {"K": K, "pose": pose, "kp2d": kp2d, "kp3d": kp3d}
+
+
+def write_co3d_tree(root, frames: int = 8, seed: int = 0) -> Path:
+    """The Co3D-v2 tree <root>/apple/seq1 (see the module docstring): depth
+    a tilted plane 1.6 to 2.4 m deep with noise, stored as uint16 of
+    depth / 4.0 (maximum_depth 4.0), the mask a centred rectangle, the
+    cameras on a 2 m orbit about the origin. Returns <root>."""
+    from gd3d_torch.data.png import encode_png
+
+    root = Path(root)
+    base = root / "apple" / "seq1"
+    for sub in ("images", "depths", "masks"):
+        (base / sub).mkdir(parents=True, exist_ok=True)
+    rng = np.random.RandomState(seed)
+    w, h = CO3D_SIZE
+    K = np.array([[160.0, 0, w / 2], [0, 160.0, h / 2], [0, 0, 1]], np.float32)
+    ys, xs = np.mgrid[0:h, 0:w]
+    for i in range(frames):
+        shutil.copyfile(TESTDATA / "co3d" / f"frame_{i % CO3D_JPEGS}.jpg",
+                        base / "images" / f"frame{i:06d}.jpg")
+        a = 2 * np.pi * i / (4 * frames)
+        c, s = np.cos(a), np.sin(a)
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+        pose[:3, 3] = [2 * s, 0, -2 * c]
+        np.savez(base / "images" / f"frame{i:06d}.npz", camera_intrinsics=K,
+                 camera_pose=pose, maximum_depth=4.0)
+        depth = 1.6 + 0.8 * xs / w + 0.05 * rng.rand(h, w)
+        (base / "depths" / f"frame{i:06d}.jpg.geometric.png").write_bytes(
+            encode_png((depth / 4.0 * 65535).astype(np.uint16)))
+        mask = np.zeros((h, w), np.uint8)
+        mask[12:-12, 16:-16] = 255
+        (base / "masks" / f"frame{i:06d}.png").write_bytes(encode_png(mask))
+    with open(root / "selected_seqs_train.json", "w") as f:
+        json.dump({"apple": {"seq1": list(range(frames))}}, f)
+    return root

@@ -1,5 +1,5 @@
-"""PIL's Lanczos and bicubic resizes of 8-bit images, without PIL, and
-cv2's bilinear resize of float64 images, without cv2.
+"""PIL's Lanczos, bicubic, bilinear and nearest resizes, without PIL, and
+cv2's bilinear resize of float64 images and nearest resize, without cv2.
 
 gd3d's eval resizes with `Image.resize((w, h), Image.LANCZOS)` (PF-PASCAL
 canvases, DAVIS frames), and its training images with LANCZOS or BICUBIC
@@ -63,7 +63,16 @@ def _bicubic(x: float) -> float:
     return 0.0
 
 
-FILTERS = {"lanczos": (_lanczos, SUPPORT), "bicubic": (_bicubic, 2.0)}
+def _bilinear(x: float) -> float:
+    if x < 0.0:
+        x = -x
+    if x < 1.0:
+        return 1.0 - x
+    return 0.0
+
+
+FILTERS = {"lanczos": (_lanczos, SUPPORT), "bicubic": (_bicubic, 2.0),
+           "bilinear": (_bilinear, 1.0)}
 
 
 def lanczos_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -142,6 +151,49 @@ def resize_lanczos(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
 def resize_bicubic(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     """resize(img, size, "bicubic"): Image.BICUBIC, Image.resize's default."""
     return resize(img, size, "bicubic")
+
+
+def resize_bilinear(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """resize(img, size, "bilinear"): Image.BILINEAR, the triangle filter."""
+    return resize(img, size, "bilinear")
+
+
+def resize_nearest_pil(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """Image.fromarray(img).resize(size, Image.NEAREST) for uint8 (L, RGB)
+    and uint16 (I;16) arrays, size = (width, height). Pillow maps output
+    pixel x to the source index int(x0 + s / 2 + x s) for s = in / out: for
+    8-bit modes its ImagingScaleAffine adds s to the running coordinate
+    once a pixel (float64, in that order), for I;16 (a "special" mode) its
+    generic transform takes int(s (x + 0.5)) directly."""
+    if img.dtype not in (np.uint8, np.uint16):
+        raise ValueError(f"resize_nearest_pil takes uint8 or uint16 images, got {img.dtype}")
+    w, h = size
+
+    def index(n_in, n_out):
+        s = n_in / n_out
+        if img.dtype == np.uint16:
+            src = (s * (np.arange(n_out) + 0.5)).astype(np.int64)
+        else:
+            steps = np.full(n_out, s)
+            steps[0] = 0.0 + s * 0.5
+            src = np.cumsum(steps).astype(np.int64)  # np.cumsum adds in order
+        return np.minimum(src, n_in - 1)
+
+    return img[index(img.shape[0], h)[:, None], index(img.shape[1], w)[None, :]]
+
+
+def resize_nearest_cv(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """cv2.resize(img, size, interpolation=cv2.INTER_NEAREST), size =
+    (width, height): source index floor(x / (out / in)), the scale's
+    reciprocal taken of the rounded out / in as OpenCV's resizeNN does,
+    clipped to the last pixel."""
+    w, h = int(size[0]), int(size[1])
+
+    def index(n_in, n_out):
+        inv = 1.0 / (n_out / n_in)
+        return np.minimum(np.floor(np.arange(n_out) * inv).astype(np.int64), n_in - 1)
+
+    return img[index(img.shape[0], h)[:, None], index(img.shape[1], w)[None, :]]
 
 
 

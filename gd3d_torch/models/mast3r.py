@@ -88,8 +88,11 @@ class Mast3rHead(nn.Module):
         pts3d = xyz / torch.clamp(d, min=1e-8) * torch.expm1(d)
         conf = cfg.conf_vmin + torch.exp(out[..., 3])
         desc = l2_normalize(out[..., 4: 4 + cfg.local_feat_dim], axis=-1, eps=0.0)
-        # the desc_conf channel (two_confs) feeds nothing in the step
-        return {"pts3d": pts3d, "conf": conf, "desc": desc}
+        if cfg.two_confs:
+            desc_conf = cfg.desc_conf_vmin + torch.exp(out[..., 4 + cfg.local_feat_dim])
+        else:
+            desc_conf = conf
+        return {"pts3d": pts3d, "conf": conf, "desc": desc, "desc_conf": desc_conf}
 
 
 class Mast3r(CrocoEncoder):

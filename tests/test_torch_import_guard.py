@@ -10,9 +10,11 @@ augmentations, the dataset), and the evaluation CLI runs --pose --tiny on a
 fabricated OnePose-LowTexture tree (PNG reads, cv2's resize, the EPnP
 RANSAC), and the reconstruction CLIs run at --tiny on a fabricated
 two-frame tree: align (--niter 2, dense, with the COLMAP exports), then
-localize against its scene.npz. The CLI modules import no torch at their
-top level, which their spawned decode processes re-run, and neither do the
-data modules a worker imports."""
+localize against its scene.npz; then the pretraining CLI prints its --help
+and trains one tiny CPU step of each objective, on procedural pairs and
+(mast3r) on a render tree written with the port's PNG encoder. The CLI
+modules import no torch at their top level, which their spawned decode
+processes re-run, and neither do the data modules a worker imports."""
 import os
 import subprocess
 import sys
@@ -73,6 +75,38 @@ SCRIPT = textwrap.dedent("""
                              root + "/view_1.png", "--output", root + "/loc", "--tiny",
                              "--device", "cpu", "--size", "224"])
         assert res["poses"].shape == (1, 4, 4)
+    import contextlib, io, runpy
+    sys.argv = ["pretrain", "--help"]
+    help_text = io.StringIO()
+    with contextlib.redirect_stdout(help_text):
+        try:
+            runpy.run_module("gd3d_torch.cli.pretrain", run_name="__main__")
+        except SystemExit as e:
+            assert e.code == 0, e.code
+    assert "--objective" in help_text.getvalue() and "--device" in help_text.getvalue()
+    from gd3d_torch.cli import pretrain
+    from gd3d_torch.data.png import encode_png
+    from gd3d_torch.data.render_synthetic import (DEFAULT_INTRINSIC, fixed_poses,
+                                                  procedural_object, render_mesh)
+    with tempfile.TemporaryDirectory() as root:
+        poses = fixed_poses(3)
+        np.save(root + "/obj_poses.npy", poses)
+        K = DEFAULT_INTRINSIC * (96 / 512.0)
+        K[2, 2] = 1.0
+        obj = procedural_object(np.random.RandomState(0))
+        import os
+        os.makedirs(root + "/obj")
+        for i, E in enumerate(poses):
+            rgb, depth, mask = render_mesh(*obj, E, K, 96)
+            for kind, arr in (("color", rgb), ("depth", (depth * 1000).astype(np.uint16)),
+                              ("mask", mask.astype(np.uint8) * 255)):
+                with open(f"{root}/obj/{kind}_{i:06d}.png", "wb") as f:
+                    f.write(encode_png(arr))
+        for objective, data in (("croco", []), ("mast3r", []), ("mast3r", ["--data-root", root])):
+            res = pretrain.main(["--output", root + "/out", "--objective", objective, "--tiny",
+                                 "--device", "cpu", "--steps", "1", "--batch", "2",
+                                 "--corres", "16", *data])
+            assert np.isfinite(res["records"][0]["loss"])
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
@@ -93,6 +127,7 @@ def test_cli_modules_import_without_torch():
     readers it calls)."""
     script = ("import sys, gd3d_torch.cli.evaluate, gd3d_torch.cli.train, "
               "gd3d_torch.cli.align, gd3d_torch.cli.localize, gd3d_torch.cli.demo, "
+              "gd3d_torch.cli.pretrain, "
               "gd3d_torch.eval.images, gd3d_torch.eval.pnp, gd3d_torch.data.pipeline, "
               "gd3d_torch.data.objaverse, "
               "gd3d_torch.data.scannetpp, gd3d_torch.data.fixtures; "
