@@ -29,12 +29,12 @@ report), then runs these phases in order, one or more printed lines each:
               the MASt3R keypoint count, run twice and must give the same
               bits; K5 on one tensor and on each main-path layer's q and k in
               one launch;
-  2. steps    three full-width MASt3R distillation steps (ViT-B/16 bf16
+  2. steps    two full-width MASt3R distillation steps (ViT-B/16 bf16
               student, MASt3R ViT-L/Base-decoder fp32 teacher, 336x512
-              teacher and 512^2 student frames), three more with the
+              teacher and 512^2 student frames), two more with the
               student at its configured fp32 (the named config as gd3d's
               trainer runs it: 12 fp32 K2 and 20 fp32 K1 launches at the
-              student's lengths a step, asserted), then three full-width
+              student's lengths a step, asserted), then two full-width
               VGGT steps (the bf16 student, VGGT-1B teacher with its
               aggregator in bf16 and its heads fp32, 518^2 frames): one pair
               per step,
@@ -101,7 +101,7 @@ report), then runs these phases in order, one or more printed lines each:
               PIL's and gd3d's outputs, and one worker's host seconds a pair
               by stage; (b) finetune_timm_mast3r_scannetpp (fp32 student)
               through the CLI on a fabricated ScanNet++ tree of 1752x1168
-              JPEGs, --workers min(8, CPUs), 6 steps: 20 fp32 K1 at the
+              JPEGs, --workers min(8, CPUs), 4 steps: 20 fp32 K1 at the
               student's lengths and 48 at the teacher's, 12 fp32 K2, 2 K3,
               1 K4, 1 K4b, 72 K5 a step, asserted; the steady step time, the
               host-wait share of the epoch and the idle share of one more
@@ -126,12 +126,12 @@ report), then runs these phases in order, one or more printed lines each:
               launches at N = 4097 a frame, seconds a frame by stage, RANSAC
               iterations, frames/s, peak memory; (d) the FiT3D harness's
               compare with run_pose (refine=False asserted) on a smaller
-              tree of the same kind (FIT3D_TREE: 8 bank frames, 2 tests); (e) the DUSt3R
+              tree of the same kind (FIT3D_TREE: 4 bank frames, 1 test); (e) the DUSt3R
               tracker on 4 frames of 336x512: 48 K1 and 72 K5 a pair
               forward, tracks against the plain twins' (TRACK_EQUAL_SHARE).
 
   9. surface gd3d's step options, TensorBoard and data-parallel training
-              (check_surface): (a) three MASt3R steps in bench.py's bf16
+              (check_surface): (a) two MASt3R steps in bench.py's bf16
               envelope (bf16 student with bf16_stream, teacher_dtype
               bfloat16): 48 bf16 K1 and 72 bf16 K5 launches a step at the
               CroCo length 672, no fp32 K1 there, and the bf16 teacher's
@@ -178,14 +178,14 @@ report), then runs these phases in order, one or more printed lines each:
               the DUSt3R fallback live, 20 steps of each stage (SGA_TOL, poses
               and points in the MST root's frame); (c)
               gd3d_torch.cli.align.main --sparse-ga --ply --html at the CLI's
-              defaults (500 + 500 steps, subsample 8) on the align phase's 4
+              subsample 8 (SGA_CLI_STEPS = 200 + 200 steps) on the align phase's 4
               windows: its launches exactly one teacher call's (the 6 pairs in
               one chunk), scene.npz's keys and shapes, the teacher's and each
               stage's seconds and ms a step, the idle share of 20 + 20
               profiled steps.
  12. stereoflow CroCo-Stereo / CroCo-Flow (check_stereoflow): (a)
               gd3d_torch.cli.stereoflow.main train at full width (CroCo v2
-              ViT-L encoder, Base decoder, DPT; batch 2) for 3 steps of each
+              ViT-L encoder, Base decoder, DPT; batch 2) for 2 steps of each
               task on a generic tree it writes (PNG pairs, PFM disparities
               with +inf holes, .flo flows), from a seeded init file: 36 fp32
               K1, 36 fp32 K2, 48 K5 forward and 48 K5 backward a step at the
@@ -194,7 +194,7 @@ report), then runs these phases in order, one or more printed lines each:
               step profiled (each kernel's share); (b) one AdamW step of a
               small model (head dim 64) on the card against the CPU: the loss
               (SF_LOSS_TOL), the gradients, AdamW's moments and the weights
-              (SF_STATE_TOL); (c) eval on 2 pairs of a KITTI 2015 tree at
+              (SF_STATE_TOL); (c) eval on 1 pair of a KITTI 2015 tree at
               375x1242 (8 tiles a pair in one forward) and predict on one:
               the files, their shapes, the launches.
  13. pretrain CroCo and MASt3R pretraining (check_pretrain): (a) fp32 K1
@@ -205,13 +205,13 @@ report), then runs these phases in order, one or more printed lines each:
               positions), in the kernels phase's format; (b)
               gd3d_torch.cli.pretrain.main --objective croco --export-dust3r
               at full width (CroCo v2 ViT-L/16 encoder, Base decoder; 224^2,
-              batch 16, mask 0.9), 3 steps on procedural pairs: 60 K1, 60 K2,
+              batch 16, mask 0.9), 2 steps on procedural pairs: 60 K1, 60 K2,
               72 K5 forward and 72 backward a step (24 K1 at N = 20, 36 at
               196), finite losses, every trained tensor moved from its
               weights before step 0 (the CLI's on_start hook keeps them and
               sets the counts to 0), step time, peak memory, then one more
               step profiled; (c) --objective mast3r --init-trunk on (b)'s
-              dust3r_trunk.npz at 512^2, batch 2, 3 steps (48, 48, 72, 72 a
+              dust3r_trunk.npz at 512^2, batch 2, 2 steps (48, 48, 72, 72 a
               step at N = 1024), the weights before step 0 holding the
               trunk bit for bit, the heads' last conv face-forwarded on
               step 0's batch (pt_face_forward: flax's init overflows
@@ -222,9 +222,25 @@ report), then runs these phases in order, one or more printed lines each:
               on the card against the CPU (PT_LOSS_TOL, PT_STATE_TOL,
               RESUME_TOL on the weights), and through the CLI a straight 4-step run
               against a 2 + 2 resumed one.
+ 14. datagen  dataset creation (check_datagen), on the host as gd3d's runs:
+              (a) gd3d_torch.cli.render.main, 2 procedural objects x 6 views
+              at 512^2, and the fixture .glb (fixtures.write_glb) x 4 views
+              with Lambert shading and shadow maps, --workers 2: every PNG
+              decoded, each tree's digests against the committed ones of
+              gd3d's (gd3d_torch/data/testdata/datagen_digests.json), seconds
+              a view; (b) gd3d_torch.cli.preprocess.main on each fabricated
+              raw tree (fixtures.write_raw_tree: Co3D-v2, WildRGB-D,
+              ScanNet++, ARKitScenes, BlendedMVS, StaticThings3D, Waymo) and
+              the Habitat generator: the digests, the tree read by the port's
+              reader for its dataset and one pretraining batch drawn from it
+              (views_pretrain_batch), seconds a frame; MegaDepth raises a
+              ValueError naming its .h5; (c) gd3d_torch.cli.train at full
+              width, --config finetune_timm_mast3r_objaverse, 2 steps on
+              (a)'s tree (--data-root): finite losses, its K1-K5 launches.
 
 Then one JSON line of the kernels (launches: the steps, train, eval, data,
-pose, surface, align, sparse_ga, stereoflow and pretrain phases' runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
+pose, surface, align, sparse_ga, stereoflow, pretrain and datagen phases'
+runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
 phase fails. The kernels and agree phases compare fp32 results too, so they
 run without TF32; the steps run with PyTorch's defaults (the teachers turn TF32
 off themselves).
@@ -1726,7 +1742,7 @@ def check_data(dev) -> dict:
     cv2's, PIL's and gd3d's outputs, and one worker's host seconds a pair
     by stage; (b) the default config, finetune_timm_mast3r_scannetpp with its
     fp32 student, through the CLI on a fabricated ScanNet++ tree of the
-    1752x1168 fixture with --workers min(8, CPUs), 6 steps: its launches a
+    1752x1168 fixture with --workers min(8, CPUs), 4 steps: its launches a
     step exactly, the steady step time, epoch/host_wait_s over epoch/wall_s,
     and the device's idle share over one more epoch of the loop under the
     profiler; (c) finetune_timm_me_objaverse (2 steps) and
@@ -1774,7 +1790,7 @@ def check_data(dev) -> dict:
         real = ["--data-root", str(root), "--epochs", "1", "--workers", str(workers)]
         runs = [
             ("data ScanNet++ MASt3R", ["--config", "finetune_timm_mast3r_scannetpp",
-                                       "--steps-per-epoch", "6", *real],
+                                       "--steps-per-epoch", "4", *real],
              (("K1", fp32, (4161, 673), 20), ("K2", fp32, (4161, 673), 12),
               ("K1", fp32, (672,), 48)), every, SCANNETPP_EXACT, True),
             ("data Objaverse ME", ["--config", "finetune_timm_me_objaverse",
@@ -1823,11 +1839,11 @@ def check_data(dev) -> dict:
 # and a template bank of 40 frames x 3200 keypoints (128 000 rows, sampled to
 # gd3d's cap of 120 000); every frame 512^2, resized to 1024^2, so the fp32
 # K1 runs at N = 1 + 64^2 = 4097, 12 launches a frame.
-POSE_TREE = dict(size=(512, 512), known_kps=2000, bank_frames=40, bank_kps=3200, bank_tests=3)
+POSE_TREE = dict(size=(512, 512), known_kps=2000, bank_frames=40, bank_kps=3200, bank_tests=1)
 POSE_N = 4097
 # FiT3D's compare runs --pose twice (two students): on a smaller tree of the
 # same kind, for the script's time (the --pose run keeps POSE_TREE)
-FIT3D_TREE = dict(size=(512, 512), known_kps=2000, bank_frames=8, bank_kps=3200, bank_tests=2)
+FIT3D_TREE = dict(size=(512, 512), known_kps=2000, bank_frames=4, bank_kps=3200, bank_tests=1)
 # recorded PnP scenes left out here for the script's time: the slowest on
 # the host (cv2's RANSAC runs 2500-10000 iterations there), beyond scenes 14
 # and 32, which keep two 10000-iteration calls; tests/test_torch_pnp.py holds
@@ -2345,7 +2361,7 @@ def check_multihost_cli(dev, plain_steps) -> dict:
 
 
 def check_surface(dev, vggt_plain_steps) -> dict:
-    """The surface phase: (a) three MASt3R steps in bench.py's bf16
+    """The surface phase: (a) two MASt3R steps in bench.py's bf16
     envelope (bf16 student with bf16_stream, bf16 teacher) with the bf16 K1
     and K5 launches at the CroCo shapes asserted and the bf16 teacher held to
     the fp32 one; (b) remat against the plain default-config step; (c) the
@@ -2368,7 +2384,7 @@ def check_surface(dev, vggt_plain_steps) -> dict:
     croco = (672,)
     add(run_steps("MASt3R bf16 envelope",
                   lambda d: mast3r_setup(d, teacher_dtype="bfloat16", bf16_stream=True), dev,
-                  n_steps=3, check_teacher=check_bf16_teacher,
+                  n_steps=2, check_teacher=check_bf16_teacher,
                   expect=(("K1", "bfloat16", croco, 48), ("K5", "bfloat16", croco, 72),
                           ("K1", "float32", croco, 0))))
     add(check_remat(dev))
@@ -2403,7 +2419,7 @@ ALIGN_FOCAL = 400.0
 ALIGN_DEG = 2.0
 ALIGN_FOCAL_RTOL = 0.1
 ALIGN_NOISE = 0.03
-ALIGN_AGREE_ITERS = 50
+ALIGN_AGREE_ITERS = 20
 ALIGN_LOSS_TOL = 1e-3
 ALIGN_OUT_TOL = 1e-2
 # the frames: 1440x1080 windows of the committed 1752x1168 DSLR JPEG,
@@ -2844,9 +2860,11 @@ def check_align(dev) -> dict:
 # largest value, the bound of tests/test_torch_sparse_ga.py's 20-step parity
 # with gd3d (measured 1.1e-5 there) widened by the card's other summation
 # order. (c) The align CLI with --sparse-ga at full width on the align
-# phase's 4 windows, its defaults (500 + 500 steps, subsample 8).
+# phase's 4 windows, at subsample 8 (its default) and SGA_CLI_STEPS steps
+# of each stage (its default 500, cut for the script's time).
 SGA_TOL = 1e-3
 SGA_STEPS = 20
+SGA_CLI_STEPS = 200
 
 
 def sga_synthetic(n=3, H=48, W=48, f=30.0, conf=10.0, n_corres=48, seed=0):
@@ -3052,7 +3070,8 @@ def check_sparse_ga(dev) -> dict:
         del images
         out = root / "sga"
         res, c, c_by, wall, peak = _counted_run(lambda: align_cli.main(
-            ["--images", *views, "--output", str(out), "--sparse-ga", "--ply", "--html"],
+            ["--images", *views, "--output", str(out), "--sparse-ga", "--ga-niter1",
+             str(SGA_CLI_STEPS), "--ga-niter2", str(SGA_CLI_STEPS), "--ply", "--html"],
             teacher=teacher))
         st = res["stats"]
         n, (H, W) = ALIGN_VIEWS, ALIGN_HW
@@ -3067,7 +3086,8 @@ def check_sparse_ga(dev) -> dict:
         files_ok = all((out / f).stat().st_size > 0 for f in ("pointcloud.ply", "scene.html"))
         ok = shapes == want and finite and launches_ok and files_ok
         losses = res["res"]["losses"]
-        log(f"sparse_ga: CLI --sparse-ga (500 + 500 steps, subsample 8) on {n} views of "
+        log(f"sparse_ga: CLI --sparse-ga ({SGA_CLI_STEPS} + {SGA_CLI_STEPS} steps, subsample 8) "
+            f"on {n} views of "
             f"{H}x{W}: {st['pairs']} pairs, {st['correspondences']} correspondences; teacher "
             f"call {st['teacher_s']:.3f} s, coarse {st['coarse_s']:.3f} s "
             f"({st['coarse_ms_per_iter']:.3f} ms a step), fine {st['fine_s']:.3f} s "
@@ -3097,7 +3117,8 @@ def check_sparse_ga(dev) -> dict:
 # attentions (the same) and 12 cross attentions (K5 only: their product is a
 # plain einsum, as in gd3d)
 SF_STEP = {"K1": 36, "K2": 36, "K5 fwd": 48, "K5 bwd": 48}
-SF_STEPS = 3
+SF_STEPS = 2
+SF_EVAL_PAIRS = 1  # KITTI pairs the eval CLI runs on
 # the card against the CPU on a small model the kernels take (head dim 64;
 # --tiny's widths, 16 and 8, are not kernel widths and raise on the card):
 # the train phase's tolerances, fp32 loss 1e-4 relative, the gradients, the
@@ -3304,7 +3325,7 @@ def check_stereoflow_agree(dev, root, gpu: str) -> None:
 
 
 def check_stereoflow_eval(dev, root, gpu: str) -> dict:
-    """(c) eval on 2 pairs of a KITTI 2015 tree at 375x1242 (8 tiles a
+    """(c) eval on SF_EVAL_PAIRS pairs of a KITTI 2015 tree at 375x1242 (8 tiles a
     pair, one forward each) and predict on one pair: the files, their
     shapes, finite values, the launches (a step's forward ones a pair, 36
     K1 and 48 K5; no backward). Returns the launches."""
@@ -3316,7 +3337,7 @@ def check_stereoflow_eval(dev, root, gpu: str) -> dict:
     from gd3d_torch.cli import stereoflow as sf_cli
     from gd3d_torch.data.flowio import read_pfm
 
-    write_kitti_tree(root / "kitti")
+    write_kitti_tree(root / "kitti", n=SF_EVAL_PAIRS)
     ckpt = str(root / "run_stereo" / "params_final.npz")
     out = root / "eval"
     res, c, _, wall, peak = _counted_run(lambda: sf_cli.main(
@@ -3325,17 +3346,18 @@ def check_stereoflow_eval(dev, root, gpu: str) -> dict:
     got = sf_launches(c)
     H, W = SF_KITTI_HW
     metrics = _json.loads((out / "metrics.json").read_text())
-    preds = [np.load(out / f"training_image_2_{i:06d}_10_pred.npy") for i in range(2)]
-    pngs = [(out / f"training_image_2_{i:06d}_10_pred.png").stat().st_size for i in range(2)]
+    n = SF_EVAL_PAIRS
+    preds = [np.load(out / f"training_image_2_{i:06d}_10_pred.npy") for i in range(n)]
+    pngs = [(out / f"training_image_2_{i:06d}_10_pred.png").stat().st_size for i in range(n)]
     # one forward a pair (all 8 tiles in one batch), no backward
-    want = {"K1": 2 * SF_STEP["K1"], "K2": 0, "K5 fwd": 2 * SF_STEP["K5 fwd"], "K5 bwd": 0,
+    want = {"K1": n * SF_STEP["K1"], "K2": 0, "K5 fwd": n * SF_STEP["K5 fwd"], "K5 bwd": 0,
             "other": 0}
     launches_ok = got == want
     ok = (launches_ok and sorted(metrics) == ["L1err", "bad@0.5", "bad@1.0", "bad@2.0", "bad@3.0"]
           and all(math.isfinite(v) for v in metrics.values())
           and all(p.shape == (H, W, 1) and np.isfinite(p).all() for p in preds) and min(pngs) > 0)
-    log(f"stereoflow: eval 2 KITTI pairs of {H}x{W} (8 tiles a pair, overlap 0.7): wall "
-        f"{wall:.2f} s ({wall / 2:.3f} s a pair), peak_mem_gib {peak:.3f}; metrics "
+    log(f"stereoflow: eval {n} KITTI pair(s) of {H}x{W} (8 tiles a pair, overlap 0.7): wall "
+        f"{wall:.2f} s ({wall / n:.3f} s a pair), peak_mem_gib {peak:.3f}; metrics "
         f"{ {k: round(v, 4) for k, v in metrics.items()} }; launches {got} (want {want}) "
         f"{'OK' if ok else 'FAIL'} [{gpu}]")
     if not ok:
@@ -3387,7 +3409,7 @@ def check_stereoflow(dev) -> dict:
 # the pretraining phase: launches a step at each objective's lengths, the
 # CroCo net at 224^2 with mask 0.9 (20 visible tokens of 196) and batch 16,
 # MASt3R at 512^2 (1024 tokens) with batch 2 (its 2B = 4 sequences)
-PT_STEPS = 3
+PT_STEPS = 2
 PT_STEP = {"croco": {"K1": 60, "K2": 60, "K5 fwd": 72, "K5 bwd": 72},
            "mast3r": {"K1": 48, "K2": 48, "K5 fwd": 72, "K5 bwd": 72}}
 PT_BY_LENGTH = {  # (K1 = K2, K5 forward + backward) launches a step by length
@@ -3717,6 +3739,124 @@ def check_pretrain(dev) -> dict:
     return counts
 
 
+# The datagen phase: the objaverse MASt3R path's flash launches a step on
+# the rendered 512^2 tree (the train phase's synthetic run has the same
+# lengths)
+DATAGEN_MAST3R = (("K1", "float32", (4801, 769), 20), ("K2", "float32", (4801, 769), 12),
+                  ("K1", "float32", (768,), 48))
+
+
+def check_datagen(dev) -> dict:
+    """The datagen phase (see the module docstring, 14): the render and
+    preprocessing CLIs on the host, their trees against the committed
+    digests of gd3d's, each preprocessed tree through its reader, and 2
+    full-width objaverse MASt3R steps on the rendered tree. Returns the
+    launches of (c)."""
+    import contextlib
+    import io
+    import multiprocessing
+    import os
+    import shutil
+    import tempfile
+    from concurrent.futures import ProcessPoolExecutor
+    from pathlib import Path
+
+    import numpy as np
+
+    from gd3d_torch.cli import preprocess, render
+    from gd3d_torch.data import fixtures
+    from gd3d_torch.data import stereo_views as sv
+
+    gpu = gpu_line()
+    ref = json.loads(fixtures.DATAGEN_DIGESTS.read_text())
+    bad, trees = [], []
+
+    quiet = contextlib.redirect_stdout(io.StringIO())
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        glb_root = tmp / "assets"
+        fixtures.write_glb(glb_root / fixtures.GLB_NAME)
+        for run in fixtures.RENDER_RUNS:
+            t0 = time.perf_counter()
+            with quiet:
+                poses = render.main(fixtures.render_argv(run, glb_root, tmp / "render" / run))
+            dt = time.perf_counter() - t0
+            objects = [d for d in (tmp / "render" / run).iterdir() if d.is_dir()]
+            views = len(objects) * len(poses)
+            log(f"datagen: render {run}: {len(objects)} objects x {len(poses)} views at 512^2 in "
+                f"{dt:.3f} s, {dt / views:.4f} host s a view (the card's machine; {gpu})")
+            trees.append(("render", run, tmp / "render" / run))
+        for dataset in fixtures.RAW_DATASETS + ("habitat",):
+            spec = None if dataset == "habitat" else fixtures.write_raw_tree(
+                dataset, tmp / "raw" / dataset)
+            out = tmp / "pre" / dataset
+            t0 = time.perf_counter()
+            try:
+                with quiet:
+                    preprocess.main(fixtures.preprocess_argv(dataset, spec, out))
+            except ValueError as e:
+                refused = dataset == "megadepth" and ".h5" in str(e)
+                log(f"datagen: preprocess {dataset} refused: {e} "
+                    f"{'OK' if refused else 'FAIL'}")
+                if not refused:
+                    bad.append(dataset)
+                continue
+            dt = time.perf_counter() - t0
+            if dataset == "megadepth":
+                log("datagen: preprocess megadepth did not refuse its .h5 FAIL")
+                bad.append(dataset)
+                continue
+            frames = sum(1 for p in out.rglob("*") if p.suffix.lower() in (".jpg", ".jpeg"))
+            log(f"datagen: preprocess {dataset}: {frames} frames in {dt:.3f} s, "
+                f"{dt / frames:.4f} host s a frame ({gpu})")
+            trees.append(("preprocess", dataset, out))
+            cls, kw = fixtures.TREE_VIEWS[dataset]
+            ds = getattr(sv, cls)(str(out), resolution=(224, 224), seed=1, **kw)
+            batch = sv.views_pretrain_batch(ds, [0], np.random.RandomState(0), n_corres=256)
+            finite = all(np.isfinite(np.asarray(batch[k], np.float64)).all()
+                         for k in ("img1", "img2"))
+            log(f"datagen: {cls} on it: {len(ds)} pairs, a batch of img1 "
+                f"{tuple(batch['img1'].shape)}, valid correspondences "
+                f"{int(np.asarray(batch['gt1']['valid_corres']).sum())}/256, finite {finite} "
+                f"{'OK' if finite and len(ds) else 'FAIL'}")
+            if not (finite and len(ds)):
+                bad.append(f"{dataset} reader")
+        # every file of every tree decoded, in a pool: the JPEGs' Python
+        # entropy decode is most of the phase's host time
+        t0 = time.perf_counter()
+        workers = min(8, os.cpu_count() or 1)
+        with ProcessPoolExecutor(workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+            for kind, name, tree in trees:
+                files = fixtures.tree_files(tree)
+                got = dict(zip(files, pool.map(fixtures.file_digest, [tree / f for f in files])))
+                wrong = fixtures.mismatches(got, ref[kind][name])
+                log(f"datagen: {kind} {name}: {len(got)} files, decoded digests equal gd3d's "
+                    f"committed ones {not wrong} {'OK' if not wrong else 'FAIL ' + str(wrong[:4])}")
+                if wrong:
+                    bad.append(f"{kind} {name}")
+        log(f"datagen: every tree decoded and digested in {time.perf_counter() - t0:.2f} s "
+            f"({workers} processes)")
+        if bad:
+            raise AssertionError(f"datagen: {bad}")
+
+        root = tmp / "objaverse"
+        names = []
+        for run in fixtures.RENDER_RUNS:
+            for d in sorted(p for p in (tmp / "render" / run).iterdir() if p.is_dir()):
+                shutil.copytree(d, root / "objaverse_renderings" / d.name)
+                names.append(d.name)
+        (root / "10k.txt").write_text("\n".join(names) + "\n")
+        shutil.copyfile(tmp / "render" / "procedural" / "obj_poses.npy", root / "obj_poses.npy")
+        res = run_cli("datagen objaverse MASt3R",
+                      ["--config", "finetune_timm_mast3r_objaverse", "--data-root", str(root),
+                       "--epochs", "1", "--steps-per-epoch", "2", "--workers", "0"],
+                      tmp / "train", DATAGEN_MAST3R, tuple(REPLACES),
+                      # a few keypoints a pair on these small objects: the
+                      # intra-depth loss, the depth head's only one, is 0
+                      ("depth_diff_head.",), profile=False)
+    return res["counts"]
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -3753,7 +3893,7 @@ def main() -> int:
              lambda d: mast3r_setup(d, student_dtype="float32"), None, fp32_student),
             ("VGGT", vggt_setup, None, ()))
     for name, setup, check, expect in runs:
-        for k, n in run_steps(name, setup, dev, n_steps=3, check_teacher=check,
+        for k, n in run_steps(name, setup, dev, n_steps=2, check_teacher=check,
                               expect=expect).items():
             counts[k] += n
         torch.cuda.empty_cache()
@@ -3791,6 +3931,9 @@ def main() -> int:
     for k, n in check_pretrain(dev).items():
         counts[k] += n
     log(f"phase: pretrain done at {time.perf_counter() - t_start:.1f} s")
+    for k, n in check_datagen(dev).items():
+        counts[k] += n
+    log(f"phase: datagen done at {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

@@ -23,8 +23,8 @@ and `open_rgb` give what those calls give for the same file:
     RGBA first composited onto white (gd3d/data/images.py::_to_pil);
     `pil_rgb(png, composite=False)` is Image.open(f).convert("RGB") alone.
 
-`encode_png` writes 8- and 16-bit grey and RGB files (filter 0, one zlib
-IDAT), which both libraries read back to the array written.
+`encode_png` writes 8- and 16-bit grey, RGB and RGBA files (filter 0, one
+zlib IDAT), which both libraries read back to the array written.
 
 Scope: non-interlaced files of 8 or 16 bits a sample: grey, grey+alpha,
 RGB, RGBA and 8-bit palette images, with tRNS. Adam7 interlacing and depths
@@ -302,14 +302,15 @@ def encode_png_rgb(rgb: np.ndarray) -> bytes:
 
 
 def encode_png(img: np.ndarray) -> bytes:
-    """A PNG of a uint8 or uint16 (H, W) grey or (H, W, 3) RGB array, at
-    the array's depth: every row filter 0, one zlib IDAT at level 1."""
+    """A PNG of a uint8 or uint16 (H, W) grey, (H, W, 3) RGB or (H, W, 4)
+    RGBA array, at the array's depth: every row filter 0, one zlib IDAT at
+    level 1."""
     if img.dtype not in (np.uint8, np.uint16) or not (
-            img.ndim == 2 or (img.ndim == 3 and img.shape[2] == 3)):
-        raise ValueError(f"encode_png takes uint8 or uint16 (H, W) or (H, W, 3), got "
-                         f"{img.dtype} {img.shape}")
+            img.ndim == 2 or (img.ndim == 3 and img.shape[2] in (3, 4))):
+        raise ValueError(f"encode_png takes uint8 or uint16 (H, W), (H, W, 3) or (H, W, 4), "
+                         f"got {img.dtype} {img.shape}")
     h, w = img.shape[:2]
-    c = 1 if img.ndim == 2 else 3
+    c = 1 if img.ndim == 2 else img.shape[2]
     depth = 8 * img.dtype.itemsize
     rows = img.astype(">u2" if depth == 16 else np.uint8).reshape(h, -1).view(np.uint8)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows.reshape(h, w * c * depth // 8)],
@@ -319,6 +320,6 @@ def encode_png(img: np.ndarray) -> bytes:
         return (struct.pack(">I", len(data)) + kind + data
                 + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
-    return (SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, 0 if c == 1 else 2,
+    return (SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, {1: 0, 3: 2, 4: 6}[c],
                                                    0, 0, 0))
             + chunk(b"IDAT", zlib.compress(raw, 1)) + chunk(b"IEND", b""))

@@ -197,6 +197,24 @@ def resize_nearest_cv(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
 
 
 
+def resize_nearest_exact_cv(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """cv2.resize(img, size, interpolation=cv2.INTER_NEAREST_EXACT), size =
+    (width, height), as OpenCV 5.0.0 computes it: the source index of
+    output pixel x is int(s / 2 + s + ... + s) for s = in / out, the
+    running coordinate a float64 sum in order (Pillow's NEAREST rule for
+    8-bit images), clipped to the last pixel. Any dtype and channel count.
+    Not INTER_NEAREST (resize_nearest_cv), which floors x in / out."""
+    w, h = int(size[0]), int(size[1])
+
+    def index(n_in, n_out):
+        s = n_in / n_out
+        steps = np.full(n_out, s)
+        steps[0] = 0.0 + s * 0.5
+        return np.minimum(np.cumsum(steps).astype(np.int64), n_in - 1)
+
+    return img[index(img.shape[0], h)[:, None], index(img.shape[1], w)[None, :]]
+
+
 # ------------------------------------------------- cv2.resize, INTER_LINEAR
 _SPLIT = 134217729.0  # 2^27 + 1, Veltkamp's splitter for doubles
 

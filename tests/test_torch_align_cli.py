@@ -35,6 +35,7 @@ from gd3d_torch.cli import align, demo
 from gd3d_torch.data.fixtures import texture
 from gd3d_torch.data.png import encode_png_rgb
 from gd3d_torch.teachers.mast3r import Mast3rTeacher
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-3
 

@@ -28,6 +28,7 @@ import torch
 
 from gd3d_torch.cli import train
 from gd3d_torch.core.config import NAMED_CONFIGS
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TEACHER_KEYS = {"loss", "ap_loss", "depth_loss", "intra_depth_loss", "kl_loss", "num_kps"}
 ME_KEYS = {"loss", "ap_pos_overflow"}

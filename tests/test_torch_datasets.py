@@ -37,6 +37,7 @@ from gd3d.data import images as gimages  # noqa: E402
 from gd3d.data import objaverse as gobj  # noqa: E402
 from gd3d.data import scannetpp as gscan  # noqa: E402
 from gd3d_torch.data import fixtures, images, objaverse, pipeline, scannetpp  # noqa: E402
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TESTDATA = fixtures.TESTDATA
 

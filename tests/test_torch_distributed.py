@@ -58,6 +58,7 @@ from gd3d_torch.models.croco import CrocoConfig
 from gd3d_torch.models.mast3r import Mast3rConfig
 from gd3d_torch.teachers.mast3r import Mast3rTeacher
 from torch_dist_worker import run_rank
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 GLOBAL_B = 4
 SPAWN_TIMEOUT_S = 300

@@ -12,7 +12,10 @@ RANSAC), and the reconstruction CLIs run at --tiny on a fabricated
 two-frame tree: align (--niter 2, dense, with the COLMAP exports), then
 localize against its scene.npz; then the pretraining CLI prints its --help
 and trains one tiny CPU step of each objective, on procedural pairs and
-(mast3r) on a render tree written with the port's PNG encoder. The CLI
+(mast3r) on a render tree written with the port's PNG encoder; then the
+dataset-creation CLIs run with h5py absent too: the render CLI (one object,
+two 64^2 views, procedural and from the fixture .glb) and the preprocessing
+CLI on fabricated Co3D-v2 and Waymo raw trees. The CLI
 modules import no torch at their top level, which their spawned decode
 processes re-run, and neither do the data modules a worker imports."""
 import os
@@ -26,7 +29,7 @@ SCRIPT = textwrap.dedent("""
     import importlib, pkgutil, sys, tempfile
 
     BLOCKED = ("jax", "jaxlib", "gd3d", "flax", "optax", "orbax", "PIL", "cv2", "pandas",
-               "torchvision", "timm")
+               "torchvision", "timm", "h5py")
     for name in BLOCKED:
         sys.modules[name] = None
     import gd3d_torch
@@ -41,7 +44,10 @@ SCRIPT = textwrap.dedent("""
     for m in ("onepose", "pnp", "fit3d", "dust3r_tracker"):
         assert f"gd3d_torch.eval.{m}" in names, m
     for m in ("align", "tsdf", "crops", "visloc", "colmap_export", "colmap_db",
-              "utils.html_viewer", "data.scene_graph", "cli.align", "cli.localize", "cli.demo"):
+              "utils.html_viewer", "data.scene_graph", "cli.align", "cli.localize", "cli.demo",
+              "cli.render", "cli.preprocess", "data.glb", "data.jpeg_encode", "data.undistort",
+              "data.preprocess_habitat", "data.preprocess_scannetpp",
+              "data.preprocess_arkitscenes", "data.preprocess_mvs", "data.preprocess_waymo"):
         assert f"gd3d_torch.{m}" in names, m
     from gd3d_torch.cli import train
     with tempfile.TemporaryDirectory() as out:
@@ -61,6 +67,7 @@ SCRIPT = textwrap.dedent("""
         assert (res["out_dir"] / "pose_estimation.csv").exists()
         assert res["tables"]["pose"].columns["threshold_1"][0] == 1.0
     import numpy as np
+    import os
     from gd3d_torch.cli import align, localize
     from gd3d_torch.data.png import encode_png_rgb
     with tempfile.TemporaryDirectory() as root:
@@ -94,7 +101,6 @@ SCRIPT = textwrap.dedent("""
         K = DEFAULT_INTRINSIC * (96 / 512.0)
         K[2, 2] = 1.0
         obj = procedural_object(np.random.RandomState(0))
-        import os
         os.makedirs(root + "/obj")
         for i, E in enumerate(poses):
             rgb, depth, mask = render_mesh(*obj, E, K, 96)
@@ -107,6 +113,20 @@ SCRIPT = textwrap.dedent("""
                                  "--device", "cpu", "--steps", "1", "--batch", "2",
                                  "--corres", "16", *data])
             assert np.isfinite(res["records"][0]["loss"])
+    from gd3d_torch.cli import preprocess, render
+    with tempfile.TemporaryDirectory() as root:
+        fixtures.write_glb(root + "/glb/" + fixtures.GLB_NAME)
+        for extra in ([], ["--glb-root", root + "/glb"]):
+            poses = render.main(["--num-objects", "1", "--views", "2", "--size", "64",
+                                 "--output", root + "/render", *extra])
+            assert poses.shape == (2, 4, 4)
+        assert os.path.exists(root + "/render/asset/mask_000001.png")
+        assert os.path.exists(root + "/render/obj_00000/color_000001.png")
+        for dataset in ("co3d", "waymo"):
+            spec = fixtures.write_raw_tree(dataset, f"{root}/{dataset}_raw")
+            preprocess.main(fixtures.preprocess_argv(dataset, spec, f"{root}/{dataset}_out"))
+        assert os.path.exists(root + "/co3d_out/selected_seqs_train.json")
+        assert os.path.exists(root + "/waymo_out/waymo_pairs.npz")
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
     assert not leaked, leaked
@@ -127,7 +147,10 @@ def test_cli_modules_import_without_torch():
     readers it calls)."""
     script = ("import sys, gd3d_torch.cli.evaluate, gd3d_torch.cli.train, "
               "gd3d_torch.cli.align, gd3d_torch.cli.localize, gd3d_torch.cli.demo, "
-              "gd3d_torch.cli.pretrain, "
+              "gd3d_torch.cli.pretrain, gd3d_torch.cli.render, gd3d_torch.cli.preprocess, "
+              "gd3d_torch.data.preprocess_scannetpp, gd3d_torch.data.preprocess_waymo, "
+              "gd3d_torch.data.preprocess_mvs, gd3d_torch.data.preprocess_arkitscenes, "
+              "gd3d_torch.data.preprocess_habitat, gd3d_torch.data.glb, "
               "gd3d_torch.eval.images, gd3d_torch.eval.pnp, gd3d_torch.data.pipeline, "
               "gd3d_torch.data.objaverse, "
               "gd3d_torch.data.scannetpp, gd3d_torch.data.fixtures; "

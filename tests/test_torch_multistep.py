@@ -56,6 +56,7 @@ from gd3d_torch.models.vggt.config import VggtConfig
 from gd3d_torch.models.vit import init_params_
 from gd3d_torch.teachers.mast3r import Mast3rTeacher
 from gd3d_torch.teachers.vggt import VggtTeacher, bias_params_for_live_keypoints
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 STUDENT_KW = dict(embed_dim=32, depth=8, num_heads=2, patch_size=16, pretrain_img_size=32,
                   lora_start_block=4, use_adapters=True, adapter_bottleneck=8,

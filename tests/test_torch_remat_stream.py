@@ -41,6 +41,7 @@ from gd3d_torch.distill.train_state import make_optimizer
 from gd3d_torch.models.student import Student, split_params
 from test_torch_mast3r_bf16 import shared  # noqa: F401  (the fixture)
 from test_torch_step import LOSSES, STUDENT_KW, _np
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 @pytest.fixture(scope="module")

@@ -38,6 +38,7 @@ from gd3d_torch.data.png import encode_png_rgb
 from gd3d_torch.models.stereoflow import StereoFlow
 from gd3d_torch.models.vit import init_params_
 from tests.test_torch_align_cli import gd3d_cli, inputs  # noqa: F401 (fixtures)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TOL = 1e-4
 # a random tiny teacher's sparse scene is degenerate (points behind the

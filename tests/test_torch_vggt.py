@@ -39,6 +39,7 @@ from gd3d_torch.models.vggt.model import Vggt
 from gd3d_torch.models.vggt.track import bilinear_sample_zero
 from gd3d_torch.ops.geometry import coview_masks
 from gd3d_torch.ops.nms import sample_keypoints_nms
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY_KW = dict(img_size=28, patch_size=14, embed_dim=32, depth=2, num_heads=2,
                num_register_tokens=4, dino_depth=2, dino_num_heads=2, camera_trunk_depth=1,

@@ -57,6 +57,7 @@ from gd3d_torch.models.student import Student, split_params
 from gd3d_torch.models.vggt.config import VggtConfig
 from gd3d_torch.teachers.mast3r import Mast3rTeacher
 from gd3d_torch.teachers.vggt import VggtTeacher, bias_params_for_live_keypoints
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 TINY_KW = dict(img_size=28, patch_size=14, embed_dim=32, depth=2, num_heads=2,
                num_register_tokens=4, dino_depth=2, dino_num_heads=2, camera_trunk_depth=1,

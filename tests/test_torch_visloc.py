@@ -26,6 +26,7 @@ from gd3d_torch.crops import select_crop_pairs
 from gd3d_torch.teachers.mast3r import Mast3rTeacher
 from gd3d_torch.visloc import fine_match_crops, solve_localization
 from tests.test_torch_align_cli import gd3d_cli, inputs  # noqa: F401 (fixtures)
+from tests.torch_threads import one_torch_thread  # noqa: F401 (autouse)
 
 
 def _rotmat(axis, angle):
