@@ -28,7 +28,13 @@ report), then runs these phases in order, one or more printed lines each:
               training shapes, and K4 and K4b at
               the MASt3R keypoint count, run twice and must give the same
               bits; K5 on one tensor and on each main-path layer's q and k in
-              one launch;
+              one launch; K1 and K2 at head dims 16 and 8 in both dtypes (the
+              --tiny stereo model, zero-padded to 64 by the wrappers); one
+              view off 16 bytes each for K1, K2, K3 and K5 (the wrappers copy
+              it); K4 and K4b at a depth-head width of 48. The build line
+              before it lists the bf16 flash kernels on TMA and wgmma
+              (*_sm90_kernel) with their registers, static shared memory and
+              spills;
   2. steps    two full-width MASt3R distillation steps (ViT-B/16 bf16
               student, MASt3R ViT-L/Base-decoder fp32 teacher, 336x512
               teacher and 512^2 student frames), two more with the
@@ -194,9 +200,11 @@ report), then runs these phases in order, one or more printed lines each:
               step profiled (each kernel's share); (b) one AdamW step of a
               small model (head dim 64) on the card against the CPU: the loss
               (SF_LOSS_TOL), the gradients, AdamW's moments and the weights
-              (SF_STATE_TOL); (c) eval on 1 pair of a KITTI 2015 tree at
-              375x1242 (8 tiles a pair in one forward) and predict on one:
-              the files, their shapes, the launches.
+              (SF_STATE_TOL); and two steps of the CLI's train --tiny (head
+              dims 16 and 8) on the card against the CPU (the same bounds on
+              the loss, the moments and the weights); (c) eval on 1 pair of
+              a KITTI 2015 tree at 375x1242 (8 tiles a pair in one forward)
+              and predict on one: the files, their shapes, the launches.
  13. pretrain CroCo and MASt3R pretraining (check_pretrain): (a) fp32 K1
               and K2 at the pretraining shapes, (16,20,16,64) (the CroCo
               net's masked encoder: 20 visible tokens of 196, under one
@@ -240,8 +248,11 @@ report), then runs these phases in order, one or more printed lines each:
 
 Then one JSON line of the kernels (launches: the steps, train, eval, data,
 pose, surface, align, sparse_ga, stereoflow, pretrain and datagen phases'
-runs together), the card line, and last the JSON result line. Exits non-zero, printing no result, without a CUDA device or if any
-phase fails. The kernels and agree phases compare fp32 results too, so they
+runs together; "K2 bf16", the bf16 K2 at the student's main pass beside the
+fp32 K2 entry, counts the bf16 K2 launches of the steps phase and of the
+surface phase's step runs), the card line, and last the JSON result line.
+Exits non-zero, printing no result, without a CUDA device or if any phase
+fails. The kernels and agree phases compare fp32 results too, so they
 run without TF32; the steps run with PyTorch's defaults (the teachers turn TF32
 off themselves).
 """
@@ -254,11 +265,18 @@ import sys
 import time
 
 # id -> (name, source, TPU kernel it replaces)
+# K1's entry holds its designated case, bf16 at the student's main pass
+# (flash_fwd_sm90.cu; fp32 and head dim 128 run flash_fwd.cu); K2's the fp32
+# one and "K2 bf16" the bf16 one at the same shape, whose launches are the
+# bf16 K2 launches of the step runs (run_steps: the steps phase and the
+# surface phase's bf16 envelope), also counted in K2's
 REPLACES = {
-    "K1": ("flash_attention_fwd", "gd3d_torch/csrc/flash_fwd.cu",
+    "K1": ("flash_attention_fwd", "gd3d_torch/csrc/flash_fwd_sm90.cu",
            "gd3d/ops/attention.py:180"),
     "K2": ("flash_attention_bwd_fused", "gd3d_torch/csrc/flash_bwd.cu",
            "gd3d/kernels/flash_bwd_fused.py:262"),
+    "K2 bf16": ("flash_attention_bwd_fused", "gd3d_torch/csrc/flash_bwd_sm90.cu",
+                "gd3d/kernels/flash_bwd_fused.py:262"),
     "K3": ("masked_softmax_kl_rows", "gd3d_torch/csrc/cost_kl.cu",
            "gd3d/kernels/cost_kl.py:59"),
     "K4": ("pairwise_rank_fwd", "gd3d_torch/csrc/pairwise_rank.cu",
@@ -267,6 +285,9 @@ REPLACES = {
             "gd3d/kernels/pairwise_rank.py:309"),
     "K5": ("rope2d_fwd", "gd3d_torch/csrc/rope2d.cu", "gd3d/kernels/rope2d.py:58"),
 }
+# the kernels' launch counters (gd3d_torch.kernels.launch_counts), which a
+# run that must launch every kernel checks
+KERNELS = tuple(k for k in REPLACES if k != "K2 bf16")
 # Tolerance: max abs error <= TOL[dtype] * max(1, max |plain|). fp32: the
 # kernels and the plain twins sum in different orders (<= 6401 terms);
 # bf16: both round an fp32 result to bf16 (8 mantissa bits), so one ulp of
@@ -337,6 +358,31 @@ def bound(nbytes: float, ops: float, peak: str):
     return (max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations")
 
 
+def sm90_resources(report: str) -> list:
+    """From nvcc's ptxas report, one line for each bf16 flash kernel on
+    Hopper's machinery (name ending in _sm90_kernel, with its number of
+    consumer warpgroups): registers, static shared memory (the tiles are
+    dynamic shared memory, which ptxas does not print) and spills. ptxas
+    counts the registers a thread has at launch; setmaxnreg then moves them
+    from the producer warpgroup (24) to the consumers (232 or 240)."""
+    import re
+
+    lines, name, spill = [], None, ""
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '\w*?(flash_\w+_sm90_kernel)(?:ILi(\d)E)?", line)
+        if m:
+            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            continue
+        if name and "spill" in line:
+            spill = line.strip()
+        elif name and "Used" in line:
+            lines.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+        elif "Compiling entry function" in line:
+            name = None
+    return lines
+
+
 def max_err(got, want) -> tuple[float, float]:
     got, want = got.float(), want.float()
     return float((got - want).abs().max()), float(want.abs().max())
@@ -354,7 +400,7 @@ class KernelReport:
         self.ok = True
 
     def check(self, kern, where, pairs, run, run_plain, nbytes, ops, dtype, iters,
-              run_library=None, designated=False, peak=None):
+              run_library=None, designated=False, peak=None, entry=None):
         import torch
 
         from gd3d_torch.kernels.timing import time_ms
@@ -383,7 +429,7 @@ class KernelReport:
             f"tflops={ops / ms / 1e9:.2f} bound_share={b_ms / ms:.3f}{also}")
         self.ok &= line_ok
         if designated:
-            self.results[kern].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+            self.results[entry or kern].update(max_abs_err=worst, ms=ms, plain_ms=plain_ms,
                                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
@@ -441,7 +487,7 @@ def attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated, repeat=False
             ops=10.0 * B * H * N * N * D, dtype=dname, iters=iters,
             run_library=lambda: torch.autograd.grad(out, (ql, kl, vl), doh,
                                                     retain_graph=True),
-            designated=designated and dt == torch.float32,  # the JSON line's K2: fp32
+            designated=designated, entry="K2" if dt == torch.float32 else "K2 bf16",
             peak="tf32x3" if dt == torch.float32 else None)
 
 
@@ -472,6 +518,72 @@ def rope_pair_case(rep, g, dev, where, B, N, H, dt, kind, qpos, kpos, designated
             nbytes=2 * (2 * B * N * H * 64 * elt + B * N * 2 * 8),
             ops=2 * 3.0 * B * N * H * 64, dtype=dname, iters=50,
             designated=designated and f0 > 0)
+
+
+def misaligned_cases(rep, g, dev) -> None:
+    """One view off 16 bytes for each kernel that reads 16-byte vectors, at
+    the student's cost-pass shape: K1 with q sliced from a projection whose
+    row step is off 16 bytes, K2 with k at an address 2 bytes off, K3 with
+    the cost map 4 bytes off the teacher map, K5 on tokens 4 bytes off. The
+    wrappers copy such a view; the results must equal the plain twins'."""
+    import torch
+
+    from gd3d_torch.kernels.cost_kl import _reference_rows, masked_softmax_kl_fwd
+    from gd3d_torch.kernels.flash_bwd_fused import (
+        flash_attention_bwd_fused, flash_attention_bwd_plain)
+    from gd3d_torch.kernels.flash_fwd import (
+        aligned_16, flash_attention_fwd, flash_attention_fwd_plain)
+    from gd3d_torch.kernels.rope2d import rope2d_fwd, rope2d_plain
+    from gd3d_torch.ops.masks import masked_patch_cost
+    from gd3d_torch.ops.rope2d import grid_positions
+
+    bf16 = torch.bfloat16
+    B, N, H, D = 2, 673, 12, 64
+    wide = torch.randn((B, N, 3 * H * D + 4), generator=g, device=dev).to(bf16)
+    q = wide[..., :3 * H * D].reshape(B, N, 3, H, D)[:, :, 0]
+    k, v, do = (torch.randn((B, N, H, D), generator=g, device=dev).to(bf16) for _ in range(3))
+    k_off = torch.empty(k.numel() + 1, dtype=bf16, device=dev)[1:].view(k.shape).copy_(k)
+    assert not aligned_16(q) and not aligned_16(k_off)
+    elt, tag = 2, f"B={B} N={N} H={H} D={D} bfloat16"
+    rep.check("K1", f"misaligned q (row step off 16 bytes) {tag}",
+              [(n, a, b, dt) for n, a, b, dt in zip(
+                  ("o", "lse"), flash_attention_fwd(q, k, v, 0.125),
+                  flash_attention_fwd_plain(q, k, v, 0.125), ("bfloat16", "float32"))],
+              lambda: flash_attention_fwd(q, k, v, 0.125),
+              lambda: flash_attention_fwd_plain(q, k, v, 0.125),
+              nbytes=4 * B * N * H * D * elt + B * H * N * 4, ops=4.0 * B * H * N * N * D,
+              dtype="bfloat16", iters=20)
+    o, lse = flash_attention_fwd_plain(q, k_off, v, 0.125)
+    di = torch.einsum("bnhd,bnhd->bhn", o.float(), do.float()).contiguous()
+    args = (q, k_off, v, lse, do, di, 0.125)
+    rep.check("K2", f"misaligned q (row step) and k (address off 2 bytes) {tag}",
+              [(n, a, b, "bfloat16") for n, a, b in zip(
+                  ("dq", "dk", "dv"), flash_attention_bwd_fused(*args),
+                  flash_attention_bwd_plain(*args))],
+              lambda: flash_attention_bwd_fused(*args), lambda: flash_attention_bwd_plain(*args),
+              nbytes=7 * B * N * H * D * elt + 2 * B * H * N * 4, ops=10.0 * B * H * N * N * D,
+              dtype="bfloat16", iters=20)
+    raw = torch.rand((1, 672, 672), generator=g, device=dev)
+    mask = torch.rand((1, 672), generator=g, device=dev) > 0.3
+    teacher_p = masked_patch_cost(raw, mask[0])
+    cost = torch.empty(672 * 672 + 1, device=dev)[1:].view(1, 672, 672).copy_(
+        torch.rand((1, 672, 672), generator=g, device=dev) * 2 - 1)
+    kept = int(mask.sum())
+    rep.check("K3", "cost map 4 bytes off the teacher map B=1 N=672 M=672 float32",
+              [("kl", masked_softmax_kl_fwd(teacher_p, cost, mask),
+                _reference_rows(teacher_p, cost, mask, 1e-8), "float32")],
+              lambda: masked_softmax_kl_fwd(teacher_p, cost, mask),
+              lambda: _reference_rows(teacher_p, cost, mask, 1e-8),
+              nbytes=(672 + kept) * 672 * 4 + 672 + 672 * 4, ops=8.0 * 672 * 672,
+              dtype="float32", iters=20)
+    x = torch.empty(2 * 672 * 16 * 64 + 1, device=dev)[1:].view(2, 672, 16, 64).copy_(
+        torch.randn((2, 672, 16, 64), generator=g, device=dev)).transpose(1, 2)
+    pos = grid_positions(21, 32, 2, device=dev)
+    rep.check("K5", "tokens 4 bytes off (B,N,H,D)=(2,672,16,64) float32",
+              [("out", rope2d_fwd(x, pos), rope2d_plain(x, pos), "float32")],
+              lambda: rope2d_fwd(x, pos), lambda: rope2d_plain(x, pos),
+              nbytes=2 * 2 * 672 * 16 * 64 * 4 + 2 * 672 * 2 * 8, ops=3.0 * 2 * 672 * 16 * 64,
+              dtype="float32", iters=20)
 
 
 def check_kernels(dev) -> dict:
@@ -538,6 +650,11 @@ def check_kernels(dev) -> dict:
         *[(kern, f"{task} {part}", B, N, H, 64, f32, False)
           for kern in ("K1", "K2") for task, N in STEREOFLOW_LENGTHS.items()
           for part, B, H in (("encoder", 4, 16), ("decoder", 2, 12))],
+        # cli.stereoflow train --tiny (64x96 crops, 24 tokens, batch 2): head
+        # dims 16 (encoder, both views) and 8 (decoder), zero-padded to 64
+        *[(kern, f"CroCo-Stereo --tiny {part}", B, 24, 2, D, dt, False)
+          for kern in ("K1", "K2") for dt in (f32, bf16)
+          for part, B, D in (("encoder", 4, 16), ("decoder", 2, 8))],
     ]
     for kern, where, B, N, H, D, dt, designated in attn_cases:
         attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated,
@@ -562,10 +679,13 @@ def check_kernels(dev) -> dict:
             nbytes=(N + kept) * M * 4 + N + N * 4, ops=8.0 * N * M, dtype="float32", iters=50,
             designated=designated)
 
-    # K4 forward and both gradient passes at each step's keypoint count
-    for N, where, designated in ((672, "MASt3R", True), (300, "VGGT", False),
-                                 (768, "objaverse MASt3R", False)):
-        h = 128
+    misaligned_cases(rep, g, dev)
+
+    # K4 forward and both gradient passes at each step's keypoint count, and
+    # at a depth-head width that is no multiple of 32 (held padded to 64)
+    for N, where, designated, h in ((672, "MASt3R", True, 128), (300, "VGGT", False, 128),
+                                    (768, "objaverse MASt3R", False, 128),
+                                    (672, "MASt3R, depth head 48 wide,", False, 48)):
         u = torch.randn((2, N, h), generator=g, device=dev) * 0.5
         head = [torch.randn(h, generator=g, device=dev) * 0.1,
                 1 + torch.randn(h, generator=g, device=dev) * 0.05,
@@ -917,7 +1037,8 @@ def run_steps(name, setup, dev, n_steps: int, check_teacher=None, expect=()) -> 
     if min(counts.values()) <= 0:
         raise AssertionError(f"{name}: a kernel of the path never launched: {counts}")
     profile_step(name, step, batch)
-    return counts
+    return {**counts, "K2 bf16": sum(c for (d, _), c in counts_by["K2"].items()
+                                     if d == "bfloat16")}
 
 
 def profile_step(name, step, batch) -> float:
@@ -1266,7 +1387,7 @@ def check_train(dev) -> dict:
     mast3r_expect = (("K1", fp32, (4801, 769), 20), ("K2", fp32, (4801, 769), 12),
                      ("K1", fp32, (768,), 48))
     vggt_expect = (("K1", fp32, (6401, 1370), 20), ("K2", fp32, (6401, 1370), 12))
-    every = tuple(REPLACES)
+    every = KERNELS
     total = {k: 0 for k in REPLACES}
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
@@ -1781,7 +1902,7 @@ def check_data(dev) -> dict:
         raise AssertionError("data: a reader disagrees with its committed digests")
 
     fp32 = "float32"
-    every = tuple(REPLACES)
+    every = KERNELS
     total = {k: 0 for k in REPLACES}
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp) / "data"
@@ -2335,7 +2456,7 @@ def check_multihost_cli(dev, plain_steps) -> dict:
                           ["--config", "finetune_timm_vggt_scannetpp", "--dev", "--tensorboard",
                            "--multihost", "--fsdp-teacher"], out,
                           (("K1", "float32", (6401, 1370), 20), ("K2", "float32", (6401, 1370), 12)),
-                          tuple(REPLACES), ("depth_diff_head.depth_attention.",), profile=False)
+                          KERNELS, ("depth_diff_head.depth_attention.",), profile=False)
             (event_file,) = (out / "tb").glob("events.out.tfevents.*")
             version, scalars = read_events(event_file)
     finally:
@@ -3119,10 +3240,10 @@ def check_sparse_ga(dev) -> dict:
 SF_STEP = {"K1": 36, "K2": 36, "K5 fwd": 48, "K5 bwd": 48}
 SF_STEPS = 2
 SF_EVAL_PAIRS = 1  # KITTI pairs the eval CLI runs on
-# the card against the CPU on a small model the kernels take (head dim 64;
-# --tiny's widths, 16 and 8, are not kernel widths and raise on the card):
-# the train phase's tolerances, fp32 loss 1e-4 relative, the gradients, the
-# AdamW moments and the updated weights 1e-3 of each tensor's largest value
+# the card against the CPU on a small model (head dim 64) and on --tiny
+# (head dims 16 and 8, zero-padded to 64 by the flash wrappers): the train
+# phase's tolerances, fp32 loss 1e-4 relative, the gradients, the AdamW
+# moments and the updated weights 1e-3 of each tensor's largest value
 SF_LOSS_TOL = 1e-4
 SF_STATE_TOL = 1e-3
 SF_SMALL = dict(croco=dict(enc_embed_dim=128, enc_depth=2, enc_num_heads=2, dec_embed_dim=128,
@@ -3324,6 +3445,57 @@ def check_stereoflow_agree(dev, root, gpu: str) -> None:
         raise AssertionError("stereoflow: the card's training step disagrees with the CPU's")
 
 
+def check_stereoflow_tiny(dev, root, gpu: str) -> dict:
+    """(b2) gd3d_torch.cli.stereoflow train --tiny (head dims 16 and 8, which
+    the flash wrappers zero-pad to 64) for two steps on the card and the same
+    steps on the CPU (the first at the warm-up's zero learning rate, so the
+    second moves the weights), from one init file on (a)'s stereo tree: the
+    last loss (SF_LOSS_TOL), and AdamW's moments and the updated weights
+    (SF_STATE_TOL of each tensor's largest value). Returns the card run's
+    launches."""
+    import torch
+
+    from gd3d_torch.cli import stereoflow as sf_cli
+    from gd3d_torch.models.stereoflow import StereoFlow
+    from gd3d_torch.models.vit import init_params_
+
+    base = ["train", "--task", "stereo", "--tiny", "--root", str(root / "stereo"), "--steps",
+            "2", "--batch", "2", "--warmup", "1"]
+    model = StereoFlow(sf_cli.model_config(sf_cli.parse_args([*base, "--output", "x"])))
+    init_params_(model, torch.Generator().manual_seed(23))
+    init = root / "init_tiny.npz"
+    sf_cli.save_params(init, model)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        res, c, c_by, wall, _ = _counted_run(lambda: sf_cli.main(
+            [*base, "--output", str(root / f"tiny_{device}"), "--ckpt", str(init), "--device",
+             device]))
+        opt = res["optimizer"]
+        runs[device] = (res["records"][-1]["loss"],
+                        *({k: v.detach().cpu() for k, v in d.items()}
+                          for d in (opt.mu, opt.nu, opt.params)), c, c_by, wall)
+    (lc, *cpu, _, _, wall_c), (lg, *card, c, c_by, wall_g) = runs["cpu"], runs["cuda"]
+
+    def worst(a, b):
+        return max(float((a[k] - b[k]).abs().max() / max(float(b[k].abs().max()), 1e-12))
+                   for k in b)
+
+    errs = {name: worst(g, w) for name, g, w in zip(("mu", "nu", "params"), card, cpu)}
+    loss_err = abs(lg - lc) / abs(lc)
+    launched = c["K1"] > 0 and c["K2"] > 0 and c["K5"] > 0
+    ok = launched and loss_err <= SF_LOSS_TOL and all(
+        math.isfinite(e) and e <= SF_STATE_TOL for e in errs.values())
+    log(f"stereoflow: train --tiny two steps, card against CPU (head dims 16 and 8, 64x96 "
+        f"crop, batch 2): loss {lg:.6f} vs {lc:.6f} rel {loss_err:.3e} (tol {SF_LOSS_TOL:g}); "
+        "worst tensor " + " ".join(f"{k} {e:.3e}" for k, e in errs.items())
+        + f" (tol {SF_STATE_TOL:g} of its max); card wall {wall_g:.2f} s, CPU {wall_c:.2f} s; "
+        f"launches {c} by length {c_by['K1']} {c_by['K2']} {'OK' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("stereoflow: the --tiny step on the card disagrees with the CPU's "
+                             "or launched no kernel")
+    return c
+
+
 def check_stereoflow_eval(dev, root, gpu: str) -> dict:
     """(c) eval on SF_EVAL_PAIRS pairs of a KITTI 2015 tree at 375x1242 (8 tiles a
     pair, one forward each) and predict on one pair: the files, their
@@ -3384,8 +3556,9 @@ def check_stereoflow_eval(dev, root, gpu: str) -> dict:
 
 def check_stereoflow(dev) -> dict:
     """The stereoflow phase: (a) train both tasks at full width through the
-    CLI, (b) the card against the CPU on a small model, (c) eval and
-    predict at KITTI's frame size. Returns the launches of (a) and (c)."""
+    CLI, (b) the card against the CPU on a small model and on --tiny through
+    the CLI, (c) eval and predict at KITTI's frame size. Returns the
+    launches of (a), (b)'s --tiny card run and (c)."""
     import tempfile
     from pathlib import Path
 
@@ -3399,6 +3572,8 @@ def check_stereoflow(dev) -> dict:
                 counts[k] += v
             log(f"stereoflow: (a) {task} done at {time.perf_counter() - t0:.1f} s")
         check_stereoflow_agree(dev, root, gpu)
+        for k, v in check_stereoflow_tiny(dev, root, gpu).items():
+            counts[k] += v
         log(f"stereoflow: (b) done at {time.perf_counter() - t0:.1f} s")
         for k, v in check_stereoflow_eval(dev, root, gpu).items():
             counts[k] += v
@@ -3850,7 +4025,7 @@ def check_datagen(dev) -> dict:
         res = run_cli("datagen objaverse MASt3R",
                       ["--config", "finetune_timm_mast3r_objaverse", "--data-root", str(root),
                        "--epochs", "1", "--steps-per-epoch", "2", "--workers", "0"],
-                      tmp / "train", DATAGEN_MAST3R, tuple(REPLACES),
+                      tmp / "train", DATAGEN_MAST3R, KERNELS,
                       # a few keypoints a pair on these small objects: the
                       # intra-depth loss, the depth head's only one, is 0
                       ("depth_diff_head.",), profile=False)
@@ -3880,6 +4055,8 @@ def main() -> int:
     for line in report.splitlines():
         if "Used" in line or "spill" in line or "Compiling entry" in line:
             log(f"build: {line.strip()}")
+    for line in sm90_resources(report):
+        log(f"build: sm90 {line}")
 
     with no_tf32():
         kernels = check_kernels(dev)

@@ -19,31 +19,24 @@
 // two runs give identical bits.
 //
 // What bounds it on an H100: arithmetic, as in K1 (3.5x the forward's
-// products at the same shapes). Both designs run all seven products on the
-// tensor cores, 4 warps a block, 16 rows a warp, and share one plan:
-//   - dK/dV: one block per 64 keys holds its K and V rows as A operands in
-//     registers. Query tiles of Q and dO, with their lse and di, stream
-//     through shared memory by cp.async. The block works on the transposed
-//     problem, keys by queries: S^T = K Q^T and dP^T = V dO^T leave P^T and
-//     dS^T = P^T * (dP^T - di) * scale in accumulator fragments whose rows
-//     are this warp's keys, which are directly the A operands of
-//     dV += P^T dO and dK += dS^T Q. So neither P nor dS goes through
-//     shared memory.
-//   - dQ: one block per 64 queries holds Q and dO as A operands; 64-key
-//     tiles of K and V stream through shared memory; S = Q K^T and
-//     dP = dO V^T give dS, the A operand of dQ += dS K.
-//   Queries are taken 32 at a time inside a tile (keys, in the dQ kernel),
-//   which keeps the S and dP fragments at 16 registers each. Both kernels
-//   use more than 48 KB of shared memory, so they launch with dynamic
-//   shared memory. dK, dV and dQ accumulate in fp32 registers and are
-//   stored once.
+// products at the same shapes). Both dtypes run all seven products on the
+// tensor cores and share one plan:
+//   - dK/dV: one block per key tile holds its K and V rows. Query tiles of
+//     Q and dO, with their lse and di, stream through shared memory. The
+//     block works on the transposed problem, keys by queries: S^T = K Q^T
+//     and dP^T = V dO^T leave P^T and dS^T = P^T * (dP^T - di) * scale in
+//     accumulator fragments whose rows are the block's keys, which are
+//     directly the A operands of dV += P^T dO and dK += dS^T Q. So neither
+//     P nor dS goes through shared memory.
+//   - dQ: one block per query tile holds Q and dO; key tiles of K and V
+//     stream through shared memory; S = Q K^T and dP = dO V^T give dS, the
+//     A operand of dQ += dS K.
+//   dK, dV and dQ accumulate in fp32 registers and are stored once.
 //
-// * bf16 (the student under autocast): flash_bwd_dkv_tc_kernel and
-//   flash_bwd_dq_tc_kernel, mma.sync m16n8k16 with bf16 operands and fp32
-//   accumulators; P^T, dS^T and dS are rounded to bf16 as A fragments, dO,
-//   Q and K come through ldmatrix.trans. Tiles stream through a two-stage
-//   cp.async ring of 16-byte-padded rows; results are stored through shared
-//   memory with 16-byte writes.
+// * bf16 (the student under autocast), head dim 64: flash_bwd_sm90.cu, on
+//   TMA, wgmma and warp specialisation; gd3d_flash_bwd below sends that
+//   case there. Head dims below 64 are zero-padded to 64 by the wrapper
+//   (kernels/flash_bwd_fused.py).
 // * fp32 (the student at its configured compute_dtype): flash_bwd_dkv_tf32_
 //   kernel and flash_bwd_dq_tf32_kernel, mma.sync m16n8k8 on TF32 operands
 //   at fp32 accuracy: every operand is split into two TF32 parts and every
@@ -55,7 +48,9 @@
 //     splits it once into a hi and a lo tile with rows of 68 floats, which
 //     both of a tile's roles read without bank conflicts (tf32::kLd); the
 //     next tile's copy runs during the products. 4 x 17 KB of split tiles
-//     and 2 x 16 KB of raw ones: 101 KB, 2 blocks an SM.
+//     and 2 x 16 KB of raw ones: 101 KB, 2 blocks an SM. 4 warps a block,
+//     16 rows a warp, 64 rows a tile; queries (keys, in the dQ kernel) are
+//     taken 32 at a time inside a tile.
 //   - The register-resident operands (K and V, or Q and dO: 64 floats a
 //     thread) stay fp32 and are split at use, once per k-step and 32-row
 //     chunk, reused over 4 n-tiles: their split parts would take 128
@@ -72,14 +67,15 @@
 //     into its rows t and t + 4.
 //
 // Layout: q, k, v, dout are (B, N, H, D) views read through their strides,
-// whose addresses and (B, N, H) steps fall on 16 bytes (the wrapper
-// checks); dq, dk, dv are contiguous (B, N|M, H, D); lse and di are
+// whose addresses and (B, N, H) steps fall on 16 bytes (the wrapper copies
+// a view that does not); dq, dk, dv are contiguous (B, N|M, H, D); lse and di are
 // contiguous (B, H, N) fp32. Ragged lengths are masked in the kernels: rows
 // past N or M are copied as zeros, which makes a padded query's terms
 // exactly 0 (its Q and dO rows are 0, and so are its lse and di), and the
 // dQ kernels give keys past M a P of 0.
 #include "common.cuh"
 #include "mma.cuh"
+#include "sm90.cuh"
 
 namespace gd3d {
 
@@ -437,275 +433,6 @@ cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
-// bf16 on the tensor cores (see the note at the top). dK, dV for one 64-key
-// tile of one (b, h), looping over every query tile.
-constexpr int kDkvSmem = 6 * tc::kTileBytes + 2 * 2 * kTile * 4;  // + lse, di per stage
-constexpr int kDqSmem = 6 * tc::kTileBytes;
-
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
-                        const tc::bf16* __restrict__ v, const tc::bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ di,
-                        tc::bf16* __restrict__ dk, tc::bf16* __restrict__ dv, int N, int M,
-                        int H, Strides qs, Strides ks, Strides vs, Strides dos, float scale) {
-  using namespace tc;
-  // K, V, Q stages 0 and 1, dO stages 0 and 1, then per stage 64 lse and 64 di
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const float* stats = reinterpret_cast<const float*>(smem_raw + 6 * kTileBytes);
-  const uint32_t sK = smem_u32(smem);
-  const uint32_t sV = sK + kTileBytes;
-  const uint32_t sQ = sK + 2 * kTileBytes;
-  const uint32_t sO = sK + 4 * kTileBytes;
-  const uint32_t sStats = sK + 6 * kTileBytes;
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int key0 = blockIdx.x * kTile;
-  const bf16* qb = q + b * qs.b + h * qs.h;
-  const bf16* dob = dout + b * dos.b + h * dos.h;
-  const float* lse_bh = lse + ((long long)b * H + h) * N;
-  const float* di_bh = di + ((long long)b * H + h) * N;
-
-  auto load_query_tile = [&](int st, int i0) {
-    load_tile_async(sQ + st * kTileBytes, qb, qs.n, i0, N);
-    load_tile_async(sO + st * kTileBytes, dob, dos.n, i0, N);
-    if (tid < kTile)
-      load_vec_async(sStats + st * 2 * kTile * 4, lse_bh, i0, N, tid);
-    else
-      load_vec_async(sStats + (st * 2 + 1) * kTile * 4, di_bh, i0, N, tid - kTile);
-  };
-  load_tile_async(sK, k + b * ks.b + h * ks.h, ks.n, key0, M);
-  load_tile_async(sV, v + b * vs.b + h * vs.h, vs.n, key0, M);
-  load_query_tile(0, 0);
-  cp_async_commit();
-
-  uint32_t kf[4][4], vf[4][4];  // the warp's 16 keys of K and V as A fragments
-  float dk_acc[8][4] = {};
-  float dv_acc[8][4] = {};
-  const float scale_log2 = scale * kLog2e;
-  const int n_tiles = (N + kTile - 1) / kTile;
-  for (int i = 0; i < n_tiles; ++i) {
-    const int st = i & 1;
-    if (i + 1 < n_tiles) load_query_tile(st ^ 1, (i + 1) * kTile);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (i == 0) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        ldsm_a(kf[kk], sK, warp * 16, kk * 16, lane);
-        ldsm_a(vf[kk], sV, warp * 16, kk * 16, lane);
-      }
-    }
-    const uint32_t qt = sQ + st * kTileBytes;
-    const uint32_t ot = sO + st * kTileBytes;
-    const float* lse_t = stats + st * 2 * kTile;
-    const float* di_t = lse_t + kTile;
-#pragma unroll
-    for (int c0 = 0; c0 < kTile; c0 += 32) {  // 32 queries at a time
-      float s[4][4] = {};   // S^T: 16 keys x 32 queries
-      float dp[4][4] = {};  // dP^T
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t bq[4], bo[4];
-          ldsm_b(bq, qt, c0 + np * 16, kk * 16, lane);
-          mma(s[2 * np], kf[kk], bq[0], bq[1]);
-          mma(s[2 * np + 1], kf[kk], bq[2], bq[3]);
-          ldsm_b(bo, ot, c0 + np * 16, kk * 16, lane);
-          mma(dp[2 * np], vf[kk], bo[0], bo[1]);
-          mma(dp[2 * np + 1], vf[kk], bo[2], bo[3]);
-        }
-      }
-      // P^T and dS^T; the column (query) picks lse and di
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = c0 + nt * 8 + 2 * (lane & 3);
-        const float2 L = *reinterpret_cast<const float2*>(lse_t + c);
-        const float2 Dv = *reinterpret_cast<const float2*>(di_t + c);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float p = exp2f(s[nt][e] * scale_log2 - ((e & 1) ? L.y : L.x) * kLog2e);
-          dp[nt][e] = p * (dp[nt][e] - ((e & 1) ? Dv.y : Dv.x)) * scale;
-          s[nt][e] = p;
-        }
-      }
-      // dV += P^T dO, dK += dS^T Q: P^T and dS^T rounded to bf16 as A fragments
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t pa[4], da[4];
-        a_from_c(pa, s[2 * kk], s[2 * kk + 1]);
-        a_from_c(da, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t bo[4], bq[4];
-          ldsm_b_trans(bo, ot, c0 + kk * 16, np * 16, lane);
-          mma(dv_acc[2 * np], pa, bo[0], bo[1]);
-          mma(dv_acc[2 * np + 1], pa, bo[2], bo[3]);
-          ldsm_b_trans(bq, qt, c0 + kk * 16, np * 16, lane);
-          mma(dk_acc[2 * np], da, bq[0], bq[1]);
-          mma(dk_acc[2 * np + 1], da, bq[2], bq[3]);
-        }
-      }
-    }
-    __syncthreads();  // the next iteration's copies overwrite this stage
-  }
-
-  // the warp's rows of the K and V tiles are free: K and V are in registers
-  const long long off = (long long)b * M * H * kD + h * kD;
-  store_rows(dk_acc, 1.f, 1.f, smem, warp * 16, dk + off, (long long)H * kD,
-             key0 + warp * 16, M, lane);
-  store_rows(dv_acc, 1.f, 1.f, smem + kTile * kRowE, warp * 16, dv + off,
-             (long long)H * kD, key0 + warp * 16, M, lane);
-}
-
-// dQ for one 64-query tile of one (b, h), looping over every key tile.
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_tc_kernel(const tc::bf16* __restrict__ q, const tc::bf16* __restrict__ k,
-                       const tc::bf16* __restrict__ v, const tc::bf16* __restrict__ dout,
-                       const float* __restrict__ lse, const float* __restrict__ di,
-                       tc::bf16* __restrict__ dq, int N, int M, int H, Strides qs,
-                       Strides ks, Strides vs, Strides dos, float scale) {
-  using namespace tc;
-  // Q, dO, then K stages 0 and 1, V stages 0 and 1
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* smem = reinterpret_cast<bf16*>(smem_raw);
-  const uint32_t sQ = smem_u32(smem);
-  const uint32_t sO = sQ + kTileBytes;
-  const uint32_t sK = sQ + 2 * kTileBytes;
-  const uint32_t sV = sQ + 4 * kTileBytes;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int q0 = blockIdx.x * kTile;
-  const bf16* kb = k + b * ks.b + h * ks.h;
-  const bf16* vb = v + b * vs.b + h * vs.h;
-
-  load_tile_async(sQ, q + b * qs.b + h * qs.h, qs.n, q0, N);
-  load_tile_async(sO, dout + b * dos.b + h * dos.h, dos.n, q0, N);
-  load_tile_async(sK, kb, ks.n, 0, M);
-  load_tile_async(sV, vb, vs.n, 0, M);
-  cp_async_commit();
-
-  // this lane's rows g and g + 8: lse in log2 units and di
-  const float* lse_bh = lse + ((long long)b * H + h) * N;
-  const float* di_bh = di + ((long long)b * H + h) * N;
-  float lse2[2], dii[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int n = q0 + warp * 16 + (lane >> 2) + 8 * r;
-    lse2[r] = n < N ? lse_bh[n] * kLog2e : 0.f;
-    dii[r] = n < N ? di_bh[n] : 0.f;
-  }
-  uint32_t qf[4][4], of[4][4];  // the warp's 16 queries of Q and dO as A fragments
-  float dq_acc[8][4] = {};
-  const float scale_log2 = scale * kLog2e;
-  const int n_tiles = (M + kTile - 1) / kTile;
-  for (int j = 0; j < n_tiles; ++j) {
-    const int st = j & 1;
-    if (j + 1 < n_tiles) {
-      load_tile_async(sK + (st ^ 1) * kTileBytes, kb, ks.n, (j + 1) * kTile, M);
-      load_tile_async(sV + (st ^ 1) * kTileBytes, vb, vs.n, (j + 1) * kTile, M);
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();
-    if (j == 0) {
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        ldsm_a(qf[kk], sQ, warp * 16, kk * 16, lane);
-        ldsm_a(of[kk], sO, warp * 16, kk * 16, lane);
-      }
-    }
-    const uint32_t kt = sK + st * kTileBytes;
-    const uint32_t vt = sV + st * kTileBytes;
-#pragma unroll
-    for (int c0 = 0; c0 < kTile; c0 += 32) {  // 32 keys at a time
-      float s[4][4] = {};   // S: 16 queries x 32 keys
-      float dp[4][4] = {};  // dP
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-        for (int np = 0; np < 2; ++np) {
-          uint32_t bk[4], bv[4];
-          ldsm_b(bk, kt, c0 + np * 16, kk * 16, lane);
-          mma(s[2 * np], qf[kk], bk[0], bk[1]);
-          mma(s[2 * np + 1], qf[kk], bk[2], bk[3]);
-          ldsm_b(bv, vt, c0 + np * 16, kk * 16, lane);
-          mma(dp[2 * np], of[kk], bv[0], bv[1]);
-          mma(dp[2 * np + 1], of[kk], bv[2], bv[3]);
-        }
-      }
-      const int k0 = j * kTile + c0;
-      const bool ragged = k0 + 32 > M;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + nt * 8 + 2 * (lane & 3) + (e & 1);
-          const float p = (ragged && key >= M)
-                              ? 0.f
-                              : exp2f(s[nt][e] * scale_log2 - lse2[e >> 1]);
-          s[nt][e] = p * (dp[nt][e] - dii[e >> 1]) * scale;  // dS
-        }
-      }
-      // dQ += dS K, dS rounded to bf16 as A fragments
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        uint32_t da[4];
-        a_from_c(da, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          uint32_t bk[4];
-          ldsm_b_trans(bk, kt, c0 + kk * 16, np * 16, lane);
-          mma(dq_acc[2 * np], da, bk[0], bk[1]);
-          mma(dq_acc[2 * np + 1], da, bk[2], bk[3]);
-        }
-      }
-    }
-    __syncthreads();  // the next iteration's copies overwrite this stage
-  }
-
-  // the warp's rows of the Q tile are free: Q is in registers
-  store_rows(dq_acc, 1.f, 1.f, smem, warp * 16,
-             dq + (long long)b * N * H * kD + h * kD, (long long)H * kD, q0 + warp * 16,
-             N, lane);
-}
-
-cudaError_t launch_bwd_tc(const void* q, const void* k, const void* v, const void* dout,
-                          const void* lse, const void* di, void* dq, void* dk, void* dv,
-                          int B, int N, int M, int H, Strides qs, Strides ks, Strides vs,
-                          Strides dos, float scale, cudaStream_t stream) {
-  using tc::bf16;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kDkvSmem);
-  if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_tc_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
-  if (err != cudaSuccess) return err;
-  const bf16* q_ = static_cast<const bf16*>(q);
-  const bf16* k_ = static_cast<const bf16*>(k);
-  const bf16* v_ = static_cast<const bf16*>(v);
-  const bf16* do_ = static_cast<const bf16*>(dout);
-  const float* lse_ = static_cast<const float*>(lse);
-  const float* di_ = static_cast<const float*>(di);
-  const dim3 grid_kv((M + kTile - 1) / kTile, H, B);
-  flash_bwd_dkv_tc_kernel<<<grid_kv, kThreads, kDkvSmem, stream>>>(
-      q_, k_, v_, do_, lse_, di_, static_cast<bf16*>(dk), static_cast<bf16*>(dv), N, M, H,
-      qs, ks, vs, dos, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 grid_q((N + kTile - 1) / kTile, H, B);
-  flash_bwd_dq_tc_kernel<<<grid_q, kThreads, kDqSmem, stream>>>(
-      q_, k_, v_, do_, lse_, di_, static_cast<bf16*>(dq), N, M, H, qs, ks, vs, dos, scale);
-  return cudaGetLastError();
-}
-
 }  // namespace gd3d
 
 extern "C" int gd3d_flash_bwd(const void* q, const void* k, const void* v,
@@ -723,8 +450,8 @@ extern "C" int gd3d_flash_bwd(const void* q, const void* k, const void* v,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   // each launcher returns the first launch error of its two kernels
   return static_cast<int>(
-      is_bf16 ? launch_bwd_tc(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks, vs, dos,
-                              scale, st)
+      is_bf16 ? sm90::launch_bwd_bf16(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks,
+                                      vs, dos, scale, st)
               : launch_bwd_tf32(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks, vs,
                                 dos, scale, st));
 }

@@ -55,10 +55,15 @@
 //   db_out (dbias is minus the sum of its du), the column pass du, dln_b
 //   and dw_out, which balances their registers.
 //
-// Layout: u (B, N, h), depths (B, N), valid (B, N) as fp32 (> 0 is valid),
-// grad_rows (B, N): all contiguous fp32. h is 32, 64, 96 or 128. The scratch
-// is one fp32 buffer of gd3d_pairwise_rank_scratch(...) floats, laid out by
-// PrScratch below.
+// Layout: u (B, N, hp), depths (B, N), valid (B, N) as fp32 (> 0 is valid),
+// grad_rows (B, N): all contiguous fp32. The hidden width h is 1..128; the
+// kernels hold hp = h rounded up to 32, 64, 96 or 128 (kPer = hp / 32), and
+// the wrapper zero-pads u and the head's vectors to hp. A padded unit adds
+// nothing: its diff is 0, its centred value is set to 0 (not -mean), so its
+// y, GELU and output weight are 0, and the LayerNorm's mean and variance
+// divide by h. Its columns of du and of the vectors' gradients are cut off
+// by the wrapper. The scratch is one fp32 buffer of
+// gd3d_pairwise_rank_scratch(...) floats, laid out by PrScratch below.
 #include "common.cuh"
 
 namespace gd3d {
@@ -81,7 +86,11 @@ struct PrHead {
   const float* b_out;
   float thr;
   float eps;
+  int h;  // the true hidden width; the rows hold hp >= h
 };
+
+// The width the kernels hold for hidden width h: h rounded up to 32.
+__host__ __device__ inline int pr_padded(int h) { return (h + 31) / 32 * 32; }
 
 // The scratch buffer, in floats. uc, dc, gc and idx hold the compacted
 // views (the first nvalid[b] entries of each); the rest are partials.
@@ -286,7 +295,8 @@ pairwise_rank_kernel(PrHead hd, int N, PrScratch sc) {
   const bool own_ok = p < nv;
   const float d_own = own_ok ? db[p] : 0.f;
   const float g_own = (kMode == kPrRow && own_ok) ? gb[p] : 0.f;
-  const float inv_h = 1.f / kH;
+  const float inv_h = 1.f / hd.h;
+  const bool ragged_h = hd.h < kH;  // the rows end in padded units
   const float b_out = *hd.b_out;
 
   float a[kE];  // the owned row
@@ -346,6 +356,7 @@ pairwise_rank_kernel(PrHead hd, int N, PrScratch sc) {
 #pragma unroll
       for (int e = 0; e < kE; ++e) {
         x[e] -= mu;
+        if (ragged_h && ((e >> 2) * kPrLanes + sub) * 4 + (e & 3) >= hd.h) x[e] = 0.f;
         sq[e & 3] = fmaf(x[e], x[e], sq[e & 3]);
       }
       const float var = pair_sum((sq[0] + sq[1]) + (sq[2] + sq[3])) * inv_h;
@@ -563,11 +574,11 @@ __global__ void pairwise_rank_reduce(const float* __restrict__ partials, int n_b
 }
 
 template <int kMode, int kW>
-void launch_pr(int h, int B, int N, int C, PrHead hd, PrScratch sc, cudaStream_t st) {
+void launch_pr(int hp, int B, int N, int C, PrHead hd, PrScratch sc, cudaStream_t st) {
   const dim3 grid((N + kW - 1) / kW, C, B);
 #define GD3D_PR_LAUNCH(PER) \
   pairwise_rank_kernel<PER, kMode, kW><<<grid, 32 * kW, 0, st>>>(hd, N, sc)
-  switch (h) {
+  switch (hp) {
     case 32: GD3D_PR_LAUNCH(1); break;
     case 64: GD3D_PR_LAUNCH(2); break;
     case 96: GD3D_PR_LAUNCH(3); break;
@@ -580,15 +591,15 @@ void launch_pr(int h, int B, int N, int C, PrHead hd, PrScratch sc, cudaStream_t
 
 namespace {
 bool pr_shape_ok(int B, int N, int h, int C) {
-  return B > 0 && N > 0 && C > 0 && (h == 32 || h == 64 || h == 96 || h == 128);
+  return B > 0 && N > 0 && C > 0 && h >= 1 && h <= 128;
 }
 }  // namespace
 
 // Floats of scratch that a forward (backward = 0) or a backward call needs
-// when the streamed range is split into n_chunks.
+// at hidden width h when the streamed range is split into n_chunks.
 extern "C" long long gd3d_pairwise_rank_scratch(int B, int N, int h, int n_chunks,
                                                 int backward) {
-  return gd3d::pr_scratch(nullptr, B, N, h, n_chunks, backward != 0).total;
+  return gd3d::pr_scratch(nullptr, B, N, gd3d::pr_padded(h), n_chunks, backward != 0).total;
 }
 
 extern "C" int gd3d_pairwise_rank_fwd(const void* u, const void* depths, const void* valid,
@@ -600,22 +611,24 @@ extern "C" int gd3d_pairwise_rank_fwd(const void* u, const void* depths, const v
   if (!pr_shape_ok(B, N, h, n_chunks)) return static_cast<int>(cudaErrorInvalidValue);
   const PrHead hd{static_cast<const float*>(bias), static_cast<const float*>(ln_s),
                   static_cast<const float*>(ln_b), static_cast<const float*>(w_out),
-                  static_cast<const float*>(b_out), thr, eps};
+                  static_cast<const float*>(b_out), thr, eps, h};
+  const int hp = pr_padded(h);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PrScratch sc = pr_scratch(static_cast<float*>(scratch), B, N, h, n_chunks, false);
+  const PrScratch sc = pr_scratch(static_cast<float*>(scratch), B, N, hp, n_chunks, false);
   float* sums = static_cast<float*>(row_sum);
   float* cnts = static_cast<float*>(row_cnt);
   pairwise_rank_prep<false>
       <<<dim3((N + kPrPrepRows - 1) / kPrPrepRows, B), 32 * kPrPrepRows, 0, st>>>(
           static_cast<const float*>(u), static_cast<const float*>(depths),
-          static_cast<const float*>(valid), nullptr, N, h, sc, sums, cnts, nullptr);
-  launch_pr<kPrFwd, kPrFwdWarps>(h, B, N, n_chunks, hd, sc, st);
+          static_cast<const float*>(valid), nullptr, N, hp, sc, sums, cnts, nullptr);
+  launch_pr<kPrFwd, kPrFwdWarps>(hp, B, N, n_chunks, hd, sc, st);
   pairwise_rank_finish_fwd<<<dim3((N + 127) / 128, B), 128, 0, st>>>(sc, N, n_chunks, sums,
                                                                     cnts);
   return static_cast<int>(cudaGetLastError());
 }
 
-// param_grads: (4h + 1) = [dbias | dln_s | dln_b | dw_out | db_out].
+// h is the true hidden width; u, the head's vectors, du and param_grads
+// ((4 hp + 1) = [dbias | dln_s | dln_b | dw_out | db_out]) are hp wide.
 extern "C" int gd3d_pairwise_rank_bwd(const void* u, const void* depths, const void* valid,
                                       const void* bias, const void* ln_s, const void* ln_b,
                                       const void* w_out, const void* b_out,
@@ -626,20 +639,21 @@ extern "C" int gd3d_pairwise_rank_bwd(const void* u, const void* depths, const v
   if (!pr_shape_ok(B, N, h, n_chunks)) return static_cast<int>(cudaErrorInvalidValue);
   const PrHead hd{static_cast<const float*>(bias), static_cast<const float*>(ln_s),
                   static_cast<const float*>(ln_b), static_cast<const float*>(w_out),
-                  static_cast<const float*>(b_out), thr, eps};
+                  static_cast<const float*>(b_out), thr, eps, h};
+  const int hp = pr_padded(h);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const PrScratch sc = pr_scratch(static_cast<float*>(scratch), B, N, h, n_chunks, true);
+  const PrScratch sc = pr_scratch(static_cast<float*>(scratch), B, N, hp, n_chunks, true);
   float* du_ = static_cast<float*>(du);
   pairwise_rank_prep<true>
       <<<dim3((N + kPrPrepRows - 1) / kPrPrepRows, B), 32 * kPrPrepRows, 0, st>>>(
           static_cast<const float*>(u), static_cast<const float*>(depths),
-          static_cast<const float*>(valid), static_cast<const float*>(grad_rows), N, h, sc,
+          static_cast<const float*>(valid), static_cast<const float*>(grad_rows), N, hp, sc,
           nullptr, nullptr, du_);
-  launch_pr<kPrRow, kPrBwdWarps>(h, B, N, n_chunks, hd, sc, st);
-  launch_pr<kPrCol, kPrBwdWarps>(h, B, N, n_chunks, hd, sc, st);
-  pairwise_rank_finish_du<<<dim3((N * (h / 4) + 127) / 128, B), 128, 0, st>>>(sc, N, h,
-                                                                             n_chunks, du_);
-  const int P = 4 * h + 1;
+  launch_pr<kPrRow, kPrBwdWarps>(hp, B, N, n_chunks, hd, sc, st);
+  launch_pr<kPrCol, kPrBwdWarps>(hp, B, N, n_chunks, hd, sc, st);
+  pairwise_rank_finish_du<<<dim3((N * (hp / 4) + 127) / 128, B), 128, 0, st>>>(sc, N, hp,
+                                                                              n_chunks, du_);
+  const int P = 4 * hp + 1;
   const int n_blocks = B * ((N + kPrBwdWarps - 1) / kPrBwdWarps) * n_chunks;
   pairwise_rank_reduce<<<(P + 3) / 4, 128, 0, st>>>(sc.pparam, n_blocks, P,
                                                     static_cast<float*>(param_grads));

@@ -26,7 +26,8 @@ def _reference_rows(teacher_p, student_cost, row_mask, eps):
 
 def masked_softmax_kl_fwd(teacher_p, student_cost, row_mask, eps: float = 1e-8):
     """K3 forward -> (B, N) fp32. CPU tensors run the plain twin; CUDA
-    tensors launch the kernel."""
+    tensors launch the kernel (maps whose addresses differ modulo 16 bytes
+    are copied first)."""
     if student_cost.device.type == "cpu":
         return _reference_rows(teacher_p, student_cost, row_mask, eps)
     B, N, M = student_cost.shape
@@ -40,10 +41,12 @@ def masked_softmax_kl_fwd(teacher_p, student_cost, row_mask, eps: float = 1e-8):
                              f"{student_cost.device}, got {t.dtype} "
                              f"{tuple(t.shape)} on {t.device}")
     if (teacher_p.data_ptr() - student_cost.data_ptr()) % 16:
-        raise ValueError("teacher_p and student_cost: the kernel reads both maps in 16-byte "
-                         "vectors at one index, so their addresses must agree modulo 16, got "
-                         f"{teacher_p.data_ptr() % 16} and {student_cost.data_ptr() % 16}")
-    out =torch.empty((B, N), dtype=torch.float32, device=student_cost.device)
+        # the kernel reads both maps in 16-byte vectors at one index, so their
+        # addresses must agree modulo 16: the map (or maps) off 16 bytes is
+        # copied, and a fresh copy starts on 16 bytes
+        teacher_p, student_cost = (t.clone() if t.data_ptr() % 16 else t
+                                   for t in (teacher_p, student_cost))
+    out = torch.empty((B, N), dtype=torch.float32, device=student_cost.device)
     stream = torch.cuda.current_stream(student_cost.device).cuda_stream
     err = build.library().gd3d_cost_kl(
         teacher_p.data_ptr(), student_cost.data_ptr(), row_mask.data_ptr(),
@@ -82,9 +85,8 @@ def masked_softmax_kl_rows(teacher_p, student_cost, row_mask, eps: float = 1e-8)
     """Per-row KL(teacher || masked-softmax(student)) -> (B, N).
 
     teacher_p (B, N, M) row-normalized, student_cost (B, N, M) raw
-    similarities, row_mask (B, N) bool. Inputs are taken to fp32, and a map
-    off a 16-byte address is copied (K3 reads both maps in 16-byte vectors
-    at one index)."""
+    similarities, row_mask (B, N) bool. Inputs are taken to fp32 and
+    contiguous (K3 copies a map whose address is off the other's modulo 16
+    bytes itself)."""
     maps = [t.float().contiguous() for t in (teacher_p, student_cost)]
-    maps = [t.clone() if t.data_ptr() % 16 else t for t in maps]
     return _MaskedSoftmaxKL.apply(*maps, row_mask.contiguous(), eps)

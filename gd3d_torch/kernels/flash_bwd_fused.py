@@ -1,12 +1,16 @@
 """K2: flash-attention backward (dQ, dK, dV).
 
-Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_bwd.cu, which replace
+Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_bwd.cu (fp32) and
+flash_bwd_sm90.cu (bf16), which replace
 gd3d/kernels/flash_bwd_fused.py::flash_attention_bwd_fused. gd3d's kernel
 sums per-KV-block dQ partials after one pass; the port runs a dK/dV kernel
-and a second, dQ kernel (see the source note), which is deterministic.
-Both dtypes run on the tensor cores (fp32 as three TF32 products each) and
-copy 16 bytes at a time, so every view must be 16-byte aligned.
-`flash_attention_bwd_plain` is the plain PyTorch twin.
+and a second, dQ kernel (see the source notes), which is deterministic.
+Both dtypes run on the tensor cores (fp32 as three TF32 products each) at
+head dim 64 and copy 16 bytes at a time: the wrapper zero-pads q, k, v and
+dO along smaller head dims to 64 (`bwd_padded`; exact, as for K1, and the
+padded columns of dQ, dK and dV come out 0 and are cut off), and copies a
+view off 16 bytes first. `flash_attention_bwd_plain` is the plain PyTorch
+twin.
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ from collections import Counter
 import torch
 
 from gd3d_torch.kernels import build
-from gd3d_torch.kernels.flash_fwd import check_operands
+from gd3d_torch.kernels.flash_fwd import check_operands, fit_views, kernel_width, pad_head_dim
 
 
 def flash_attention_bwd_plain(q, k, v, lse, do, di, scale: float):
@@ -34,11 +38,21 @@ def flash_attention_bwd_plain(q, k, v, lse, do, di, scale: float):
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_fused(q, k, v, lse, do, di, scale: float):
-    """K2. CPU tensors run the plain twin; CUDA tensors launch the kernels."""
-    if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, lse, do, di, scale)
-    do = do.contiguous()
+def bwd_padded(run, q, k, v, lse, do, di, scale: float):
+    """K2's route at any head dim D up to 64: `run` (the kernels' launch, or
+    a plain twin) on q, k, v and dO zero-padded along D to 64, with the
+    caller's scale; dQ, dK and dV cut back to D columns. di = rowsum(O * dO)
+    is the same either way."""
+    D = q.shape[-1]
+    width = kernel_width(D, (64,))
+    if width == D:
+        return run(q, k, v, lse, do, di, scale)
+    q, k, v, do = pad_head_dim(width, q, k, v, do)
+    return tuple(g[..., :D] for g in run(q, k, v, lse, do, di, scale))
+
+
+def _launch(q, k, v, lse, do, di, scale: float):
+    q, k, v, do = fit_views(q, k, v, do)
     check_operands(q, k, v, do, head_dims=(64,), fp32_copies_16=True)
     B, N, H, D = q.shape
     M = k.shape[1]
@@ -61,6 +75,14 @@ def flash_attention_bwd_fused(q, k, v, lse, do, di, scale: float):
     flash_attention_bwd_fused.launches += 1
     flash_attention_bwd_fused.launches_by[(str(q.dtype).removeprefix("torch."), N)] += 1
     return dq, dk, dv
+
+
+def flash_attention_bwd_fused(q, k, v, lse, do, di, scale: float):
+    """K2. CPU tensors run the plain twin; CUDA tensors launch the kernels
+    (through `bwd_padded`)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, lse, do, di, scale)
+    return bwd_padded(_launch, q, k, v, lse, do, di, scale)
 
 
 flash_attention_bwd_fused.launches = 0

@@ -1,19 +1,28 @@
 """K1: flash-attention forward with the row log-sum-exp.
 
-Wrapper of the CUDA kernel in gd3d_torch/csrc/flash_fwd.cu, which replaces
-the stock TPU Pallas flash forward that gd3d reaches through
+Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_fwd.cu (fp32, and head
+dim 128) and flash_fwd_sm90.cu (bf16 at head dim 64), which replace the
+stock TPU Pallas flash forward that gd3d reaches through
 gd3d/ops/attention.py::_flash_call. `flash_attention_fwd_plain` is its plain
 PyTorch twin: the CPU path, and the oracle the kernel is checked against.
+
+The kernels take head dims 64 and 128; gd3d's flash takes any. The wrapper
+zero-pads q, k and v along D to the next kernel width (`fwd_padded`), which
+is exact: zero columns leave Q K^T and the LSE unchanged, and O's padded
+columns come out 0 and are cut off. A view the kernels cannot read as it is
+(its last dim strided, or its address or a (B, N, H) step off 16 bytes) is
+copied to a fresh contiguous tensor first (`fit_views`).
 """
 from __future__ import annotations
 
 from collections import Counter
 
 import torch
+import torch.nn.functional as F
 
 from gd3d_torch.kernels import build
 
-HEAD_DIMS = (64, 128)  # K1 takes both; K2 takes 64 only
+HEAD_DIMS = (64, 128)  # the kernel widths: K1 takes both, K2 64 only
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -28,7 +37,7 @@ def flash_attention_fwd_plain(q, k, v, scale: float):
 
 
 def aligned_16(t: torch.Tensor) -> bool:
-    """Whether the kernels' 16-byte cp.async copies can read the
+    """Whether the kernels' 16-byte copies (TMA, cp.async) can read the
     (B, N, H, D) view `t`: its first element and every step along B, N and H
     (of a dim longer than 1) fall on 16 bytes."""
     elt = t.element_size()
@@ -36,12 +45,40 @@ def aligned_16(t: torch.Tensor) -> bool:
         n == 1 or (s * elt) % 16 == 0 for n, s in zip(t.shape[:3], t.stride()[:3]))
 
 
+def fit_views(*ts: torch.Tensor):
+    """Each (B, N, H, D) view as the 16-byte copies of the kernels (TMA,
+    cp.async) read it: itself where its last dim is contiguous, it is
+    `aligned_16` and no dim longer than 1 has a step of 0 (an expanded
+    gradient), else a fresh contiguous copy."""
+    def fits(t):
+        return (t.stride(-1) == 1 and aligned_16(t)
+                and all(n == 1 or s != 0 for n, s in zip(t.shape[:3], t.stride()[:3])))
+
+    return tuple(t if fits(t) else t.clone(memory_format=torch.contiguous_format) for t in ts)
+
+
+def kernel_width(D: int, widths=HEAD_DIMS) -> int:
+    """The kernel width that head dim D runs at: the least of `widths` that
+    holds it."""
+    for w in widths:
+        if D <= w:
+            return w
+    raise ValueError(f"the flash kernels take head dims up to {max(widths)}, got {D}")
+
+
+def pad_head_dim(width: int, *ts: torch.Tensor):
+    """Each tensor zero-padded along its last dim to `width` (itself where it
+    is that wide already)."""
+    return tuple(t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1])) for t in ts)
+
+
 def check_views(*ts: torch.Tensor, head_dims=HEAD_DIMS, fp32_copies_16: bool = False) -> None:
     """The layout the flash kernels take, on any device: tensors of one dtype
     (fp32 or bf16), (B, N, H, D) with D in `head_dims` and a contiguous last
     dim. bf16 views must be `aligned_16`, and with `fp32_copies_16` (K1 and
     K2, whose fp32 head-dim-64 kernels copy 16 bytes at a time) fp32 views of
-    head dim 64 too. Nothing is copied to make a view fit: it raises."""
+    head dim 64 too. It raises where a view does not fit (the wrappers pass
+    it views that `fit_views` and `fwd_padded` made fit)."""
     t0 = ts[0]
     for t in ts:
         if t.dtype != t0.dtype or t.dtype not in DTYPES:
@@ -70,10 +107,20 @@ def check_operands(*ts: torch.Tensor, **layout) -> None:
     check_views(*ts, **layout)
 
 
-def flash_attention_fwd(q, k, v, scale: float):
-    """K1. CPU tensors run the plain twin; CUDA tensors launch the kernel."""
-    if q.device.type == "cpu":
-        return flash_attention_fwd_plain(q, k, v, scale)
+def fwd_padded(run, q, k, v, scale: float):
+    """K1's route at any head dim D up to 128: `run` (the kernel's launch, or
+    a plain twin) on q, k, v zero-padded along D to the kernel width, with
+    the caller's scale; O cut back to D columns."""
+    D = q.shape[-1]
+    width = kernel_width(D)
+    if width == D:
+        return run(q, k, v, scale)
+    o, lse = run(*pad_head_dim(width, q, k, v), scale)
+    return o[..., :D], lse
+
+
+def _launch(q, k, v, scale: float):
+    q, k, v = fit_views(q, k, v)
     check_operands(q, k, v, fp32_copies_16=True)
     B, N, H, D = q.shape
     M = k.shape[1]
@@ -91,6 +138,14 @@ def flash_attention_fwd(q, k, v, scale: float):
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_by[(str(q.dtype).removeprefix("torch."), N)] += 1
     return o, lse
+
+
+def flash_attention_fwd(q, k, v, scale: float):
+    """K1. CPU tensors run the plain twin; CUDA tensors launch the kernel
+    (through `fwd_padded`)."""
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, scale)
+    return fwd_padded(_launch, q, k, v, scale)
 
 
 flash_attention_fwd.launches = 0

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from gd3d_torch.kernels import build
 
-HIDDEN = (32, 64, 96, 128)
+MAX_HIDDEN = 128  # the kernels hold hidden widths up to 128, padded to a multiple of 32
 BWD_ROWS_PER_BLOCK = 4  # warps per block of the backward passes: one owned row each
 TARGET_WARPS = 4096     # owned rows x chunks the grid should reach: ~8 per scheduler
 
@@ -45,12 +45,19 @@ def _align4(n: int) -> int:
     return (n + 3) // 4 * 4
 
 
+def padded_hidden(h: int) -> int:
+    """The hidden width the kernels hold for width h: h rounded up to 32."""
+    return (h + 31) // 32 * 32
+
+
 def scratch_floats(B: int, N: int, h: int, n_chunks: int, backward: bool) -> int:
-    """fp32 elements of scratch for one forward or backward call (PrScratch in
-    csrc/pairwise_rank.cu): the compacted view (rows, depths, upstream
-    gradients, keypoint indices, the count of valid keypoints) and the
-    per-chunk partials: row sums and counts forward; both roles of du and the
-    per-block parameter-gradient partials backward."""
+    """fp32 elements of scratch for one forward or backward call at hidden
+    width h (PrScratch in csrc/pairwise_rank.cu, at `padded_hidden(h)`): the
+    compacted view (rows, depths, upstream gradients, keypoint indices, the
+    count of valid keypoints) and the per-chunk partials: row sums and counts
+    forward; both roles of du and the per-block parameter-gradient partials
+    backward."""
+    h = padded_hidden(h)
     total = _align4(B * N * h) + 3 * _align4(B * N) + _align4(B)
     if backward:
         blocks = B * math.ceil(N / BWD_ROWS_PER_BLOCK) * n_chunks
@@ -84,11 +91,12 @@ def _f32(t):
 
 def _prep(u, bias, ln_s, ln_b, w_out, b_out, depths, valid, *rest):
     """The operands as the kernels read them (contiguous fp32, u on 16 bytes,
-    the head's vectors flat), checked: one device, hidden width in HIDDEN,
+    the head's vectors flat, u and the first four vectors zero-padded to
+    `padded_hidden` units), checked: one device, hidden width 1..MAX_HIDDEN,
     shapes that fit u's (B, N, h). `rest` is the backward's grad_rows."""
     B, N, h = u.shape
-    if h not in HIDDEN:
-        raise ValueError(f"pairwise_rank takes hidden width in {HIDDEN}, got {h}")
+    if not 1 <= h <= MAX_HIDDEN:
+        raise ValueError(f"pairwise_rank takes hidden widths 1..{MAX_HIDDEN}, got {h}")
     head = tuple(_f32(p).reshape(-1) for p in (bias, ln_s, ln_b, w_out, b_out))
     rows = tuple(_f32(t) for t in (depths, valid, *rest))
     for t, shape in (*((p, (h,)) for p in head[:4]), (head[4], (1,)),
@@ -96,7 +104,11 @@ def _prep(u, bias, ln_s, ln_b, w_out, b_out, depths, valid, *rest):
         if t.shape != shape or t.device != u.device:
             raise ValueError(f"pairwise_rank: operands must fit u {tuple(u.shape)} on "
                              f"{u.device}: got {tuple(t.shape)} on {t.device}, want {shape}")
+    pad = padded_hidden(h) - h
     u = _f32(u)
+    if pad:
+        u = F.pad(u, (0, pad))
+        head = (*(F.pad(p, (0, pad)) for p in head[:4]), head[4])
     return (u if u.data_ptr() % 16 == 0 else u.clone(), head, *rows)
 
 
@@ -107,8 +119,9 @@ def pairwise_rank_fwd(u, bias, ln_s, ln_b, w_out, b_out, depths, valid,
     if u.device.type == "cpu":
         return pairwise_rank_sums_plain(u, bias, ln_s, ln_b, w_out, b_out, depths,
                                         valid, thr, eps)
+    h = u.shape[-1]
     u, head, depths, valid = _prep(u, bias, ln_s, ln_b, w_out, b_out, depths, valid)
-    B, N, h = u.shape
+    B, N, _ = u.shape
     row_sum = torch.empty((B, N), dtype=torch.float32, device=u.device)
     row_cnt = torch.empty((B, N), dtype=torch.float32, device=u.device)
     n_chunks = stream_chunks(B, N)
@@ -146,14 +159,15 @@ def pairwise_rank_bwd(u, bias, ln_s, ln_b, w_out, b_out, depths, valid, grad_row
     fp32. CUDA tensors only."""
     if not u.is_cuda:
         raise ValueError("pairwise_rank_bwd launches a CUDA kernel; got CPU tensors")
+    h = u.shape[-1]
     u, head, depths, valid, grad_rows = _prep(u, bias, ln_s, ln_b, w_out, b_out, depths,
                                               valid, grad_rows)
-    B, N, h = u.shape
+    B, N, hp = u.shape
     du = torch.empty_like(u)
     n_chunks = stream_chunks(B, N)
     scratch = torch.empty(scratch_floats(B, N, h, n_chunks, True), dtype=torch.float32,
                           device=u.device)
-    pgrad = torch.empty(4 * h + 1, dtype=torch.float32, device=u.device)
+    pgrad = torch.empty(4 * hp + 1, dtype=torch.float32, device=u.device)
     stream = torch.cuda.current_stream(u.device).cuda_stream
     err = build.library().gd3d_pairwise_rank_bwd(
         u.data_ptr(), depths.data_ptr(), valid.data_ptr(),
@@ -162,8 +176,8 @@ def pairwise_rank_bwd(u, bias, ln_s, ln_b, w_out, b_out, depths, valid, grad_row
         stream)
     build.check(err, "pairwise_rank_bwd")
     pairwise_rank_bwd.launches += 1
-    dbias, dln_s, dln_b, dw_out = pgrad[:4 * h].reshape(4, h)
-    return du, dbias, dln_s, dln_b, dw_out, pgrad[4 * h:]
+    dbias, dln_s, dln_b, dw_out = pgrad[:4 * hp].reshape(4, hp)[:, :h]
+    return du[..., :h], dbias, dln_s, dln_b, dw_out, pgrad[4 * hp:]
 
 
 pairwise_rank_bwd.launches = 0

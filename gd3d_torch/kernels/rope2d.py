@@ -12,7 +12,9 @@ hold are not copied, and it writes its output in (B, N, H, D) memory order:
 the models transpose it back to a contiguous (B, N, H, D) tensor, the
 layout K1 reads. The kernel reads and writes `vec_width(D, dtype)` elements
 at a time (16 bytes where D allows), so a view's address and its (B, N, H)
-steps must be multiples of that many elements; a view that is not raises.
+steps must be multiples of that many elements; a view that is not (or whose
+last dim is strided) is copied to a fresh contiguous tensor first. The
+output is a new tensor either way, so nothing is copied back.
 """
 from __future__ import annotations
 
@@ -66,11 +68,22 @@ def _aligned(t: torch.Tensor, vec: int) -> bool:
         n == 1 or (s * t.element_size()) % vb == 0 for n, s in zip(t.shape[:3], t.stride()[:3]))
 
 
+def fit_view(tokens: torch.Tensor) -> torch.Tensor:
+    """`tokens` itself where K5 reads it as it is (or where `check_view`
+    refuses it for its shape or dtype), else a fresh contiguous copy."""
+    if tokens.dim() != 4 or tokens.shape[-1] % 4 or tokens.dtype not in DTYPES:
+        return tokens
+    if tokens.stride(-1) == 1 and _aligned(tokens, vec_width(tokens.shape[-1], tokens.dtype)):
+        return tokens
+    return tokens.clone(memory_format=torch.contiguous_format)
+
+
 def check_view(tokens: torch.Tensor) -> int:
     """The layout K5 takes, on any device: (B, H, N, D) tokens of an fp32 or
     bf16 dtype with D % 4 == 0, a contiguous last dim, and an address and
-    (B, H, N) steps on `vec_width` elements. Returns the vector width.
-    Nothing is copied to make a view fit: it raises."""
+    (B, H, N) steps on `vec_width` elements. Returns the vector width. It
+    raises where a view does not fit (the wrappers pass it views that
+    `fit_view` made fit)."""
     if tokens.dim() != 4 or tokens.shape[-1] % 4 or tokens.stride(-1) != 1:
         raise ValueError(f"rope2d takes (B, H, N, D) tokens with D % 4 == 0 and a "
                          f"contiguous last dim, got shape {tuple(tokens.shape)} "
@@ -127,11 +140,12 @@ def _launch(what, tokens, tasks, vec, base, f0):
 def rope2d_fwd(tokens: torch.Tensor, positions: torch.Tensor, base: float = 100.0,
                f0: float = 1.0) -> torch.Tensor:
     """K5 (the backward is this with -f0). CPU tensors run the plain twin;
-    CUDA tensors launch the kernel. tokens (B, H, N, D) in the layout of
-    `check_view`; positions (B or 1, N, 2) int64, any strides. Returns
+    CUDA tensors launch the kernel. tokens (B, H, N, D), D % 4 == 0, any
+    strides; positions (B or 1, N, 2) int64, any strides. Returns
     (B, H, N, D) stored in (B, N, H, D) order."""
     if tokens.device.type == "cpu":
         return rope2d_plain(tokens, positions, base, f0)
+    tokens = fit_view(tokens)
     vec = check_view(tokens)
     _check_positions(positions, tokens)
     out, task = _task(tokens, positions)
@@ -156,6 +170,7 @@ def rope2d_qk_fwd(q: torch.Tensor, qpos: torch.Tensor, k: torch.Tensor, kpos: to
         raise ValueError(f"rope2d_qk takes q and k of one device, dtype and D, got "
                          f"{q.device} {q.dtype} {tuple(q.shape)} and {k.device} {k.dtype} "
                          f"{tuple(k.shape)}")
+    q, k = fit_view(q), fit_view(k)
     vec = check_view(q)
     check_view(k)
     _check_positions(qpos, q)
@@ -164,15 +179,6 @@ def rope2d_qk_fwd(q: torch.Tensor, qpos: torch.Tensor, k: torch.Tensor, kpos: to
     k_out, k_task = _task(k, kpos)
     _launch("rope2d_qk_fwd", q, (q_task, k_task), vec, base, f0)
     return q_out.transpose(1, 2), k_out.transpose(1, 2)
-
-
-def _grad_view(g: torch.Tensor) -> torch.Tensor:
-    """An incoming gradient as the kernel reads it: autograd may hand over
-    any layout (e.g. the expanded gradient of a sum), which is copied."""
-    if g.device.type == "cpu" or (g.stride(-1) == 1 and _aligned(g, vec_width(g.shape[-1],
-                                                                               g.dtype))):
-        return g
-    return g.contiguous()
 
 
 class RoPE2DQK(torch.autograd.Function):
@@ -194,9 +200,9 @@ class RoPE2DQK(torch.autograd.Function):
         qpos, kpos = ctx.saved_tensors
         base, f0 = ctx.base, -ctx.f0
         if gq is not None and gk is not None:
-            gq, gk = rope2d_qk_fwd(_grad_view(gq), qpos, _grad_view(gk), kpos, base, f0)
+            gq, gk = rope2d_qk_fwd(gq, qpos, gk, kpos, base, f0)
         elif gq is not None:
-            gq = rope2d_fwd(_grad_view(gq), qpos, base, f0)
+            gq = rope2d_fwd(gq, qpos, base, f0)
         elif gk is not None:
-            gk = rope2d_fwd(_grad_view(gk), kpos, base, f0)
+            gk = rope2d_fwd(gk, kpos, base, f0)
         return gq, None, gk, None, None, None

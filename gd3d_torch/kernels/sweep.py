@@ -27,7 +27,8 @@ student's four lengths (tolerance 1e-4 of max(1, max |plain|)) and at
 (2, 673, 3, 64) to the tight bound TIGHT (2e-5); the 1-pass build is
 expected to miss both and is only reported. Then each is timed at the four
 lengths, in order and again in reverse. K2 builds are libraries of
-csrc/flash_bwd.cu alone, timed the same way. To compare whole steps, run
+csrc/flash_bwd.cu and csrc/flash_bwd_sm90.cu (the bf16 route it links to;
+a parent's own where it has one), timed the same way. To compare whole steps, run
 two revisions' chip_smoke.py in one call.
 """
 from __future__ import annotations
@@ -159,17 +160,19 @@ TIGHT = 2e-5  # the card test's bound at (2, 673, 3, 64)
 
 # (TF32 passes, chunk rows); the shipped build first
 K2_SETTINGS = ((3, 32), (1, 32), (3, 16))
+K2_SOURCES = ("flash_bwd.cu", "flash_bwd_sm90.cu")
 
 
 def k2_variants(parent: str | None):
     """(name, library, sources, flags) of each K2 build."""
-    src = [build.CSRC_DIR / "flash_bwd.cu"]
+    src = [build.CSRC_DIR / name for name in K2_SOURCES]
     out = [(f"p{p} c{c}", build.library_path().with_name(f"libgd3d_sweep_k2_p{p}c{c}.so"),
             src, (f"-DGD3D_TF32_PASSES={p}", f"-DGD3D_TF32_CHUNK={c}"))
            for p, c in K2_SETTINGS]
     if parent:
         out.append(("parent", build.library_path().with_name("libgd3d_sweep_k2_parent.so"),
-                    [Path(parent).resolve()], ()))
+                    [p for p in (Path(parent).resolve().with_name(name) for name in K2_SOURCES)
+                     if p.exists()], ()))
     return out
 
 

@@ -9,10 +9,13 @@ the repo's conftest.py imports JAX, so on a GPU machine run it as
 chip_smoke.py checks the same kernels at the main-path shapes.
 Tolerance: max |err| <= tol * max(1, max |plain|). fp32: tol 1e-4 (sums in
 another order). bf16: tol 1e-2. The plain twins compute in fp32 from the
-bf16 operands and round only the output; the bf16 flash kernels (K1, K2)
-run on the tensor cores and also round P (K1, and dV in K2) and dS (dK, dQ)
-to bf16 before the next product, a relative error of at most 2^-9 per term,
-which stays within a few ulps of bf16 (2^-8) of the largest output. The fp32
+bf16 operands and round only the output; the bf16 flash kernels (K1, K2,
+on TMA and wgmma) also round P (K1, and dV in K2) and dS (dK, dQ) to bf16
+before the next product, a relative error of at most 2^-9 per term, which
+stays within a few ulps of bf16 (2^-8) of the largest output. The wrappers
+zero-pad head dims below the kernels' widths and copy views off 16 bytes;
+the tests below that once held a refusal of such a view now hold the copied
+route to the plain twin. The fp32
 K2 runs on the tensor cores as three TF32 products for each fp32 product
 (split operands); `test_flash_bwd_fp32_keeps_fp32_precision` holds it to
 TIGHT_K2, which single-pass TF32 misses by more than 10x.
@@ -21,7 +24,8 @@ import pytest
 import torch
 
 from gd3d_torch.kernels import build, launch_counts
-from gd3d_torch.kernels.cost_kl import _reference_rows, masked_softmax_kl_rows
+from gd3d_torch.kernels.cost_kl import (
+    _reference_rows, masked_softmax_kl_fwd, masked_softmax_kl_rows)
 from gd3d_torch.kernels.flash_bwd_fused import (
     flash_attention_bwd_fused, flash_attention_bwd_plain)
 from gd3d_torch.kernels.flash_fwd import flash_attention_fwd, flash_attention_fwd_plain
@@ -60,9 +64,9 @@ def _qkv_views(g, B, N, M, H, dtype, dev):
     return q, kv[:, :, 1], kv[:, :, 2]
 
 
-# lengths that straddle the 64-row tiles, with M != N
-LENGTHS = [(1, 1), (15, 63), (63, 65), (64, 64), (65, 15), (129, 673), (673, 129),
-           (673, 673)]
+# lengths that straddle the 64-row and 128-row tiles, with M != N
+LENGTHS = [(1, 1), (15, 63), (63, 65), (64, 64), (65, 15), (127, 129), (128, 255),
+           (129, 128), (255, 257), (257, 127), (129, 673), (673, 129), (673, 673)]
 
 
 @pytest.mark.cuda
@@ -127,39 +131,97 @@ def test_flash_bwd_fp32_keeps_fp32_precision(dev):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("N", [673, 4161])
+def test_flash_bwd_bf16_repeats_at_student_lengths(dev, N):
+    """The bf16 K2 (TMA and wgmma, dQ in a second kernel) at the student's
+    cost and main lengths, where the kernels take 64- and 128-row blocks:
+    two calls give the same bits, and both equal the plain twin."""
+    g = torch.Generator(device=dev).manual_seed(N)
+    q, k, v = _qkv_views(g, 2, N, N, 12, torch.bfloat16, dev)
+    o, lse = flash_attention_fwd(q, k, v, 0.125)
+    do = torch.randn(o.shape, generator=g, device=dev).to(torch.bfloat16)
+    di = torch.einsum("bnhd,bnhd->bhn", o.float(), do.float()).contiguous()
+    first = flash_attention_bwd_fused(q, k, v, lse, do, di, 0.125)
+    second = flash_attention_bwd_fused(q, k, v, lse, do, di, 0.125)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for a, b in zip(first, flash_attention_bwd_plain(q, k, v, lse, do, di, 0.125)):
+        assert_close(a, b, torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [1, 8, 16, 48, 96])
+def test_flash_kernels_at_other_head_dims_match_plain(dev, dtype, D):
+    """K1 at head dims the wrapper zero-pads to 64 (or, at 96, to 128), and
+    K2 at those up to 64, against the plain twins at the true head dim and
+    the caller's scale; one launch each."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    B, N, M, H = 2, 129, 200, 3
+    q = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(dtype)[:, :, 0]
+    kv = torch.randn((B, M, 3, H, D), generator=g, device=dev).to(dtype)
+    k, v = kv[:, :, 1], kv[:, :, 2]
+    scale = D ** -0.5
+    before = launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, scale)
+    assert o.shape == q.shape and launch_counts()["K1"] == before["K1"] + 1
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
+    assert_close(o, o_ref, dtype)
+    assert_close(lse, lse_ref, torch.float32)
+    if D > 64:
+        return
+    do = torch.randn((B, N, H, D), generator=g, device=dev).to(dtype)
+    di = torch.einsum("bnhd,bnhd->bhn", o_ref.float(), do.float()).contiguous()
+    grads = flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale)
+    assert launch_counts()["K2"] == before["K2"] + 1
+    for a, b in zip(grads, flash_attention_bwd_plain(q, k, v, lse_ref, do, di, scale)):
+        assert a.shape == b.shape
+        assert_close(a, b, dtype)
+
+
+def _misaligned(dtype, dev, g):
+    """(1, 70, 2, 64) views the kernels cannot read as they are: one whose
+    row step is off 16 bytes (a slice of a wider projection) and one whose
+    address is."""
+    wide = torch.randn((1, 70, 3 * 2 * 64 + 4), generator=g, device=dev).to(dtype)
+    row_step = wide[..., :384].reshape(1, 70, 3, 2, 64)[:, :, 0]
+    flat = torch.randn((70 * 2 * 64 + 1,), generator=g, device=dev).to(dtype)
+    return row_step, flat[1:].view(1, 70, 2, 64)
+
+
+@pytest.mark.cuda
 def test_flash_bwd_refuses_misaligned_fp32_views(dev):
-    """The fp32 K2 copies 16-byte chunks: a view whose address or row step is
-    off 16 bytes raises instead of being copied."""
-    wide = torch.randn((1, 70, 3 * 2 * 64 + 2), device=dev)
-    good = wide[..., :384].reshape(1, 70, 3, 2, 64)  # row step 386 * 4 bytes
-    q, k, v = good[:, :, 0], good[:, :, 1], good[:, :, 2]
-    lse = torch.zeros((1, 2, 70), device=dev)
-    do = torch.randn((1, 70, 2, 64), device=dev)
-    with pytest.raises(ValueError, match="16 bytes"):
-        flash_attention_bwd_fused(q, k, v, lse, do, lse, 0.125)
-    flat = torch.randn((70 * 2 * 64 + 1,), device=dev)
-    shifted = flat[1:].view(1, 70, 2, 64)  # address off by 4 bytes
-    with pytest.raises(ValueError, match="16 bytes"):
-        flash_attention_bwd_fused(do, shifted, do, lse, do, lse, 0.125)
+    """The fp32 K2 copies 16-byte chunks: the wrapper copies a view whose
+    address or row step is off 16 bytes, and the result equals the plain
+    twin's (this test once held the refusal; the wrapper now copies)."""
+    g = torch.Generator(device=dev).manual_seed(130)
+    ok = torch.randn((1, 70, 2, 64), generator=g, device=dev)
+    for bad in _misaligned(torch.float32, dev, g):
+        o, lse = flash_attention_fwd_plain(bad, ok, ok, 0.125)
+        di = torch.einsum("bnhd,bnhd->bhn", o, ok).contiguous()
+        for args in ((bad, ok, ok, lse, ok, di), (ok, bad, ok, lse, ok, di),
+                     (ok, ok, bad, lse, ok, di), (ok, ok, ok, lse, bad, di)):
+            for a, b in zip(flash_attention_bwd_fused(*args, 0.125),
+                            flash_attention_bwd_plain(*args, 0.125)):
+                assert_close(a, b, torch.float32)
 
 
 @pytest.mark.cuda
 def test_flash_kernels_refuse_misaligned_bf16_views(dev):
-    """The bf16 kernels copy 16-byte chunks: a view whose address or row
-    step is off 16 bytes raises instead of being copied."""
-    qkv = torch.randn((1, 70, 3 * 2 * 64 + 4), device=dev).to(torch.bfloat16)
-    good = qkv[..., :384].reshape(1, 70, 3, 2, 64)
-    q, k, v = good[:, :, 0], good[:, :, 1], good[:, :, 2]  # row step 388 * 2 bytes
-    with pytest.raises(ValueError, match="16 bytes"):
-        flash_attention_fwd(q, k, v, 0.125)
-    flat = torch.randn((1 * 70 * 2 * 64 + 1,), device=dev).to(torch.bfloat16)
-    shifted = flat[1:].view(1, 70, 2, 64)  # address off by 2 bytes
-    ok = torch.randn((1, 70, 2, 64), device=dev).to(torch.bfloat16)
-    with pytest.raises(ValueError, match="16 bytes"):
-        flash_attention_fwd(shifted, ok, ok, 0.125)
-    lse = torch.zeros((1, 2, 70), device=dev)
-    with pytest.raises(ValueError, match="16 bytes"):
-        flash_attention_bwd_fused(ok, shifted, ok, lse, ok, lse, 0.125)
+    """The bf16 kernels copy by TMA, which needs 16-byte addresses and steps:
+    the wrappers copy a view that is off, and K1 and K2 on it equal their
+    plain twins (this test once held the refusal; the wrappers now copy)."""
+    g = torch.Generator(device=dev).manual_seed(147)
+    ok = torch.randn((1, 70, 2, 64), generator=g, device=dev).to(torch.bfloat16)
+    for bad in _misaligned(torch.bfloat16, dev, g):
+        for qkv in ((bad, ok, ok), (ok, bad, ok), (ok, ok, bad)):
+            o, lse = flash_attention_fwd(*qkv, 0.125)
+            o_ref, lse_ref = flash_attention_fwd_plain(*qkv, 0.125)
+            assert_close(o, o_ref, torch.bfloat16)
+            assert_close(lse, lse_ref, torch.float32)
+            di = torch.einsum("bnhd,bnhd->bhn", o_ref.float(), ok.float()).contiguous()
+            for a, b in zip(flash_attention_bwd_fused(*qkv, lse_ref, ok, di, 0.125),
+                            flash_attention_bwd_plain(*qkv, lse_ref, ok, di, 0.125)):
+                assert_close(a, b, torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -183,16 +245,17 @@ def test_flash_fwd_fp32_croco_layout_matches_plain(dev, N, M):
 
 @pytest.mark.cuda
 def test_flash_fwd_refuses_misaligned_fp32_views(dev):
-    """The fp32 head-dim-64 K1 copies 16-byte chunks too: a view whose row
-    step or address is off 16 bytes raises instead of being copied."""
-    wide = torch.randn((1, 70, 3 * 2 * 64 + 2), device=dev)
-    good = wide[..., :384].reshape(1, 70, 3, 2, 64)  # row step 386 * 4 bytes
-    with pytest.raises(ValueError, match="16 bytes"):
-        flash_attention_fwd(good[:, :, 0], good[:, :, 1], good[:, :, 2], 0.125)
-    shifted = torch.randn((70 * 2 * 64 + 1,), device=dev)[1:].view(1, 70, 2, 64)
-    ok = torch.randn((1, 70, 2, 64), device=dev)
-    with pytest.raises(ValueError, match="16 bytes"):
-        flash_attention_fwd(ok, shifted, ok, 0.125)
+    """The fp32 head-dim-64 K1 copies 16-byte chunks too: the wrapper copies
+    a view whose row step or address is off 16 bytes, and the result equals
+    the plain twin's (this test once held the refusal; the wrapper now
+    copies)."""
+    g = torch.Generator(device=dev).manual_seed(185)
+    ok = torch.randn((1, 70, 2, 64), generator=g, device=dev)
+    for bad in _misaligned(torch.float32, dev, g):
+        for qkv in ((bad, ok, ok), (ok, bad, ok), (ok, ok, bad)):
+            for a, b in zip(flash_attention_fwd(*qkv, 0.125),
+                            flash_attention_fwd_plain(*qkv, 0.125)):
+                assert_close(a, b, torch.float32)
 
 
 @pytest.mark.cuda
@@ -321,21 +384,25 @@ def test_rope2d_qk_backward_matches_plain(dev, used):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rope2d_refuses_misaligned_views(dev, dtype):
-    """K5 reads 16-byte vectors at D = 64: a view whose address or row step
-    is off 16 bytes raises instead of being copied, for one tensor and for
-    either side of a pair."""
+    """K5 reads 16-byte vectors at D = 64: the wrapper copies a view whose
+    address or row step is off 16 bytes, for one tensor and for either side
+    of a pair, and the result equals the plain twin's (this test once held
+    the refusal; the wrapper now copies)."""
     pos = grid_positions(5, 14, 1, device=dev)
     ok = torch.randn((1, 70, 2, 64), device=dev).to(dtype).transpose(1, 2)
     shifted = torch.randn((70 * 2 * 64 + 1,), device=dev).to(dtype)[1:].view(1, 70, 2, 64)
     wide = torch.randn((1, 70, 2 * 64 + 2), device=dev).to(dtype)[..., :128]
     wide = wide.reshape(1, 70, 2, 64)  # row step 130 elements
     for bad in (shifted.transpose(1, 2), wide.transpose(1, 2)):
-        with pytest.raises(ValueError, match="16 bytes"):
-            rope2d_fwd(bad, pos)
-        with pytest.raises(ValueError, match="16 bytes"):
-            rope2d_qk_fwd(ok, pos, bad, pos)
-        with pytest.raises(ValueError, match="16 bytes"):
-            rope2d_qk_fwd(bad, pos, ok, pos)
+        before = launch_counts()["K5"]
+        assert_close(rope2d_fwd(bad, pos), rope2d_plain(bad, pos), dtype)
+        yq, yk = rope2d_qk_fwd(ok, pos, bad, pos)
+        assert_close(yq, rope2d_plain(ok, pos), dtype)
+        assert_close(yk, rope2d_plain(bad, pos), dtype)
+        yq, yk = rope2d_qk_fwd(bad, pos, ok, pos)
+        assert_close(yq, rope2d_plain(bad, pos), dtype)
+        assert_close(yk, rope2d_plain(ok, pos), dtype)
+        assert launch_counts()["K5"] == before + 3
 
 
 @pytest.mark.cuda
@@ -373,11 +440,13 @@ def _rank_inputs(g, N, h, dev, second_view="random"):
 @pytest.mark.cuda
 @pytest.mark.parametrize("second_view", ["all_invalid", "one_valid"])
 @pytest.mark.parametrize("N,h", [(1, 32), (7, 96), (33, 128), (70, 128), (70, 96),
-                                 (300, 32), (300, 128)])
+                                 (300, 32), (300, 128), (70, 48), (33, 80), (7, 1),
+                                 (300, 127)])
 def test_pairwise_rank_matches_plain(dev, N, h, second_view):
     """K4: per-row sums and counts, and the six gradients through the
     autograd.Function; a view with no valid keypoint, or with one, gives 0
-    (no pair); N is no tile multiple."""
+    (no pair); N is no tile multiple; h is no multiple of 32 in the last
+    four (the kernels hold it padded with zero units)."""
     g = torch.Generator(device=dev).manual_seed(N)
     u, head, depths, valid = _rank_inputs(g, N, h, dev, second_view)
     before = launch_counts()["K4"]
@@ -468,13 +537,16 @@ def test_cost_kl_rows_match_plain(dev, B, N, M, masked):
 @pytest.mark.cuda
 def test_cost_kl_refuses_maps_off_each_other_by_4_bytes(dev):
     """Maps whose addresses differ modulo 16 bytes: no float4 can hold the
-    same index of both, so the wrapper raises instead of launching."""
+    same index of both, so K3 copies the map that is off 16 bytes and
+    launches once; the rows equal the plain twin's (this test once held the
+    refusal; the wrapper now copies)."""
     g = torch.Generator(device=dev).manual_seed(9)
     p, cost, mask = _kl_inputs(g, 1, 50, 672, "some", dev)
-    shifted = torch.empty(cost.numel() + 1, device=dev)[1:].view(cost.shape)
-    shifted.copy_(cost)
-    assert (shifted.data_ptr() - p.data_ptr()) % 16 != 0
-    before = launch_counts()["K3"]
-    with pytest.raises(ValueError, match="modulo 16"):
-        masked_softmax_kl_rows(p, shifted, mask)
-    assert launch_counts()["K3"] == before
+    shifted_cost, shifted_p = (
+        torch.empty(t.numel() + 1, device=dev)[1:].view(t.shape).copy_(t) for t in (cost, p))
+    assert (shifted_cost.data_ptr() - p.data_ptr()) % 16 != 0
+    for teacher, student in ((p, shifted_cost), (shifted_p, cost)):
+        before = launch_counts()["K3"]
+        got = masked_softmax_kl_fwd(teacher, student, mask)
+        assert launch_counts()["K3"] == before + 1
+        assert_close(got, _reference_rows(teacher, student, mask, 1e-8), torch.float32)
