@@ -84,8 +84,8 @@ report), then runs these phases in order, one or more printed lines each:
               then profiles one more group of each run's step, as phase 3;
   6. eval     (a) the JPEG decoder and the Lanczos resize on the committed
               fixtures (gd3d_torch/eval/testdata/) against PIL's SHA-256
-              digests, with host ms per decode and resize, and the
-              progressive fixture refused; (b) the fp32 K1 at the eval's
+              digests, with host ms per decode and resize, the
+              progressive fixture among them; (b) the fp32 K1 at the eval's
               shapes, (8,1601,12,64) and (4,5986,12,64), in the kernels
               phase's format; (c) the card against the CPU plain path on
               shared weights: dense_grid_features at stride 8 on a 232x424
@@ -241,14 +241,37 @@ report), then runs these phases in order, one or more printed lines each:
               ScanNet++, ARKitScenes, BlendedMVS, StaticThings3D, Waymo) and
               the Habitat generator: the digests, the tree read by the port's
               reader for its dataset and one pretraining batch drawn from it
-              (views_pretrain_batch), seconds a frame; MegaDepth raises a
-              ValueError naming its .h5; (c) gd3d_torch.cli.train at full
+              (views_pretrain_batch), seconds a frame (MegaDepth: the formats
+              phase); (c) gd3d_torch.cli.train at full
               width, --config finetune_timm_mast3r_objaverse, 2 steps on
               (a)'s tree (--data-root): finite losses, its K1-K5 launches.
 
+ 15. formats  the decoders of every file gd3d reads (check_formats), on the
+              host: (a) every committed fixture of
+              gd3d_torch/data/testdata/formats (tests/torch_formats_gen.py)
+              to its digest: PIL's RGB of progressive, CMYK, YCCK and 4:1:1
+              JPEG, lossy, lossless and alpha WebP, RLE8, 5-6-5 and 32-bit
+              BMP, Adam7 and 2-bit PNG; the EXR writer's values of ZIP, PIZ
+              and RLE depth; h5py's arrays of HDF5 depth at both file
+              formats; with host ms per decode at the sizes users meet (854x480
+              4:2:0 progressive JPEG, 512x384 lossy and lossless WebP, a
+              512x384 24-bit BMP, a 1024x768 ZIP EXR and a 1024x768 chunked
+              gzip HDF5 depth, the last three written here and read back
+              equal); (b) gd3d_torch.cli.align (dense, --niter FORMATS_NITER)
+              with the fp32 MASt3R teacher at full width on the four views
+              (progressive JPEG, lossy WebP, 24-bit BMP, Adam7 PNG): the
+              loaded [-1, 1] arrays against gd3d's load_image_mast3r
+              digests, the teacher's K1 and K5 launches, scene.npz as the
+              align phase checks it; (c) MegaDepth preprocessed from its
+              .h5 depth to gd3d's digests (datagen_digests.json) and read
+              through MegaDepthViews; (d) BlendedMVS read from an EXR-only
+              tree equals the same tree with .npy depth; (e) a .h5
+              disparity and a .flo5 flow through flowio.read_gt to gd3d's
+              digests, and a write_flo5 round trip. The phase's seconds.
+
 Then one JSON line of the kernels (launches: the steps, train, eval, data,
-pose, surface, align, sparse_ga, stereoflow, pretrain and datagen phases'
-runs together; "K2 bf16", the bf16 K2 at the student's main pass beside the
+pose, surface, align, sparse_ga, stereoflow, pretrain, datagen and formats
+phases' runs together; "K2 bf16", the bf16 K2 at the student's main pass beside the
 fp32 K2 entry, counts the bf16 K2 launches of the steps phase and of the
 surface phase's step runs), the card line, and last the JSON result line.
 Exits non-zero, printing no result, without a CUDA device or if any phase
@@ -1460,8 +1483,8 @@ def testdata_dir():
 def check_codec() -> dict:
     """The committed JPEG fixtures decoded by gd3d_torch/data/jpeg.py and
     resized by gd3d_torch/data/resample.py, to the SHA-256 digests PIL gave
-    (testdata/digests.json, written and checked by tests/test_torch_jpeg.py);
-    the progressive file refused. Returns the decoded images by name."""
+    (testdata/digests.json, written and checked by tests/test_torch_jpeg.py),
+    the progressive file among them. Returns the decoded images by name."""
     import hashlib
     import statistics
 
@@ -1492,13 +1515,6 @@ def check_codec() -> dict:
             f"{list(entry['lanczos'])} equal PIL's digests {same} {'OK' if same else 'FAIL'}")
         ok &= same
         images[name] = img
-    try:
-        decode_jpeg(root / "progressive.jpg")
-        refused = False
-    except ValueError as e:
-        refused = "progressive" in str(e)
-    log(f"eval: codec progressive.jpg refused with a ValueError {refused} "
-        f"{'OK' if refused else 'FAIL'}")
     frames = [v for k, v in decode_ms.items() if k.startswith("frame_")]
     frame_resize = [v for k, v in resize_ms.items() if k.startswith("frame_")]
     pascal_resize = [v for k, v in resize_ms.items() if k.startswith("pascal_")]
@@ -1507,7 +1523,7 @@ def check_codec() -> dict:
         f"{statistics.median(v for k, v in decode_ms.items() if k.startswith('pascal_')):.1f}; "
         f"per Lanczos 854x480 -> 848x464 {statistics.median(frame_resize):.1f}; per "
         f"500x375 -> 640x480 {statistics.median(pascal_resize):.1f}")
-    if not (ok and refused):
+    if not ok:
         raise AssertionError("eval: the JPEG decoder or the Lanczos resize disagrees with PIL")
     return images
 
@@ -3962,25 +3978,15 @@ def check_datagen(dev) -> dict:
                 f"{dt:.3f} s, {dt / views:.4f} host s a view (the card's machine; {gpu})")
             trees.append(("render", run, tmp / "render" / run))
         for dataset in fixtures.RAW_DATASETS + ("habitat",):
+            if dataset == "megadepth":  # its HDF5 depth: the formats phase's (c)
+                continue
             spec = None if dataset == "habitat" else fixtures.write_raw_tree(
                 dataset, tmp / "raw" / dataset)
             out = tmp / "pre" / dataset
             t0 = time.perf_counter()
-            try:
-                with quiet:
-                    preprocess.main(fixtures.preprocess_argv(dataset, spec, out))
-            except ValueError as e:
-                refused = dataset == "megadepth" and ".h5" in str(e)
-                log(f"datagen: preprocess {dataset} refused: {e} "
-                    f"{'OK' if refused else 'FAIL'}")
-                if not refused:
-                    bad.append(dataset)
-                continue
+            with quiet:
+                preprocess.main(fixtures.preprocess_argv(dataset, spec, out))
             dt = time.perf_counter() - t0
-            if dataset == "megadepth":
-                log("datagen: preprocess megadepth did not refuse its .h5 FAIL")
-                bad.append(dataset)
-                continue
             frames = sum(1 for p in out.rglob("*") if p.suffix.lower() in (".jpg", ".jpeg"))
             log(f"datagen: preprocess {dataset}: {frames} frames in {dt:.3f} s, "
                 f"{dt / frames:.4f} host s a frame ({gpu})")
@@ -4030,6 +4036,267 @@ def check_datagen(dev) -> dict:
                       # intra-depth loss, the depth head's only one, is 0
                       ("depth_diff_head.",), profile=False)
     return res["counts"]
+
+
+# ---------------------------------------------------------------------------
+# formats: the decoders of every file gd3d reads (gd3d_torch/data/{jpeg,png,
+# bmp,webp,vp8,vp8l,exr,hdf5}.py)
+# ---------------------------------------------------------------------------
+FORMATS_NITER = 30
+
+
+def formats_dir():
+    from pathlib import Path
+
+    return Path(__file__).resolve().parent / "gd3d_torch" / "data" / "testdata" / "formats"
+
+
+def _write_exr():
+    """tests/exr_writer.py's write_exr, loaded from its file alone: the port
+    writes no EXR, so the EXR fixtures of (a) and (d) come from the tests'
+    numpy writer."""
+    import importlib.util
+
+    path = formats_dir().parents[3] / "tests" / "exr_writer.py"
+    spec = importlib.util.spec_from_file_location("exr_writer", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.write_exr
+
+
+def _view_mismatches(got, want, where=""):
+    """Where two stereo-view items (nested dicts, lists and arrays) differ:
+    keys, lengths, dtypes, shapes or values."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if set(got) != set(want):
+            return [f"{where}: keys {sorted(set(got) ^ set(want))}"]
+        return [m for k in want for m in _view_mismatches(got[k], want[k], f"{where}/{k}")]
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            return [f"{where}: length {len(got)} != {len(want)}"]
+        return [m for i, (g, w) in enumerate(zip(got, want))
+                for m in _view_mismatches(g, w, f"{where}[{i}]")]
+    if isinstance(want, np.ndarray):
+        same = (isinstance(got, np.ndarray) and got.dtype == want.dtype
+                and got.shape == want.shape and np.array_equal(got, want, equal_nan=
+                                                               want.dtype.kind == "f"))
+        return [] if same else [f"{where}: arrays differ"]
+    return [] if got == want else [f"{where}: {got!r} != {want!r}"]
+
+
+def _formats_digest(kind, name):
+    """The port's array of one committed fixture (as
+    tests/test_torch_formats_wiring.py takes it), and the seconds its
+    decode took."""
+    import hashlib
+
+    import numpy as np
+
+    from gd3d_torch.data import exr, flowio, hdf5, images
+
+    root = formats_dir()
+    t0 = time.perf_counter()
+    if kind == "image":
+        arr = images.decode_rgb((root / name).read_bytes(), name, composite=False)
+    elif kind == "view":
+        arr = images.load_image_mast3r(str(root / "views" / name), 512)["img"]
+    elif kind == "exr":
+        arr = exr.read_exr(root / name)
+    elif kind == "hdf5":
+        arr = hdf5.read_dataset(root / name, "depth")
+    else:
+        arr = flowio.read_gt(str(root / name), "stereo" if name.endswith(".h5") else "flow")
+    dt = time.perf_counter() - t0
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest(), dt, arr
+
+
+def check_formats_fixtures(tmp, gpu: str) -> None:
+    """(a): every committed fixture to its digest, and the host ms per decode
+    at the sizes users meet."""
+    import struct
+
+    import numpy as np
+
+    from gd3d_torch.data import bmp, exr, hdf5
+
+    write_exr = _write_exr()
+    digests = json.loads((formats_dir() / "digests.json").read_text())
+    bad, ms, decoded = [], {}, {}
+    for kind, entries in sorted(digests.items()):
+        for name, want in sorted(entries.items()):
+            got, dt, arr = _formats_digest(kind, name)
+            ms[name] = dt * 1e3
+            decoded[name] = arr
+            if got != want:
+                bad.append(f"{kind} {name}")
+    n = sum(len(v) for v in digests.values())
+    log(f"formats: (a) {n} committed fixtures decoded to their digests (PIL's RGB, gd3d's "
+        f"load_image_mast3r, the EXR writer's values, h5py's arrays, gd3d's flowio) "
+        f"{not bad} {'OK' if not bad else 'FAIL ' + str(bad)}")
+    # the same pixels as a 512x384 24-bit BMP, and 1024x768 EXR and HDF5 depth
+    rgb = decoded["lossy_512x384.webp"]
+    h, w = rgb.shape[:2]
+    rows = rgb[::-1, :, ::-1].tobytes()
+    (tmp / "big.bmp").write_bytes(b"BM" + struct.pack("<IHHI", 54 + len(rows), 0, 0, 54)
+                                  + struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, len(rows),
+                                                2835, 2835, 0, 0) + rows)
+    t0 = time.perf_counter()
+    got = bmp.pil_rgb(bmp.decode_bmp(tmp / "big.bmp"))
+    ms["bmp 512x384"] = (time.perf_counter() - t0) * 1e3
+    ok_bmp = np.array_equal(got, rgb)
+    yy, xx = np.mgrid[0:768, 0:1024]
+    depth = (2.0 + np.sin(yy / 37.0) + np.cos(xx / 53.0)).astype(np.float32)
+    depth = np.round(depth * 1024) / 1024
+    write_exr(tmp / "big.exr", depth, "ZIP")
+    t0 = time.perf_counter()
+    ok_exr = np.array_equal(exr.read_exr(tmp / "big.exr"), depth)
+    ms["exr 1024x768 ZIP"] = (time.perf_counter() - t0) * 1e3
+    hdf5.write_dataset(tmp / "big.h5", "depth", depth)
+    t0 = time.perf_counter()
+    ok_h5 = np.array_equal(hdf5.read_dataset(tmp / "big.h5", "depth"), depth)
+    ms["hdf5 1024x768 gzip"] = (time.perf_counter() - t0) * 1e3
+    ok = not bad and ok_bmp and ok_exr and ok_h5
+    log(f"formats: (a) host ms per decode (the card's machine; {gpu}): "
+        f"progressive JPEG 854x480 4:2:0 {ms['progressive_854x480.jpg']:.1f}, lossy WebP "
+        f"512x384 {ms['lossy_512x384.webp']:.1f}, lossless WebP 512x384 "
+        f"{ms['lossless_512x384.webp']:.1f}, 24-bit BMP 512x384 {ms['bmp 512x384']:.1f} "
+        f"(equal {ok_bmp}), ZIP EXR 1024x768 {ms['exr 1024x768 ZIP']:.1f} (equal {ok_exr}), "
+        f"chunked gzip HDF5 1024x768 {ms['hdf5 1024x768 gzip']:.1f} (equal {ok_h5}); "
+        f"the rest: " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(ms.items())
+                                  if "512x384" not in k and "854x480" not in k
+                                  and "1024x768" not in k)
+        + f" {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("formats: a decoder disagrees with its fixture")
+
+
+def check_formats_align(dev, tmp, gpu: str) -> dict:
+    """(b): the align CLI on the four views with the full-width fp32 MASt3R
+    teacher. Returns its launches."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from gd3d_torch.cli import align as align_cli
+    from gd3d_torch.data.images import load_image_mast3r
+    from gd3d_torch.teachers.mast3r import Mast3rTeacher
+
+    digests = json.loads((formats_dir() / "digests.json").read_text())["view"]
+    views = tmp / "views"
+    shutil.copytree(formats_dir() / "views", views)
+    loaded_ok = all(_formats_digest("view", n)[0] == d for n, d in digests.items())
+    with torch.device(dev):
+        teacher = Mast3rTeacher()
+    teacher.init_params(torch.Generator(device=dev).manual_seed(15))
+    teacher.eval()
+    images = torch.from_numpy(np.stack([load_image_mast3r(str(v))["img"]
+                                        for v in sorted(views.iterdir())])).to(dev)
+    teacher.face_forward(images[:1], images[1:2])
+    res, c, c_by, wall, peak = _counted_run(lambda: align_cli.main(
+        ["--images", str(views), "--output", str(tmp / "align"), "--sparse", "0",
+         "--niter", str(FORMATS_NITER)], teacher=teacher))
+    loss = _check_scene_npz(tmp / "align" / "scene.npz", True, ALIGN_VIEWS, FORMATS_NITER)
+    launches_ok = (c_by["K1"] == ALIGN_TEACHER_LAUNCHES["K1"]
+                   and c["K5"] == ALIGN_TEACHER_LAUNCHES["K5"]
+                   and all(v == 0 for k, v in c.items() if k not in ("K1", "K5")))
+    st = res["stats"]
+    ok = loaded_ok and launches_ok
+    log(f"formats: (b) align CLI dense --niter {FORMATS_NITER} on "
+        f"{sorted(p.name for p in views.iterdir())}: loaded arrays equal gd3d's "
+        f"load_image_mast3r digests {loaded_ok}; {st['pairs']} pairs, teacher call "
+        f"{st['teacher_s']:.3f} s, wall {wall:.2f} s, peak_mem_gib {peak:.3f}; {loss}; "
+        f"launches {c}, K1 {c_by['K1']} (want {ALIGN_TEACHER_LAUNCHES}) "
+        f"{'OK' if ok else 'FAIL'} [{gpu}]")
+    if not ok:
+        raise AssertionError("formats: the align run on the four formats is wrong")
+    del teacher, images
+    torch.cuda.empty_cache()
+    return c
+
+
+def check_formats_trees(tmp) -> None:
+    """(c) MegaDepth from its HDF5 depth, (d) an EXR-only tree, (e) the HDF5
+    stereo and flow ground truth."""
+    import contextlib
+    import io
+    import shutil
+
+    import numpy as np
+
+    from gd3d_torch.cli import preprocess
+    from gd3d_torch.data import fixtures, flowio
+    from gd3d_torch.data import stereo_views as sv
+
+    quiet = contextlib.redirect_stdout(io.StringIO())
+    write_exr = _write_exr()
+
+    # (c) MegaDepth from its HDF5 depth
+    ref = json.loads(fixtures.DATAGEN_DIGESTS.read_text())["preprocess"]["megadepth"]
+    spec = fixtures.write_raw_tree("megadepth", tmp / "raw" / "megadepth")
+    t0 = time.perf_counter()
+    with quiet:
+        preprocess.main(fixtures.preprocess_argv("megadepth", spec, tmp / "megadepth"))
+    dt = time.perf_counter() - t0
+    got = {f: fixtures.file_digest(tmp / "megadepth" / f)
+           for f in fixtures.tree_files(tmp / "megadepth")}
+    wrong = fixtures.mismatches(got, ref)
+    cls, kw = fixtures.TREE_VIEWS["megadepth"]
+    ds = getattr(sv, cls)(str(tmp / "megadepth"), resolution=(224, 224), seed=1, **kw)
+    batch = sv.views_pretrain_batch(ds, [0], np.random.RandomState(0), n_corres=256)
+    finite = all(np.isfinite(np.asarray(batch[k], np.float64)).all() for k in ("img1", "img2"))
+    ok_c = not wrong and finite and len(ds) > 0
+    log(f"formats: (c) MegaDepth preprocessed from .h5 depth in {dt:.3f} s: {len(got)} files "
+        f"equal gd3d's committed digests {not wrong}; {cls}: {len(ds)} pairs, a finite batch "
+        f"{finite} {'OK' if ok_c else 'FAIL ' + str(wrong[:4])}")
+    # (d) an EXR-only BlendedMVS tree against its .npy twin
+    spec = fixtures.write_raw_tree("blendedmvs", tmp / "raw" / "blendedmvs")
+    with quiet:
+        preprocess.main(fixtures.preprocess_argv("blendedmvs", spec, tmp / "bmvs_npy"))
+    shutil.copytree(tmp / "bmvs_npy", tmp / "bmvs_exr")
+    sibs = sorted((tmp / "bmvs_exr").rglob("*.exr.npy"))
+    for npy in sibs:
+        write_exr(str(npy)[:-4], np.load(npy), "ZIP")
+        npy.unlink()
+    cls, kw = fixtures.TREE_VIEWS["blendedmvs"]
+    a = getattr(sv, cls)(str(tmp / "bmvs_npy"), resolution=(224, 224), seed=1, **kw)
+    b = getattr(sv, cls)(str(tmp / "bmvs_exr"), resolution=(224, 224), seed=1, **kw)
+    diff = [m for idx in range(min(len(a), 2)) for m in _view_mismatches(b[idx], a[idx],
+                                                                         f"{cls}[{idx}]")]
+    same = len(a) == len(b) > 0 and bool(sibs) and not diff
+    log(f"formats: (d) {cls} on an EXR-only tree ({len(sibs)} ZIP depth files) equals the "
+        f".npy tree, items 0-1 {same} {'OK' if same else 'FAIL ' + str(diff[:4])}")
+    # (e) HDF5 stereo and flow ground truth
+    flowd = json.loads((formats_dir() / "digests.json").read_text())["flowio"]
+    ok_e = all(_formats_digest("flowio", n)[0] == d for n, d in flowd.items())
+    flow = np.random.RandomState(0).randn(97, 131, 2).astype(np.float32)
+    flowio.write_flo5(str(tmp / "w.flo5"), flow)
+    round_trip = np.array_equal(flowio.read_gt(str(tmp / "w.flo5"), "flow"), flow)
+    ok_e &= round_trip
+    log(f"formats: (e) {sorted(flowd)} through flowio.read_gt to gd3d's digests, write_flo5 "
+        f"round trip {round_trip} {'OK' if ok_e else 'FAIL'}")
+    if not (ok_c and same and ok_e):
+        raise AssertionError("formats: (c), (d) or (e) failed")
+
+
+def check_formats(dev) -> dict:
+    """The formats phase (see the module docstring, 15). Returns the launches
+    of (b)."""
+    import tempfile
+    from pathlib import Path
+
+    gpu = gpu_line()
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        check_formats_fixtures(tmp, gpu)
+        counts = check_formats_align(dev, tmp, gpu)
+        check_formats_trees(tmp)
+    log(f"formats: phase {time.perf_counter() - t_phase:.1f} s (host work and the align run; "
+        f"{gpu})")
+    return counts
 
 
 def main() -> int:
@@ -4111,6 +4378,9 @@ def main() -> int:
     for k, n in check_datagen(dev).items():
         counts[k] += n
     log(f"phase: datagen done at {time.perf_counter() - t_start:.1f} s")
+    for k, n in check_formats(dev).items():
+        counts[k] += n
+    log(f"phase: formats done at {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

@@ -16,8 +16,8 @@ and a browser viewer (scene.html). It runs on the card unless --device says
 otherwise; asking for cuda without one raises. The teacher runs all ordered
 pairs of the scene graph in one batched call, the alignment is Adam on the
 device (gd3d_torch/align.py). Images are read by gd3d_torch/data/images.py,
-which decodes JPEG and PNG; another format (gd3d also takes .bmp and
-.webp through PIL) raises an error that names the file. --sparse-ga runs
+which decodes JPEG, PNG, BMP and WebP, the formats gd3d collects; a file
+that is none of them, or broken, raises an error that names it. --sparse-ga runs
 MASt3R's two-stage sparse global alignment instead (gd3d_torch/sparse_ga.py:
 the teacher over the unordered pairs, pair_chunk at a time, then the coarse
 and fine stages on the device) and writes gd3d's sparse-GA scene.npz (poses,
@@ -34,9 +34,8 @@ from pathlib import Path
 
 import numpy as np
 
-# what gd3d collects from a directory; data/images.py::open_rgb reads the first three
+# what gd3d collects from a directory; data/images.py::open_rgb reads them all
 COLLECTED = (".png", ".jpg", ".jpeg", ".bmp", ".webp")
-READABLE = (".png", ".jpg", ".jpeg")
 
 
 def parse_args(argv=None):
@@ -44,8 +43,8 @@ def parse_args(argv=None):
         prog="python -m gd3d_torch.cli.align",
         description="Globally align MASt3R pairwise predictions into a posed multi-view scene")
     p.add_argument("--images", required=True, nargs="+",
-                   help="image files (or one directory), JPEG or PNG; all must share one "
-                        "post-resize shape")
+                   help="image files (or one directory): JPEG, PNG, BMP or WebP; all must "
+                        "share one post-resize shape")
     p.add_argument("--output", required=True, help="output directory")
     p.add_argument("--teacher-ckpt", default=None,
                    help="MASt3R torch state_dict (.pth); random weights with a warning "
@@ -109,11 +108,13 @@ def _collect_images(paths):
 
 
 def check_readable(files) -> None:
-    """Raise on a file the port cannot decode, naming it."""
+    """Raise on a file whose header the port cannot read (not a JPEG, PNG,
+    BMP or WebP, or a broken one), naming it; the pixels are decoded, and
+    any fault in them named, when the views load."""
+    from gd3d_torch.data.images import image_size
+
     for f in files:
-        if Path(f).suffix.lower() not in READABLE:
-            raise ValueError(f"{f}: the port reads JPEG and PNG images only "
-                             f"(gd3d_torch/data/images.py), not {Path(f).suffix}")
+        image_size(f)
 
 
 def teacher_config(tiny: bool):

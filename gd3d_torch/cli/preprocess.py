@@ -12,8 +12,8 @@ encoder gives PIL's bytes, data/jpeg_encode.py). gd3d reads and writes with
 PIL and cv2; the port decodes with data/png.py and data/jpeg.py, resizes
 with data/resample.py and undistorts with data/undistort.py. Everything
 runs on the host in numpy, as gd3d's does, and the module imports no
-torch. MegaDepth's raw depth is HDF5, which the port does not read: its
-preprocessor raises a ValueError naming the first .h5 file.
+torch. MegaDepth's raw depth is HDF5, read with data/hdf5.py (h5py's
+arrays without h5py).
 
 The rest of this docstring is gd3d's.
 

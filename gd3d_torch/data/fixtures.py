@@ -741,8 +741,9 @@ HDF5_SIGNATURE = b"\x89HDF\r\n\x1a\n"
 def write_raw_megadepth(root, size=(96, 64), seed: int = 6) -> Dict:
     """MegaDepth's raw layout for scene 0001, subscene 0: the COLMAP
     'manhattan' text model (SIMPLE_RADIAL), dense0/imgs/*.jpg and
-    dense0/depths/*.h5, each .h5 only an HDF5 signature (the port refuses
-    it before reading); the pairs file <root>/megadepth_pairs.npz."""
+    dense0/depths/*.h5, each the float32 "depth" dataset (zeros where the
+    depth is unknown) written by data/hdf5.py; the pairs file
+    <root>/megadepth_pairs.npz."""
     root = Path(root)
     raw = root / "raw"
     rng = np.random.RandomState(seed)
@@ -759,7 +760,11 @@ def write_raw_megadepth(root, size=(96, 64), seed: int = 6) -> Dict:
         lines += [f"{i + 1} 1 0 0 0 {-0.05 * i} 0 0 1 {tag}", "1 2 -1"]
         _jpeg(dense / "imgs" / tag, views[i])
         (dense / "depths").mkdir(parents=True, exist_ok=True)
-        (dense / "depths" / (tag[:-4] + ".h5")).write_bytes(HDF5_SIGNATURE + bytes(56))
+        from gd3d_torch.data import hdf5
+
+        depth = (2.0 + rng.rand(h, w) * 3.0).astype(np.float32)
+        depth[rng.rand(h, w) < 0.1] = 0.0
+        hdf5.write_dataset(dense / "depths" / (tag[:-4] + ".h5"), "depth", depth)
     (sfm / "images.txt").write_text("\n".join(lines) + "\n")
     rec = np.dtype([("scene_id", "<i8"), ("im1_id", "<i8"), ("im2_id", "<i8"),
                     ("score", "<f4")])
@@ -923,6 +928,7 @@ TREE_VIEWS = {"co3d": ("Co3dViews", {"split": "train"}),
               "blendedmvs": ("BlendedMVSViews", {"split": None}),
               "staticthings3d": ("StaticThings3DViews", {"mask_bg": False}),
               "waymo": ("WaymoViews", {}),
+              "megadepth": ("MegaDepthViews", {"split": "train"}),
               "habitat": ("HabitatViews", {"split": "train", "size": 64})}
 DATAGEN_DIGESTS = TESTDATA / "datagen_digests.json"
 

@@ -32,7 +32,7 @@ What gd3d does through a library, the port does itself, to the same arrays:
 The colour wheel, flow_to_color, the PFM and .flo codecs and the other
 adjust_* functions are gd3d's numpy. The augmentors draw from their
 RandomState in gd3d's order and number. The HDF5 readers and write_flo5
-raise a ValueError naming the file: the port reads no HDF5.
+go through data/hdf5.py, h5py's arrays without h5py.
 """
 from __future__ import annotations
 
@@ -44,7 +44,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from gd3d_torch.data import augment, png
+from gd3d_torch.data import augment, hdf5, png
 from gd3d_torch.data.images import decode_rgb, read_bytes
 
 # ---------------------------------------------------------------------------
@@ -122,17 +122,8 @@ def write_pfm(path: str, image: np.ndarray, scale: float = 1.0) -> None:
 
 
 def read_png_disp(path: str, coef: float = 1.0) -> np.ndarray:
-    """PIL's array of the PNG / coef, 0 -> +inf: a grey file's samples (8 or
-    16 bits), an 8-bit RGB or RGBA file's channels; other kinds raise."""
-    p = png.decode_png(path)
-    if p.color_type == 0:
-        arr = p.samples[..., 0]
-    elif p.color_type in (2, 6) and p.bit_depth == 8:
-        arr = p.samples
-    else:
-        raise ValueError(f"{path}: disparity PNGs are read as grey, or as 8-bit RGB(A); "
-                         f"this one has colour type {p.color_type} at {p.bit_depth} bits")
-    disp = arr.astype(np.float32) / coef
+    """PIL's array of the PNG (png.pil_array, any mode) / coef, 0 -> +inf."""
+    disp = png.pil_array(png.decode_png(path)).astype(np.float32) / coef
     disp[disp == 0.0] = np.inf
     return disp
 
@@ -159,13 +150,11 @@ def read_pfm_disp(path: str) -> np.ndarray:
     return disp
 
 
-def _no_hdf5(path: str):
-    raise ValueError(f"{path}: the port reads no HDF5 files (gd3d reads them with h5py, "
-                     f"which the port does not use)")
-
-
 def read_hdf5_disp(path: str) -> np.ndarray:
-    _no_hdf5(path)
+    """The "disparity" dataset (data/hdf5.py), NaN -> +inf."""
+    disp = hdf5.read_dataset(path, "disparity")
+    disp[np.isnan(disp)] = np.inf
+    return disp.astype(np.float32)
 
 
 # ---------------------------------------------------------------------------
@@ -229,11 +218,16 @@ def read_pfm_flow(path: str) -> np.ndarray:
 
 
 def read_hdf5_flow(path: str) -> np.ndarray:
-    _no_hdf5(path)
+    """The "flow" dataset (data/hdf5.py), NaN -> +inf."""
+    flow = hdf5.read_dataset(path, "flow")
+    flow[np.isnan(flow)] = np.inf
+    return flow.astype(np.float32)
 
 
 def write_flo5(path: str, flow: np.ndarray) -> None:
-    _no_hdf5(path)
+    """The "flow" dataset, chunked and deflated at level 5, as gd3d has
+    h5py write it (data/hdf5.py::write_dataset)."""
+    hdf5.write_dataset(path, "flow", flow)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """Minimal glTF-2.0 binary (.glb) mesh loader, stdlib + numpy
-(counterpart of gd3d/data/glb.py; textures decoded by data/png.py and
-data/jpeg.py instead of PIL, shadow maps rendered by
+(counterpart of gd3d/data/glb.py; textures decoded by data/images.py's
+JPEG, PNG, BMP and WebP decoders instead of PIL, shadow maps rendered by
 data/render_synthetic.py's rasteriser instead of gd3d's native library).
 
 The reference renders real Objaverse assets (``<cad_root>/<name>.glb``,
@@ -186,20 +186,16 @@ def _mesh_nodes(gltf: dict) -> List[Tuple[int, np.ndarray]]:
 
 
 def _decode_image(gltf: dict, binary: bytes, image_idx: int) -> np.ndarray:
-    """Decode an embedded texture image -> (h, w, 3) float32 in [0, 1]."""
-    from gd3d_torch.data import png as png_mod
-    from gd3d_torch.data.jpeg import decode_jpeg
+    """Decode an embedded texture image -> (h, w, 3) float32 in [0, 1]:
+    PIL's convert("RGB") of any format data/images.py decodes (alpha
+    dropped, not composited)."""
+    from gd3d_torch.data.images import decode_rgb
 
     img = gltf["images"][image_idx]
     if "bufferView" not in img:
         raise ValueError("external image URIs are not supported (GLB only)")
     data = _buffer_view_bytes(gltf, binary, img["bufferView"])
-    if data[:8] == png_mod.SIGNATURE:
-        rgb = png_mod.pil_rgb(png_mod.decode_png(data), composite=False)
-    elif data[:2] == b"\xff\xd8":
-        rgb = decode_jpeg(data)
-    else:
-        raise ValueError(f"texture image {image_idx}: only PNG and JPEG are supported")
+    rgb = decode_rgb(data, f"texture image {image_idx}", composite=False)
     return np.asarray(rgb, np.float32) / 255.0
 
 

@@ -1,6 +1,7 @@
 """Teacher-format image loading (counterpart of gd3d/data/images.py),
-without PIL: JPEG and PNG decoded by gd3d_torch/data/{jpeg,png}.py, EXIF
-orientation by data/exif.py, PIL's Lanczos and bicubic resizes by
+without PIL: JPEG, PNG, BMP and WebP decoded by gd3d_torch/data/{jpeg,png,
+bmp,webp}.py (dispatched on their magic bytes), EXIF orientation by
+data/exif.py, PIL's Lanczos and bicubic resizes by
 data/resample.py. Every function gives gd3d's arrays for the same file.
 
   - `load_image_mast3r`: dust3r's load_images (long side -> `size`, Lanczos
@@ -19,38 +20,67 @@ and scaled to uint8 first, as gd3d does.
 from __future__ import annotations
 
 import os
-from typing import Dict, List, Sequence, Union
+from typing import Dict, List, Sequence, Tuple, Union
 
 import numpy as np
 
-from gd3d_torch.data import exif, png
-from gd3d_torch.data.jpeg import decode_jpeg
+from gd3d_torch.data import bmp, exif, png, webp
+from gd3d_torch.data.jpeg import decode_jpeg, jpeg_size
 from gd3d_torch.data.resample import resize_bicubic, resize_lanczos
+from gd3d_torch.data.source import read_source
 
 ImageLike = Union[str, os.PathLike, np.ndarray]
 
 
 def read_bytes(path) -> bytes:
-    with open(path, "rb") as f:
-        return f.read()
+    return read_source(path)[0]
 
 
-def decode_rgb(data: bytes, name: str = "<bytes>") -> np.ndarray:
-    """A JPEG's or PNG's pixels as PIL's Image.open(f).convert("RGB") gives
-    them, with gd3d's white composite of RGBA, before any EXIF transpose."""
+def decode_rgb(data: bytes, name: str = "<bytes>", composite: bool = True) -> np.ndarray:
+    """A JPEG's, PNG's, BMP's or WebP's pixels as PIL's
+    Image.open(f).convert("RGB") gives them, RGBA first composited onto
+    white (gd3d's _to_pil) unless `composite` is False, before any EXIF
+    transpose."""
     if data[:8] == png.SIGNATURE:
-        return png.pil_rgb(png.decode_png(data))
+        return png.pil_rgb(png.decode_png(data, name), composite)
     if data[:2] == b"\xff\xd8":
-        return decode_jpeg(data)
-    raise ValueError(f"{name}: neither a JPEG nor a PNG file")
+        return decode_jpeg(data, name)
+    if data[:2] == b"BM":
+        return bmp.pil_rgb(bmp.decode_bmp(data, name), composite)
+    if webp.is_webp(data):
+        return webp.pil_rgb(webp.decode_webp(data, name), composite)
+    raise ValueError(f"{name}: not a JPEG, PNG, BMP or WebP file")
+
+
+def image_size(path) -> Tuple[int, int]:
+    """(width, height) from the file's header, as PIL's Image.open(f).size,
+    for JPEG, PNG, BMP and WebP; a ValueError naming the file otherwise."""
+    data, name = read_source(path)
+    if data[:8] == png.SIGNATURE:
+        ihdr = next((p for kind, p in png.chunks(data, name) if kind == b"IHDR"), b"")
+        if len(ihdr) < 8:
+            raise ValueError(f"{name}: PNG without an IHDR chunk")
+        return int.from_bytes(ihdr[:4], "big"), int.from_bytes(ihdr[4:8], "big")
+    if data[:2] == b"\xff\xd8":
+        return jpeg_size(data, name)
+    if data[:2] == b"BM":
+        return bmp.bmp_size(data, name)
+    if webp.is_webp(data):
+        return webp.webp_size(data, name)
+    raise ValueError(f"{name}: not a JPEG, PNG, BMP or WebP file")
 
 
 def file_orientation(data: bytes) -> int:
-    """The EXIF orientation of a JPEG (APP1) or PNG (eXIf), 1 without one."""
+    """The EXIF orientation of a JPEG (APP1), PNG (eXIf) or WebP (EXIF
+    chunk), 1 without one (and for BMP, which has no EXIF)."""
     if data[:8] == png.SIGNATURE:
         return exif.orientation(next(
             (p for kind, p in png.chunks(data, "<bytes>") if kind == b"eXIf"), None))
-    return exif.orientation(exif.jpeg_exif(data))
+    if data[:2] == b"\xff\xd8":
+        return exif.orientation(exif.jpeg_exif(data))
+    if webp.is_webp(data):
+        return exif.orientation(webp.exif_bytes(data))
+    return 1
 
 
 def open_rgb(path) -> np.ndarray:

@@ -12,10 +12,23 @@ is integer arithmetic throughout:
     where libjpeg-turbo takes it, for h2 components 2 samples wide or less);
   * the fixed-point YCbCr -> RGB tables (jdcolor.c, 16 fractional bits).
 
-Scope: baseline and extended sequential Huffman JPEG, 8-bit samples, 1 or 3
-components, sampling factors 1-2, restart markers, any Huffman tables.
-Grayscale becomes RGB by replication, as PIL's convert("RGB"). Progressive,
-arithmetic-coded, lossless, 12-bit and CMYK files raise ValueError.
+  * int_upsample's replication for every other integral ratio (4:1:1,
+    4:1:0 and the like), as libjpeg-turbo chooses;
+  * four components: CMYK, or YCCK where an Adobe APP14 marker says
+    transform 2 (jdcolor.c's ycck_cmyk_convert), inverted as PIL's
+    "CMYK;I" raw mode takes them, then Pillow's cmyk2rgb.
+
+Scope: baseline, extended sequential and progressive Huffman JPEG (DC
+first and refinement scans, AC first scans with EOB runs and AC refinement
+scans with correction bits, interleaved or not, restart intervals in any
+scan), 8-bit samples, 1, 3 or 4 components, sampling factors 1-4 whose
+ratios are integral, any Huffman tables. Grayscale becomes RGB by
+replication, as PIL's convert("RGB"). A progressive file that leaves some
+coefficient among the first nine of a block incomplete gets libjpeg-turbo's
+block smoothing (jdcoefct.c, decompress_smooth_data); no encoder writes
+one, and the decoder refuses it. Arithmetic-coded (SOF9-SOF15), lossless
+(SOF3) and hierarchical (SOF5-SOF7) files, 12-bit files (which PIL does not
+open either) and fractional sampling ratios raise ValueError.
 
 The entropy code is decoded in Python (a 16-bit lookup per Huffman symbol
 over a precomputed window of the bit stream); the IDCT, upsampling and
@@ -24,13 +37,13 @@ colour conversion run over all blocks at once in numpy.
 from __future__ import annotations
 
 import functools
-import os
 import re
-from typing import Dict, List, Tuple, Union
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
-Source = Union[str, os.PathLike, bytes]
+from gd3d_torch.data.source import Source, read_source
+
 
 # zigzag index k -> natural (row-major) index within the 8x8 block
 ZIGZAG = np.array([
@@ -43,24 +56,17 @@ ZIGZAG = np.array([
 _ZZ = ZIGZAG.tolist() + [63] * 16
 
 _REFUSED = {
-    0xC2: "progressive (SOF2)", 0xC3: "lossless (SOF3)", 0xC5: "differential sequential (SOF5)",
+    0xC3: "lossless (SOF3)", 0xC5: "differential sequential (SOF5)",
     0xC6: "differential progressive (SOF6)", 0xC7: "differential lossless (SOF7)",
     0xC9: "arithmetic-coded sequential (SOF9)", 0xCA: "arithmetic-coded progressive (SOF10)",
     0xCB: "arithmetic-coded lossless (SOF11)", 0xCD: "arithmetic-coded differential (SOF13)",
     0xCE: "arithmetic-coded differential progressive (SOF14)",
     0xCF: "arithmetic-coded differential lossless (SOF15)",
 }
-_SOF = (0xC0, 0xC1, *_REFUSED)
+_SOF = (0xC0, 0xC1, 0xC2, *_REFUSED)
 _RST = re.compile(rb"\xff[\xd0-\xd7]")
 _NEXT_MARKER = re.compile(rb"\xff+([^\x00\xff])")  # fill bytes, then the code
 _SCAN_END = re.compile(rb"\xff[^\x00\xd0-\xd7\xff]")  # not stuffing, RSTn or fill
-
-
-def _read(src: Source) -> Tuple[bytes, str]:
-    if isinstance(src, (bytes, bytearray)):
-        return bytes(src), "<bytes>"
-    with open(src, "rb") as f:
-        return f.read(), os.fspath(src)
 
 
 def _segments(data: bytes, name: str):
@@ -96,29 +102,33 @@ def _segments(data: bytes, name: str):
 def _frame(marker: int, p: bytes, name: str):
     if marker in _REFUSED:
         raise ValueError(f"{name}: {_REFUSED[marker]} JPEG is not supported "
-                         f"(baseline and extended sequential Huffman only)")
+                         f"(baseline, extended sequential and progressive Huffman only)")
     precision, h, w, nc = p[0], (p[1] << 8) | p[2], (p[3] << 8) | p[4], p[5]
     if precision != 8:
         raise ValueError(f"{name}: {precision}-bit JPEG is not supported (8-bit only)")
-    if nc not in (1, 3):
-        raise ValueError(f"{name}: {nc}-component JPEG (CMYK or YCCK when 4) is not "
-                         f"supported (1 or 3 components only)")
+    if nc not in (1, 3, 4):
+        raise ValueError(f"{name}: {nc}-component JPEG is not supported (1, 3 or 4 "
+                         f"components only)")
     comps = []
     for i in range(nc):
         cid, hv, tq = p[6 + 3 * i], p[7 + 3 * i], p[8 + 3 * i]
         hs, vs = hv >> 4, hv & 15
-        if hs not in (1, 2) or vs not in (1, 2):
-            raise ValueError(f"{name}: sampling factors {hs}x{vs} are not supported "
-                             f"(1 or 2 only)")
+        if not (1 <= hs <= 4 and 1 <= vs <= 4):
+            raise ValueError(f"{name}: sampling factors {hs}x{vs} are not valid (1-4)")
         comps.append({"id": cid, "h": hs, "v": vs, "tq": tq})
+    hmax, vmax = max(c["h"] for c in comps), max(c["v"] for c in comps)
+    for c in comps:
+        if hmax % c["h"] or vmax % c["v"]:
+            raise ValueError(f"{name}: fractional sampling ratios ({c['h']}x{c['v']} "
+                             f"against {hmax}x{vmax}) are not supported")
     if h == 0 or w == 0:
         raise ValueError(f"{name}: JPEG with a zero dimension (a DNL marker) is not supported")
     return w, h, comps
 
 
-def jpeg_size(src: Source) -> Tuple[int, int]:
+def jpeg_size(src: Source, name: Optional[str] = None) -> Tuple[int, int]:
     """(width, height) from the frame header, as PIL's Image.open(f).size."""
-    data, name = _read(src)
+    data, name = read_source(src, name)
     for marker, p, _ in _segments(data, name):
         if marker in _SOF:
             w, h, _ = _frame(marker, p, name)
@@ -249,6 +259,138 @@ def _decode_scan(scan_data: bytes, scomps, comps, mcu_layout, restart: int,
             raise ValueError(f"{name}: corrupt JPEG data (a scan segment ran out)")
 
 
+def _extend(v: int, s: int) -> int:
+    return v - (1 << s) + 1 if v < (1 << (s - 1)) else v
+
+
+def _decode_progressive_scan(scan_data: bytes, scomps, mcu_layout, restart: int,
+                             spectral, name: str) -> None:
+    """Entropy-decode one progressive scan (jdphuff.c) into the components'
+    coefficient lists. spectral: (Ss, Se, Ah, Al). DC scans may interleave
+    components; AC scans hold one. Coefficients are stored scaled by 2^Al,
+    as libjpeg stores them."""
+    ss, se, ah, al = spectral
+    n_mcus, mcus_per_row = mcu_layout
+    interval = restart or n_mcus
+    zz = _ZZ
+    p1, m1 = 1 << al, -1 << al
+    mcu = 0
+    for seg in _RST.split(scan_data):
+        if mcu >= n_mcus:
+            break
+        w = _windows(seg.replace(b"\xff\x00", b"\xff"))
+        pos = 0
+        preds = [0] * len(scomps)
+        eobrun = 0
+        stop = min(mcu + interval, n_mcus)
+        if ss == 0:  # DC: first or refinement, interleaved or not
+            while mcu < stop:
+                my, mx = divmod(mcu, mcus_per_row)
+                for j, (comp, dclut, _, offsets) in enumerate(scomps):
+                    nbx, coef = comp["nbx"], comp["coef"]
+                    bh, bw = comp["mcu_blocks"]
+                    for dy, dx in offsets:
+                        base = ((my * bh + dy) * nbx + mx * bw + dx) * 64
+                        if ah:
+                            if w[pos] >> 15:
+                                coef[base] |= p1
+                            pos += 1
+                            continue
+                        adv, _, v, kind = dclut[w[pos]]
+                        pos += adv
+                        if kind == 1:
+                            nbits = v
+                            v = _extend(w[pos] >> (16 - nbits), nbits)
+                            pos += nbits
+                        elif kind == 4:
+                            raise ValueError(f"{name}: corrupt JPEG data (bad Huffman code)")
+                        preds[j] += v
+                        coef[base] = preds[j] << al
+                mcu += 1
+        else:
+            comp, _, aclut, _ = scomps[0]
+            nbx, coef = comp["nbx"], comp["coef"]
+            while mcu < stop:
+                my, mx = divmod(mcu, mcus_per_row)
+                base = (my * nbx + mx) * 64
+                mcu += 1
+                k = ss
+                if not ah:  # AC first
+                    if eobrun:
+                        eobrun -= 1
+                        continue
+                    while k <= se:
+                        adv, r, v, kind = aclut[w[pos]]
+                        pos += adv
+                        if kind == 0:
+                            k += r
+                            coef[base + zz[k]] = v << al
+                            k += 1
+                        elif kind == 2:
+                            k += 16
+                        elif kind == 3:
+                            eobrun = 1 << r
+                            if r:
+                                eobrun += w[pos] >> (16 - r)
+                                pos += r
+                            eobrun -= 1
+                            break
+                        elif kind == 1:
+                            k += r
+                            coef[base + zz[k]] = _extend(w[pos] >> (16 - v), v) << al
+                            pos += v
+                            k += 1
+                        else:
+                            raise ValueError(f"{name}: corrupt JPEG data (bad Huffman code)")
+                    continue
+                if not eobrun:  # AC refinement
+                    while k <= se:
+                        adv, r, v, kind = aclut[w[pos]]
+                        pos += adv
+                        if kind == 0:
+                            s = p1 if v > 0 else m1
+                        elif kind == 2:
+                            s = 0
+                        elif kind == 3:
+                            eobrun = 1 << r
+                            if r:
+                                eobrun += w[pos] >> (16 - r)
+                                pos += r
+                            break
+                        elif kind == 1:
+                            s = p1 if _extend(w[pos] >> (16 - v), v) > 0 else m1
+                            pos += v
+                        else:
+                            raise ValueError(f"{name}: corrupt JPEG data (bad Huffman code)")
+                        while k <= se:  # correction bits of the nonzeros, r zeros skipped
+                            i = base + zz[k]
+                            c = coef[i]
+                            if c:
+                                if w[pos] >> 15 and not c & p1:
+                                    coef[i] = c + (p1 if c >= 0 else m1)
+                                pos += 1
+                            else:
+                                r -= 1
+                                if r < 0:
+                                    break
+                            k += 1
+                        if s:
+                            coef[base + zz[k]] = s
+                        k += 1
+                if eobrun:
+                    while k <= se:
+                        i = base + zz[k]
+                        c = coef[i]
+                        if c:
+                            if w[pos] >> 15 and not c & p1:
+                                coef[i] = c + (p1 if c >= 0 else m1)
+                            pos += 1
+                        k += 1
+                    eobrun -= 1
+        if pos > len(w) - 16:
+            raise ValueError(f"{name}: corrupt JPEG data (a scan segment ran out)")
+
+
 # jidctint.c constants (CONST_BITS 13)
 _F0298, _F0390, _F0541, _F0765 = 2446, 3196, 4433, 6270
 _F0899, _F1175, _F1501, _F1847 = 7373, 9633, 12299, 15137
@@ -318,13 +460,14 @@ def _interleave(a: np.ndarray, b: np.ndarray, axis: int) -> np.ndarray:
 
 def upsample(plane: np.ndarray, ry: int, rx: int) -> np.ndarray:
     """libjpeg-turbo's upsampling of a (downsampled-size) component plane by
-    (ry, rx) in {1, 2}: the fancy triangle filters (h2v2, h2v1, h1v2), and
+    integral (ry, rx): the fancy triangle filters (h2v2, h2v1, h1v2),
     replication for h2 components 2 samples wide or less, where
-    libjpeg-turbo takes the plain upsampler."""
+    libjpeg-turbo takes the plain upsampler, and int_upsample's replication
+    for every other ratio (4:1:1, 4:1:0, ...)."""
     p = plane.astype(np.int32)
     if (ry, rx) == (1, 1):
         return plane
-    if rx == 2 and p.shape[1] <= 2:
+    if (ry, rx) not in ((1, 2), (2, 1), (2, 2)) or (rx == 2 and p.shape[1] <= 2):
         return np.repeat(np.repeat(plane, ry, axis=0), rx, axis=1)
     if ry == 2 and rx == 2:
         up, down = _edge(p, 0)
@@ -366,21 +509,24 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
-def decode_jpeg(src: Source) -> np.ndarray:
+def decode_jpeg(src: Source, name: Optional[str] = None) -> np.ndarray:
     """The file's pixels as (H, W, 3) uint8 RGB: PIL's
     np.asarray(Image.open(src).convert("RGB"))."""
-    data, name = _read(src)
+    data, name = read_source(src, name)
     qtables: Dict[int, np.ndarray] = {}
     dc_luts: Dict[int, list] = {}
     ac_luts: Dict[int, list] = {}
     restart = 0
     adobe_transform = None
+    jfif = False
     frame = None
+    progressive = False
     for marker, p, scan in _segments(data, name):
         if marker in _SOF:
             if frame is not None:
                 raise ValueError(f"{name}: more than one frame header")
             frame = _frame(marker, p, name)
+            progressive = marker == 0xC2
             w, h, comps = frame
             hmax = max(c["h"] for c in comps)
             vmax = max(c["v"] for c in comps)
@@ -390,6 +536,7 @@ def decode_jpeg(src: Source) -> np.ndarray:
                 c["cw"] = -(-w * c["h"] // hmax)
                 c["ch"] = -(-h * c["v"] // vmax)
                 c["coef"] = [0] * (c["nbx"] * c["nby"] * 64)
+                c["bits"] = [-1] * 64  # libjpeg's coef_bits: the Al still to refine
         elif marker == 0xDB:
             i = 0
             while i < len(p):
@@ -415,6 +562,8 @@ def decode_jpeg(src: Source) -> np.ndarray:
                 i += 17 + total
         elif marker == 0xDD:
             restart = (p[0] << 8) | p[1]
+        elif marker == 0xE0 and p[:5] == b"JFIF\x00" and len(p) >= 14:
+            jfif = True
         elif marker == 0xEE and p[:5] == b"Adobe" and len(p) >= 12:
             adobe_transform = p[11]
         elif marker == 0xDA:
@@ -423,6 +572,8 @@ def decode_jpeg(src: Source) -> np.ndarray:
             w, h, comps = frame
             by_id = {c["id"]: c for c in comps}
             ns = p[0]
+            ss, se, ahl = p[1 + 2 * ns], p[2 + 2 * ns], p[3 + 2 * ns]
+            ah, al = ahl >> 4, ahl & 15
             scomps = []
             for i in range(ns):
                 c = by_id[p[1 + 2 * i]]
@@ -433,7 +584,11 @@ def decode_jpeg(src: Source) -> np.ndarray:
                 else:
                     c["mcu_blocks"] = (c["v"], c["h"])
                     offsets = [(dy, dx) for dy in range(c["v"]) for dx in range(c["h"])]
-                scomps.append((c, dc_luts[td], ac_luts[ta], offsets))
+                needs_dc = not progressive or (ss == 0 and ah == 0)
+                needs_ac = not progressive or ss > 0
+                if (needs_dc and td not in dc_luts) or (needs_ac and ta not in ac_luts):
+                    raise ValueError(f"{name}: a scan uses a Huffman table never defined")
+                scomps.append((c, dc_luts.get(td), ac_luts.get(ta), offsets))
             if ns == 1:
                 c = scomps[0][0]
                 layout = (-(-c["ch"] // 8) * -(-c["cw"] // 8), -(-c["cw"] // 8))
@@ -442,21 +597,63 @@ def decode_jpeg(src: Source) -> np.ndarray:
                 vmax = max(c["v"] for c in comps)
                 mcux = -(-w // (8 * hmax))
                 layout = (mcux * -(-h // (8 * vmax)), mcux)
+            if progressive:
+                if (ss == 0) != (se == 0) or se > 63 or ss > se or (ss and ns != 1) or (
+                        ah and al != ah - 1) or al > 13:
+                    raise ValueError(f"{name}: invalid progressive scan parameters "
+                                     f"Ss={ss} Se={se} Ah={ah} Al={al}")
+                for c, *_ in scomps:
+                    c["bits"][ss:se + 1] = [al] * (se + 1 - ss)
             try:
-                _decode_scan(scan, scomps, comps, layout, restart, name)
+                if progressive:
+                    _decode_progressive_scan(scan, scomps, layout, restart, (ss, se, ah, al),
+                                             name)
+                else:
+                    _decode_scan(scan, scomps, comps, layout, restart, name)
             except IndexError:  # read past the padded end of a segment
                 raise ValueError(f"{name}: corrupt JPEG data (a scan ran out)") from None
     if frame is None:
         raise ValueError(f"{name}: no frame header")
-    return _reconstruct(frame, qtables, adobe_transform)
+    if progressive and _block_smoothing(frame[2], qtables):
+        raise ValueError(f"{name}: progressive JPEG whose scans leave a low-frequency "
+                         f"coefficient incomplete (libjpeg-turbo block smoothing) is not "
+                         f"supported")
+    return _reconstruct(frame, qtables, adobe_transform, jfif)
 
 
-def _reconstruct(frame, qtables, adobe_transform) -> np.ndarray:
+def _block_smoothing(comps, qtables) -> bool:
+    """libjpeg-turbo's smoothing_ok (jdcoefct.c) after the last scan: every
+    component's DC seen and its first ten quantizers nonzero, and some
+    component's AC coefficient 1-9 not fully refined."""
+    useful = False
+    for c in comps:
+        q = qtables.get(c["tq"])
+        if q is None or not all(q[ZIGZAG[:10]]) or c["bits"][0] < 0:
+            return False
+        useful = useful or any(b != 0 for b in c["bits"][1:10])
+    return useful
+
+
+def _muldiv255(a, b):
+    t = a * b + 128
+    return ((t >> 8) + t) >> 8
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """Pillow's cmyk2rgb (Convert.c) on (H, W, 4) uint8 CMYK."""
+    x = cmyk.astype(np.int64)
+    nk = 255 - x[..., 3:]
+    return np.clip(nk - _muldiv255(x[..., :3], nk), 0, 255).astype(np.uint8)
+
+
+def _reconstruct(frame, qtables, adobe_transform, jfif=False) -> np.ndarray:
     w, h, comps = frame
     hmax = max(c["h"] for c in comps)
     vmax = max(c["v"] for c in comps)
     planes = []
     for c in comps:
+        if c["tq"] not in qtables:
+            raise ValueError("JPEG component without its quantization table")
         nblocks = c["nbx"] * c["nby"]
         coefs = np.array(c["coef"], np.int64)
         px = idct_islow(coefs.reshape(nblocks, 64), qtables[c["tq"]])
@@ -465,7 +662,13 @@ def _reconstruct(frame, qtables, adobe_transform) -> np.ndarray:
         planes.append(upsample(plane, vmax // c["v"], hmax // c["h"])[:h, :w])
     if len(planes) == 1:
         return np.repeat(planes[0][..., None], 3, axis=-1)
+    if len(planes) == 4:  # JCS_CMYK out; PIL's "CMYK;I" inverts all four
+        if adobe_transform is not None and adobe_transform != 0:  # YCCK
+            inv = np.concatenate([ycc_to_rgb(*planes[:3]), 255 - planes[3][..., None]], -1)
+        else:
+            inv = 255 - np.stack(planes, axis=-1)
+        return cmyk_to_rgb(inv)
     ids = bytes(c["id"] for c in comps)
-    if adobe_transform == 0 or (adobe_transform is None and ids == b"RGB"):
+    if not jfif and (adobe_transform == 0 or (adobe_transform is None and ids == b"RGB")):
         return np.ascontiguousarray(np.stack(planes, axis=-1))
     return ycc_to_rgb(*planes)

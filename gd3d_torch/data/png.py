@@ -26,11 +26,15 @@ and `open_rgb` give what those calls give for the same file:
 `encode_png` writes 8- and 16-bit grey, RGB and RGBA files (filter 0, one
 zlib IDAT), which both libraries read back to the array written.
 
-Scope: non-interlaced files of 8 or 16 bits a sample: grey, grey+alpha,
-RGB, RGBA and 8-bit palette images, with tRNS. Adam7 interlacing and depths
-below 8 bits raise ValueError naming the file, as jpeg.py does for
-progressive JPEG. Gamma and colour-profile chunks are ignored, as both
-libraries ignore them in these calls.
+`pil_array(f)` is np.asarray(Image.open(f)) and `pil_l(f)` its
+convert("L"), in every PNG mode PIL opens.
+
+Scope: every PNG of the standard: grey, grey+alpha, RGB, RGBA and palette
+images at every bit depth they allow (1, 2, 4, 8, 16), with tRNS, plain or
+Adam7-interlaced. Grey below 8 bits is scaled to 8 (x 255, 85 or 17), as
+both libraries expand it; palette samples below 8 bits are indices.
+Gamma and colour-profile chunks are ignored, as both libraries ignore them
+in these calls.
 
 Filters: None and Up are elementwise, Sub a cumulative sum along the row
 (mod 256). Average and Paeth depend on the decoded left neighbour, so an
@@ -40,16 +44,15 @@ filter applied elementwise.
 """
 from __future__ import annotations
 
-import os
 import struct
 import zlib
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 
 from gd3d_torch.data import exif
+from gd3d_torch.data.source import Source, read_source
 
-Source = Union[str, os.PathLike, bytes]
 
 SIGNATURE = b"\x89PNG\r\n\x1a\n"
 # cv2.IMREAD_* values
@@ -61,7 +64,8 @@ _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 
 class Png(NamedTuple):
     """A decoded file: `samples` (H, W, C) uint8 or uint16 as stored (palette
-    indices for colour type 3), and what the header chunks said."""
+    indices for colour type 3; grey below 8 bits scaled to 8), and what the
+    header chunks said (`bit_depth` the file's own)."""
 
     samples: np.ndarray
     color_type: int
@@ -69,13 +73,6 @@ class Png(NamedTuple):
     palette: Optional[np.ndarray]  # (n, 3) uint8
     trns: Optional[bytes]
     exif: Optional[bytes]
-
-
-def _read(src: Source) -> Tuple[bytes, str]:
-    if isinstance(src, (bytes, bytearray)):
-        return bytes(src), "<bytes>"
-    with open(src, "rb") as f:
-        return f.read(), os.fspath(src)
 
 
 def chunks(data: bytes, name: str):
@@ -134,9 +131,43 @@ def unfilter(raw: np.ndarray, filters: np.ndarray, bpp: int) -> np.ndarray:
     return rec[1:, 1:].astype(np.uint8).reshape(h, stride)
 
 
-def decode_png(src: Source) -> Png:
+# Adam7 passes: (x0, y0, dx, dy)
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2),
+         (0, 1, 1, 2))
+
+
+def _unpack(px: np.ndarray, w: int, ch: int, depth: int) -> np.ndarray:
+    """(h, stride) reconstructed bytes -> (h, w, ch) samples: uint16 from
+    big-endian pairs at 16 bits, else one uint8 per sample (bits below 8
+    unpacked from the high end of each byte)."""
+    h = px.shape[0]
+    if depth == 16:
+        return px.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    if depth == 8:
+        return px.reshape(h, -1)[:, : w * ch].reshape(h, w, ch)
+    bits = np.unpackbits(px, axis=1)[:, : w * depth].reshape(h, w, depth)
+    weights = (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+    return (bits * weights).sum(-1, dtype=np.uint8)[..., None]
+
+
+def _pass(buf: bytes, pos: int, w: int, h: int, ch: int, depth: int, name: str):
+    """One image (or Adam7 pass) of w x h from buf[pos:]: its samples and
+    the position after it."""
+    bpp = max(1, ch * depth // 8)
+    stride = (w * ch * depth + 7) // 8
+    end = pos + h * (stride + 1)
+    if len(buf) < end:
+        raise ValueError(f"{name}: truncated PNG image data")
+    rows = np.frombuffer(buf, np.uint8, h * (stride + 1), pos).reshape(h, stride + 1)
+    filters = rows[:, 0]
+    if (filters > 4).any():
+        raise ValueError(f"{name}: bad PNG row filter {int(filters.max())}")
+    return _unpack(unfilter(rows[:, 1:], filters, bpp), w, ch, depth), end
+
+
+def decode_png(src: Source, name: Optional[str] = None) -> Png:
     """The file's samples and header information (see Png)."""
-    data, name = _read(src)
+    data, name = read_source(src, name)
     ihdr, palette, trns, exif, idat = None, None, None, None, []
     for kind, p in chunks(data, name):
         if kind == b"IHDR":
@@ -152,30 +183,29 @@ def decode_png(src: Source) -> Png:
     if ihdr is None:
         raise ValueError(f"{name}: no IHDR chunk")
     w, h, depth, ctype, _, _, interlace = ihdr
-    if interlace:
-        raise ValueError(f"{name}: Adam7-interlaced PNG is not supported")
     if ctype not in _CHANNELS:
         raise ValueError(f"{name}: bad PNG colour type {ctype}")
-    if depth not in (8, 16) or (ctype == 3 and depth != 8):
-        raise ValueError(f"{name}: {depth}-bit PNG samples are not supported (8 or 16 only)")
+    allowed = {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(ctype, (8, 16))
+    if depth not in allowed:
+        raise ValueError(f"{name}: {depth}-bit samples are not valid for PNG colour type {ctype}")
+    if interlace > 1:
+        raise ValueError(f"{name}: unknown PNG interlace method {interlace}")
     if ctype == 3 and palette is None:
         raise ValueError(f"{name}: palette PNG without a PLTE chunk")
     ch = _CHANNELS[ctype]
-    bpp = ch * depth // 8
-    stride = w * bpp
     buf = zlib.decompress(b"".join(idat))
-    if len(buf) < h * (stride + 1):
-        raise ValueError(f"{name}: truncated PNG image data")
-    rows = np.frombuffer(buf, np.uint8, h * (stride + 1)).reshape(h, stride + 1)
-    filters = rows[:, 0]
-    if (filters > 4).any():
-        raise ValueError(f"{name}: bad PNG row filter {int(filters.max())}")
-    px = unfilter(rows[:, 1:], filters, bpp)
-    if depth == 16:
-        samples = px.view(">u2").astype(np.uint16).reshape(h, w, ch)
+    if not interlace:
+        samples, _ = _pass(buf, 0, w, h, ch, depth, name)
     else:
-        samples = px.reshape(h, w, ch)
-    return Png(samples, ctype, depth, palette, trns, exif)
+        samples = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw > 0 and ph > 0:
+                samples[y0::dy, x0::dx], pos = _pass(buf, pos, pw, ph, ch, depth, name)
+    if ctype == 0 and depth < 8:
+        samples = samples * np.uint8(255 // ((1 << depth) - 1))
+    return Png(np.ascontiguousarray(samples), ctype, depth, palette, trns, exif)
 
 
 def _palette_rgba(png: Png) -> np.ndarray:
@@ -291,6 +321,47 @@ def pil_rgb(png: Png, composite: bool = True) -> np.ndarray:
     if composite and rgba:
         return _composite_on_white(rgb, _high_byte(alpha))
     return np.ascontiguousarray(rgb)
+
+
+def pil_array(png: Png) -> np.ndarray:
+    """np.asarray(Image.open(f)) in the mode PIL opens the file in: bool
+    for 1-bit grey (mode 1), uint8 (H, W) grey (L) or palette indices (P),
+    uint16 (H, W) for 16-bit grey (I;16), (H, W, 2) LA, and the high byte of
+    16-bit colour as RGB or RGBA (16-bit grey+alpha opens as RGBA)."""
+    s = png.samples
+    if png.color_type == 0:
+        grey = s[..., 0]
+        return grey > 0 if png.bit_depth == 1 else grey
+    if png.color_type == 3:
+        return s[..., 0]
+    if png.color_type == 4 and png.bit_depth == 16:
+        hi = _high_byte(s)
+        grey = np.repeat(hi[..., :1], 3, -1)
+        return np.ascontiguousarray(np.concatenate([grey, hi[..., 1:]], -1))
+    return np.ascontiguousarray(_high_byte(s))
+
+
+def _luma(rgb: np.ndarray) -> np.ndarray:
+    """Pillow's L24 luma of uint8 RGB: (19595 R + 38470 G + 7471 B + 2^15) >> 16."""
+    x = rgb.astype(np.int64)
+    return ((19595 * x[..., 0] + 38470 * x[..., 1] + 7471 * x[..., 2] + 0x8000)
+            >> 16).astype(np.uint8)
+
+
+def pil_l(png: Png) -> np.ndarray:
+    """(H, W) uint8: Image.open(f).convert("L"): grey as it is (mode 1 as
+    0/255), I;16 clipped to 255, LA's grey, the luma of RGB(A) and of a
+    palette's colours (alpha ignored)."""
+    a = pil_array(png)
+    if png.color_type == 0:
+        if png.bit_depth == 16:
+            return np.minimum(a, 255).astype(np.uint8)
+        return a.astype(np.uint8) * np.uint8(255) if a.dtype == bool else a
+    if png.color_type == 3:
+        return _luma(_palette_rgba(png)[a, :3])
+    if a.shape[-1] == 2:
+        return np.ascontiguousarray(a[..., 0])
+    return _luma(a[..., :3])
 
 
 def encode_png_rgb(rgb: np.ndarray) -> bytes:

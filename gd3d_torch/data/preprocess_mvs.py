@@ -4,8 +4,7 @@ gd3d/data/preprocess_mvs.py, followed line for line: PIL's reads, Lanczos
 rescales and JPEG writes are data/jpeg.py / data/png.py, data/resample.py
 and data/jpeg_encode.py). Float depth is always the ``<name>.exr.npy``
 sibling, what gd3d writes where its cv2 has no EXR codec. MegaDepth's raw
-depth is HDF5, which the port does not read: `process_megadepth_image`
-raises a ValueError naming the .h5 file where gd3d opens it with h5py.
+depth is HDF5, read with data/hdf5.py where gd3d opens it with h5py.
 
 Parity targets:
   - dust3r/datasets_preprocess/preprocess_blendedMVS.py:36-143 — per
@@ -39,8 +38,10 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 
+from gd3d_torch.data import hdf5
 from gd3d_torch.data.jpeg_encode import save_jpeg
 from gd3d_torch.data.stereo_views import _open_rgb, rescale_view
+from gd3d_torch.data.undistort import optimal_new_camera_matrix
 
 
 def write_depth_float(path_exr: str, depth: np.ndarray) -> None:
@@ -256,13 +257,25 @@ def load_megadepth_sfm(root: str, scene: str, subscene: str):
 
 def process_megadepth_image(in_dir: str, tag: str, K_pre_rectif,
                             pose_w2cam: np.ndarray, out_dir: str) -> None:
-    """(preprocess_megadepth.py:65-103) up to the depth read: the image is
-    read as gd3d reads it, then the HDF5 depth map is refused."""
+    """(preprocess_megadepth.py:65-103)."""
     if osp.isfile(osp.join(out_dir, tag + ".npz")):
         return
-    _open_rgb(osp.join(in_dir, "imgs", tag))
-    h5 = osp.join(in_dir, "depths", osp.splitext(tag)[0] + ".h5")
-    raise ValueError(f"cannot read MegaDepth depth {h5}: the port has no HDF5 reader")
+    image = _open_rgb(osp.join(in_dir, "imgs", tag))
+    depth = hdf5.read_dataset(osp.join(in_dir, "depths", osp.splitext(tag)[0] + ".h5"),
+                              "depth")
+    imsize_pre, K_pre, distortion = K_pre_rectif
+    size = (image.shape[1], image.shape[0])
+    K_post = optimal_new_camera_matrix(np.asarray(K_pre, np.float64),
+                                       np.asarray(distortion, np.float64), imsize_pre, 0,
+                                       new_size=size, center_principal_point=True)
+    # orientation-aware target, no upscaling (:95-100, force=False)
+    W, H = size
+    res = sorted((800, 600))[::+1 if W < H else -1]
+    image, depth, K_out = rescale_view(image, depth, K_post, res, force=False)
+    save_jpeg(osp.join(out_dir, tag + ".jpg"), image, quality=90)
+    write_depth_float(osp.join(out_dir, tag + ".exr"), depth)
+    cam2world = np.linalg.inv(pose_w2cam)
+    np.savez(osp.join(out_dir, tag + ".npz"), intrinsics=K_out, cam2world=cam2world)
 
 
 def run_megadepth(args) -> None:

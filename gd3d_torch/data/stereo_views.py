@@ -8,19 +8,19 @@ the pretraining step's batch.
 gd3d reads and resamples with PIL and cv2; the port decodes and resamples
 itself, to the same arrays:
 
-- images: `Image.open(f).convert("RGB")` is data/jpeg.py (PIL's bytes) or
-  data/png.py; the Lanczos (down) and bicubic (up) rescales are
+- images: `Image.open(f).convert("RGB")` is data/images.py::decode_rgb
+  (JPEG, PNG, BMP, WebP; PIL's bytes); the Lanczos (down) and bicubic (up) rescales are
   data/resample.py's transcription of Pillow's; a crop past the border
   fills black, as PIL's does;
-- depth: `np.asarray(Image.open(f))` of a 16-bit PNG is data/png.py's
-  samples; the nearest rescale is cv2.INTER_NEAREST's index rule
+- depth: `np.asarray(Image.open(f))` of a PNG is data/png.py's pil_array
+  (every PNG mode); the nearest rescale is cv2.INTER_NEAREST's index rule
   (resample.resize_nearest_cv), which gd3d uses wherever cv2 imports;
-- masks: `.convert("L")` keeps grey and takes ITU-R 601 luma of RGB as
-  Pillow does;
+- masks: `.convert("L")` is data/png.py's pil_l (Pillow's rules for every
+  mode);
 - float depth: gd3d reads EXR through cv2 and falls back to the `.npy`
-  sibling that gd3d's preprocessing writes; the port reads the sibling
-  and raises a ValueError naming the file when there is none (it has no
-  EXR decoder).
+  sibling that gd3d's preprocessing writes; the port reads the EXR with
+  data/exr.py where it exists, else the sibling, and raises a ValueError
+  naming both when there is neither.
 
 Views carry NHWC float32 images in [-1, 1]; everything else is numpy, as
 in gd3d, and the reference's `if self.seed:` quirk (seed 0 means an
@@ -34,8 +34,9 @@ import os.path as osp
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
+from gd3d_torch.data import exr
 from gd3d_torch.data import png as png_mod
-from gd3d_torch.data.jpeg import decode_jpeg
+from gd3d_torch.data.images import decode_rgb
 from gd3d_torch.data.resample import resize_bicubic, resize_lanczos, resize_nearest_cv
 
 Resolution = Union[int, Tuple[int, int]]
@@ -84,37 +85,22 @@ def bbox_from_K_in_out(K_in: np.ndarray, K_out: np.ndarray,
 
 # ------------------------------------------------------------ image ops
 def _open_rgb(path) -> np.ndarray:
-    """(H, W, 3) uint8: Image.open(path).convert("RGB") (a JPEG or a PNG,
-    alpha dropped)."""
+    """(H, W, 3) uint8: Image.open(path).convert("RGB") (any format
+    data/images.py decodes, alpha dropped)."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] == png_mod.SIGNATURE:
-        return png_mod.pil_rgb(png_mod.decode_png(data), composite=False)
-    return decode_jpeg(data)
+    return decode_rgb(data, str(path), composite=False)
 
 
 def _open_png(path) -> np.ndarray:
-    """np.asarray(Image.open(path)) of a grey PNG: uint8 (mode L) or
-    uint16 (mode I;16) samples as stored."""
-    p = png_mod.decode_png(path)
-    if p.color_type != 0:
-        raise ValueError(f"{path}: a depth map must be a grey PNG, got colour type "
-                         f"{p.color_type}")
-    return p.samples[..., 0]
+    """np.asarray(Image.open(path)) of a PNG, in the mode PIL opens it in
+    (png.pil_array: uint16 for 16-bit grey, palette indices for P)."""
+    return png_mod.pil_array(png_mod.decode_png(path))
 
 
 def _open_l(path) -> np.ndarray:
-    """(H, W) uint8: Image.open(path).convert("L") of an 8-bit grey or RGB
-    PNG (Pillow's luma (19595 R + 38470 G + 7471 B + 2^15) >> 16)."""
-    p = png_mod.decode_png(path)
-    if p.bit_depth == 8 and p.color_type == 0:
-        return p.samples[..., 0]
-    if p.bit_depth == 8 and p.color_type == 2:
-        x = p.samples.astype(np.int64)
-        return ((19595 * x[..., 0] + 38470 * x[..., 1] + 7471 * x[..., 2] + 0x8000)
-                >> 16).astype(np.uint8)
-    raise ValueError(f"{path}: a mask must be an 8-bit grey or RGB PNG, got colour type "
-                     f"{p.color_type} at {p.bit_depth} bits")
+    """(H, W) uint8: Image.open(path).convert("L") of a PNG (png.pil_l)."""
+    return png_mod.pil_l(png_mod.decode_png(path))
 
 
 def _size(image: np.ndarray):
@@ -617,15 +603,17 @@ class ScanNetppViews(StereoViews):
 
 # ------------------------------------------------ float-depth file read
 def read_depth_float(path: str) -> np.ndarray:
-    """Float depth of the dust3r preprocessed trees: `<path>.npy`, the
-    float32 sibling gd3d's preprocessing writes beside each EXR (gd3d reads
-    it wherever its cv2 has no EXR codec). Without it: a ValueError naming
-    the file (the port decodes no EXR)."""
+    """Float depth of the dust3r preprocessed trees: the EXR itself
+    (data/exr.py, cv2.imread(path, IMREAD_ANYDEPTH)'s array) where it
+    exists, as gd3d reads it wherever its cv2 has the EXR codec; else the
+    float32 `<path>.npy` sibling that gd3d's preprocessing writes; else a
+    ValueError naming both."""
+    if osp.exists(path):
+        return exr.read_exr(path)
     npy = path + ".npy"
     if osp.exists(npy):
         return np.load(npy).astype(np.float32)
-    raise ValueError(f"cannot read depth {path}: the port reads the float32 {npy} "
-                     "sibling and has no EXR decoder")
+    raise ValueError(f"cannot read depth: neither {path} nor its float32 sibling {npy} exists")
 
 
 class ARKitScenesViews(StereoViews):

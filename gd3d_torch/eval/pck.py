@@ -22,7 +22,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from gd3d_torch.data.jpeg import jpeg_size
+from gd3d_torch.data.images import image_size
 from gd3d_torch.eval.images import load_canvas, map_images, resize_to_canvas
 from gd3d_torch.eval.table import Table
 from gd3d_torch.models.dpt import resize_bilinear_ac
@@ -97,7 +97,7 @@ def load_pascal_pairs(path: str, size: int, category: str,
     for r in subset:
         for name, pts in ((r[0], get_points(r[3], r[4])), (r[1], get_points(r[5], r[6]))):
             fn = f"{path}/../{name}"
-            w, h = jpeg_size(fn)
+            w, h = image_size(fn)
             files.append(fn)
             kps.append(preprocess_kps_pad(pts, w, h, size))
     if not kps:

@@ -8,8 +8,10 @@ either package writes, the INFERNO table (all 256 entries of
 cv2.applyColorMap), adjust_hue, cv2.resize's INTER_LINEAR on uint8 and
 2-channel float32 images and INTER_NEAREST on float32 ones at the
 augmentors' random scales, both augmentors' outputs and RandomState draws, discover_pairs in
-every layout and StereoFlowPairs' items. The bytes of the PNG files differ
-(the port writes filter 0 at zlib level 1).
+every layout and StereoFlowPairs' items, and the HDF5 disparity and flow
+readers and write_flo5 against h5py's files (both file formats). The bytes
+of the PNG and .flo5 files differ (the port writes filter 0 at zlib level
+1, and its own HDF5 layout).
 """
 import os
 
@@ -66,13 +68,61 @@ def test_kitti_codecs_match_gd3d(tmp_path):
         np.testing.assert_array_equal(T.read_kitti_flow(path), J.read_kitti_flow(path))
         np.testing.assert_array_equal(T.read_gt(path, "flow"), J.read_gt(path, "flow"))
     np.testing.assert_array_equal(T.read_crestereo_disp(jd), J.read_crestereo_disp(jd))
-    for fn in (T.read_hdf5_disp, T.read_hdf5_flow):
-        with pytest.raises(ValueError, match="x.h5"):
-            fn(str(tmp_path / "x.h5"))
-    with pytest.raises(ValueError, match="y.flo5"):
-        T.read_gt(str(tmp_path / "y.flo5"), "flow")
-    with pytest.raises(ValueError, match="z.flo5"):
-        T.write_flo5(str(tmp_path / "z.flo5"), flow)
+    _hdf5_matches_gd3d(tmp_path, "latest", flow)
+
+
+def _hdf5_matches_gd3d(tmp_path, libver, flow, chunks=True):
+    """The HDF5 readers (NaN -> +inf) and read_gt's .h5 / .hdf5 / .flo5
+    dispatch equal gd3d's on h5py's files; write_flo5's files read back
+    equal through h5py, gd3d and the port."""
+    import h5py
+
+    disp = (np.random.RandomState(3).rand(*flow.shape[:2]) * 50).astype(np.float32)
+    disp[0, :3] = np.nan
+    flow = flow.copy()
+    flow[1, 1] = np.nan
+    kw = dict(compression="gzip", compression_opts=5) if chunks else {}
+    for ext in (".h5", ".hdf5"):
+        p = str(tmp_path / f"d_{libver}{ext}")
+        with h5py.File(p, "w", libver=libver) as f:
+            f.create_dataset("disparity", data=disp, **kw)
+        np.testing.assert_array_equal(T.read_hdf5_disp(p), J.read_hdf5_disp(p))
+        np.testing.assert_array_equal(T.read_gt(p, "stereo"), J.read_gt(p, "stereo"))
+    for ext in (".h5", ".hdf5", ".flo5"):
+        p = str(tmp_path / f"f_{libver}{ext}")
+        with h5py.File(p, "w", libver=libver) as f:
+            f.create_dataset("flow", data=flow, **kw)
+        np.testing.assert_array_equal(T.read_hdf5_flow(p), J.read_hdf5_flow(p))
+        np.testing.assert_array_equal(T.read_gt(p, "flow"), J.read_gt(p, "flow"))
+    for writer in (T, J):
+        p = str(tmp_path / f"w_{writer.__name__}.flo5")
+        writer.write_flo5(p, flow)
+        with h5py.File(p) as f:
+            np.testing.assert_array_equal(np.asarray(f["flow"]), flow)
+            assert f["flow"].compression == "gzip" and f["flow"].compression_opts == 5
+        np.testing.assert_array_equal(T.read_hdf5_flow(p), J.read_hdf5_flow(p))
+
+
+@pytest.mark.parametrize("libver", ["earliest", "latest"])
+@pytest.mark.parametrize("chunks", [False, True])
+def test_hdf5_codecs_match_gd3d(tmp_path, libver, chunks):
+    flow = (np.random.RandomState(4).randn(33, 47, 2) * 10).astype(np.float32)
+    _hdf5_matches_gd3d(tmp_path, libver, flow, chunks)
+
+
+def test_hdf5_refusals_name_the_file(tmp_path):
+    """An lzf-compressed flow and a file that is no HDF5 at all."""
+    import h5py
+
+    p = str(tmp_path / "lzf.flo5")
+    with h5py.File(p, "w") as f:
+        f.create_dataset("flow", data=np.zeros((4, 5, 2), np.float32), compression="lzf")
+    with pytest.raises(ValueError, match="lzf.flo5.*lzf filter"):
+        T.read_gt(p, "flow")
+    bad = tmp_path / "x.h5"
+    bad.write_bytes(b"not hdf5")
+    with pytest.raises(ValueError, match="x.h5"):
+        T.read_hdf5_disp(str(bad))
 
 
 def test_read_img_matches_gd3d(tmp_path):

@@ -86,7 +86,7 @@ def test_refusals(tmp_path):
     gltf = {"buffers": [{"byteLength": len(data)}],
             "bufferViews": [{"buffer": 0, "byteLength": len(data)}],
             "images": [{"bufferView": 0}, {"uri": "tex.png"}]}
-    with pytest.raises(ValueError, match="PNG and JPEG"):
+    with pytest.raises(ValueError, match="not a JPEG, PNG, BMP or WebP"):
         T._decode_image(gltf, data, 0)
     with pytest.raises(ValueError, match="external image"):
         T._decode_image(gltf, data, 1)

@@ -10,12 +10,14 @@ augmentations, the dataset), and the evaluation CLI runs --pose --tiny on a
 fabricated OnePose-LowTexture tree (PNG reads, cv2's resize, the EPnP
 RANSAC), and the reconstruction CLIs run at --tiny on a fabricated
 two-frame tree: align (--niter 2, dense, with the COLMAP exports), then
-localize against its scene.npz; then the pretraining CLI prints its --help
+localize against its scene.npz, and align again on a WebP and a BMP view
+(the committed formats fixtures); then the pretraining CLI prints its --help
 and trains one tiny CPU step of each objective, on procedural pairs and
 (mast3r) on a render tree written with the port's PNG encoder; then the
 dataset-creation CLIs run with h5py absent too: the render CLI (one object,
 two 64^2 views, procedural and from the fixture .glb) and the preprocessing
-CLI on fabricated Co3D-v2 and Waymo raw trees. The CLI
+CLI on fabricated Co3D-v2, Waymo and MegaDepth raw trees (MegaDepth's
+depth in HDF5). The CLI
 modules import no torch at their top level, which their spawned decode
 processes re-run, and neither do the data modules a worker imports."""
 import os
@@ -39,7 +41,7 @@ SCRIPT = textwrap.dedent("""
     assert "gd3d_torch.cli.train" in names and "gd3d_torch.data.loader" in names
     assert "gd3d_torch.cli.evaluate" in names and "gd3d_torch.data.jpeg" in names
     for m in ("png", "exif", "images", "augment", "objaverse", "scannetpp", "pipeline",
-              "fixtures"):
+              "fixtures", "bmp", "webp", "vp8", "vp8l", "exr", "hdf5"):
         assert f"gd3d_torch.data.{m}" in names, m
     for m in ("onepose", "pnp", "fit3d", "dust3r_tracker"):
         assert f"gd3d_torch.eval.{m}" in names, m
@@ -82,6 +84,14 @@ SCRIPT = textwrap.dedent("""
                              root + "/view_1.png", "--output", root + "/loc", "--tiny",
                              "--device", "cpu", "--size", "224"])
         assert res["poses"].shape == (1, 4, 4)
+    import shutil
+    with tempfile.TemporaryDirectory() as root:
+        views = os.path.join(os.path.dirname(fixtures.__file__), "testdata", "formats", "views")
+        for name in ("view_1.webp", "view_2.bmp"):
+            shutil.copy(os.path.join(views, name), root)
+        align.main(["--images", root, "--output", root + "/scene", "--tiny", "--device", "cpu",
+                    "--size", "224", "--niter", "2", "--sparse", "0"])
+        assert np.load(root + "/scene/scene.npz")["images"].shape == (2, 224, 224, 3)
     import contextlib, io, runpy
     sys.argv = ["pretrain", "--help"]
     help_text = io.StringIO()
@@ -122,11 +132,12 @@ SCRIPT = textwrap.dedent("""
             assert poses.shape == (2, 4, 4)
         assert os.path.exists(root + "/render/asset/mask_000001.png")
         assert os.path.exists(root + "/render/obj_00000/color_000001.png")
-        for dataset in ("co3d", "waymo"):
+        for dataset in ("co3d", "waymo", "megadepth"):
             spec = fixtures.write_raw_tree(dataset, f"{root}/{dataset}_raw")
             preprocess.main(fixtures.preprocess_argv(dataset, spec, f"{root}/{dataset}_out"))
         assert os.path.exists(root + "/co3d_out/selected_seqs_train.json")
         assert os.path.exists(root + "/waymo_out/waymo_pairs.npz")
+        assert os.path.exists(root + "/megadepth_out/0001/0/im_a.jpg.exr.npy")
     leaked = sorted(m for m, mod in sys.modules.items()
                     if mod is not None and m.split(".")[0] in BLOCKED)
     assert not leaked, leaked

@@ -1,8 +1,9 @@
 """The port's JPEG decoder (gd3d_torch/data/jpeg.py) against Pillow, which
-gd3d's eval decodes with: every baseline case must give PIL's
-Image.open(f).convert("RGB") bytes exactly, and jpeg_size PIL's .size.
-Progressive, CMYK and 4x1-sampled files are refused with a
-ValueError that names the file.
+gd3d's eval decodes with: every baseline, progressive, CMYK / YCCK and
+4:1:1 / 4:1:0 case must give PIL's Image.open(f).convert("RGB") bytes
+exactly, and jpeg_size PIL's .size. Arithmetic-coded, lossless, 12-bit
+and fractionally sampled files, and progressive files left for block
+smoothing, are refused with a ValueError that names the file.
 
 The committed fixtures under gd3d_torch/eval/testdata/ (decoded on the card
 by chip_smoke.py's eval phase) are checked here against the digests
@@ -14,6 +15,7 @@ import hashlib
 import io
 import json
 import os
+import struct
 import sys
 
 import cv2
@@ -24,6 +26,7 @@ from PIL import Image
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
+from gd3d_torch.data import jpeg_encode as E  # noqa: E402
 from gd3d_torch.data.jpeg import decode_jpeg, jpeg_size  # noqa: E402
 from gd3d_torch.data.resample import resize_lanczos  # noqa: E402
 
@@ -112,21 +115,158 @@ def test_vertical_subsampling_matches_pil(factor):
     _check(enc.tobytes())
 
 
+def encode_sampled(rgb, factors, quality=80):
+    """A baseline JPEG of `rgb` with the components' sampling factors
+    ((h, v) for Y, Cb, Cr), chroma subsampled by taking every r-th sample:
+    files of ratios no encoder here writes (4:1:0, 3:1, 4x2 against 2x1)."""
+    H, W = rgb.shape[:2]
+    hmax, vmax = max(f[0] for f in factors), max(f[1] for f in factors)
+    mx, my = -(-W // (8 * hmax)), -(-H // (8 * vmax))
+    qy, qc = E.quant_tables(quality)
+    grids = []
+    for i, (plane, (h, v)) in enumerate(zip(E.rgb_to_ycc(rgb), factors)):
+        sub = plane[::vmax // v, ::hmax // h]
+        sub = np.pad(sub, ((0, my * 8 * v - sub.shape[0]), (0, mx * 8 * h - sub.shape[1])),
+                     mode="edge")
+        q = E.fdct_quantize(E._blocks(sub).reshape(-1, 8, 8), qc if i else qy)
+        grids.append(q.reshape(my, v, mx, h, 64).transpose(0, 2, 1, 3, 4).reshape(
+            my, mx, v * h, 64))
+    mcus = np.concatenate(grids, axis=2).reshape(-1, 64)
+    per = np.concatenate([np.full(h * v, i) for i, (h, v) in enumerate(factors)])
+    comp = np.tile(per, my * mx)
+    scan = E.entropy_code(mcus, comp, np.minimum(comp, 1))
+    dqt = b"".join(E._segment(0xDB, bytes([i]) + bytes(t[E.ZIGZAG].astype(np.uint8)))
+                   for i, t in enumerate((qy, qc)))
+    sof = E._segment(0xC0, struct.pack(">BHHB", 8, H, W, 3) + b"".join(
+        bytes([i + 1, (h << 4) | v, min(i, 1)]) for i, (h, v) in enumerate(factors)))
+    dht = (E._dht(0, 0, E.DC_LUMA) + E._dht(1, 0, E.AC_LUMA) + E._dht(0, 1, E.DC_CHROMA)
+           + E._dht(1, 1, E.AC_CHROMA))
+    sos = E._segment(0xDA, bytes([3, 1, 0x00, 2, 0x11, 3, 0x11, 0, 63, 0]))
+    return b"\xff\xd8" + dqt + sof + dht + sos + scan + b"\xff\xd9"
+
+
+@pytest.mark.parametrize("hw,kw", [
+    ((37, 53), dict()),
+    ((37, 53), dict(subsampling=0, quality=95)),
+    ((37, 53), dict(subsampling=1, optimize=True)),
+    ((1, 1), dict()),
+    ((2, 3), dict(subsampling=1)),
+    ((64, 40), dict(restart_marker_blocks=3)),
+    ((64, 40), dict(restart_marker_rows=1, optimize=True)),
+    ((479, 853), dict(quality=90)),
+])
+def test_progressive_matches_pil(hw, kw):
+    """libjpeg's progression script: DC first and refinement, spectral
+    selection, AC first scans with EOB runs, AC refinement with correction
+    bits, non-interleaved AC scans, restart intervals inside them, and
+    optimised per-scan tables."""
+    _check(_jpeg(texture(*hw, seed=hw[1]), progressive=True, **kw))
+
+
+@pytest.mark.parametrize("hw", [(9, 17), (128, 96)])
+def test_progressive_grayscale_matches_pil(hw):
+    _check(_jpeg(texture(*hw, seed=4)[..., 0], progressive=True))
+
+
+@pytest.mark.parametrize("flags", [
+    (cv2.IMWRITE_JPEG_SAMPLING_FACTOR, 0x411111),
+    (cv2.IMWRITE_JPEG_SAMPLING_FACTOR, 0x411111, cv2.IMWRITE_JPEG_PROGRESSIVE, 1),
+    (cv2.IMWRITE_JPEG_PROGRESSIVE, 1, cv2.IMWRITE_JPEG_RST_INTERVAL, 2),
+    (cv2.IMWRITE_JPEG_SAMPLING_FACTOR, 0x111111, cv2.IMWRITE_JPEG_PROGRESSIVE, 1,
+     cv2.IMWRITE_JPEG_OPTIMIZE, 1),
+])
+def test_cv2_files_match_pil(flags):
+    """cv2's 4:1:1 (int_upsample's replication) and its progressive files."""
+    img = texture(45, 77, seed=8)
+    ok, enc = cv2.imencode(".jpg", img, list(flags) + [cv2.IMWRITE_JPEG_QUALITY, 90])
+    assert ok
+    _check(enc.tobytes())
+
+
+@pytest.mark.parametrize("factors", [
+    ((4, 2), (1, 1), (1, 1)),
+    ((3, 1), (1, 1), (1, 1)),
+    ((4, 1), (2, 1), (1, 1)),
+    ((1, 4), (1, 2), (1, 1)),
+    ((1, 4), (1, 1), (1, 2)),
+])
+def test_other_sampling_ratios_match_pil(factors):
+    """4:1:0, 3:1, and ratios of 2 between factors above 2 (libjpeg-turbo's
+    fancy h2v2 / h1v2 there, int_upsample elsewhere)."""
+    _check(encode_sampled(texture(43, 71, seed=9), factors))
+
+
+@pytest.mark.parametrize("progressive", [False, True])
+@pytest.mark.parametrize("transform", [None, 0, 2])
+def test_cmyk_and_ycck_match_pil(progressive, transform):
+    """PIL's CMYK files (Adobe transform 0), the same samples read as YCCK
+    (transform 2, jdcolor.c's ycck_cmyk_convert) and with no Adobe marker,
+    all through PIL's CMYK;I inversion and cmyk2rgb."""
+    buf = io.BytesIO()
+    Image.fromarray(texture(33, 50, seed=10)).convert("CMYK").save(buf, "JPEG",
+                                                                   progressive=progressive)
+    data = buf.getvalue()
+    i = data.index(b"Adobe")
+    if transform is None:
+        data = data[:i - 4] + data[i - 2 + ((data[i - 2] << 8) | data[i - 1]):]
+        assert b"Adobe" not in data
+    else:
+        data = data[:i + 11] + bytes([transform]) + data[i + 12:]
+    _check(data)
+
+
+def _drop_last_scan(data):
+    i = data.rindex(b"\xff\xda")
+    return data[:i] + b"\xff\xd9"
+
+
 @pytest.mark.parametrize("kind,match", [
-    ("progressive", "progressive"),
-    ("cmyk", "4-component"),
-    ("411", "sampling factors 4x1"),
+    ("progressive", None),
+    ("cmyk", None),
+    ("411", None),
+    ("sof9", "arithmetic-coded sequential"),
+    ("sof3", "lossless"),
+    ("12bit", "12-bit"),
+    ("fractional", "fractional sampling"),
+    ("smoothing", "block smoothing"),
 ])
 def test_unsupported_files_are_refused(tmp_path, kind, match):
+    """Progressive, CMYK and 4:1:1 files decode to PIL's RGB; what stays
+    refused raises naming the file: arithmetic coding and lossless JPEG (no
+    encoder here writes a fixture to hold a decoder to), 12 bits (PIL
+    refuses it too), fractional sampling ratios, and a progressive file
+    whose last scan was dropped, which libjpeg-turbo block-smooths."""
     img = np.random.RandomState(7).randint(0, 256, (16, 24, 3), np.uint8)
     path = tmp_path / f"{kind}.jpg"
+    base = _jpeg(img)
     if kind == "progressive":
         Image.fromarray(img).save(path, "JPEG", progressive=True)
     elif kind == "cmyk":
         Image.fromarray(img).convert("CMYK").save(path, "JPEG")
-    else:
+    elif kind == "411":
         path.write_bytes(cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
                                                      0x411111])[1].tobytes())
+    elif kind in ("sof9", "sof3"):
+        path.write_bytes(base.replace(b"\xff\xc0", b"\xff\xc9" if kind == "sof9"
+                                      else b"\xff\xc3", 1))
+    elif kind == "12bit":
+        i = base.index(b"\xff\xc0")
+        path.write_bytes(base[:i + 4] + b"\x0c" + base[i + 5:])
+        with pytest.raises(Exception):
+            Image.open(path).load()
+    elif kind == "fractional":
+        i = base.index(b"\xff\xc0") + 11  # Y 2x2 -> 3x2, Cb 1x1 -> 2x1
+        path.write_bytes(base[:i] + b"\x32" + base[i + 1:i + 3] + b"\x21" + base[i + 4:])
+    else:
+        full = _jpeg(texture(32, 40, seed=2), progressive=True)
+        path.write_bytes(_drop_last_scan(full))
+        Image.open(path).load()  # libjpeg-turbo decodes it, smoothing the blocks
+    if match is None:  # decodable since the formats slice: held to PIL, not refused
+        data = path.read_bytes()
+        np.testing.assert_array_equal(decode_jpeg(data), _pil(data),
+                                      err_msg=f"{kind}: decoded, but not to PIL's RGB")
+        assert jpeg_size(data) == Image.open(io.BytesIO(data)).size
+        return
     with pytest.raises(ValueError, match=match) as err:
         decode_jpeg(path)
     assert str(path) in str(err.value)
@@ -174,8 +314,6 @@ def write_fixtures():
     for name, data in sorted(files.items()):
         with open(os.path.join(TESTDATA, name), "wb") as f:
             f.write(data)
-        if name == "progressive.jpg":
-            continue
         img = Image.open(io.BytesIO(data)).convert("RGB")
         arr = np.asarray(img)
         digests["files"][name] = {
@@ -209,10 +347,14 @@ def test_committed_fixtures_match_their_pil_digests(name):
 
 
 def test_committed_progressive_fixture_is_refused():
+    """The committed progressive file, which chip_smoke.py's eval phase once
+    expected refused, now decodes to PIL's RGB and its committed digest."""
     path = os.path.join(TESTDATA, "progressive.jpg")
     assert Image.open(path).info.get("progressive")
-    with pytest.raises(ValueError, match="progressive"):
-        decode_jpeg(path)
+    got = decode_jpeg(path)
+    np.testing.assert_array_equal(got, np.asarray(Image.open(path).convert("RGB")),
+                                  err_msg="decoded, but not to PIL's RGB")
+    assert _sha(got) == _digests()["progressive.jpg"]["rgb"], "decoded, but not to its digest"
 
 
 if __name__ == "__main__":

@@ -3,10 +3,12 @@ gd3d reads its Objaverse renders with: every kind of PNG, written here by
 cv2, by PIL or by a small encoder that sets each row's filter, must give
 exactly what cv2.imread gives in its four modes (IMREAD_COLOR,
 IMREAD_GRAYSCALE, IMREAD_ANYDEPTH, IMREAD_UNCHANGED) and what gd3d's
-_to_pil gives (PIL's RGB after exif_transpose, RGBA onto white). Adam7
-interlacing and depths below 8 bits are refused with a ValueError that
-names the file. The EXIF orientation reader and transpose are held to PIL's
-on JPEG and PNG files with orientations 1-8.
+_to_pil gives (PIL's RGB after exif_transpose, RGBA onto white), and
+np.asarray(Image.open(f)) with its convert("L"). Adam7 interlacing and
+depths below 8 bits decode too; an unknown interlace method or bit depth
+is refused with a ValueError that names the file. The EXIF orientation
+reader and transpose are held to PIL's on JPEG and PNG files with
+orientations 1-8.
 """
 import io
 import os
@@ -43,19 +45,11 @@ def _paeth(a, b, c):
     return a if pa <= pb and pa <= pc else (b if pb <= pc else c)
 
 
-def encode_png(samples, color_type, depth=8, filters=(0,), palette=None, trns=None,
-               interlace=0):
-    """A PNG of `samples` (H, W, C) uint8/uint16, row y filtered with
-    filters[y % len(filters)] (the reference filter of the PNG spec, byte by
-    byte)."""
-    h, w, c = samples.shape
-    raw = samples.astype(">u2").tobytes() if depth == 16 else samples.astype(np.uint8).tobytes()
-    stride = w * c * depth // 8
-    bpp = max(1, c * depth // 8)
-    rows = [raw[y * stride:(y + 1) * stride] for y in range(h)]
+def _filter_rows(raw, h, stride, bpp, filters):
     out = bytearray()
     prev = bytes(stride)
-    for y, row in enumerate(rows):
+    for y in range(h):
+        row = raw[y * stride:(y + 1) * stride]
         f = filters[y % len(filters)]
         enc = bytearray(stride)
         for x in range(stride):
@@ -66,6 +60,38 @@ def encode_png(samples, color_type, depth=8, filters=(0,), palette=None, trns=No
             enc[x] = (row[x] - pred) & 255
         out += bytes([f]) + enc
         prev = row
+    return bytes(out)
+
+
+def _pack(samples, depth):
+    """(h, w, c) samples -> the rows' bytes at `depth` bits a sample."""
+    h = samples.shape[0]
+    if depth == 16:
+        return samples.astype(">u2").tobytes()
+    if depth == 8:
+        return samples.astype(np.uint8).tobytes()
+    flat = samples.reshape(h, -1).astype(np.uint8)
+    bits = (flat[..., None] >> np.arange(depth - 1, -1, -1)) & 1
+    return np.packbits(bits.reshape(h, -1).astype(np.uint8), axis=1).tobytes()
+
+
+def encode_png(samples, color_type, depth=8, filters=(0,), palette=None, trns=None,
+               interlace=0):
+    """A PNG of `samples` (H, W, C) uint8/uint16 (values below 2^depth),
+    row y filtered with filters[y % len(filters)] (the reference filter of
+    the PNG spec, byte by byte), each Adam7 pass on its own when
+    `interlace`."""
+    h, w, c = samples.shape
+    bpp = max(1, c * depth // 8)
+    if interlace:
+        out = b""
+        for x0, y0, dx, dy in png.ADAM7:
+            sub = samples[y0::dy, x0::dx]
+            if sub.size:
+                stride = (sub.shape[1] * c * depth + 7) // 8
+                out += _filter_rows(_pack(sub, depth), sub.shape[0], stride, bpp, filters)
+    else:
+        out = _filter_rows(_pack(samples, depth), h, (w * c * depth + 7) // 8, bpp, filters)
 
     def chunk(kind, data):
         return struct.pack(">I", len(data)) + kind + data + struct.pack(
@@ -140,6 +166,26 @@ def _kinds():
         "raw_palette_short_trns": _raw_writer(idx, 3, 8, all_filters, palette=palette,
                                               trns=bytes([0, 128, 255, 7])),
         "raw_gray8_up": _raw_writer(rgba8[..., :1], 0, 8, (2,)),
+        "pil_1bit": lambda p: Image.fromarray(rgba8[..., 0] > 128).save(p),
+        "pil_palette_4bit": lambda p: Image.fromarray(rgba8[..., :3]).quantize(8).save(p),
+        "pil_palette_2bit": lambda p: Image.fromarray(rgba8[..., :3]).quantize(4).save(p),
+        "raw_gray1": _raw_writer(rgba8[..., :1] >> 7, 0, 1, all_filters),
+        "raw_gray2": _raw_writer(rgba8[..., :1] >> 6, 0, 2, (4, 1)),
+        "raw_gray4": _raw_writer(rgba8[..., :1] >> 4, 0, 4, (3,)),
+        "raw_palette1_trns": _raw_writer(idx & 1, 3, 1, all_filters, palette=palette[:2],
+                                         trns=bytes([40])),
+        "raw_palette2": _raw_writer(idx & 3, 3, 2, (2, 4), palette=palette[:3]),
+        "raw_palette4_trns": _raw_writer(idx & 15, 3, 4, all_filters, palette=palette,
+                                         trns=bytes([0, 9, 255])),
+        "adam7_rgb8": _raw_writer(rgba8[..., :3], 2, 8, all_filters, interlace=1),
+        "adam7_rgba16": _raw_writer(rgba16, 6, 16, (4, 3), interlace=1),
+        "adam7_la8": _raw_writer(rgba8[..., :2], 4, 8, (1,), interlace=1),
+        "adam7_gray2": _raw_writer(rgba8[..., :1] >> 6, 0, 2, all_filters, interlace=1),
+        "adam7_gray16": _raw_writer(rgba16[..., :1], 0, 16, (2, 4), interlace=1),
+        "adam7_palette4": _raw_writer(idx & 15, 3, 4, (0, 4), palette=palette,
+                                      interlace=1),
+        "adam7_palette8_trns": _raw_writer(idx, 3, 8, all_filters, palette=palette,
+                                           trns=bytes([0, 128]), interlace=1),
     }
 
 
@@ -182,30 +228,70 @@ def test_wavefront_equals_row_by_row():
         np.testing.assert_array_equal(dec.samples, rgb)
 
 
+@pytest.mark.parametrize("kind", sorted(KINDS))
+def test_pil_array_and_luma_match_pil(written, kind):
+    """np.asarray(Image.open(f)) and its convert("L"), which gd3d's depth,
+    mask and disparity readers take, in every mode PIL opens."""
+    p = png.decode_png(written[kind])
+    with Image.open(written[kind]) as im:
+        want, want_l = np.asarray(im), np.asarray(im.convert("L"))
+    got, got_l = png.pil_array(p), png.pil_l(p)
+    assert got.shape == want.shape and got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    assert got_l.dtype == want_l.dtype
+    np.testing.assert_array_equal(got_l, want_l)
+
+
 @pytest.mark.parametrize("what,kw,match", [
-    ("interlaced", dict(interlace=1), "interlaced"),
-    ("4-bit", dict(depth=4), "4-bit"),
+    ("interlaced", dict(interlace=1), None),
+    ("4-bit", dict(depth=4), None),
+    ("interlace-2", dict(interlace=2), "interlace method 2"),
+    ("3-bit", dict(depth=3), "3-bit samples"),
 ])
 def test_unsupported_files_are_refused(tmp_path, what, kw, match):
+    """Adam7 and 4-bit grey decode to cv2's and PIL's arrays; an unknown
+    interlace method and a depth the standard does not define are refused,
+    naming the file."""
     path = tmp_path / f"{what}.png"
     grey = _smooth(6, 1)
-    if kw.get("depth") == 4:
-        data = encode_png(grey[:, :16] >> 4, 0, 8)
-        data = data.replace(struct.pack(">IIBB", 16, H, 8, 0), struct.pack(">IIBB", 16, H, 4, 0))
+    depth = kw.get("depth", 8)
+    if depth != 8:
+        data = encode_png(grey[:, :16] >> 4, 0, 4)
+        if depth == 3:
+            data = data.replace(struct.pack(">IIBB", 16, H, 4, 0),
+                                struct.pack(">IIBB", 16, H, 3, 0))
     else:
-        data = encode_png(grey, 0, 8, **kw)
+        data = encode_png(grey, 0, 8, interlace=kw["interlace"])
+        if kw["interlace"] == 2:
+            data = encode_png(grey, 0, 8, interlace=1).replace(
+                struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 1),
+                struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 2))
     path.write_bytes(data)
+    if match is None:  # decodable since the formats slice: held to cv2 and PIL, not refused
+        for flags in MODES.values():
+            np.testing.assert_array_equal(png.imread(path, flags), cv2.imread(str(path), flags),
+                                          err_msg=f"{what}: decoded, but not to cv2's array")
+        np.testing.assert_array_equal(images.open_rgb(path),
+                                      np.asarray(gimages._to_pil(str(path))),
+                                      err_msg=f"{what}: decoded, but not to PIL's RGB")
+        return
     with pytest.raises(ValueError, match=match) as err:
         png.decode_png(path)
     assert str(path) in str(err.value)
 
 
 def test_pil_low_bit_depth_palette_is_refused(tmp_path):
-    """PIL writes a palette of 16 colours or fewer with 4 bits an index."""
+    """PIL writes a palette of 16 colours or fewer with 4 bits an index: that
+    file decodes to cv2's arrays and to PIL's indices."""
     path = tmp_path / "pal4.png"
     Image.fromarray(_smooth(7, 3)).quantize(8).save(path)
-    with pytest.raises(ValueError, match="4-bit"):
-        png.imread(path)
+    assert png.decode_png(path).bit_depth == 4
+    for flags in MODES.values():
+        np.testing.assert_array_equal(png.imread(path, flags), cv2.imread(str(path), flags),
+                                      err_msg="decoded, but not to cv2's array")
+    np.testing.assert_array_equal(png.pil_array(png.decode_png(path)),
+                                  np.asarray(Image.open(path)),
+                                  err_msg="decoded, but not to PIL's indices")
 
 
 def _exif_bytes(orientation):

@@ -3,8 +3,9 @@
 trees of gd3d_torch/data/fixtures.py: the same trees (JPEG bytes at
 quality 80, the .exr.npy depth siblings), the committed digests, the
 readers' views; the PFM, .float3 and camera readers bit for bit; and
-MegaDepth's refusal, a ValueError naming the .h5 depth file, where gd3d
-reads it with h5py."""
+MegaDepth's HDF5 depth, read as h5py reads it, both as the port's writer
+writes it and as h5py does; an .h5 in a filter the port does not decode
+(lzf) is refused with a ValueError naming it."""
 import numpy as np
 import pytest
 
@@ -16,7 +17,7 @@ from tests.torch_datagen import (assert_trees_equal, assert_views_equal, committ
                                  preprocess_both)
 
 
-@pytest.fixture(scope="module", params=["blendedmvs", "staticthings3d"])
+@pytest.fixture(scope="module", params=["blendedmvs", "staticthings3d", "megadepth"])
 def trees(request, tmp_path_factory):
     return (request.param,) + preprocess_both(request.param, tmp_path_factory.mktemp("t"))
 
@@ -49,10 +50,42 @@ def test_readers_equal_gd3d(tmp_path):
         np.testing.assert_array_equal(got[1][k][1], want[1][k][1])
 
 
+@pytest.mark.parametrize("libver", ["earliest", "latest"])
+def test_megadepth_image_equals_gd3d_on_h5py_depth(tmp_path, libver):
+    """process_megadepth_image on depth that h5py wrote (gzip-chunked, at
+    both file formats) gives gd3d's files."""
+    import h5py
+
+    fixtures.write_raw_megadepth(tmp_path / "m")
+    raw = tmp_path / "m" / "raw"
+    poses, intrinsics = T.load_megadepth_sfm(str(raw), "0001", "0")
+    in_dir = raw / "0001" / "dense0"
+    for tag in ("im_a.jpg", "im_b.jpg"):
+        h5 = in_dir / "depths" / (tag[:-4] + ".h5")
+        depth = np.asarray(h5py.File(h5)["depth"])
+        with h5py.File(h5, "w", libver=libver) as f:
+            f.create_dataset("depth", data=depth, compression="gzip", chunks=(16, 32))
+        outs = []
+        for m, name in ((T, "port"), (J, "gd3d")):
+            out = tmp_path / name / libver
+            out.mkdir(parents=True, exist_ok=True)
+            m.process_megadepth_image(str(in_dir), tag, intrinsics[tag], poses[tag], str(out))
+            outs.append(out)
+        assert assert_trees_equal(outs[1], outs[0])
+
+
 def test_megadepth_refuses_its_h5_by_name(tmp_path):
+    """An lzf-compressed depth .h5 (a filter data/hdf5.py does not decode)
+    is refused, naming the file and the filter, before any output."""
+    import h5py
+
     spec = fixtures.write_raw_tree("megadepth", tmp_path / "raw")
     h5 = tmp_path / "raw" / "raw" / "0001" / "dense0" / "depths" / "im_a.h5"
     assert h5.read_bytes().startswith(fixtures.HDF5_SIGNATURE)
-    with pytest.raises(ValueError, match=str(h5)):
+    depth = np.asarray(h5py.File(h5)["depth"])
+    with h5py.File(h5, "w") as f:
+        f.create_dataset("depth", data=depth, compression="lzf")
+    with pytest.raises(ValueError, match=str(h5)) as err:
         port_main(fixtures.preprocess_argv("megadepth", spec, tmp_path / "out"))
+    assert "lzf" in str(err.value)
     assert not list((tmp_path / "out").rglob("*.npz"))

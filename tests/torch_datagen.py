@@ -8,7 +8,7 @@ package's reader gives on its own tree.
 rewrites gd3d_torch/data/testdata/datagen_digests.json from gd3d's CLIs
 (the decoded-content digests of every tree that chip_smoke.py's datagen
 phase makes: fixtures.RENDER_RUNS and each dataset of fixtures.RAW_DATASETS
-plus habitat; MegaDepth's refusal)."""
+plus habitat)."""
 import contextlib
 import io
 import json
@@ -110,8 +110,6 @@ def gd3d_digests() -> dict:
             quiet(gd3d_render, fixtures.render_argv(run, glb_root, tmp / "render" / run))
             out["render"][run] = fixtures.tree_digests(tmp / "render" / run)
         for dataset in fixtures.RAW_DATASETS + ("habitat",):
-            if dataset == "megadepth":
-                continue
             spec = None if dataset == "habitat" else fixtures.write_raw_tree(dataset,
                                                                              tmp / dataset)
             quiet(gd3d_preprocess, fixtures.preprocess_argv(dataset, spec, tmp / f"{dataset}_out"))
