@@ -268,12 +268,26 @@ report), then runs these phases in order, one or more printed lines each:
               tree equals the same tree with .npy depth; (e) a .h5
               disparity and a .flo5 flow through flowio.read_gt to gd3d's
               digests, and a write_flo5 round trip. The phase's seconds.
+ 16. sequence ring attention and its all-gather variant
+              (gd3d_torch/parallel/sequence.py, check_sequence) on n = 2 and
+              4 virtual ranks of the card (LoopbackTransport: the per-rank
+              code that the distributed path runs) at VGGT's global
+              attention shape (1,2748,16,64), fp32 and bf16: the output and
+              the gradients of the global q, k, v (through the autograd
+              function) against K1 and K2 on the whole sequence (TOL; the
+              ring's merged lse at the fp32 tolerance), its K1 and K2
+              launches (n x n for the ring, n for the all-gather, counted:
+              counts set to 0 just before each run), a second run
+              bit-identical, fwd+bwd ms against the whole sequence's; then K1
+              and K2 at the ring's block shapes (1,1374|687,16,64) in the
+              kernels phase's format (bound, plain and cuDNN times). The
+              phase's seconds.
 
 Then one JSON line of the kernels (launches: the steps, train, eval, data,
-pose, surface, align, sparse_ga, stereoflow, pretrain, datagen and formats
-phases' runs together; "K2 bf16", the bf16 K2 at the student's main pass beside the
-fp32 K2 entry, counts the bf16 K2 launches of the steps phase and of the
-surface phase's step runs), the card line, and last the JSON result line.
+pose, surface, align, sparse_ga, stereoflow, pretrain, datagen, formats and
+sequence phases' runs together; "K2 bf16", the bf16 K2 at the student's main
+pass beside the fp32 K2 entry, counts the bf16 K2 launches of the steps
+phase, of the surface phase's step runs and of the sequence phase), the card line, and last the JSON result line.
 Exits non-zero, printing no result, without a CUDA device or if any phase
 fails. The kernels and agree phases compare fp32 results too, so they
 run without TF32; the steps run with PyTorch's defaults (the teachers turn TF32
@@ -292,7 +306,8 @@ import time
 # (flash_fwd_sm90.cu; fp32 and head dim 128 run flash_fwd.cu); K2's the fp32
 # one and "K2 bf16" the bf16 one at the same shape, whose launches are the
 # bf16 K2 launches of the step runs (run_steps: the steps phase and the
-# surface phase's bf16 envelope), also counted in K2's
+# surface phase's bf16 envelope) and of the sequence phase's bf16 rings,
+# also counted in K2's
 REPLACES = {
     "K1": ("flash_attention_fwd", "gd3d_torch/csrc/flash_fwd_sm90.cu",
            "gd3d/ops/attention.py:180"),
@@ -4299,6 +4314,100 @@ def check_formats(dev) -> dict:
     return counts
 
 
+# VGGT's global attention at 518^2, S = 2: 2 x (1369 patches + 5 special
+# tokens) of 16 heads of 64; the ring splits it 2 and 4 ways (1374 and 687
+# rows, the latter off the kernels' 64-row tile)
+SEQ_SHAPE = (1, 2748, 16, 64)
+SEQ_RANKS = (2, 4)
+
+
+def check_sequence(dev) -> dict:
+    """The sequence phase (see the module docstring, 16): the ring and the
+    all-gather variant of gd3d_torch/parallel/sequence.py on n virtual ranks
+    of this card (LoopbackTransport: the per-rank code of the distributed
+    path) against K1 and K2 on the whole sequence. Returns the launches of
+    the counted runs."""
+    import torch
+
+    from gd3d_torch import kernels
+    from gd3d_torch.kernels.flash_bwd_fused import flash_attention_bwd_fused
+    from gd3d_torch.kernels.flash_fwd import flash_attention_fwd
+    from gd3d_torch.kernels.timing import time_ms
+    from gd3d_torch.parallel.sequence import (
+        LoopbackTransport, allgather_kv_attention, ring_attention, ring_forward)
+
+    gpu = gpu_line()
+    t_phase = time.perf_counter()
+    B, N, H, D = SEQ_SHAPE
+    g = torch.Generator(device=dev).manual_seed(16)
+    counts = {k: 0 for k in REPLACES}
+    rep = KernelReport()
+    scale = D ** -0.5
+    for dt in (torch.float32, torch.bfloat16):
+        dname = str(dt).split(".")[-1]
+        # q, k, v as the strided views of one qkv projection, as VGGT hands them over
+        qkv = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(dt)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        do = torch.randn((B, N, H, D), generator=g, device=dev).to(dt)
+        o_ref, lse_ref = flash_attention_fwd(q, k, v, scale)
+        di = torch.einsum("bnhd,bnhd->bhn", o_ref.float(), do.float()).contiguous()
+        refs = (o_ref,) + flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale)
+        whole_ms = time_ms(lambda: flash_attention_bwd_fused(
+            q, k, v, *flash_attention_fwd(q, k, v, scale)[1:], do, di, scale), 10)[0]
+        for n in SEQ_RANKS:
+            L = N // n
+            tr = LoopbackTransport(n)
+            res = ring_forward([q[:, r * L:(r + 1) * L] for r in range(n)],
+                               [(k[:, r * L:(r + 1) * L].contiguous(),
+                                 v[:, r * L:(r + 1) * L].contiguous()) for r in range(n)],
+                               tr, scale)
+            lse_err = max_err(torch.cat([lse for _, lse in res], dim=2), lse_ref)
+            lse_ok = lse_err[0] <= TOL["float32"] * max(1.0, lse_err[1])
+            log(f"sequence: ring n={n} {dname} lse err={lse_err[0]:.3e} "
+                f"{'OK' if lse_ok else 'FAIL'}")
+            rep.ok &= lse_ok
+            for name, fn in (("ring", ring_attention), ("allgather", allgather_kv_attention)):
+                leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+
+                def fwd_bwd():
+                    out = fn(*leaves, tr, scale)
+                    return (out.detach(),) + torch.autograd.grad(out, leaves, do)
+
+                kernels.reset_launch_counts()
+                got = fwd_bwd()
+                torch.cuda.synchronize()
+                c = kernels.launch_counts()
+                want = n * n if name == "ring" else n
+                launched = c["K1"] == want and c["K2"] == want
+                counts["K1"] += c["K1"]
+                counts["K2"] += c["K2"]
+                if dt == torch.bfloat16:
+                    counts["K2 bf16"] += c["K2"]
+                again = fwd_bwd()
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                parts, ok = [], launched and same
+                for what, a, b in zip(("o", "dq", "dk", "dv"), got, refs):
+                    err, mag = max_err(a, b)
+                    tol = TOL[dname] * max(1.0, mag)
+                    ok &= math.isfinite(err) and err <= tol
+                    parts.append(f"{what} err={err:.3e} tol={tol:.1e}")
+                ms = time_ms(fwd_bwd, 10)[0]
+                log(f"sequence: {name} n={n} (B,N,H,D)={SEQ_SHAPE} {dname} against K1 and K2 "
+                    f"on the whole sequence: {' '.join(parts)} launches K1={c['K1']} "
+                    f"K2={c['K2']} (want {want} each) repeat bit-identical {same} "
+                    f"fwd+bwd_ms={ms:.4f} whole_sequence_ms={whole_ms:.4f} "
+                    f"{'OK' if ok else 'FAIL'}")
+                rep.ok &= ok
+            # the kernels at the ring's block shape: L queries against L keys
+            for kern in ("K1", "K2"):
+                attn_case(rep, g, dev, kern, f"ring block n={n}", B, L, H, D, dt, False)
+    log(f"sequence: phase {time.perf_counter() - t_phase:.1f} s ({gpu})")
+    if not rep.ok:
+        raise AssertionError("sequence: a ring or all-gather run, or a kernel at the ring's "
+                             "block shape, disagrees, repeats no bits or missed its launches")
+    return counts
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -4381,6 +4490,11 @@ def main() -> int:
     for k, n in check_formats(dev).items():
         counts[k] += n
     log(f"phase: formats done at {time.perf_counter() - t_start:.1f} s")
+    with no_tf32():
+        seq_counts = check_sequence(dev)
+    for k, n in seq_counts.items():
+        counts[k] += n
+    log(f"phase: sequence done at {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

@@ -40,9 +40,17 @@ gradients are summed over the ranks before the clip (gd3d_torch/core/mesh.py).
 Each rank but 0 writes its metrics under <out>/proc<rank>; only rank 0
 writes checkpoints; --resume reads the same file on every rank.
 --fsdp-teacher (with --multihost) shards the frozen teacher's large weights
-over the ranks with FSDP2 (gd3d_torch/parallel/fsdp.py). The config's
-mesh.model > 1 (tensor parallelism) and mesh.sequence_parallel are not
-ported and raise.
+over the ranks with FSDP2 (gd3d_torch/parallel/fsdp.py).
+
+The config's mesh, as gd3d's CLI reads it: mesh.model > 1 makes the ranks a
+data x model mesh (gd3d_torch/core/mesh.py; rank r at data index r // model),
+the global batch is n_data x --batch-per-device pairs with n_data = world //
+model, and the ranks of one model group hold the same rows; with
+--fsdp-teacher the teacher is sliced tensor-parallel over the model group
+first (parallel/sharding.py) and FSDP-sharded over the data group.
+mesh.sequence_parallel runs the VGGT teacher's global attention as ring
+attention over the model group (parallel/sequence.py). The student stays
+replicated, as in gd3d's CLI.
 
 The eval epoch runs gd3d's callback (gd3d_torch/eval/callback.py):
 PF-PASCAL PCK, TAP-Vid DAVIS tracking and OnePose-LowTexture pose where
@@ -220,10 +228,12 @@ def tiny_config(cfg: cfglib.DistillConfig) -> cfglib.DistillConfig:
         keypoints=cfglib.KeypointConfig(nn_subsample=16))
 
 
-def build_teacher(cfg, args, device: torch.device, first_batch: Callable[[], Dict]):
+def build_teacher(cfg, args, device: torch.device, first_batch: Callable[[], Dict],
+                  sp_group=None):
     """The frozen teacher on `device`: upstream weights from --teacher-ckpt,
     or seeded random ones made on the device, with the live-loss set-ups
-    run on the first batch."""
+    run on the first batch (the global batch: every rank sets up alike).
+    `sp_group`: the VGGT teacher's ring-attention group."""
     import torch
 
     if cfg.teacher == "mast3r":
@@ -254,7 +264,7 @@ def build_teacher(cfg, args, device: torch.device, first_batch: Callable[[], Dic
                 track_iters=2, track_stride=2, corr_levels=2, corr_radius=1,
                 track_hidden_size=16)
         with device:
-            teacher = VggtTeacher(tcfg)
+            teacher = VggtTeacher(tcfg, sp_group=sp_group)
     if args.teacher_ckpt:
         load_upstream(teacher.model, args.teacher_ckpt)
         return teacher
@@ -277,7 +287,7 @@ def setup(args) -> Run:
 
     from gd3d_torch.core import config as cfglib
     from gd3d_torch.core.checkpoint import restore_train_state
-    from gd3d_torch.core.mesh import DataParallel, init_distributed, local_device
+    from gd3d_torch.core.mesh import DataParallel, init_distributed, local_device, mesh_groups
     from gd3d_torch.core.tensorboard import EventWriter
     from gd3d_torch.data.pipeline import DataSpec, EpochSource
     from gd3d_torch.data.synthetic import synthetic_me_batch, synthetic_teacher_batch
@@ -289,10 +299,6 @@ def setup(args) -> Run:
     cfg = cfglib.resolve_config(args.config)
     if args.fsdp_teacher:
         cfg = cfg.replace(mesh=dataclasses.replace(cfg.mesh, fsdp_teacher=True))
-    if cfg.mesh.model > 1 or cfg.mesh.sequence_parallel:
-        raise NotImplementedError(
-            "mesh.model > 1 (tensor parallelism) and mesh.sequence_parallel are not ported "
-            "(ROADMAP.md, Queue 1: they wait until one card's memory needs them)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asks for a card, and torch sees none "
@@ -302,7 +308,13 @@ def setup(args) -> Run:
         device = local_device(device)
         if device.type == "cuda":
             torch.cuda.set_device(device)
-        dp = init_distributed(device)
+        dp = init_distributed(device, cfg.mesh.model)
+        if not dp.active:
+            print(f"rank {dp.process} lies outside the mesh; it does not train")
+            dp.close()
+            raise SystemExit(0)
+    else:
+        mesh_groups(1, cfg.mesh.model)  # one process: mesh.model > 1 raises, as in gd3d
     if args.tiny:
         cfg = tiny_config(cfg)
     if args.epochs:
@@ -317,7 +329,7 @@ def setup(args) -> Run:
     steps = 2 if args.dev else args.steps_per_epoch
     out_dir = Path(args.output or f"outputs/{args.config}/{time.strftime('%Y%m%d_%H%M%S')}")
     if not dp.is_main:  # per-rank metric streams; checkpoints are rank 0's
-        out_dir = out_dir / f"proc{dp.rank}"
+        out_dir = out_dir / f"proc{dp.process}"
     out_dir.mkdir(parents=True, exist_ok=True)
     np.random.seed(cfg.train.seed)
     torch.manual_seed(cfg.train.seed)
@@ -329,7 +341,7 @@ def setup(args) -> Run:
         load_upstream(student.vit, args.student_ckpt, may_miss=(".lora_", ".adapter."))
     trainable, frozen = split_params(student)
     optimizer = make_optimizer(cfg.train, trainable.values(), dp)
-    batch_size = dp.world * args.batch_per_device  # the global batch
+    batch_size = dp.world * args.batch_per_device  # the global batch: n_data x per device
     K = args.multistep if cfg.teacher in ("mast3r", "vggt") else 1
 
     if real_data:
@@ -365,7 +377,8 @@ def setup(args) -> Run:
     elif cfg.teacher == "vggt":
         from gd3d_torch.distill import vggt_step
 
-        teacher = build_teacher(cfg, args, device, first_batch)
+        teacher = build_teacher(cfg, args, device, first_batch,
+                                dp.model if cfg.mesh.sequence_parallel else None)
         generator = torch.Generator(device=device).manual_seed(cfg.train.seed)
         build = (vggt_step.build_vggt_train_multistep if K > 1
                  else vggt_step.build_vggt_train_step)
@@ -376,9 +389,11 @@ def setup(args) -> Run:
         from gd3d_torch.parallel.fsdp import shard_teacher
 
         sharded, total = shard_teacher(
-            teacher, dp, device, torch.bfloat16 if cfg.teacher_dtype == "bfloat16" else None)
+            teacher, dp, device, torch.bfloat16 if cfg.teacher_dtype == "bfloat16" else None,
+            with_tp=cfg.mesh.model > 1)
         print(f"fsdp teacher: {sharded / 2 ** 20:.0f} / {total / 2 ** 20:.0f} MiB sharded "
-              f"over {dp.world} ranks")
+              f"over {dp.world} ranks" + (f", tensor parallel over {dp.model.size}"
+                                          if dp.model.size > 1 else ""))
 
     run = Run(args=args, cfg=cfg, device=device, student=student, teacher=teacher,
               trainable=trainable, frozen=frozen, optimizer=optimizer, run_step=run_step,
@@ -486,11 +501,12 @@ def train(run: Run) -> None:
             means["epoch/wall_s"] = round(epoch_wall, 4)
             mf.write(json.dumps(means) + "\n")
             mf.flush()
-            if run.dp.is_main and (epoch + 1) % cfg.train.ckpt_every_epochs == 0:
+            if (epoch + 1) % cfg.train.ckpt_every_epochs == 0:
+                # every rank gathers its tensor-parallel slices; rank 0 writes
                 save_checkpoint(str(run.out_dir / f"ckpt_epoch_{epoch + 1:04d}"),
-                                run.trainable, cfg.student)
+                                run.trainable, cfg.student, write=run.dp.is_main)
                 save_train_state(str(run.out_dir / "last"), run.trainable, run.optimizer,
-                                 epoch, run.generator)
+                                 epoch, run.generator, write=run.dp.is_main)
             if (epoch + 1) % cfg.train.eval_every_epochs == 0:
                 summary = eval_epoch(run, epoch)
                 if summary:

@@ -14,7 +14,11 @@ reference's. `trainable` is the student's name -> parameter dict
 (models/student.py::split_params), whose names are timm's. Under
 data-parallel training (cli/train.py --multihost) every rank holds the same
 state: rank 0 alone writes these files, and --resume restores the same file
-on every rank.
+on every rank. Under tensor parallelism (parallel/sharding.py) a trainable
+or AdamW moment is a slice; the savers gather the slices over the model
+group (every rank calls them, `write` on rank 0 alone) and write the
+single-device layout, so a checkpoint resumes at any mesh, and the restore
+re-slices what it reads.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ import torch
 
 from gd3d_torch.core.config import StudentConfig
 from gd3d_torch.distill.train_state import ClippedAdamW
+from gd3d_torch.parallel.sharding import gather_full, local_part, tp_slice
 
 
 def _atomic_save(obj, path: str) -> None:
@@ -75,16 +80,43 @@ def export_reference_layout(trainable: Mapping[str, torch.Tensor],
 def import_reference_layout(trainable: Mapping[str, torch.Tensor],
                             flat: Mapping[str, np.ndarray], cfg: StudentConfig):
     """Copy reference-layout tensors into the trainable parameters, in
-    place (the inverse of export_reference_layout). Returns `trainable`."""
+    place (the inverse of export_reference_layout; a tensor-parallel slice
+    takes its part). Returns `trainable`."""
     for ref, name in _reference_names(cfg).items():
         p = trainable[name]
-        p.copy_(torch.as_tensor(np.asarray(flat[ref])).to(p))
+        p.copy_(local_part(torch.as_tensor(np.asarray(flat[ref])), tp_slice(p)).to(p))
     return trainable
 
 
+def whole_tensors(trainable: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The trainable tensors in the single-device layout: tensor-parallel
+    slices gathered over the model group (collective where any is sliced)."""
+    return {k: gather_full(p.detach(), tp_slice(p)) for k, p in trainable.items()}
+
+
+def _per_param(state: dict, params, fn) -> dict:
+    """ClippedAdamW.state_dict() with fn(tensor, slicing) applied to each
+    per-parameter tensor (AdamW's moments, the accumulation buffer), on
+    copies of the per-parameter dicts (the live state stays)."""
+    specs = [tp_slice(p) for p in params]
+    if not any(s is not None for s in specs):
+        return state
+    state = dict(state, adamw=dict(state["adamw"]))
+    state["adamw"]["state"] = {
+        i: {k: fn(v, specs[i]) if k in ("exp_avg", "exp_avg_sq") else v
+            for k, v in st.items()}
+        for i, st in state["adamw"]["state"].items()}
+    state["acc"] = [fn(a, spec) for a, spec in zip(state["acc"], specs)]
+    return state
+
+
 def save_checkpoint(path: str, trainable: Mapping[str, torch.Tensor],
-                    cfg: StudentConfig) -> None:
-    """The adapters alone, nested as the reference's Lightning checkpoint."""
+                    cfg: StudentConfig, write: bool = True) -> None:
+    """The adapters alone, nested as the reference's Lightning checkpoint
+    (written where `write`; every rank of a tensor-parallel run calls it)."""
+    trainable = whole_tensors(trainable)
+    if not write:
+        return
     out: dict = {"state_dict": {"refine_conv": {}}, "depth_diff_head": {}}
     for ref, arr in export_reference_layout(trainable, cfg).items():
         t = torch.from_numpy(arr)
@@ -138,14 +170,20 @@ def load_reference_checkpoint(path: str) -> Dict[str, np.ndarray]:
 
 def save_train_state(path: str, trainable: Mapping[str, torch.Tensor],
                      optimizer: ClippedAdamW, epoch: int,
-                     generator: Optional[torch.Generator] = None) -> None:
+                     generator: Optional[torch.Generator] = None,
+                     write: bool = True) -> None:
     """The full restart state: the trainable tensors, AdamW's state with its
     step counts, the accumulation buffer and the step count (inside the
     optimizer's state), the epoch just finished, and the NMS generator's
-    state where the step has one."""
+    state where the step has one; in the single-device layout, written
+    where `write` (every rank of a tensor-parallel run calls it)."""
+    whole = whole_tensors(trainable)
+    opt_state = _per_param(optimizer.state_dict(), optimizer.params, gather_full)
+    if not write:
+        return
     _atomic_save({
-        "trainable": {k: p.detach().cpu() for k, p in trainable.items()},
-        "optimizer": optimizer.state_dict(),
+        "trainable": {k: p.cpu() for k, p in whole.items()},
+        "optimizer": opt_state,
         "epoch": int(epoch),
         "generator": None if generator is None else generator.get_state(),
     }, path)
@@ -155,11 +193,12 @@ def save_train_state(path: str, trainable: Mapping[str, torch.Tensor],
 def restore_train_state(path: str, trainable: Mapping[str, torch.Tensor],
                         optimizer: ClippedAdamW,
                         generator: Optional[torch.Generator] = None) -> int:
-    """Restore a save_train_state file in place. Returns the next epoch."""
+    """Restore a save_train_state file in place, each tensor-parallel slice
+    cut from the whole tensor it reads. Returns the next epoch."""
     state = torch.load(path, map_location="cpu", weights_only=False)
     for k, p in trainable.items():
-        p.copy_(state["trainable"][k])
-    optimizer.load_state_dict(state["optimizer"])
+        p.copy_(local_part(state["trainable"][k], tp_slice(p)))
+    optimizer.load_state_dict(_per_param(state["optimizer"], optimizer.params, local_part))
     if generator is not None and state["generator"] is not None:
         generator.set_state(state["generator"])
     return state["epoch"] + 1

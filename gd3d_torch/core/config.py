@@ -113,11 +113,13 @@ class TrainConfig:
 
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """gd3d's device-mesh fields. The port trains data-parallel over the
-    ranks of torch.distributed (gd3d_torch/core/mesh.py) and shards the
-    frozen teacher over them with fsdp_teacher (gd3d_torch/parallel/fsdp.py);
-    `data` is the world size there. model > 1 (tensor parallelism) and
-    sequence_parallel are not ported (ROADMAP.md, Queue 1)."""
+    """gd3d's device-mesh fields, as gd3d's train CLI reads them: the ranks
+    of torch.distributed form a data x model mesh (gd3d_torch/core/mesh.py;
+    `data` is world // model there, as in gd3d); fsdp_teacher shards the
+    frozen teacher over the data group (gd3d_torch/parallel/fsdp.py), after
+    slicing it tensor-parallel over the model group when model > 1
+    (parallel/sharding.py); sequence_parallel runs the VGGT teacher's global
+    attention as ring attention over the model group (parallel/sequence.py)."""
 
     data: int = -1
     model: int = 1

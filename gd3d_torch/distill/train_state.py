@@ -9,8 +9,11 @@ each call folds its gradients into a running mean (Welford's update, as
 optax), and every k-th call clips and steps AdamW once on that mean; the
 k - 1 calls in between leave the parameters and AdamW's step counts as
 they are. Under data parallelism (`dp`, core/mesh.py) each call first sums
-the gradients over the ranks, in one all-reduce, so the clip sees the
-global batch's gradient, as in gd3d's step over its data axis.
+the gradients over the data group, in one all-reduce, so the clip sees the
+global batch's gradient, as in gd3d's step over its data axis. Under
+tensor parallelism (parallel/sharding.py) the clip sees gd3d's global norm:
+the squares of the sliced trainables' gradients (the lora_b_* slices)
+summed over the model group, the replicated ones counted once.
 """
 from __future__ import annotations
 
@@ -19,6 +22,7 @@ from typing import TYPE_CHECKING, Iterable, Optional
 import torch
 
 from gd3d_torch.core.config import TrainConfig
+from gd3d_torch.parallel.sharding import clip_grad_norm_
 
 if TYPE_CHECKING:
     from gd3d_torch.core.mesh import DataParallel
@@ -62,7 +66,7 @@ class ClippedAdamW:
             for a, p in zip(self.acc, self.params):
                 p.grad = a.clone()
                 a.zero_()
-        torch.nn.utils.clip_grad_norm_(self.params, self.cfg.grad_clip)
+        clip_grad_norm_(self.params, self.cfg.grad_clip)
         self.adamw.step()
 
     def state_dict(self) -> dict:

@@ -16,6 +16,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from gd3d_torch.ops.attention import scaled_dot_attention
+from gd3d_torch.parallel.sharding import copy_to_model, model_sum, row_parallel
 from gd3d_torch.ops.rope2d import grid_positions, rope2d_qk
 
 
@@ -37,17 +38,28 @@ class CrocoConfig:
 
 
 class CrocoMlp(nn.Module):
+    """fc1 -> GELU -> fc2 (column- and row-parallel under tensor
+    parallelism, parallel/sharding.py)."""
+
+    TP_KIND = "mlp"
+    tp = None
+
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return row_parallel(self.fc2, F.gelu(self.fc1(copy_to_model(x, self.tp))), self.tp)
 
 
 class RopeSelfAttention(nn.Module):
-    """Fused qkv, RoPE on q and k, flash attention."""
+    """Fused qkv, RoPE on q and k, flash attention. Under tensor
+    parallelism this rank holds num_heads of the heads (qkv sliced by head,
+    proj row-parallel)."""
+
+    TP_KIND = "attention"
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, rope_base: float):
         super().__init__()
@@ -57,19 +69,27 @@ class RopeSelfAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x, pos):
-        B, N, C = x.shape
+        B, N, _ = x.shape
         H = self.num_heads
-        qkv = self.qkv(x).reshape(B, N, 3, H, C // H)
+        qkv = self.qkv(copy_to_model(x, self.tp))
+        C = qkv.shape[-1] // 3  # this rank's heads' width
+        qkv = qkv.reshape(B, N, 3, H, C // H)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         # rope runs on (B, H, N, D); its outputs go back as strided views
         q, k = rope2d_qk(q.transpose(1, 2), pos, k.transpose(1, 2), pos, self.rope_base)
         q, k = q.transpose(1, 2), k.transpose(1, 2)
         out = scaled_dot_attention(q, k, v, scale=(C // H) ** -0.5)
-        return self.proj(out.reshape(B, N, C))
+        return row_parallel(self.proj, out.reshape(B, N, C), self.tp)
 
 
 class RopeCrossAttention(nn.Module):
-    """Cross-attention that also exports the head-mean pre-softmax map."""
+    """Cross-attention that also exports the head-mean pre-softmax map.
+    Under tensor parallelism projq, projk and projv are sliced by head and
+    proj is row-parallel; the map is this rank's head sum, summed over the
+    model group and divided by the global head count."""
+
+    TP_KIND = "cross_attention"
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, rope_base: float):
         super().__init__()
@@ -81,18 +101,23 @@ class RopeCrossAttention(nn.Module):
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, query, key, value, qpos, kpos):
-        B, Nq, C = query.shape
+        B, Nq, _ = query.shape
         Nk = key.shape[1]
-        H = self.num_heads
+        H, tp = self.num_heads, self.tp
+        q = self.projq(copy_to_model(query, tp))
+        C = q.shape[-1]  # this rank's heads' width
         D = C // H
-        q = self.projq(query).reshape(B, Nq, H, D).transpose(1, 2)
-        k = self.projk(key).reshape(B, Nk, H, D).transpose(1, 2)
-        v = self.projv(value).reshape(B, Nk, H, D).transpose(1, 2)
+        q = q.reshape(B, Nq, H, D).transpose(1, 2)
+        k = self.projk(copy_to_model(key, tp)).reshape(B, Nk, H, D).transpose(1, 2)
+        v = self.projv(copy_to_model(value, tp)).reshape(B, Nk, H, D).transpose(1, 2)
         q, k = rope2d_qk(q, qpos, k, kpos, self.rope_base)
         attn = torch.einsum("bhnd,bhmd->bhnm", q * D ** -0.5, k)
-        attn_map = attn.mean(dim=1).detach()
+        if tp is None:
+            attn_map = attn.mean(dim=1).detach()
+        else:
+            attn_map = model_sum(attn.detach().sum(dim=1), tp) / (H * tp.size)
         out = torch.einsum("bhnm,bhmd->bnhd", torch.softmax(attn, dim=-1), v)
-        return self.proj(out.reshape(B, Nq, C)), attn_map
+        return row_parallel(self.proj, out.reshape(B, Nq, C), tp), attn_map
 
 
 class CrocoEncoderBlock(nn.Module):

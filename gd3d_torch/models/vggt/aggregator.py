@@ -8,6 +8,10 @@ shifted by +1, with 0 for the special tokens; frame attention over
 (B*S, P), global attention over (B, S*P). At S == 2 every global block
 exports its cross-frame map, and the layer mean accumulates in one
 (2B, Pp, Pp) fp32 buffer: no per-layer maps are kept.
+
+`sp`, a ring transport (parallel/sequence.py; MeshConfig.sequence_parallel
+through VggtTeacher), makes the global blocks' attention ring attention
+over the S*P token axis; the frame blocks keep the whole-frame kernel.
 """
 from __future__ import annotations
 
@@ -26,7 +30,7 @@ _RESNET_STD = (0.229, 0.224, 0.225)
 
 
 class Aggregator(nn.Module):
-    def __init__(self, cfg: VggtConfig):
+    def __init__(self, cfg: VggtConfig, sp=None):
         super().__init__()
         self.cfg = cfg
         C = cfg.embed_dim
@@ -34,13 +38,13 @@ class Aggregator(nn.Module):
         self.camera_token = nn.Parameter(torch.zeros(1, 2, 1, C))
         self.register_token = nn.Parameter(torch.zeros(1, 2, cfg.num_register_tokens, C))
 
-        def block():
+        def block(sp=None):
             return VggtBlock(C, cfg.num_heads, cfg.mlp_ratio, cfg.init_values,
                              qk_norm=cfg.qk_norm, use_rope=True, rope_freq=cfg.rope_freq,
-                             eps=cfg.agg_layernorm_eps)
+                             eps=cfg.agg_layernorm_eps, sp=sp)
 
         self.frame_blocks = nn.ModuleList([block() for _ in range(cfg.depth)])
-        self.global_blocks = nn.ModuleList([block() for _ in range(cfg.depth)])
+        self.global_blocks = nn.ModuleList([block(sp) for _ in range(cfg.depth)])
 
     def forward(
         self,

@@ -6,6 +6,15 @@ Attention goes through the flash dispatch (K1, and K2 under autograd);
 RoPE through K5. The cross-frame map export stays a plain einsum, as in
 gd3d, where it is not Pallas either.
 
+Under tensor parallelism (parallel/sharding.py) qkv is sliced by head,
+fc1 is column- and proj and fc2 row-parallel; the export is this rank's
+head sum, summed over the model group and divided by the global H. With
+an `sp` transport (the aggregator's global blocks under
+MeshConfig.sequence_parallel) attention is ring attention over the token
+axis (parallel/sequence.py). The export needs the whole sequence: the
+ring is handed the global q and k, and the export is computed from them as
+in the plain run.
+
 The Linear and LayerNorm layers compute in the promotion of their input's
 and their weights' dtypes (models/promote.py): under the bf16 teacher (bf16
 weights) fp32 tokens run in fp32 against the bf16-rounded weights, which is
@@ -22,6 +31,8 @@ import torch.nn.functional as F
 from gd3d_torch.models.promote import LayerNorm, Linear
 from gd3d_torch.ops.attention import scaled_dot_attention
 from gd3d_torch.ops.rope2d import rope2d_qk
+from gd3d_torch.parallel.sharding import (
+    copy_to_model, gather_heads, model_sum, row_parallel, split_heads)
 
 
 class LayerScale(nn.Module):
@@ -36,26 +47,34 @@ class LayerScale(nn.Module):
 class VggtMlp(nn.Module):
     """fc1 -> exact GELU -> fc2."""
 
+    TP_KIND = "mlp"
+    tp = None
+
     def __init__(self, dim: int, hidden: int, out_dim: Optional[int] = None):
         super().__init__()
         self.fc1 = Linear(dim, hidden)
         self.fc2 = Linear(hidden, dim if out_dim is None else out_dim)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return row_parallel(self.fc2, F.gelu(self.fc1(copy_to_model(x, self.tp))), self.tp)
 
 
 class VggtAttention(nn.Module):
     """Attention with optional qk-norm and RoPE, and the cross-frame map
     export: scores between frame-1 patch queries (tokens s:N/2) and frame-2
     patch keys (N/2+s:) and back, softmaxed at `temperature`, head-meaned,
-    concatenated on the batch axis."""
+    concatenated on the batch axis. `sp`, a ring transport
+    (parallel/sequence.py), makes the attention ring attention."""
+
+    TP_KIND = "attention"
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, qk_norm: bool = False,
                  use_rope: bool = False, rope_freq: float = 100.0, eps: float = 1e-6,
-                 special_tokens: int = 5):
+                 special_tokens: int = 5, sp=None):
         super().__init__()
         self.num_heads = num_heads
+        self.sp = sp
         self.use_rope = use_rope
         self.rope_freq = rope_freq
         self.special_tokens = special_tokens
@@ -66,10 +85,12 @@ class VggtAttention(nn.Module):
         self.k_norm = LayerNorm(D, eps=eps) if qk_norm else None
 
     def forward(self, x, pos=None, return_attn: bool = False, temperature=1.0):
-        B, N, C = x.shape
-        H = self.num_heads
+        B, N, _ = x.shape
+        H, tp = self.num_heads, self.tp
+        qkv = self.qkv(copy_to_model(x, tp))
+        C = qkv.shape[-1] // 3  # this rank's heads' width
         D = C // H
-        qkv = self.qkv(x).reshape(B, N, 3, H, D)
+        qkv = qkv.reshape(B, N, 3, H, D)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]  # (B, N, H, D) views
         if self.q_norm is not None:
             q, k = self.q_norm(q), self.k_norm(k)
@@ -77,7 +98,15 @@ class VggtAttention(nn.Module):
             q, k = rope2d_qk(q.transpose(1, 2), pos, k.transpose(1, 2), pos, self.rope_freq)
             q, k = q.transpose(1, 2), k.transpose(1, 2)
         scale = D ** -0.5
-        out = self.proj(scaled_dot_attention(q, k, v, scale=scale).reshape(B, N, C))
+        if self.sp is not None:
+            from gd3d_torch.parallel.sequence import ring_attention
+
+            # the ring rides the model group, which holds the heads apart
+            att = split_heads(ring_attention(*(gather_heads(t, tp) for t in (q, k, v)),
+                                             self.sp, scale), tp)
+        else:
+            att = scaled_dot_attention(q, k, v, scale=scale)
+        out = row_parallel(self.proj, att.reshape(B, N, C), tp)
 
         attn_export = None
         if return_attn:
@@ -88,7 +117,11 @@ class VggtAttention(nn.Module):
             s2 = torch.einsum("bhnd,bhmd->bhnm", qh[:, :, half + s:], kh[:, :, s:half])
             a1 = torch.softmax(s1 / temperature, dim=-1)
             a2 = torch.softmax(s2 / temperature, dim=-1)
-            attn_export = torch.cat([a1.mean(1), a2.mean(1)], dim=0).detach()
+            if tp is None:
+                attn_export = torch.cat([a1.mean(1), a2.mean(1)], dim=0).detach()
+            else:
+                heads = torch.cat([a1.sum(1), a2.sum(1)], dim=0).detach()
+                attn_export = model_sum(heads, tp) / (H * tp.size)
         return out, attn_export
 
 
@@ -97,11 +130,12 @@ class VggtBlock(nn.Module):
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  init_values: float = 1.0, qk_norm: bool = False,
-                 use_rope: bool = False, rope_freq: float = 100.0, eps: float = 1e-6):
+                 use_rope: bool = False, rope_freq: float = 100.0, eps: float = 1e-6,
+                 sp=None):
         super().__init__()
         self.norm1 = LayerNorm(dim, eps=eps)
         self.attn = VggtAttention(dim, num_heads, qk_norm=qk_norm, use_rope=use_rope,
-                                  rope_freq=rope_freq, eps=eps)
+                                  rope_freq=rope_freq, eps=eps, sp=sp)
         self.ls1 = LayerScale(dim, init_values)
         self.norm2 = LayerNorm(dim, eps=eps)
         self.mlp = VggtMlp(dim, int(dim * mlp_ratio))

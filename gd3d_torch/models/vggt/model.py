@@ -21,10 +21,12 @@ from gd3d_torch.models.vggt.track import TrackHead
 
 
 class Vggt(nn.Module):
-    def __init__(self, cfg: VggtConfig):
+    def __init__(self, cfg: VggtConfig, sp=None):
+        """`sp`: a ring transport for the aggregator's global attention
+        (parallel/sequence.py), or None."""
         super().__init__()
         self.cfg = cfg
-        self.aggregator = Aggregator(cfg)
+        self.aggregator = Aggregator(cfg, sp)
         self.camera_head = CameraHead(cfg)
         self.depth_head = VggtDPTHead(cfg, output_dim=2, activation="exp")
         self.point_head = VggtDPTHead(cfg, output_dim=4, activation="inv_log")

@@ -24,6 +24,7 @@ from torch.utils.checkpoint import checkpoint
 from gd3d_torch.core.config import StudentConfig
 from gd3d_torch.models.promote import LayerNorm
 from gd3d_torch.ops.attention import scaled_dot_attention
+from gd3d_torch.parallel.sharding import copy_to_model, row_parallel
 
 
 def init_params_(module: nn.Module, generator: torch.Generator) -> None:
@@ -111,17 +112,29 @@ def resample_pos_embed(
 
 
 class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2; under tensor parallelism (parallel/sharding.py)
+    fc1 column- and fc2 row-parallel."""
+
+    TP_KIND = "mlp"
+    tp = None
+
     def __init__(self, dim: int, hidden: int):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        return row_parallel(self.fc2, F.gelu(self.fc1(copy_to_model(x, self.tp))), self.tp)
 
 
 class Attention(nn.Module):
-    """timm attention with optional LoRA deltas on the q and v thirds."""
+    """timm attention with optional LoRA deltas on the q and v thirds.
+    Under tensor parallelism this rank holds num_heads of the heads: qkv,
+    lora_b_q and lora_b_v sliced by head, proj row-parallel, and lora_a's
+    output passed through f so that its gradient is the whole one."""
+
+    TP_KIND = "attention"
+    tp = None
 
     def __init__(self, dim: int, num_heads: int, lora_rank: int = 0):
         super().__init__()
@@ -136,11 +149,13 @@ class Attention(nn.Module):
             self.lora_b_v = nn.Linear(lora_rank, dim, bias=False)
 
     def forward(self, x):
-        B, N, C = x.shape
-        qkv = self.qkv(x)
+        B, N, _ = x.shape
+        tp = self.tp
+        qkv = self.qkv(copy_to_model(x, tp))
+        C = qkv.shape[-1] // 3  # this rank's heads' width
         if self.lora_rank > 0:
-            new_q = self.lora_b_q(self.lora_a_q(x))
-            new_v = self.lora_b_v(self.lora_a_v(x))
+            new_q = self.lora_b_q(copy_to_model(self.lora_a_q(x), tp))
+            new_v = self.lora_b_v(copy_to_model(self.lora_a_v(x), tp))
             qkv = torch.cat([qkv[..., :C] + new_q, qkv[..., C: 2 * C],
                              qkv[..., 2 * C:] + new_v], dim=-1)
         H = self.num_heads
@@ -148,7 +163,7 @@ class Attention(nn.Module):
         # (B, N, H, D) strided views: the flash kernel reads them in place
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
         out = scaled_dot_attention(q, k, v, scale=(C // H) ** -0.5)
-        return self.proj(out.reshape(B, N, C))
+        return row_parallel(self.proj, out.reshape(B, N, C), tp)
 
 
 class Adapter(nn.Module):

@@ -17,6 +17,13 @@ The teacher's trunk is cast to its run dtype before it is sharded (the
 bf16 trunk of teacher_dtype "bfloat16", heads fp32): the gathered weights
 are then what the teacher's per-call cast would give, and extract_features
 finds nothing left to cast.
+
+With `with_tp` on a data x model mesh (gd3d's with_tp, mesh.model > 1) the
+tensor-parallel slicing comes first (parallel/sharding.py), and FSDP then
+shards the TP-local parameters over the DATA group's sub-mesh: the 2D
+(fsdp x tp) layout. shard_dim's rule applies to the local shapes; which dim
+it picks changes no number, since FSDP gathers a unit's parameters before
+it computes.
 """
 from __future__ import annotations
 
@@ -62,16 +69,24 @@ def _units(model: nn.Module, world: int, min_size: int) -> List[nn.Module]:
 
 def shard_teacher(teacher: nn.Module, dp: DataParallel, device: torch.device,
                   trunk_dtype: Optional[torch.dtype] = None,
-                  min_size: int = MIN_FSDP_SIZE) -> Tuple[int, int]:
-    """Shard `teacher.model` over the ranks of `dp`, in place. With
+                  min_size: int = MIN_FSDP_SIZE, with_tp: bool = False) -> Tuple[int, int]:
+    """Shard `teacher.model` over the data-parallel ranks of `dp`, in place,
+    after slicing it over dp's model group with `with_tp`. With
     `trunk_dtype`, the teacher's TRUNK parameters (those its teacher_dtype
-    casts) are cast to it first. Returns (bytes sharded, total bytes),
-    gd3d's sharded_fraction."""
-    from torch.distributed.device_mesh import init_device_mesh
+    casts) are cast to it first. Returns (bytes sharded, total bytes) of
+    this rank's (TP-local) parameters, gd3d's sharded_fraction."""
+    from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
     from torch.distributed.fsdp import fully_shard
     from torch.distributed.tensor import Shard
 
     model = teacher.model
+    if with_tp and dp.model.size > 1:
+        from gd3d_torch.parallel.sharding import shard_module
+
+        whole = shard_module(model, dp.model)
+        if whole:
+            print(f"tensor parallel teacher: {len(whole)} modules kept whole "
+                  f"(not divisible by {dp.model.size}): {whole[:4]}")
     if trunk_dtype is not None:
         with torch.no_grad():
             for name, p in model.named_parameters():
@@ -82,7 +97,8 @@ def shard_teacher(teacher: nn.Module, dp: DataParallel, device: torch.device,
                   if shard_dim(p, world, min_size) is not None)
     total = sum(p.numel() * p.element_size() for p in model.parameters())
     replicated = {p for p in model.parameters() if shard_dim(p, world, min_size) is None}
-    mesh = init_device_mesh(device.type, (world,))
+    mesh = (init_device_mesh(device.type, (world,)) if dp.group is None
+            else DeviceMesh.from_group(dp.group, device.type))
 
     def placement(p):
         d = shard_dim(p, world, min_size)

@@ -21,6 +21,7 @@ import torch
 import torch.nn as nn
 from torch.func import functional_call
 
+from gd3d_torch.core.mesh import ModelGroup
 from gd3d_torch.models.vggt.config import VggtConfig
 from gd3d_torch.models.vggt.heads import pose_encoding_to_extri_intri, unproject_depth_to_world
 from gd3d_torch.models.vggt.model import Vggt
@@ -33,10 +34,18 @@ from gd3d_torch.teachers.mast3r import no_tf32
 class VggtTeacher(nn.Module):
     TRUNK = ("aggregator.",)  # the parameters teacher_dtype "bfloat16" casts
 
-    def __init__(self, cfg: VggtConfig = VggtConfig()):
+    def __init__(self, cfg: VggtConfig = VggtConfig(), sp_group: Optional[ModelGroup] = None):
+        """sp_group: ring-attention sequence parallelism of the aggregator's
+        global attention over this group (gd3d's sp_mesh and sp_axis; the
+        train CLI passes the model group, the batch riding the data group)."""
         super().__init__()
         self.cfg = cfg
-        self.model = Vggt(cfg)
+        sp = None
+        if sp_group is not None and sp_group.size > 1:
+            from gd3d_torch.parallel.sequence import GroupTransport
+
+            sp = GroupTransport(sp_group)
+        self.model = Vggt(cfg, sp)
         self.model.requires_grad_(False)
 
     @torch.no_grad()
