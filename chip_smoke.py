@@ -27,8 +27,11 @@ report), then runs these phases in order, one or more printed lines each:
               the MASt3R student's main shape in both dtypes and at the
               training shapes, and K4 and K4b at
               the MASt3R keypoint count, run twice and must give the same
-              bits; K5 on one tensor and on each main-path layer's q and k in
-              one launch; K1 and K2 at head dims 16 and 8 in both dtypes (the
+              bits; head dims wider than any model's (K2 at 96, 128 and 256
+              on flash_bwd_wide.cu, K1 at 192 and 256, both dtypes, at
+              (2,673,4,D); no main path launches them) and K4 / K4b at a
+              256-wide depth head (the wide kernel); K5 on one tensor and
+              on each main-path layer's q and k in one launch; K1 and K2 at head dims 16 and 8 in both dtypes (the
               --tiny stereo model, zero-padded to 64 by the wrappers); one
               view off 16 bytes each for K1, K2, K3 and K5 (the wrappers copy
               it); K4 and K4b at a depth-head width of 48. The build line
@@ -281,6 +284,17 @@ report), then runs these phases in order, one or more printed lines each:
               bit-identical, fwd+bwd ms against the whole sequence's; then K1
               and K2 at the ring's block shapes (1,1374|687,16,64) in the
               kernels phase's format (bound, plain and cuDNN times). The
+              phase's seconds.
+ 17. tail     the last modules' host work (check_tail): the port's
+              StereoAugmentor(scale_interp_nearest=False) on a
+              SceneFlow-sized pair (960x540 uint8 views, float32 disparity,
+              352x704 crop) to gd3d's digest (TAIL_AUG_DIGEST, recomputed
+              with gd3d and cv2 by tests/test_torch_resize_cv.py);
+              utils/vis.py::vis_attn_map on the steps phase's MASt3R
+              cross-attention map (a row's cv2-exact upsampling against
+              torch's bilinear on the card; the JPEG decoded against the
+              plain composite's); ops/masks.py::masked_patch_cost with
+              softmax and a column mask on the card against the CPU. The
               phase's seconds.
 
 Then one JSON line of the kernels (launches: the steps, train, eval, data,
@@ -693,10 +707,16 @@ def check_kernels(dev) -> dict:
         *[(kern, f"CroCo-Stereo --tiny {part}", B, 24, 2, D, dt, False)
           for kern in ("K1", "K2") for dt in (f32, bf16)
           for part, B, D in (("encoder", 4, 16), ("decoder", 2, 8))],
+        # head dims wider than any model of the repo (no main path launches
+        # them; gd3d takes any): K2 at 96 (padded to 128), 128 and 256 on
+        # flash_bwd_wide.cu, K1 at 192 (padded to 256) and 256; these K2
+        # cases also run twice and must repeat their bits
+        *[(kern, "wide head dim", 2, 673, 4, D, dt, False) for dt in (f32, bf16)
+          for kern, D in (("K2", 96), ("K2", 128), ("K1", 192), ("K1", 256), ("K2", 256))],
     ]
     for kern, where, B, N, H, D, dt, designated in attn_cases:
         attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated,
-                  repeat=designated or N in STEREOFLOW_LENGTHS.values())
+                  repeat=designated or N in STEREOFLOW_LENGTHS.values() or D > 64)
 
     # K3 at the cost volume of one pair (M = N on both paths), masked rows in;
     # and an odd M, whose rows start off 16 bytes. The kernel reads no cost
@@ -719,11 +739,13 @@ def check_kernels(dev) -> dict:
 
     misaligned_cases(rep, g, dev)
 
-    # K4 forward and both gradient passes at each step's keypoint count, and
-    # at a depth-head width that is no multiple of 32 (held padded to 64)
+    # K4 forward and both gradient passes at each step's keypoint count, at a
+    # depth-head width that is no multiple of 32 (held padded to 64), and at
+    # one wider than 128 (no config; the wide kernel, two chunks of 128)
     for N, where, designated, h in ((672, "MASt3R", True, 128), (300, "VGGT", False, 128),
                                     (768, "objaverse MASt3R", False, 128),
-                                    (672, "MASt3R, depth head 48 wide,", False, 48)):
+                                    (672, "MASt3R, depth head 48 wide,", False, 48),
+                                    (672, "MASt3R, depth head 256 wide,", False, 256)):
         u = torch.randn((2, N, h), generator=g, device=dev) * 0.5
         head = [torch.randn(h, generator=g, device=dev) * 0.1,
                 1 + torch.randn(h, generator=g, device=dev) * 0.05,
@@ -738,7 +760,7 @@ def check_kernels(dev) -> dict:
         n_pairs = float(cnts.sum())
         tag = f"{where} intra-depth u=(2,{N},{h}) float32 ({int(n_pairs)} valid pairs)"
         g_rows = torch.rand((2, N), generator=g, device=dev)
-        if designated:  # partials summed in a fixed order, no atomics: the same bits again
+        if designated or h > 128:  # partials summed in a fixed order, no atomics: the same bits
             same = all(torch.equal(a, b) for a, b in zip(
                 (rows, cnts, *pairwise_rank_bwd(*args, g_rows, 0.05)),
                 (*pairwise_rank_fwd(*args, 0.05), *pairwise_rank_bwd(*args, g_rows, 0.05))))
@@ -995,6 +1017,10 @@ def check_mast3r_teacher(teacher, batch) -> None:
         f"rasterised depth differs by more than 1e-3 at {moved} of {depth_k.numel()} pixels")
     if not ok:
         raise AssertionError("MASt3R: the teacher on K1 disagrees with the teacher on its twin")
+    # the tail phase draws this export's cross-attention map over the views
+    TAIL_INPUTS.update(cost=with_kernel["cost_1"][0].detach().clone(),
+                       source=images[0][0].float().cpu().numpy(),
+                       target=images[1][0].float().cpu().numpy())
 
 
 def run_steps(name, setup, dev, n_steps: int, check_teacher=None, expect=()) -> dict:
@@ -4408,6 +4434,173 @@ def check_sequence(dev) -> dict:
     return counts
 
 
+# The tail phase: the last modules' host work. SceneFlow's frames are 960 x
+# 540; CroCo-Stereo trains on 352 x 704 crops.
+TAIL_SEED = 1919
+TAIL_CROP = (352, 704)
+# sha256 (tail_digest) of gd3d's StereoAugmentor(TAIL_CROP,
+# scale_interp_nearest=False, scale_prob=1.0, rng=RandomState(TAIL_SEED))
+# on tail_stereo_pair(), computed with gd3d and cv2 by
+# tests/test_torch_resize_cv.py::test_chip_smoke_tail_digest_is_gd3ds
+TAIL_AUG_DIGEST = "859beea5cd75283a1f0a40820a5f836d30029d71c0fe13a042412c34ae377a9f"
+# the steps phase's MASt3R teacher export (check_mast3r_teacher): its
+# cross-attention map of the first pair (on the card) and the two views
+TAIL_INPUTS: dict = {}
+
+
+def tail_stereo_pair():
+    """SceneFlow-sized views (uint8) and disparity (float32), from TAIL_SEED."""
+    import numpy as np
+
+    rng = np.random.RandomState(TAIL_SEED)
+    yy, xx = np.mgrid[0:540, 0:960]
+    left = (rng.randint(0, 256, (540, 960, 3)) // 2 + ((xx + yy) % 128)[..., None]).astype(
+        np.uint8)
+    right = np.roll(left, -7, axis=1)
+    disp = (rng.rand(540, 960) * 4 + 20 + 30 * np.sin(xx / 97.0)).astype(np.float32)
+    return left, right, disp
+
+
+def tail_augment(flowio):
+    """`flowio` (gd3d's or the port's data/flowio.py) StereoAugmentor on
+    tail_stereo_pair(), the disparity resized with INTER_LINEAR."""
+    import numpy as np
+
+    aug = flowio.StereoAugmentor(TAIL_CROP, scale_prob=1.0, scale_interp_nearest=False,
+                                 rng=np.random.RandomState(TAIL_SEED))
+    return aug(*tail_stereo_pair())
+
+
+def tail_digest(arrays) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for a in arrays:
+        h.update(f"{a.dtype} {a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def _attn_composite(attn, tgt, src, p_size, num_vis, seed, upsample, jet):
+    """vis_attn_map's image (BGR) before its JPEG, with `upsample` for the
+    attention rows: the plain version the phase holds the file to."""
+    import numpy as np
+
+    def to_u8(img):
+        lo, hi = img.min(), img.max()
+        return ((img - lo) / (hi - lo + 1e-8) * 255).astype(np.uint8)
+
+    H, W = tgt.shape[:2]
+    pH, pW = H // p_size, W // p_size
+    rng = np.random.RandomState(seed)
+    src8, tgt8 = to_u8(src), to_u8(tgt)
+    rows = []
+    for _ in range(num_vis):
+        idx_h, idx_w = rng.randint(pH), rng.randint(pW)
+        marked = src8.copy()
+        marked[idx_h * p_size:(idx_h + 1) * p_size, idx_w * p_size:(idx_w + 1) * p_size] = 255
+        heat = jet[to_u8(upsample(idx_h * pW + idx_w))]
+        overlay = to_u8(tgt8[..., ::-1].astype(np.int32) + heat)
+        rows.append(np.concatenate([marked[:, :, ::-1], overlay], axis=1))
+    return np.concatenate(rows, axis=0)
+
+
+def check_tail(dev) -> None:
+    """The tail phase (see the module docstring, 17): (a) the port's
+    StereoAugmentor(scale_interp_nearest=False) on a SceneFlow-sized pair
+    to gd3d's digest; (b) utils/vis.py::vis_attn_map on the steps phase's
+    MASt3R cross-attention map: a row's cv2-exact upsampling against
+    torch's bilinear on the card, and the JPEG, decoded, against the
+    composite built on that plain upsampling (through the same JPEG
+    encoder and decoder); (c)
+    ops/masks.py::masked_patch_cost with softmax and a column mask on the
+    card against the CPU. The phase's seconds."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from gd3d_torch.data import flowio
+    from gd3d_torch.data.images import decode_rgb, read_bytes
+    from gd3d_torch.data.jpeg_encode import encode_jpeg
+    from gd3d_torch.data.resample import resize_linear_f32
+    from gd3d_torch.ops.masks import masked_patch_cost
+    from gd3d_torch.utils import vis
+
+    t_phase = time.perf_counter()
+    ok = True
+    t0 = time.perf_counter()
+    out = tail_augment(flowio)
+    aug_s = time.perf_counter() - t0
+    digest = tail_digest(out)
+    shapes = [(TAIL_CROP[0], TAIL_CROP[1], 3)] * 2 + [TAIL_CROP]
+    good = digest == TAIL_AUG_DIGEST and [a.shape for a in out] == shapes and all(
+        a.dtype == np.float32 and np.isfinite(a).all() for a in out)
+    log(f"tail: StereoAugmentor(scale_interp_nearest=False) on 960x540 views, crop "
+        f"{TAIL_CROP}: {aug_s:.3f} s host; digest {digest[:16]} (gd3d's "
+        f"{TAIL_AUG_DIGEST[:16]}) {'OK' if good else 'FAIL'}")
+    ok &= good
+
+    if "cost" not in TAIL_INPUTS:
+        raise AssertionError("tail: no MASt3R teacher export (the steps phase runs first)")
+    cost, src, tgt = TAIL_INPUTS["cost"], TAIL_INPUTS["source"], TAIL_INPUTS["target"]
+    H, W = tgt.shape[:2]
+    pH, pW = H // 16, W // 16
+    cost_np = cost.float().cpu().numpy()
+
+    def plain_upsample(n):  # torch's bilinear (half-pixel centres) on the card
+        row = cost[n].float().reshape(1, 1, pH, pW)
+        return F.interpolate(row, size=(H, W), mode="bilinear",
+                             align_corners=False)[0, 0].cpu().numpy()
+
+    worst = 0.0
+    for n in (0, 5, pH * pW - 1):
+        ref = plain_upsample(n)
+        got = resize_linear_f32(cost_np[n].reshape(pH, pW), (W, H))
+        worst = max(worst, float(np.abs(got - ref).max()) / max(1.0, float(np.abs(ref).max())))
+    good = worst <= TOL["float32"]
+    log(f"tail: the attention rows' cv2 INTER_LINEAR ({pH}x{pW} -> {H}x{W}) against torch's "
+        f"bilinear on the card: max err {worst:.3e} of the max (tol {TOL['float32']:g}) "
+        f"{'OK' if good else 'FAIL'}")
+    ok &= good
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        path = vis.vis_attn_map(cost_np, tgt, src, 0, save_path=tmp)
+        vis_s = time.perf_counter() - t0
+        name = os.path.basename(path)
+        img = decode_rgb(read_bytes(path), name)[..., ::-1].astype(np.int64)
+    # the plain composite through the same JPEG encoder and decoder
+    want = _attn_composite(cost_np, tgt, src, 16, 8, 0, plain_upsample, vis._JET_BGR)
+    want = decode_rgb(encode_jpeg(np.ascontiguousarray(want[..., ::-1]), 95))[..., ::-1]
+    diff = (float(np.abs(img - want.astype(np.int64)).mean()) if img.shape == want.shape
+            else float("inf"))
+    good = name == "count0_all_points.jpg" and diff <= 0.5
+    log(f"tail: vis_attn_map on the MASt3R teacher's cross-attention map ({pH * pW} x "
+        f"{pH * pW}): {name} {img.shape[1]}x{img.shape[0]} in {vis_s:.3f} s host; decoded "
+        f"against the plain composite's JPEG: mean abs diff {diff:.4f} of 255 (tol 0.5) "
+        f"{'OK' if good else 'FAIL'}")
+    ok &= good
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    m1 = torch.rand(pH * pW, generator=g, device=dev) > 0.3
+    m2 = torch.rand(pH * pW, generator=g, device=dev) > 0.5
+    card = masked_patch_cost(cost[None], m1, m2, use_softmax=True, temperature=0.1)
+    cpu = masked_patch_cost(cost[None].cpu(), m1.cpu(), m2.cpu(), use_softmax=True,
+                            temperature=0.1)
+    err, mag = max_err(card.cpu(), cpu)
+    uniform = float((card[0, ~m1] - 1.0 / (pH * pW)).abs().max())
+    good = err <= 1e-5 * max(1.0, mag) and uniform <= 1e-7
+    log(f"tail: masked_patch_cost(use_softmax=True, mask_patch_2) on the card against the "
+        f"CPU: max err {err:.3e} (tol 1e-5 of {max(1.0, mag):.3e}), zeroed rows uniform to "
+        f"{uniform:.1e} {'OK' if good else 'FAIL'}")
+    ok &= good
+    log(f"tail: phase {time.perf_counter() - t_phase:.1f} s")
+    if not ok:
+        raise AssertionError("tail: a check failed")
+
+
 def main() -> int:
     if len(sys.argv) > 1:
         print(__doc__, file=sys.stderr)
@@ -4495,6 +4688,8 @@ def main() -> int:
     for k, n in seq_counts.items():
         counts[k] += n
     log(f"phase: sequence done at {time.perf_counter() - t_start:.1f} s")
+    check_tail(dev)
+    log(f"phase: tail done at {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

@@ -11,9 +11,11 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Dict, List, Tuple
+from typing import Tuple
 
 import torch
+
+from gd3d_torch.core.yaml_reader import read_yaml
 
 
 @dataclasses.dataclass(frozen=True)
@@ -212,44 +214,13 @@ NAMED_CONFIGS = {
 }
 
 
-def _read_yaml_subset(path: str) -> Dict[str, object]:
-    """The YAML the bundled configs use: `key: scalar` lines and `key:`
-    followed by `  - item` lines, with # comments. Raises ValueError on any
-    other line, flow collections, anchors and block scalars included
-    (PyYAML is not a dependency of the port)."""
-    out: Dict[str, object] = {}
-    current: List[str] | None = None
-    with open(path) as f:
-        for lineno, raw in enumerate(f, 1):
-            line = raw.split(" #")[0].rstrip() if not raw.lstrip().startswith("#") else ""
-            if not line.strip():
-                continue
-            if line.startswith((" ", "\t")):
-                item = line.strip()
-                if current is None or not item.startswith("- "):
-                    raise ValueError(f"{path}:{lineno}: cannot read {raw.rstrip()!r}")
-                current.append(item[2:].strip().strip("'\""))
-                continue
-            key, sep, value = line.partition(":")
-            if not sep or not key.strip() or " " in key.strip():
-                raise ValueError(f"{path}:{lineno}: cannot read {raw.rstrip()!r}")
-            value = value.strip()
-            if value.startswith(("[", "{", "&", "*", "!", "|", ">")):
-                raise ValueError(f"{path}:{lineno}: cannot read {raw.rstrip()!r}")
-            if value:
-                out[key.strip()] = value.strip("'\"")
-                current = None
-            else:
-                current = []
-                out[key.strip()] = current
-    return out
-
-
 def load_yaml_config(path: str) -> DistillConfig:
     """One of the bundled YAMLs (the reference's config/*.yaml): `matcher`
     and `dataset` select the NAMED_CONFIGS factory, which supplies every
     other hyper-parameter, and `evaluation_methods` overrides its list."""
-    raw = _read_yaml_subset(path)
+    raw = read_yaml(path)
+    if not isinstance(raw, dict):
+        raise ValueError(f"{path}: cannot read a config that is no mapping")
     matcher = raw.get("matcher", "mast3r")
     dataset = raw.get("dataset", "scannetpp")
     name = f"finetune_timm_{matcher}_{dataset}"

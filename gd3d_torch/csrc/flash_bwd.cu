@@ -33,6 +33,9 @@
 //     A operand of dQ += dS K.
 //   dK, dV and dQ accumulate in fp32 registers and are stored once.
 //
+// * head dims 128 and 256 (no path of the repo; the wrapper pads 65..256 to
+//   them): flash_bwd_wide.cu, the same two passes on the fp32 CUDA cores;
+//   gd3d_flash_bwd below sends those widths there.
 // * bf16 (the student under autocast), head dim 64: flash_bwd_sm90.cu, on
 //   TMA, wgmma and warp specialisation; gd3d_flash_bwd below sends that
 //   case there. Head dims below 64 are zero-padded to 64 by the wrapper
@@ -433,6 +436,13 @@ cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
+// flash_bwd_wide.cu: head dims 128 and 256, both dtypes.
+cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* di, void* dq, void* dk, void* dv,
+                            int B, int N, int M, int H, int D, Strides qs, Strides ks,
+                            Strides vs, Strides dos, float scale, int is_bf16,
+                            cudaStream_t stream);
+
 }  // namespace gd3d
 
 extern "C" int gd3d_flash_bwd(const void* q, const void* k, const void* v,
@@ -444,10 +454,14 @@ extern "C" int gd3d_flash_bwd(const void* q, const void* k, const void* v,
                               long long dosb, long long dosn, long long dosh, float scale,
                               int is_bf16, void* stream) {
   using namespace gd3d;
-  if (D != kD || N <= 0 || M <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if ((D != kD && D != 128 && D != 256) || N <= 0 || M <= 0 || B <= 0 || H <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qsn, qsh}, ks{ksb, ksn, ksh}, vs{vsb, vsn, vsh},
       dos{dosb, dosn, dosh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D != kD)
+    return static_cast<int>(launch_bwd_wide(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, D,
+                                            qs, ks, vs, dos, scale, is_bf16, st));
   // each launcher returns the first launch error of its two kernels
   return static_cast<int>(
       is_bf16 ? sm90::launch_bwd_bf16(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks,

@@ -48,11 +48,15 @@
 //   row in registers (one 32-wide part of the head dim each); K/V tiles of
 //   32 keys are staged in shared memory and read back as 16-byte broadcast
 //   vectors.
+// * head dim 256 (no path of the repo; the wrapper pads 129..255 to it):
+//   the same kernel with eight threads a row, so a block of 128 threads
+//   owns 16 queries, and K/V tiles of 16 keys, which keeps the two tiles at
+//   36 KB of static shared memory (32-key tiles would pass its 48 KB).
 //
 // Layout: q, k, v are (B, N, H, D) views read through their strides; o is a
 // contiguous (B, N, H, D) tensor and lse a contiguous (B, H, N) fp32 tensor.
-// D is 64 or 128: the wrapper zero-pads other head dims to the next of the
-// two (kernels/flash_fwd.py). The bf16 and the fp32 head-dim-64 kernels
+// D is 64, 128 or 256: the wrapper zero-pads other head dims to the next of
+// the three (kernels/flash_fwd.py). The bf16 and the fp32 head-dim-64 kernels
 // copy 16 bytes at a time (TMA, cp.async): the views' addresses and
 // (B, N, H) steps must fall on 16 bytes (the wrapper copies a view that
 // does not). Ragged sequence lengths (2, 672, 673, 1374, 4161, ...) are
@@ -342,20 +346,24 @@ extern "C" int gd3d_flash_fwd(const void* q, const void* k, const void* v, void*
                               long long osb, long long osn, long long osh, float scale,
                               int is_bf16, void* stream) {
   using namespace gd3d;
-  if ((D != 64 && D != 128) || N <= 0 || M <= 0 || B <= 0 || H <= 0)
+  if ((D != 64 && D != 128 && D != 256) || N <= 0 || M <= 0 || B <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qsn, qsh}, ks{ksb, ksn, ksh}, vs{vsb, vsn, vsh}, os{osb, osn, osh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (is_bf16 && D == kD)
     return static_cast<int>(
         sm90::launch_fwd_bf16(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st));
-  if (is_bf16)  // head dim 128
+  if (is_bf16 && D == 128)
     launch_fwd<__nv_bfloat16, 4, 32>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
+  else if (is_bf16)  // head dim 256
+    launch_fwd<__nv_bfloat16, 8, 16>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
   else if (D == kD) {
     const cudaError_t err =
         launch_fwd_f32(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
     if (err != cudaSuccess) return static_cast<int>(err);
-  } else
+  } else if (D == 128)
     launch_fwd<float, 4, 32>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
+  else  // head dim 256
+    launch_fwd<float, 8, 16>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
   return static_cast<int>(cudaGetLastError());
 }

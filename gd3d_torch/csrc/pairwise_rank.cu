@@ -55,10 +55,23 @@
 //   db_out (dbias is minus the sum of its du), the column pass du, dln_b
 //   and dw_out, which balances their registers.
 //
+// * Hidden widths above 128 (no config of the repo; gd3d takes any):
+//   pairwise_rank_wide_kernel, the same pairs, lanes and tiles of work, over
+//   the hidden width in chunks of 128 units (16 a lane). A row no longer
+//   fits a lane's registers, so the rows are read from the compacted scratch
+//   (L1 / L2) instead of shared-memory tiles, and each pair walks its chunks
+//   three times: the LayerNorm's mean, then its centred squares (two-pass,
+//   as above), then the GELU and the w_out dot (with the backward's two
+//   means). The backward's per-unit sums would not fit either: a block sums
+//   the gradients of one hidden chunk (a grid dimension of chunks), and
+//   walks that chunk a fourth time per pair. Its partials go to the same
+//   scratch, and the same kernels sum them.
+//
 // Layout: u (B, N, hp), depths (B, N), valid (B, N) as fp32 (> 0 is valid),
-// grad_rows (B, N): all contiguous fp32. The hidden width h is 1..128; the
-// kernels hold hp = h rounded up to 32, 64, 96 or 128 (kPer = hp / 32), and
-// the wrapper zero-pads u and the head's vectors to hp. A padded unit adds
+// grad_rows (B, N): all contiguous fp32. For a hidden width h of 1..128 the
+// kernels hold hp = h rounded up to 32, 64, 96 or 128 (kPer = hp / 32),
+// above 128 h rounded up to 128, and the wrapper zero-pads u and the head's
+// vectors to hp. A padded unit adds
 // nothing: its diff is 0, its centred value is set to 0 (not -mean), so its
 // y, GELU and output weight are 0, and the LayerNorm's mean and variance
 // divide by h. Its columns of du and of the vectors' gradients are cut off
@@ -89,8 +102,13 @@ struct PrHead {
   int h;  // the true hidden width; the rows hold hp >= h
 };
 
-// The width the kernels hold for hidden width h: h rounded up to 32.
-__host__ __device__ inline int pr_padded(int h) { return (h + 31) / 32 * 32; }
+constexpr int kPrChunkH = 128;  // hidden units a chunk of the wide kernel
+
+// The width the kernels hold for hidden width h: h rounded up to 32, and
+// above 128 to a whole number of 128-unit chunks.
+__host__ __device__ inline int pr_padded(int h) {
+  return h <= kPrChunkH ? (h + 31) / 32 * 32 : (h + kPrChunkH - 1) / kPrChunkH * kPrChunkH;
+}
 
 // The scratch buffer, in floats. uc, dc, gc and idx hold the compacted
 // views (the first nvalid[b] entries of each); the rest are partials.
@@ -200,10 +218,11 @@ pairwise_rank_prep(const float* __restrict__ u, const float* __restrict__ depths
   for (int w = 0; w < warp; ++w) slot += vb[row0 + w] > 0.f;
   const long long bn = (long long)b * N + n;
   const bool ok = vb[n] > 0.f;
-  const int h4 = h / 4;  // <= 32 vectors a row, one per lane
+  const int h4 = h / 4;  // 16-byte vectors a row, one a lane at a time
   if (!ok) {
     if (kBackward) {
-      if (lane < h4) reinterpret_cast<float4*>(du + bn * h)[lane] = make_float4(0, 0, 0, 0);
+      for (int i = lane; i < h4; i += 32)
+        reinterpret_cast<float4*>(du + bn * h)[i] = make_float4(0, 0, 0, 0);
     } else if (lane == 0) {
       row_sum[bn] = 0.f;
       row_cnt[bn] = 0.f;
@@ -211,9 +230,8 @@ pairwise_rank_prep(const float* __restrict__ u, const float* __restrict__ depths
     return;
   }
   const long long bs = (long long)b * N + slot;
-  if (lane < h4)
-    reinterpret_cast<float4*>(sc.uc + bs * h)[lane] =
-        reinterpret_cast<const float4*>(u + bn * h)[lane];
+  for (int i = lane; i < h4; i += 32)
+    reinterpret_cast<float4*>(sc.uc + bs * h)[i] = reinterpret_cast<const float4*>(u + bn * h)[i];
   if (lane == 0) {
     sc.dc[bs] = depths[bn];
     sc.idx[bs] = n;
@@ -518,6 +536,283 @@ pairwise_rank_kernel(PrHead hd, int N, PrScratch sc) {
   }
 }
 
+// GELU's terms at y (the erf of Abramowitz-Stegun 7.1.26, as in
+// pairwise_rank_kernel): 2 gelu(y) and gelu'(y).
+__device__ __forceinline__ void pr_gelu(float y, float& g2, float& dgelu) {
+  const float tt = fast_rcp(fmaf(0.3275911f * 0.70710678f, fabsf(y), 1.f));
+  float poly = fmaf(tt, 1.061405429f, -1.453152027f);
+  poly = fmaf(tt, poly, 1.421413741f);
+  poly = fmaf(tt, poly, -0.284496736f);
+  poly = fmaf(tt, poly, 0.254829592f);
+  const float gauss = fast_exp2(y * y * (-0.5f * kLog2e));  // exp(-y^2 / 2)
+  const float erf_abs = fmaf(-poly * tt, gauss, 1.f);
+  g2 = fmaf(fabsf(y), erf_abs, y);
+  dgelu = fmaf(y * kInvSqrt2Pi, gauss, fmaf(0.5f, copysignf(erf_abs, y), 0.5f));
+}
+
+// Hidden widths hp > 128, in chunks of kPrChunkH units (see the note at the
+// top). Grid (ceil(N / kW), C * n_hc, B), 32 kW threads: block y takes
+// chunk y % C of the streamed keypoints and, in the backward, sums the
+// gradients of hidden chunk y / C (n_hc = hp / 128; 1 forward). Warp w owns
+// the compacted keypoint p = kW x + w, as in pairwise_rank_kernel; a lane
+// holds vectors 8 c + (lane % 8), c < 4, of a chunk.
+template <int kMode, int kW>
+__global__ void __launch_bounds__(32 * kW)
+pairwise_rank_wide_kernel(PrHead hd, int N, int hp, int n_hc, PrScratch sc) {
+  constexpr int kE = 16;  // hidden units a lane holds of a chunk
+  constexpr int kThreadsB = 32 * kW;
+  constexpr int kR = 2 * kPrChunkH + 1;
+  __shared__ float red[kW * kR];
+
+  const int b = blockIdx.z;
+  const int C = gridDim.y / n_hc;
+  const int chunk = blockIdx.y % C;
+  const int hc = blockIdx.y / C;
+  const int h0 = hc * kPrChunkH;  // the hidden chunk whose gradients this block sums
+  const int n_chunks_h = hp / kPrChunkH;
+  const int P = 4 * hp + 1;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int sub = lane % kPrLanes;
+  const int grp = lane / kPrLanes;
+  const int nv = sc.nvalid[b];
+  const int len = pr_chunk_len(nv, C);
+  const int q_begin = chunk * len;
+  const int q_end = min(nv, q_begin + len);
+  const int p = blockIdx.x * kW + warp;
+  float* part = kMode == kPrFwd ? nullptr
+                                : sc.pparam + (((long long)b * gridDim.x + blockIdx.x) * C +
+                                               chunk) * P;
+  if (blockIdx.x * kW >= nv || q_begin >= nv) {
+    // nothing to do here; the parameter-gradient sum reads every partial
+    for (int c = threadIdx.x; c < kPrChunkH; c += kThreadsB) {
+      if (kMode == kPrRow) part[h0 + c] = part[hp + h0 + c] = 0.f;
+      if (kMode == kPrCol) part[2 * hp + h0 + c] = part[3 * hp + h0 + c] = 0.f;
+    }
+    if (kMode == kPrRow && hc == 0 && threadIdx.x == 0) part[4 * hp] = 0.f;
+    return;
+  }
+
+  const float* ub = sc.uc + (long long)b * N * hp;
+  const float* db = sc.dc + (long long)b * N;
+  const float* gb = sc.gc + (long long)b * N;
+  const bool own_ok = p < nv;
+  const float d_own = own_ok ? db[p] : 0.f;
+  const float g_own = (kMode == kPrRow && own_ok) ? gb[p] : 0.f;
+  const float* own = ub + (long long)(own_ok ? p : q_begin) * hp;
+  const float inv_h = 1.f / hd.h;
+  const float b_out = *hd.b_out;
+
+  // diff = (u[j] - u[i]) + bias over the lane's units of chunk c2; in the
+  // column pass the owned row is j
+  auto diff = [&](const float* other, int c2, float (&x)[kE]) {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int off = c2 * kPrChunkH + (c * kPrLanes + sub) * 4;
+      const float4 o = __ldg(reinterpret_cast<const float4*>(other + off));
+      const float4 a = __ldg(reinterpret_cast<const float4*>(own + off));
+      const float4 bb = __ldg(reinterpret_cast<const float4*>(hd.bias + off));
+      const float ov[4] = {o.x, o.y, o.z, o.w}, av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[4] = {bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        x[4 * c + k] = (kMode == kPrCol ? av[k] - ov[k] : ov[k] - av[k]) + bv[k];
+    }
+  };
+  // unit e of chunk c2 lies past h: its centred value is 0
+  auto padded = [&](int c2, int e) {
+    return c2 * kPrChunkH + ((e >> 2) * kPrLanes + sub) * 4 + (e & 3) >= hd.h;
+  };
+  auto vec = [&](const float* v, int c2, int c) {
+    return __ldg(reinterpret_cast<const float4*>(v + c2 * kPrChunkH + (c * kPrLanes + sub) * 4));
+  };
+
+  float loss_acc = 0.f, cnt_acc = 0.f, db_acc = 0.f;
+  float acc0[kMode == kPrFwd ? 1 : kE], acc1[kMode == kPrFwd ? 1 : kE];
+  float acc2[kMode == kPrCol ? kE : 1];
+  if constexpr (kMode != kPrFwd) {
+#pragma unroll
+    for (int e = 0; e < kE; ++e) acc0[e] = acc1[e] = 0.f;
+  }
+  if constexpr (kMode == kPrCol) {
+#pragma unroll
+    for (int e = 0; e < kE; ++e) acc2[e] = 0.f;
+  }
+
+  const int steps = own_ok ? (q_end - q_begin + kPrPairs - 1) / kPrPairs : 0;
+  for (int step = 0; step < steps; ++step) {
+    const int r = q_begin + step * kPrPairs + grp;
+    const bool in = r < q_end;
+    const float dd = !in ? 0.f : kMode == kPrCol ? d_own - db[r] : db[r] - d_own;
+    const bool ok = in && fabsf(dd) > hd.thr;
+    if (!__any_sync(0xffffffffu, ok)) continue;
+    const float* other = ub + (long long)(in ? r : q_begin) * hp;
+    float x[kE];
+    // the mean, then the centred squares, over every chunk
+    float sm = 0.f;
+    for (int c2 = 0; c2 < n_chunks_h; ++c2) {
+      diff(other, c2, x);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) sm += x[e];
+    }
+    const float mu = pair_sum(sm) * inv_h;
+    float sq = 0.f;
+    for (int c2 = 0; c2 < n_chunks_h; ++c2) {
+      diff(other, c2, x);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const float xc = padded(c2, e) ? 0.f : x[e] - mu;
+        sq = fmaf(xc, xc, sq);
+      }
+    }
+    const float inv = rsqrtf(pair_sum(sq) * inv_h + hd.eps);
+    // sp sums 2 gelu(y) w_out; m1 and m2 sum dxhat / dpre and dxhat xhat / dpre
+    float sp = 0.f, m1 = 0.f, m2 = 0.f;
+    for (int c2 = 0; c2 < n_chunks_h; ++c2) {
+      diff(other, c2, x);
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const float4 s4 = vec(hd.ln_s, c2, c), b4 = vec(hd.ln_b, c2, c);
+        const float4 w4 = vec(hd.w_out, c2, c);
+        const float lns[4] = {s4.x, s4.y, s4.z, s4.w}, lnb[4] = {b4.x, b4.y, b4.z, b4.w};
+        const float wo[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int e = 4 * c + k;
+          const float xh = (padded(c2, e) ? 0.f : x[e] - mu) * inv;
+          float g2, dg;
+          pr_gelu(fmaf(xh, lns[k], lnb[k]), g2, dg);
+          sp = fmaf(g2, wo[k], sp);
+          if constexpr (kMode != kPrFwd) {
+            const float rr = wo[k] * dg * lns[k];
+            m1 += rr;
+            m2 = fmaf(rr, xh, m2);
+          }
+        }
+      }
+    }
+    sp = pair_sum(sp);
+    const float pre = fmaf(0.5f, sp, b_out);
+    const float score = 1.f - 2.f * fast_rcp(fast_exp2(pre * (2.f * kLog2e)) + 1.f);
+    const float alpha = dd > 0.f ? 1.f : -1.f;
+    const float ez = fast_exp2(-alpha * score * kLog2e);  // exp(z), z = -alpha score
+    if constexpr (kMode == kPrFwd) {
+      if (ok) {
+        loss_acc += __logf(1.f + ez);
+        cnt_acc += 1.f;
+      }
+    } else {
+      m1 = pair_sum(m1) * inv_h;
+      m2 = pair_sum(m2) * inv_h;
+      if (ok) {  // an invalid pair adds nothing
+        const float gscale = kMode == kPrRow ? g_own : gb[r];
+        const float sig = ez * fast_rcp(1.f + ez);
+        const float dpre = gscale * (-alpha * sig) * (1.f - score * score);
+        const float c1 = inv * dpre;
+        // this block's hidden chunk, once more
+        diff(other, hc, x);
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float4 s4 = vec(hd.ln_s, hc, c), b4 = vec(hd.ln_b, hc, c);
+          const float4 w4 = vec(hd.w_out, hc, c);
+          const float lns[4] = {s4.x, s4.y, s4.z, s4.w}, lnb[4] = {b4.x, b4.y, b4.z, b4.w};
+          const float wo[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int e = 4 * c + k;
+            const float xh = (padded(hc, e) ? 0.f : x[e] - mu) * inv;
+            float g2, dg;
+            pr_gelu(fmaf(xh, lns[k], lnb[k]), g2, dg);
+            const float qv = wo[k] * dg;
+            // ddiff = inv (dxhat - mean(dxhat) - xhat mean(dxhat xhat))
+            const float dd_e = c1 * fmaf(-xh, m2, fmaf(qv, lns[k], -m1));
+            if constexpr (kMode == kPrRow) {
+              acc0[e] -= dd_e;
+              acc1[e] = fmaf(dpre, qv * xh, acc1[e]);  // dln_s += dy xhat
+            } else {
+              acc0[e] += dd_e;
+              acc1[e] = fmaf(dpre, qv, acc1[e]);         // dln_b += dy
+              acc2[e] = fmaf(0.5f * dpre, g2, acc2[e]);  // dw_out += dpre gelu(y)
+            }
+          }
+        }
+        if (kMode == kPrRow) db_acc += dpre;
+      }
+    }
+  }
+
+  // this warp's sums: the four pairs of a step, in a fixed order
+  const long long out = ((long long)b * C + chunk) * N + p;
+  if constexpr (kMode == kPrFwd) {
+    loss_acc += __shfl_xor_sync(0xffffffffu, loss_acc, 8);
+    loss_acc += __shfl_xor_sync(0xffffffffu, loss_acc, 16);
+    cnt_acc += __shfl_xor_sync(0xffffffffu, cnt_acc, 8);
+    cnt_acc += __shfl_xor_sync(0xffffffffu, cnt_acc, 16);
+    if (own_ok && lane == 0) {
+      sc.psum[out] = loss_acc;
+      sc.pcnt[out] = cnt_acc;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < kE; ++e) {
+      acc0[e] += __shfl_xor_sync(0xffffffffu, acc0[e], 8);
+      acc0[e] += __shfl_xor_sync(0xffffffffu, acc0[e], 16);
+      acc1[e] += __shfl_xor_sync(0xffffffffu, acc1[e], 8);
+      acc1[e] += __shfl_xor_sync(0xffffffffu, acc1[e], 16);
+      if constexpr (kMode == kPrCol) {
+        acc2[e] += __shfl_xor_sync(0xffffffffu, acc2[e], 8);
+        acc2[e] += __shfl_xor_sync(0xffffffffu, acc2[e], 16);
+      }
+    }
+    if (kMode == kPrRow) {
+      db_acc += __shfl_xor_sync(0xffffffffu, db_acc, 8);
+      db_acc += __shfl_xor_sync(0xffffffffu, db_acc, 16);
+    }
+    if (own_ok && grp == 0) {
+      float* dur = (kMode == kPrRow ? sc.du_row : sc.du_col) + out * hp + h0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+        reinterpret_cast<float4*>(dur)[c * kPrLanes + sub] =
+            make_float4(acc0[4 * c], acc0[4 * c + 1], acc0[4 * c + 2], acc0[4 * c + 3]);
+    }
+    // this block's parameter-gradient partial of its hidden chunk: its warps
+    // summed in order (a warp whose row is past nv adds zeros)
+    if (grp == 0) {
+      float* rw = red + warp * kR;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int d = (c * kPrLanes + sub) * 4 + k;
+          const int e = 4 * c + k;
+          if constexpr (kMode == kPrRow) {
+            rw[d] = -acc0[e];
+            rw[kPrChunkH + d] = acc1[e];
+          } else {
+            rw[d] = acc1[e];
+            rw[kPrChunkH + d] = acc2[e];
+          }
+        }
+      }
+      if (lane == 0) rw[2 * kPrChunkH] = db_acc;
+    }
+    __syncthreads();
+    for (int c = threadIdx.x; c < kR; c += kThreadsB) {
+      float s = 0.f;
+#pragma unroll
+      for (int wi = 0; wi < kW; ++wi) s += red[wi * kR + c];
+      const int d = c % kPrChunkH;
+      if (kMode == kPrRow) {
+        // [dbias | dln_s | . | . | db_out]
+        if (c < 2 * kPrChunkH) part[(c / kPrChunkH) * hp + h0 + d] = s;
+        else if (hc == 0) part[4 * hp] = s;
+      } else if (c < 2 * kPrChunkH) {
+        part[(2 + c / kPrChunkH) * hp + h0 + d] = s;  // [. | . | dln_b | dw_out | .]
+      }
+    }
+  }
+}
+
 // Forward: row n = idx[slot] gets the sum of its chunks' partials, in chunk
 // order. One thread per (view, slot).
 __global__ void pairwise_rank_finish_fwd(PrScratch sc, int N, int C,
@@ -576,6 +871,12 @@ __global__ void pairwise_rank_reduce(const float* __restrict__ partials, int n_b
 template <int kMode, int kW>
 void launch_pr(int hp, int B, int N, int C, PrHead hd, PrScratch sc, cudaStream_t st) {
   const dim3 grid((N + kW - 1) / kW, C, B);
+  if (hp > kPrChunkH) {
+    const int n_hc = kMode == kPrFwd ? 1 : hp / kPrChunkH;
+    pairwise_rank_wide_kernel<kMode, kW>
+        <<<dim3(grid.x, C * n_hc, B), 32 * kW, 0, st>>>(hd, N, hp, n_hc, sc);
+    return;
+  }
 #define GD3D_PR_LAUNCH(PER) \
   pairwise_rank_kernel<PER, kMode, kW><<<grid, 32 * kW, 0, st>>>(hd, N, sc)
   switch (hp) {
@@ -591,7 +892,7 @@ void launch_pr(int hp, int B, int N, int C, PrHead hd, PrScratch sc, cudaStream_
 
 namespace {
 bool pr_shape_ok(int B, int N, int h, int C) {
-  return B > 0 && N > 0 && C > 0 && h >= 1 && h <= 128;
+  return B > 0 && N > 0 && C > 0 && h >= 1;
 }
 }  // namespace
 

@@ -18,16 +18,14 @@ What gd3d does through a library, the port does itself, to the same arrays:
     table of OpenCV 5.0.0's colours (`_INFERNO`);
   - `adjust_hue`: COLOR_RGB2HSV / COLOR_HSV2RGB through data/augment.py's
     OpenCV-exact conversions;
-  - the augmentors' cv2.resize(img, None, fx, fy) as `resize_cv`:
-    INTER_LINEAR on uint8 images in OpenCV's 11-bit fixed point (the taps'
-    weights rounded to 1/2048, the rows summed in integers, the columns as
-    its vector loop does: ((S0 >> 4) * b0 >> 16) + ((S1 >> 4) * b1 >> 16)
-    rounded >> 2), on 2-channel float32 images (dense flow) in float32
-    multiplies and adds; INTER_NEAREST at floor(x / f); the source
-    coordinate (d + 0.5) / f - 0.5 rounded to float32, the horizontal
-    weights clamped at the borders and the vertical ones not (OpenCV's
-    rows are clamped instead), the size round(n * f) half to even;
-    getRotationMatrix2D and warpAffine from data/augment.py.
+  - the augmentors' cv2.resize(img, None, fx, fy) as `resize_cv`, which is
+    data/resample.py's (the port's one module of cv2 resizes): INTER_LINEAR
+    on uint8 images in OpenCV's 11-bit fixed point, on 2-channel float32
+    images (dense flow) in float32 multiplies and adds, on 1-, 3- and
+    4-channel float32 images (disparities) with OpenCV 5's fused
+    multiply-adds, the halving by INTER_AREA where OpenCV takes it, and
+    INTER_NEAREST at floor(x / f); getRotationMatrix2D and warpAffine from
+    data/augment.py.
 
 The colour wheel, flow_to_color, the PFM and .flo codecs and the other
 adjust_* functions are gd3d's numpy. The augmentors draw from their
@@ -46,6 +44,7 @@ import numpy as np
 
 from gd3d_torch.data import augment, hdf5, png
 from gd3d_torch.data.images import decode_rgb, read_bytes
+from gd3d_torch.data.resample import resize_cv
 
 # ---------------------------------------------------------------------------
 # images
@@ -380,83 +379,6 @@ def adjust_hue(img: np.ndarray, hue_factor: float) -> np.ndarray:
     hsv = augment.rgb2hsv(img.astype(np.uint8))
     hsv[..., 0] = (hsv[..., 0].astype(int) + int(round(hue_factor * 180))) % 180
     return augment.hsv2rgb(hsv).astype(np.float32)
-
-
-# ---------------------------------------------------------------------------
-# cv2.resize(img, None, fx=fx, fy=fy) of the augmentors
-# ---------------------------------------------------------------------------
-
-_COEF_BITS = 11  # INTER_RESIZE_COEF_BITS
-
-
-def _linear_taps(in_size: int, out_size: int, inv_scale: float, clamp_weights: bool):
-    """OpenCV's INTER_LINEAR taps along one axis: the float32 source
-    coordinate, its floor and the next index (clamped), and the two float32
-    weights; at the borders the horizontal weights become (1, 0) on the
-    edge sample (clamp_weights), the vertical ones stay."""
-    fx = ((np.arange(out_size) + 0.5) * (1.0 / inv_scale) - 0.5).astype(np.float32)
-    sx = np.floor(fx).astype(np.int64)
-    fx = (fx - sx.astype(np.float32)).astype(np.float32)
-    if clamp_weights:
-        edge = (sx < 0) | (sx >= in_size - 1)
-        fx = np.where(edge, np.float32(0), fx)
-        sx = np.where(sx < 0, 0, np.where(sx >= in_size - 1, in_size - 1, sx))
-    w0 = (np.float32(1) - fx).astype(np.float32)
-    return np.clip(sx, 0, in_size - 1), np.clip(sx + 1, 0, in_size - 1), w0, fx
-
-
-def resize_cv(img: np.ndarray, fx: float, fy: float, nearest: bool = False) -> np.ndarray:
-    """cv2.resize(img, None, fx=fx, fy=fy, interpolation=INTER_LINEAR or
-    INTER_NEAREST) of an (H, W) or (H, W, C) image (see the module
-    docstring): INTER_NEAREST of any image, INTER_LINEAR of uint8 images and
-    of 2-channel float32 ones (a dense flow), and the halving of those that
-    OpenCV does by INTER_AREA. OpenCV computes 1-, 3- and
-    4-channel float32 images another way, which is not reproduced: they
-    raise (the augmentors resize disparities with INTER_NEAREST)."""
-    H, W = img.shape[:2]
-    dw, dh = int(np.rint(W * fx)), int(np.rint(H * fy))
-    if dw <= 0 or dh <= 0:
-        raise ValueError(f"resize_cv: {W}x{H} at fx={fx}, fy={fy} is empty")
-    if nearest:
-        xs = np.minimum(np.floor(np.arange(dw) * (1.0 / fx)).astype(np.int64), W - 1)
-        ys = np.minimum(np.floor(np.arange(dh) * (1.0 / fy)).astype(np.int64), H - 1)
-        return img[ys][:, xs]
-    if fx == fy == 0.5:
-        return _halve(img)
-    x0, x1, a0, a1 = _linear_taps(W, dw, fx, True)
-    y0, y1, b0, b1 = _linear_taps(H, dh, fy, False)
-    ex = (slice(None),) + (None,) * (img.ndim - 2)
-    ey = (slice(None), None) + (None,) * (img.ndim - 2)
-    if img.dtype == np.uint8:
-        scale = 1 << _COEF_BITS
-        ia0, ia1, ib0, ib1 = (np.rint(w * scale).astype(np.int64) for w in (a0, a1, b0, b1))
-        src = img.astype(np.int64)
-        rows = src[:, x0] * ia0[ex] + src[:, x1] * ia1[ex]
-        # the vertical pass as OpenCV's vector loop computes it: rows >> 4,
-        # the high halves of the 16-bit products, then a rounding >> 2
-        out = ((((rows[y0] >> 4) * ib0[ey]) >> 16) + (((rows[y1] >> 4) * ib1[ey]) >> 16)
-               + 2) >> 2
-        return np.clip(out, 0, 255).astype(np.uint8)
-    if img.dtype == np.float32 and img.ndim == 3 and img.shape[2] == 2:
-        rows = (img[:, x0] * a0[ex] + img[:, x1] * a1[ex]).astype(np.float32)
-        return (rows[y0] * b0[ey] + rows[y1] * b1[ey]).astype(np.float32)
-    raise ValueError(f"resize_cv: INTER_LINEAR of {img.dtype} images of shape {img.shape} is "
-                     "not reproduced (uint8 images and 2-channel float32 ones are)")
-
-
-def _halve(img: np.ndarray) -> np.ndarray:
-    """cv2.resize at fx = fy = 0.5, which OpenCV computes with INTER_AREA
-    (the FlowAugmentor's Spring path): each 2 x 2 block's sum, in OpenCV's
-    order, times 0.25. Sizes whose last block would be partial raise."""
-    H, W = img.shape[:2]
-    if H % 2 or W % 2:
-        raise ValueError(f"resize_cv: halving {W}x{H} leaves partial blocks, which are not "
-                         "reproduced")
-    if img.dtype != np.float32 or img.ndim != 3 or img.shape[2] != 2:
-        raise ValueError(f"resize_cv: halving {img.dtype} images of shape {img.shape} is not "
-                         "reproduced (2-channel float32 ones are)")
-    s = ((img[0::2, 0::2] + img[0::2, 1::2]) + img[1::2, 0::2]) + img[1::2, 1::2]
-    return (s * np.float32(0.25)).astype(np.float32)
 
 
 # ---------------------------------------------------------------------------

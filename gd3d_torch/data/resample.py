@@ -26,6 +26,22 @@ coordinate fma(d + 0.5, in / out, -0.5), the taps clamped at the borders,
 each sample fma(b - a, frac, a), rows first. numpy has no fused multiply-add,
 so `fma64` emulates one exactly; it also runs on torch tensors, so that the
 eval resizes on the card.
+
+The augmentors' and the debug dumps' cv2.resize of uint8 and float32 images
+is `resize_cv` (the caller's scale, as gd3d's augmentors call it) and
+`resize_linear_f32` (the caller's size, as gd3d's vis_attn_map calls it),
+OpenCV 5.0.0's bits, each route found against cv2 on the CPU:
+
+  * uint8 images and 2-channel float32 ones go through OpenCV's own code:
+    float32 taps, 11-bit fixed point for uint8, float32 products and sums
+    for the flow; at fx = fy = 0.5 OpenCV takes INTER_AREA (`_halve_area`);
+  * 1-, 3- and 4-channel float32 images, halving included, are computed as
+    fma(b - a, t, a), rows first (`fma32` emulates std::fmaf exactly);
+    given a scale, the taps are OpenCV 5's (`_taps_by_scale`: the floor
+    clamped to [0, n - 2], the fraction to [0, 1]); given a size, OpenCV
+    hands the resize to Intel IPP, whose taps copy the edge samples
+    (`_taps_by_size`). Sides under 4 samples, and enlargements of 3- and
+    4-channel images by size, take other paths of those libraries and raise.
 """
 from __future__ import annotations
 
@@ -292,3 +308,192 @@ def resize_linear_cv(img, size: Tuple[int, int]):
         x0, x1, fx, y0, y1, fy = (torch.from_numpy(t).to(img.device) for t in (x0, x1, fx, y0, y1, fy))
     rows = fma64(img[:, x1] - img[:, x0], fx[(None, slice(None)) + extra], img[:, x0])
     return fma64(rows[y1] - rows[y0], fy[(slice(None), None) + extra], rows[y0])
+
+
+# ------------------------------- cv2.resize of uint8 and float32 images
+_COEF_BITS = 11  # INTER_RESIZE_COEF_BITS
+# The least input and output size along an axis that OpenCV 5's float32
+# INTER_LINEAR route takes as `resize_cv` computes it; narrower images go
+# through paths of OpenCV's that differ from it and from each other.
+MIN_LINEAR_F32 = 4
+
+
+def fma32(a, b, c) -> np.ndarray:
+    """a * b + c for float32 values with one rounding to float32 (std::fmaf):
+    the product is exact in float64 (24 + 24 bits), its sum with c exact as
+    two doubles, the double rounded to odd and then to float32, which gives
+    the correctly rounded result (Boldo and Melquiond). Non-finite sums pass
+    through."""
+    a, b, c = (np.asarray(x, np.float64) for x in (a, b, c))
+    p = a * b
+    s = p + c
+    bb = s - p
+    e = (p - (s - bb)) + (c - bb)
+    to_odd = (e != 0) & ((s.view(np.int64) & 1) == 0) & np.isfinite(s)
+    return np.where(to_odd, np.nextafter(s, np.where(e > 0, np.inf, -np.inf)), s).astype(np.float32)
+
+
+def _taps_classic(in_size: int, out_size: int, inv_scale: float, clamp_weights: bool):
+    """OpenCV's INTER_LINEAR taps along one axis for uint8 and 2-channel
+    float32 images: the float32 source coordinate, its floor and the next
+    index (clamped), and the two float32 weights; at the borders the
+    horizontal weights become (1, 0) on the edge sample (clamp_weights), the
+    vertical ones stay."""
+    fx = ((np.arange(out_size) + 0.5) * (1.0 / inv_scale) - 0.5).astype(np.float32)
+    sx = np.floor(fx).astype(np.int64)
+    fx = (fx - sx.astype(np.float32)).astype(np.float32)
+    if clamp_weights:
+        edge = (sx < 0) | (sx >= in_size - 1)
+        fx = np.where(edge, np.float32(0), fx)
+        sx = np.where(sx < 0, 0, np.where(sx >= in_size - 1, in_size - 1, sx))
+    w0 = (np.float32(1) - fx).astype(np.float32)
+    return np.clip(sx, 0, in_size - 1), np.clip(sx + 1, 0, in_size - 1), w0, fx
+
+
+def _taps_by_scale(in_size: int, out_size: int, inv: float):
+    """OpenCV 5's float32 INTER_LINEAR taps when the caller gives the scale
+    (fx, fy): the float64 source coordinate (d + 0.5) / scale - 0.5, its
+    floor clamped to [0, in - 2] and the fraction from there clamped to
+    [0, 1] (so the last samples interpolate with weight 1 instead of
+    copying), as float32."""
+    f = (np.arange(out_size) + 0.5) * inv - 0.5
+    s = np.clip(np.floor(f), 0, in_size - 2)
+    return s.astype(np.int64), s.astype(np.int64) + 1, np.clip(f - s, 0.0, 1.0).astype(np.float32)
+
+
+def _taps_by_size(in_size: int, out_size: int):
+    """The float32 INTER_LINEAR taps when the caller gives the size (OpenCV
+    hands such resizes to Intel IPP): the float64 source coordinate
+    (d + 0.5) in / out - 0.5, its floor and the next index clamped to the
+    image, and the fraction, 0 where the floor lies left of the image or on
+    its last sample."""
+    f = (np.arange(out_size) + 0.5) * (in_size / out_size) - 0.5
+    s = np.floor(f)
+    frac = np.where((s < 0) | (s >= in_size - 1), 0.0, f - s).astype(np.float32)
+    s = np.clip(s.astype(np.int64), 0, in_size - 1)
+    return s, np.minimum(s + 1, in_size - 1), frac
+
+
+def _lerp_f32(img: np.ndarray, taps_x, taps_y) -> np.ndarray:
+    """Each row first, then the rows, every sample fma(b - a, t, a) of its
+    two taps in float32."""
+    (x0, x1, tx), (y0, y1, ty) = taps_x, taps_y
+    ex = (slice(None),) + (None,) * (img.ndim - 2)
+    ey = (slice(None), None) + (None,) * (img.ndim - 2)
+    rows = fma32(img[:, x1] - img[:, x0], tx[ex], img[:, x0])
+    return fma32(rows[y1] - rows[y0], ty[ey], rows[y0])
+
+
+def _classic_linear(img: np.ndarray, dw: int, dh: int, fx: float, fy: float) -> np.ndarray:
+    """OpenCV's own INTER_LINEAR of uint8 images and of 2-channel float32 ones."""
+    H, W = img.shape[:2]
+    x0, x1, a0, a1 = _taps_classic(W, dw, fx, True)
+    y0, y1, b0, b1 = _taps_classic(H, dh, fy, False)
+    ex = (slice(None),) + (None,) * (img.ndim - 2)
+    ey = (slice(None), None) + (None,) * (img.ndim - 2)
+    if img.dtype == np.uint8:
+        scale = 1 << _COEF_BITS
+        ia0, ia1, ib0, ib1 = (np.rint(w * scale).astype(np.int64) for w in (a0, a1, b0, b1))
+        src = img.astype(np.int64)
+        rows = src[:, x0] * ia0[ex] + src[:, x1] * ia1[ex]
+        # the vertical pass as OpenCV's vector loop computes it: rows >> 4,
+        # the high halves of the 16-bit products, then a rounding >> 2
+        out = ((((rows[y0] >> 4) * ib0[ey]) >> 16) + (((rows[y1] >> 4) * ib1[ey]) >> 16)
+               + 2) >> 2
+        return np.clip(out, 0, 255).astype(np.uint8)
+    rows = (img[:, x0] * a0[ex] + img[:, x1] * a1[ex]).astype(np.float32)
+    return (rows[y0] * b0[ey] + rows[y1] * b1[ey]).astype(np.float32)
+
+
+def _halve_area(img: np.ndarray) -> np.ndarray:
+    """cv2.resize at fx = fy = 0.5 of a uint8 image or a 2-channel float32
+    one, which OpenCV computes with INTER_AREA over 2 x 2 blocks: the output
+    is round(W / 2) x round(H / 2) (half to even), so an input side of 4 k +
+    3 leaves a last block of one row or column, averaged over the samples it
+    has. A whole block: ((a + b + c + d + 2) >> 2) for uint8 at 1, 3 and 4
+    channels, the sum times 0.25 rounded half to even at 2 channels, and
+    (((a + b) + c) + d) * 0.25 in float32; a partial block: its sum over its
+    count, rounded half to even for uint8."""
+    H, W = img.shape[:2]
+    dh, dw = int(np.rint(H * 0.5)), int(np.rint(W * 0.5))
+    pad = [(0, max(2 * dh - H, 0)), (0, max(2 * dw - W, 0))] + [(0, 0)] * (img.ndim - 2)
+    wide = img.dtype == np.uint8
+    x = np.pad(img.astype(np.int64) if wide else img, pad)[:2 * dh, :2 * dw]
+    a, b, c, d = x[0::2, 0::2], x[0::2, 1::2], x[1::2, 0::2], x[1::2, 1::2]
+    count = np.pad(np.ones((H, W), np.int64), pad[:2])[:2 * dh, :2 * dw]
+    n = (count[0::2, 0::2] + count[0::2, 1::2] + count[1::2, 0::2] + count[1::2, 1::2])
+    n = n.reshape(n.shape + (1,) * (img.ndim - 2))
+    s = ((a + b) + c) + d  # the padded samples are 0
+    if wide:
+        whole = ((s + 2) >> 2 if img.ndim == 2 or img.shape[2] != 2
+                 else np.rint(s.astype(np.float32) * np.float32(0.25)))
+        part = np.rint(s.astype(np.float32) / n.astype(np.float32))
+        return np.where(n == 4, whole, part).astype(np.uint8)
+    return np.where(n == 4, s * np.float32(0.25), s / n.astype(np.float32)).astype(np.float32)
+
+
+def resize_cv(img: np.ndarray, fx: float, fy: float, nearest: bool = False) -> np.ndarray:
+    """cv2.resize(img, None, fx=fx, fy=fy, interpolation=INTER_LINEAR or
+    INTER_NEAREST) of an (H, W) or (H, W, C) image, as OpenCV 5.0.0 computes
+    it on the CPU, bit for bit:
+
+      * INTER_NEAREST of any image: source index floor(d / scale);
+      * INTER_LINEAR of uint8 images and of 2-channel float32 ones (a dense
+        flow): OpenCV's own fixed-point and float32 routes
+        (`_taps_classic`); at fx = fy = 0.5 OpenCV takes INTER_AREA
+        for them (`_halve_area`);
+      * INTER_LINEAR of 1-, 3- and 4-channel float32 images, halving
+        included: fma(b - a, t, a) along rows then columns at OpenCV 5's
+        float64 coordinates (`_taps_by_scale`), for inputs and outputs of at
+        least MIN_LINEAR_F32 samples a side; narrower ones raise. Where the
+        scales are exactly the output sizes over the input's (2.0 on an
+        even side, say), OpenCV takes its route by size (Intel IPP), and so
+        does this (`resize_linear_f32`, with its refusals).
+
+    A resize to the input's own size is a copy, as in OpenCV."""
+    H, W = img.shape[:2]
+    dw, dh = int(np.rint(W * fx)), int(np.rint(H * fy))
+    if dw <= 0 or dh <= 0:
+        raise ValueError(f"resize_cv: {W}x{H} at fx={fx}, fy={fy} is empty")
+    if (dw, dh) == (W, H):
+        return img.copy()
+    if nearest:
+        xs = np.minimum(np.floor(np.arange(dw) * (1.0 / fx)).astype(np.int64), W - 1)
+        ys = np.minimum(np.floor(np.arange(dh) * (1.0 / fy)).astype(np.int64), H - 1)
+        return img[ys][:, xs]
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    if img.dtype == np.uint8 or (img.dtype == np.float32 and channels == 2):
+        if fx == fy == 0.5:
+            return _halve_area(img)
+        return _classic_linear(img, dw, dh, fx, fy)
+    if img.dtype != np.float32 or channels not in (1, 3, 4):
+        raise ValueError(f"resize_cv: INTER_LINEAR of {img.dtype} images of shape {img.shape} "
+                         "is not reproduced (uint8 and float32 images are)")
+    if dw / W == fx and dh / H == fy:  # the scale is the sizes' ratio: the route by size
+        return resize_linear_f32(img, (dw, dh))
+    if min(H, W, dh, dw) < MIN_LINEAR_F32:
+        raise ValueError(f"resize_cv: float32 INTER_LINEAR from {W}x{H} to {dw}x{dh} is not "
+                         f"reproduced (sides of {MIN_LINEAR_F32} or more are)")
+    return _lerp_f32(img, _taps_by_scale(W, dw, 1.0 / fx), _taps_by_scale(H, dh, 1.0 / fy))
+
+
+def resize_linear_f32(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """cv2.resize(img, size) (INTER_LINEAR, size = (width, height)) of a
+    float32 image, as OpenCV 5.0.0 with Intel IPP computes it on this CPU
+    path: fma(b - a, t, a) along rows then columns at `_taps_by_size`'s
+    taps, bit for bit for 1-channel images at any size, and for 3- and
+    4-channel ones that no side enlarges (IPP's border code for enlarged
+    3- and 4-channel images rounds differently by position: those raise).
+    A resize to the input's own size is a copy."""
+    w, h = int(size[0]), int(size[1])
+    H, W = img.shape[:2]
+    channels = 1 if img.ndim == 2 else img.shape[2]
+    if img.dtype != np.float32 or channels not in (1, 3, 4) or w <= 0 or h <= 0:
+        raise ValueError(f"resize_linear_f32 takes float32 images of 1, 3 or 4 channels and "
+                         f"a size, got {img.dtype} {img.shape} to {size}")
+    if (w, h) == (W, H):
+        return img.copy()
+    if min(H, W, h, w) < MIN_LINEAR_F32 or (channels > 1 and (w > W or h > H)):
+        raise ValueError(f"resize_linear_f32: {W}x{H} to {w}x{h} at {channels} channels is not "
+                         "reproduced")
+    return _lerp_f32(img, _taps_by_size(W, w), _taps_by_size(H, h))

@@ -1,15 +1,17 @@
 """K2: flash-attention backward (dQ, dK, dV).
 
-Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_bwd.cu (fp32) and
-flash_bwd_sm90.cu (bf16), which replace
+Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_bwd.cu (fp32),
+flash_bwd_sm90.cu (bf16) and flash_bwd_wide.cu (head dims 128 and 256), which
+replace
 gd3d/kernels/flash_bwd_fused.py::flash_attention_bwd_fused. gd3d's kernel
 sums per-KV-block dQ partials after one pass; the port runs a dK/dV kernel
 and a second, dQ kernel (see the source notes), which is deterministic.
 Both dtypes run on the tensor cores (fp32 as three TF32 products each) at
-head dim 64 and copy 16 bytes at a time: the wrapper zero-pads q, k, v and
-dO along smaller head dims to 64 (`bwd_padded`; exact, as for K1, and the
-padded columns of dQ, dK and dV come out 0 and are cut off), and copies a
-view off 16 bytes first. `flash_attention_bwd_plain` is the plain PyTorch
+head dim 64 and copy 16 bytes at a time; at head dims 128 and 256 both run
+on the fp32 CUDA cores. The wrapper zero-pads q, k, v and dO along other
+head dims to the next of the three widths (`bwd_padded`; exact, as for K1,
+and the padded columns of dQ, dK and dV come out 0 and are cut off), and
+copies a view off 16 bytes first. `flash_attention_bwd_plain` is the plain PyTorch
 twin.
 """
 from __future__ import annotations
@@ -39,12 +41,12 @@ def flash_attention_bwd_plain(q, k, v, lse, do, di, scale: float):
 
 
 def bwd_padded(run, q, k, v, lse, do, di, scale: float):
-    """K2's route at any head dim D up to 64: `run` (the kernels' launch, or
-    a plain twin) on q, k, v and dO zero-padded along D to 64, with the
-    caller's scale; dQ, dK and dV cut back to D columns. di = rowsum(O * dO)
-    is the same either way."""
+    """K2's route at any head dim D up to 256: `run` (the kernels' launch, or
+    a plain twin) on q, k, v and dO zero-padded along D to the kernel width
+    (64, 128 or 256), with the caller's scale; dQ, dK and dV cut back to D
+    columns. di = rowsum(O * dO) is the same either way."""
     D = q.shape[-1]
-    width = kernel_width(D, (64,))
+    width = kernel_width(D)
     if width == D:
         return run(q, k, v, lse, do, di, scale)
     q, k, v, do = pad_head_dim(width, q, k, v, do)
@@ -53,7 +55,7 @@ def bwd_padded(run, q, k, v, lse, do, di, scale: float):
 
 def _launch(q, k, v, lse, do, di, scale: float):
     q, k, v, do = fit_views(q, k, v, do)
-    check_operands(q, k, v, do, head_dims=(64,), fp32_copies_16=True)
+    check_operands(q, k, v, do, fp32_copies_16=True)
     B, N, H, D = q.shape
     M = k.shape[1]
     for name, t in (("lse", lse), ("di", di)):

@@ -1,15 +1,17 @@
 """K1: flash-attention forward with the row log-sum-exp.
 
 Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_fwd.cu (fp32, and head
-dim 128) and flash_fwd_sm90.cu (bf16 at head dim 64), which replace the
+dims 128 and 256) and flash_fwd_sm90.cu (bf16 at head dim 64), which replace the
 stock TPU Pallas flash forward that gd3d reaches through
 gd3d/ops/attention.py::_flash_call. `flash_attention_fwd_plain` is its plain
 PyTorch twin: the CPU path, and the oracle the kernel is checked against.
 
-The kernels take head dims 64 and 128; gd3d's flash takes any. The wrapper
-zero-pads q, k and v along D to the next kernel width (`fwd_padded`), which
+The kernels take head dims 64, 128 and 256; gd3d's flash takes any. The
+wrapper zero-pads q, k and v along D to the next kernel width (`fwd_padded`),
+which
 is exact: zero columns leave Q K^T and the LSE unchanged, and O's padded
-columns come out 0 and are cut off. A view the kernels cannot read as it is
+columns come out 0 and are cut off. Wider head dims raise (no model of the
+repo goes past 128). A view the kernels cannot read as it is
 (its last dim strided, or its address or a (B, N, H) step off 16 bytes) is
 copied to a fresh contiguous tensor first (`fit_views`).
 """
@@ -22,7 +24,7 @@ import torch.nn.functional as F
 
 from gd3d_torch.kernels import build
 
-HEAD_DIMS = (64, 128)  # the kernel widths: K1 takes both, K2 64 only
+HEAD_DIMS = (64, 128, 256)  # the kernel widths of K1 and K2
 DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -108,7 +110,7 @@ def check_operands(*ts: torch.Tensor, **layout) -> None:
 
 
 def fwd_padded(run, q, k, v, scale: float):
-    """K1's route at any head dim D up to 128: `run` (the kernel's launch, or
+    """K1's route at any head dim D up to 256: `run` (the kernel's launch, or
     a plain twin) on q, k, v zero-padded along D to the kernel width, with
     the caller's scale; O cut back to D columns."""
     D = q.shape[-1]

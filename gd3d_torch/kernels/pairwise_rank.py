@@ -18,7 +18,9 @@ scratch, and split the streamed keypoints of a pair into `stream_chunks`
 chunks across the grid; per-chunk partial sums go to scratch too and are
 summed by the kernels in a fixed order (no atomics: the same bits from run
 to run). `scratch_floats` is the size of that scratch; the wrappers allocate
-it per call with `torch.empty`.
+it per call with `torch.empty`. The kernels take any hidden width h: up to
+128 a lane holds its part of a row in registers, above it a kernel of its
+own walks the row in chunks of 128 units (`padded_hidden`).
 """
 from __future__ import annotations
 
@@ -29,7 +31,7 @@ import torch.nn.functional as F
 
 from gd3d_torch.kernels import build
 
-MAX_HIDDEN = 128  # the kernels hold hidden widths up to 128, padded to a multiple of 32
+CHUNK_HIDDEN = 128  # the wide kernel's hidden chunk; up to it, rows are held padded to 32
 BWD_ROWS_PER_BLOCK = 4  # warps per block of the backward passes: one owned row each
 TARGET_WARPS = 4096     # owned rows x chunks the grid should reach: ~8 per scheduler
 
@@ -46,8 +48,10 @@ def _align4(n: int) -> int:
 
 
 def padded_hidden(h: int) -> int:
-    """The hidden width the kernels hold for width h: h rounded up to 32."""
-    return (h + 31) // 32 * 32
+    """The hidden width the kernels hold for width h: h rounded up to 32,
+    and above 128 (the wide kernel's chunks) up to 128."""
+    step = 32 if h <= CHUNK_HIDDEN else CHUNK_HIDDEN
+    return (h + step - 1) // step * step
 
 
 def scratch_floats(B: int, N: int, h: int, n_chunks: int, backward: bool) -> int:
@@ -92,11 +96,12 @@ def _f32(t):
 def _prep(u, bias, ln_s, ln_b, w_out, b_out, depths, valid, *rest):
     """The operands as the kernels read them (contiguous fp32, u on 16 bytes,
     the head's vectors flat, u and the first four vectors zero-padded to
-    `padded_hidden` units), checked: one device, hidden width 1..MAX_HIDDEN,
-    shapes that fit u's (B, N, h). `rest` is the backward's grad_rows."""
+    `padded_hidden` units, each vector on 16 bytes), checked: one device, a
+    hidden width of at least 1, shapes that fit u's (B, N, h). `rest` is the
+    backward's grad_rows."""
     B, N, h = u.shape
-    if not 1 <= h <= MAX_HIDDEN:
-        raise ValueError(f"pairwise_rank takes hidden widths 1..{MAX_HIDDEN}, got {h}")
+    if h < 1:
+        raise ValueError(f"pairwise_rank takes hidden widths of at least 1, got {h}")
     head = tuple(_f32(p).reshape(-1) for p in (bias, ln_s, ln_b, w_out, b_out))
     rows = tuple(_f32(t) for t in (depths, valid, *rest))
     for t, shape in (*((p, (h,)) for p in head[:4]), (head[4], (1,)),
@@ -109,7 +114,8 @@ def _prep(u, bias, ln_s, ln_b, w_out, b_out, depths, valid, *rest):
     if pad:
         u = F.pad(u, (0, pad))
         head = (*(F.pad(p, (0, pad)) for p in head[:4]), head[4])
-    return (u if u.data_ptr() % 16 == 0 else u.clone(), head, *rows)
+    u, *head = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (u, *head))
+    return (u, tuple(head), *rows)
 
 
 def pairwise_rank_fwd(u, bias, ln_s, ln_b, w_out, b_out, depths, valid,

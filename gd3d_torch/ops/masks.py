@@ -2,6 +2,8 @@
 gd3d/ops/masks.py)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
@@ -34,12 +36,27 @@ def patch_mask_from_kps(
 
 
 def masked_patch_cost(
-    cost: torch.Tensor, mask_patch_1: torch.Tensor, eps: float = 1e-8,
+    cost: torch.Tensor,
+    mask_patch_1: torch.Tensor,
+    mask_patch_2: Optional[torch.Tensor] = None,
+    eps: float = 1e-8,
+    use_softmax: bool = False,
+    temperature: float = 1.0,
 ) -> torch.Tensor:
-    """Zero the (B, hw, hw2) cost rows outside mask_patch_1 (hw,), then
-    row-normalize. A zeroed row normalizes to all zeros: its sum is clamped
-    at eps. (gd3d's column-mask and softmax variants are not on the step's
-    path.)"""
+    """Zero the (B, hw, hw2) cost entries outside the mask, then
+    row-normalize, or softmax each row. The mask is mask_patch_1 (hw,) along
+    the rows, and with mask_patch_2 (hw2,) also along the columns. Without
+    softmax a zeroed row normalizes to all zeros (its sum is clamped at
+    eps); with it, the rows are computed in fp32 after dividing by
+    temperature, and a zeroed row comes out uniform, as gd3d's (a softmax of
+    a constant row)."""
+    keep = mask_patch_1[:, None]
+    if mask_patch_2 is not None:
+        keep = keep & mask_patch_2[None, :]
     zero = torch.zeros((), dtype=cost.dtype, device=cost.device)
-    masked = torch.where(mask_patch_1[None, :, None], cost, zero)
+    masked = torch.where(keep[None], cost, zero)
+    if use_softmax:
+        x = masked.float() / temperature
+        e = torch.exp(x - x.amax(-1, keepdim=True))
+        return e / e.sum(-1, keepdim=True)
     return masked / torch.clamp(masked.sum(-1, keepdim=True), min=eps)

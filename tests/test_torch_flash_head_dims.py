@@ -31,7 +31,8 @@ from gd3d_torch.convert import student_state_dict
 from gd3d_torch.core.config import StudentConfig
 from gd3d_torch.kernels.flash_bwd_fused import bwd_padded, flash_attention_bwd_plain
 from gd3d_torch.kernels.flash_fwd import (
-    aligned_16, fit_views, flash_attention_fwd_plain, fwd_padded, kernel_width, pad_head_dim)
+    HEAD_DIMS, aligned_16, fit_views, flash_attention_fwd_plain, fwd_padded, kernel_width,
+    pad_head_dim)
 from gd3d_torch.kernels.pairwise_rank import padded_hidden, scratch_floats
 from gd3d_torch.kernels.rope2d import fit_view
 from gd3d_torch.models.student import Student
@@ -105,20 +106,22 @@ def test_padded_columns_come_out_zero():
 
 @pytest.mark.parametrize("D,widths,want", [(1, (64, 128), 64), (64, (64, 128), 64),
                                            (65, (64, 128), 128), (127, (64, 128), 128),
-                                           (48, (64,), 64)])
+                                           (48, (64,), 64), (127, HEAD_DIMS, 128),
+                                           (129, HEAD_DIMS, 256), (255, HEAD_DIMS, 256)])
 def test_kernel_width(D, widths, want):
     assert kernel_width(D, widths) == want
 
 
 def test_route_refuses_wider_than_the_kernels():
-    """K1 takes head dims up to 128, K2 up to 64 (no gd3d path trains
-    attention wider than 64); wider ones raise before any launch."""
-    x = torch.zeros((1, 4, 1, 96))
-    with pytest.raises(ValueError, match="up to 128"):
-        fwd_padded(flash_attention_fwd_plain, *(torch.zeros((1, 4, 1, 160)),) * 3, 0.1)
+    """K1 and K2 take head dims up to 256 (no model of the repo goes past
+    128); wider ones raise, naming the width, before any launch."""
+    x = torch.zeros((1, 4, 1, 320))
+    with pytest.raises(ValueError, match="up to 256, got 320"):
+        fwd_padded(flash_attention_fwd_plain, x, x, x, 0.1)
     lse = torch.zeros((1, 1, 4))
-    with pytest.raises(ValueError, match="up to 64"):
-        bwd_padded(flash_attention_bwd_plain, x, x, x, lse, x, lse, 0.1)
+    with pytest.raises(ValueError, match="up to 256, got 257"):
+        y = torch.zeros((1, 4, 1, 257))
+        bwd_padded(flash_attention_bwd_plain, y, y, y, lse, y, lse, 0.1)
 
 
 @pytest.mark.parametrize("how", ["address", "row_step", "last_dim", "expanded"])
@@ -146,10 +149,12 @@ def test_rope_fit_view_copies_misaligned_tokens():
     assert fit_view(fine) is fine
 
 
-@pytest.mark.parametrize("h,want", [(1, 32), (32, 32), (48, 64), (80, 96), (128, 128)])
+@pytest.mark.parametrize("h,want", [(1, 32), (32, 32), (48, 64), (80, 96), (128, 128),
+                                    (129, 256), (192, 256), (256, 256), (300, 384)])
 def test_padded_hidden_and_scratch(h, want):
-    """K4 holds width h as h rounded up to 32; its scratch is reckoned at
-    that width, so widths that round alike need the same scratch."""
+    """K4 holds width h as h rounded up to 32, above 128 up to 128 (the wide
+    kernel's chunks); its scratch is reckoned at that width, so widths that
+    round alike need the same scratch."""
     assert padded_hidden(h) == want
     for backward in (False, True):
         assert scratch_floats(2, 70, h, 3, backward) == scratch_floats(2, 70, want, 3, backward)

@@ -6,8 +6,8 @@ the CPU.
 Everything is held equal, bit for bit: the decoded arrays of every file
 either package writes, the INFERNO table (all 256 entries of
 cv2.applyColorMap), adjust_hue, cv2.resize's INTER_LINEAR on uint8 and
-2-channel float32 images and INTER_NEAREST on float32 ones at the
-augmentors' random scales, both augmentors' outputs and RandomState draws, discover_pairs in
+float32 images and INTER_NEAREST on float32 ones at the augmentors' random
+scales, both augmentors' outputs and RandomState draws, discover_pairs in
 every layout and StereoFlowPairs' items, and the HDF5 disparity and flow
 readers and write_flo5 against h5py's files (both file formats). The bytes
 of the PNG and .flo5 files differ (the port writes filter 0 at zlib level
@@ -165,16 +165,17 @@ def test_color_ops_match_gd3d():
 
 @pytest.mark.parametrize("shape", [(120, 181, 3), (97, 64, 2), (50, 77)])
 def test_resize_matches_cv2(shape):
-    """uint8 images of any channel count; float32 INTER_LINEAR at 2
-    channels (a dense flow: OpenCV computes other counts another way, and
-    resize_cv refuses them) and INTER_NEAREST at any count."""
+    """uint8 and float32 images of any channel count, INTER_LINEAR (float32
+    at 2 channels, a dense flow, OpenCV's own way; at 1, 3 and 4 channels
+    OpenCV 5's fused multiply-adds) and INTER_NEAREST; at 1 and 3 channels
+    a float32 image narrower than 4 samples a side is refused."""
     rng = np.random.RandomState(5)
     u8 = rng.randint(0, 256, shape, np.uint8)
     f32 = (rng.randn(*shape) * 7).astype(np.float32)
-    linear = (u8, f32) if shape[-1] == 2 else (u8,)
+    linear = (u8, f32)
     if shape[-1] != 2:
         with pytest.raises(ValueError, match="not reproduced"):
-            T.resize_cv(f32, 1.3, 0.9)
+            T.resize_cv(f32[:3], 1.3, 0.9)
     scales = [(2.0 ** rng.uniform(-0.2, 0.5), 1.0) for _ in range(4)]
     scales += [(2.0 ** rng.uniform(-0.2, 0.5), 2.0 ** rng.uniform(-0.2, 0.5)) for _ in range(4)]
     scales += [(1.0, 1.0), (0.51, 0.73), (3.3, 2.1)]

@@ -150,11 +150,11 @@ def test_flash_bwd_bf16_repeats_at_student_lengths(dev, N):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("D", [1, 8, 16, 48, 96])
+@pytest.mark.parametrize("D", [1, 8, 16, 48, 96, 128, 192, 256])
 def test_flash_kernels_at_other_head_dims_match_plain(dev, dtype, D):
-    """K1 at head dims the wrapper zero-pads to 64 (or, at 96, to 128), and
-    K2 at those up to 64, against the plain twins at the true head dim and
-    the caller's scale; one launch each."""
+    """K1 and K2 at head dims the wrapper zero-pads to 64, 128 or 256, and at
+    the wide kernels' own widths 128 and 256, against the plain twins at the
+    true head dim and the caller's scale; one launch each."""
     g = torch.Generator(device=dev).manual_seed(D)
     B, N, M, H = 2, 129, 200, 3
     q = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(dtype)[:, :, 0]
@@ -167,8 +167,6 @@ def test_flash_kernels_at_other_head_dims_match_plain(dev, dtype, D):
     o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
     assert_close(o, o_ref, dtype)
     assert_close(lse, lse_ref, torch.float32)
-    if D > 64:
-        return
     do = torch.randn((B, N, H, D), generator=g, device=dev).to(dtype)
     di = torch.einsum("bnhd,bnhd->bhn", o_ref.float(), do.float()).contiguous()
     grads = flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale)
@@ -441,12 +439,13 @@ def _rank_inputs(g, N, h, dev, second_view="random"):
 @pytest.mark.parametrize("second_view", ["all_invalid", "one_valid"])
 @pytest.mark.parametrize("N,h", [(1, 32), (7, 96), (33, 128), (70, 128), (70, 96),
                                  (300, 32), (300, 128), (70, 48), (33, 80), (7, 1),
-                                 (300, 127)])
+                                 (300, 127), (70, 192), (33, 256), (70, 200), (7, 129)])
 def test_pairwise_rank_matches_plain(dev, N, h, second_view):
     """K4: per-row sums and counts, and the six gradients through the
     autograd.Function; a view with no valid keypoint, or with one, gives 0
-    (no pair); N is no tile multiple; h is no multiple of 32 in the last
-    four (the kernels hold it padded with zero units)."""
+    (no pair); N is no tile multiple; h is no multiple of 32 in (70, 48) to
+    (300, 127) (the kernels hold it padded with zero units); the last four
+    are wider than 128 (the wide kernel, in chunks of 128 units)."""
     g = torch.Generator(device=dev).manual_seed(N)
     u, head, depths, valid = _rank_inputs(g, N, h, dev, second_view)
     before = launch_counts()["K4"]
@@ -467,7 +466,7 @@ def test_pairwise_rank_matches_plain(dev, N, h, second_view):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,h", [(70, 96), (672, 128)])
+@pytest.mark.parametrize("N,h", [(70, 96), (672, 128), (672, 256)])
 def test_pairwise_rank_is_deterministic(dev, N, h):
     """K4 and K4b sum their per-chunk and per-block partials in a fixed order
     (no atomics): two calls give the same bits."""
@@ -480,7 +479,7 @@ def test_pairwise_rank_is_deterministic(dev, N, h):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("B,N,h", [(1, 1, 32), (2, 300, 96), (2, 672, 128)])
+@pytest.mark.parametrize("B,N,h", [(1, 1, 32), (2, 300, 96), (2, 672, 128), (2, 300, 200)])
 def test_pairwise_rank_scratch_matches_the_kernels_layout(dev, B, N, h):
     """The wrapper's scratch reckoning is the C side's (PrScratch)."""
     chunks = stream_chunks(B, N)

@@ -1,0 +1,207 @@
+"""The kernels at their new widths, on the CPU: K1 and K2 at head dims 96,
+128, 192 and 256 through the wrappers' padding route, K4 / K4b's plain twin
+at hidden widths 192 and 256, and which source each head dim reaches.
+
+The padding route (`fwd_padded`, `bwd_padded`) runs here through the plain
+twins, exactly as it wraps the kernel launches on the card: q, k, v (and
+dO) zero-padded along D to the kernel width (128 or 256), the caller's
+scale, O, dQ, dK, dV cut back to D columns. It is held, on the same
+numpy-seeded inputs, to gd3d: K1 to gd3d/ops/attention.py::
+scaled_dot_attention (its einsum route off the TPU) and the log-sum-exp of
+its logits, K2 to gd3d/kernels/flash_bwd_fused.py::flash_attention_bwd_fused
+in interpret mode, as tests/test_torch_attention.py runs it. K4's plain twin
+is held to gd3d's Pallas kernel pairwise_ranking_sums_fused in interpret
+mode, its six gradients to jax.grad through that kernel. The wide CUDA
+kernels themselves run on the card: tests/test_torch_kernels_cuda.py and
+chip_smoke.py's kernels phase hold them to these plain twins.
+
+Tolerance: 1e-5 of max(1, max |reference|) in fp32 (sums of up to 256
+terms per output in another order; padded zero columns add exact zeros);
+K4 as tests/test_torch_pairwise_rank.py (sums rtol 2e-5 / atol 2e-4,
+counts exact, gradients rtol 5e-4 / atol 5e-6).
+"""
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gd3d.kernels.flash_bwd_fused import flash_attention_bwd_fused as jax_bwd_fused
+from gd3d.kernels.pairwise_rank import _pairwise_rank_sums, pairwise_ranking_sums_fused
+from gd3d.ops.attention import scaled_dot_attention as jax_attention
+from gd3d_torch.kernels.flash_bwd_fused import bwd_padded, flash_attention_bwd_plain
+from gd3d_torch.kernels.flash_fwd import (
+    HEAD_DIMS, flash_attention_fwd_plain, fwd_padded, kernel_width)
+from gd3d_torch.kernels.pairwise_rank import (
+    pairwise_rank_bwd_plain, pairwise_rank_sums_plain, pairwise_ranking_sums)
+from torch_threads import one_torch_thread  # noqa: F401
+
+TOL = 1e-5
+THR = 0.05
+CSRC = Path(__file__).resolve().parent.parent / "gd3d_torch" / "csrc"
+
+
+def assert_close(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max())
+    assert err <= TOL * max(1.0, float(np.abs(want).max())), err
+
+
+def _inputs(seed, B, N, M, H, D, std=1.0):
+    rng = np.random.RandomState(seed)
+    q, k, v = ((rng.randn(B, L, H, D) * std).astype(np.float32) for L in (N, M, M))
+    do = (rng.randn(B, N, H, D) * std).astype(np.float32)
+    return q, k, v, do
+
+
+class _Recorder:
+    """A `run` for the padding routes that records the width it is given
+    and answers with the plain twin."""
+
+    def __init__(self, plain):
+        self.plain, self.widths = plain, []
+
+    def __call__(self, q, *rest):
+        self.widths.append(q.shape[-1])
+        return self.plain(q, *rest)
+
+
+@pytest.mark.parametrize("D", [96, 128, 192, 256])
+def test_padded_route_forward_matches_gd3d(D):
+    B, N, M, H = 2, 37, 45, 2
+    q, k, v, _ = _inputs(D, B, N, M, H, D)
+    scale = D ** -0.5  # the caller's, not the padded width's
+    run = _Recorder(flash_attention_fwd_plain)
+    o, lse = fwd_padded(run, *map(torch.from_numpy, (q, k, v)), scale)
+    assert run.widths == [128 if D <= 128 else 256]
+    assert o.shape == (B, N, H, D) and lse.shape == (B, H, N)
+    want = jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
+    assert_close(o.numpy(), np.asarray(want))
+    logits = jnp.einsum("bnhd,bmhd->bhnm", jnp.asarray(q), jnp.asarray(k)) * scale
+    assert_close(lse.numpy(), np.asarray(jax.nn.logsumexp(logits, -1)))
+
+
+@pytest.mark.parametrize("D", [96, 128, 192, 256])
+def test_padded_route_backward_matches_gd3d_fused_kernel_interpret(D):
+    """gd3d's one-pass Pallas backward in interpret mode, fed the row max m
+    and sum l where the port takes lse = m + log l, on (B, H, N, D)."""
+    B, H, N = 1, 2, 128
+    scale = D ** -0.5
+    q, k, v, do = _inputs(200 + D, B, N, N, H, D, std=0.5)
+    t = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3))  # noqa: E731
+    qt, kt, vt, dot = t(q), t(k), t(v), t(do)
+    logits = jnp.einsum("bhnd,bhmd->bhnm", qt, kt) * scale
+    m = logits.max(-1)
+    l = jnp.exp(logits - m[..., None]).sum(-1)
+    o = jnp.einsum("bhnm,bhmd->bhnd", jax.nn.softmax(logits, -1), vt)
+    di = jnp.sum(o * dot, axis=-1)
+    want = jax_bwd_fused(qt, kt, vt, None, l, m, dot, di, block_q_major=128, block_q=128,
+                         block_k_major=128, block_k=128, sm_scale=scale, interpret=True)
+    run = _Recorder(flash_attention_bwd_plain)
+    got = bwd_padded(run, *map(torch.from_numpy, (q, k, v)),
+                     torch.from_numpy(np.array(m + jnp.log(l))), torch.from_numpy(do),
+                     torch.from_numpy(np.array(di)), scale)
+    assert run.widths == [128 if D <= 128 else 256]
+    for g, w in zip(got, want):
+        assert g.shape == (B, N, H, D)
+        assert_close(g.numpy(), np.asarray(w).transpose(0, 2, 1, 3))
+
+
+@pytest.mark.parametrize("D,want", [(1, 64), (64, 64), (65, 128), (96, 128), (128, 128),
+                                    (129, 256), (192, 256), (256, 256)])
+def test_head_dims_up_to_128_keep_their_kernel_widths(D, want):
+    """Head dims up to 64 still run at width 64 and 65..128 at 128 (K1's
+    kernels of earlier PRs; K2 at 65..128 newly); only 129..256 take the
+    new width 256, in both routes."""
+    assert HEAD_DIMS == (64, 128, 256) and kernel_width(D) == want
+    x, lse = torch.zeros((1, 3, 1, D)), torch.zeros((1, 1, 3))
+    fwd = _Recorder(flash_attention_fwd_plain)
+    fwd_padded(fwd, x, x, x, 0.1)
+    bwd = _Recorder(flash_attention_bwd_plain)
+    bwd_padded(bwd, x, x, x, lse, x, lse, 0.1)
+    assert fwd.widths == bwd.widths == [want]
+
+
+def _in_order(text: str, *parts: str) -> None:
+    """Each of `parts` occurs in `text`, each after the one before."""
+    pos = 0
+    for part in parts:
+        found = text.find(part, pos)
+        assert found >= 0, (part, text[pos:pos + 200])
+        pos = found + len(part)
+
+
+def test_entry_points_send_each_head_dim_to_its_kernel():
+    """gd3d_flash_fwd: bf16 at 64 -> the Hopper kernel, bf16 and fp32 at 128
+    -> the CUDA-core kernel with 4 threads a row (as before), at 256 -> the
+    same kernel with 8 threads a row and 16-key tiles; fp32 at 64 -> the
+    register-tiled kernel. gd3d_flash_bwd: every width but 64 -> the wide
+    kernels first, 64 as before."""
+    text = (CSRC / "flash_fwd.cu").read_text()
+    fwd = text[text.index('extern "C" int gd3d_flash_fwd('):]
+    _in_order(fwd, "(D != 64 && D != 128 && D != 256)",
+              "if (is_bf16 && D == kD)", "sm90::launch_fwd_bf16(",
+              "if (is_bf16 && D == 128)", "launch_fwd<__nv_bfloat16, 4, 32>(",
+              "else if (is_bf16)  // head dim 256", "launch_fwd<__nv_bfloat16, 8, 16>(",
+              "else if (D == kD)", "launch_fwd_f32(",
+              "else if (D == 128)", "launch_fwd<float, 4, 32>(",
+              "else  // head dim 256", "launch_fwd<float, 8, 16>(")
+    text = (CSRC / "flash_bwd.cu").read_text()
+    bwd = text[text.index('extern "C" int gd3d_flash_bwd('):]
+    _in_order(bwd, "(D != kD && D != 128 && D != 256)", "if (D != kD)", "launch_bwd_wide(",
+              "is_bf16 ? sm90::launch_bwd_bf16", ": launch_bwd_tf32(")
+    wide = (CSRC / "flash_bwd_wide.cu").read_text()
+    _in_order(wide, "if (D == 128)", "wide::launch<bf16, 4>", "wide::launch<float, 4>",
+              "if (D == 256)", "wide::launch<bf16, 8>", "wide::launch<float, 8>")
+    assert "mma." not in wide and "wgmma" not in wide  # the fp32 CUDA cores, both dtypes
+
+
+def _rank_setup(seed, n, h):
+    rng = np.random.RandomState(seed)
+    return [
+        (rng.randn(2, n, h) * 0.5).astype(np.float32),   # u
+        (rng.randn(h) * 0.1).astype(np.float32),         # bias
+        (1.0 + rng.randn(h) * 0.05).astype(np.float32),  # ln scale
+        (rng.randn(h) * 0.05).astype(np.float32),        # ln bias
+        (rng.randn(h) * 0.2).astype(np.float32),         # w_out
+        (rng.randn(1) * 0.1).astype(np.float32),         # b_out
+        (rng.rand(2, n) * 3).astype(np.float32),         # depths
+        rng.rand(2, n) > 0.25,                           # valid
+    ]
+
+
+@pytest.mark.parametrize("h", [192, 256])
+def test_pairwise_rank_plain_twin_matches_gd3d_kernel_at_wide_hidden(h):
+    args = _rank_setup(h, 40, h)
+    s_k, c_k = pairwise_ranking_sums_fused(*map(jnp.asarray, args), THR, interpret=True)
+    rows, cnts = pairwise_rank_sums_plain(*map(torch.from_numpy, args), THR)
+    np.testing.assert_allclose(rows.sum(1).numpy(), np.asarray(s_k), rtol=2e-5, atol=2e-4)
+    np.testing.assert_array_equal(cnts.sum(1).numpy(), np.asarray(c_k))
+
+
+@pytest.mark.parametrize("h", [192, 256])
+def test_pairwise_rank_gradients_match_gd3d_kernel_at_wide_hidden(h):
+    """The six gradients through the port's autograd route (the plain twin
+    on the CPU) and through the backward twin the card holds K4b to, against
+    jax.grad of gd3d's kernel in interpret mode."""
+    args = _rank_setup(h + 1, 36, h)
+    g_view = np.array([0.7, 1.3], np.float32)
+
+    def jloss(*p):
+        s, _ = _pairwise_rank_sums(*p, jnp.asarray(args[6]), jnp.asarray(args[7]), THR, 1e-5,
+                                   True)
+        return jnp.sum(s * jnp.asarray(g_view))
+
+    want = jax.grad(jloss, argnums=tuple(range(6)))(*map(jnp.asarray, args[:6]))
+    ins = [torch.from_numpy(a).requires_grad_(True) for a in args[:6]]
+    rows, _ = pairwise_ranking_sums(*ins, *map(torch.from_numpy, args[6:]), THR)
+    (rows.sum(1) * torch.from_numpy(g_view)).sum().backward()
+    g_rows = torch.from_numpy(np.repeat(g_view[:, None], 36, 1))
+    twin = pairwise_rank_bwd_plain(*map(torch.from_numpy, args), g_rows, THR)
+    for name, t, b, w in zip(("u", "bias", "ln_s", "ln_b", "w_out", "b_out"), ins, twin, want):
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(w), rtol=5e-4, atol=5e-6,
+                                   err_msg=name)
+        np.testing.assert_allclose(b.numpy(), np.asarray(w), rtol=5e-4, atol=5e-6,
+                                   err_msg=name)
