@@ -27,9 +27,12 @@ report), then runs these phases in order, one or more printed lines each:
               the MASt3R student's main shape in both dtypes and at the
               training shapes, and K4 and K4b at
               the MASt3R keypoint count, run twice and must give the same
-              bits; head dims wider than any model's (K2 at 96, 128 and 256
-              on flash_bwd_wide.cu, K1 at 192 and 256, both dtypes, at
-              (2,673,4,D); no main path launches them) and K4 / K4b at a
+              bits; head dims wider than any model's (K2 at 96, 128 and 256,
+              K1 at 192 and 256, both dtypes, at (2,673,4,D), and bf16 K1 and
+              K2 at the student's width re-headed, (2,4161,6,128) and
+              (2,4161,3,256): bf16 on TMA and wgmma, fp32 on the CUDA cores;
+              no main path launches them; every such K2 case runs twice and
+              must give the same bits) and K4 / K4b at a
               256-wide depth head (the wide kernel); K5 on one tensor and
               on each main-path layer's q and k in one launch; K1 and K2 at head dims 16 and 8 in both dtypes (the
               --tiny stereo model, zero-padded to 64 by the wrappers); one
@@ -317,8 +320,10 @@ import time
 
 # id -> (name, source, TPU kernel it replaces)
 # K1's entry holds its designated case, bf16 at the student's main pass
-# (flash_fwd_sm90.cu; fp32 and head dim 128 run flash_fwd.cu); K2's the fp32
-# one and "K2 bf16" the bf16 one at the same shape, whose launches are the
+# (flash_fwd_sm90.cu, which runs bf16 at head dims 64, 128 and 256; fp32
+# runs flash_fwd.cu); K2's the fp32 one (flash_bwd.cu; fp32 at 128 and 256
+# runs flash_bwd_wide.cu) and "K2 bf16" the bf16 one at the same shape
+# (flash_bwd_sm90.cu, bf16 at 64, 128 and 256), whose launches are the
 # bf16 K2 launches of the step runs (run_steps: the steps phase and the
 # surface phase's bf16 envelope) and of the sequence phase's bf16 rings,
 # also counted in K2's
@@ -412,18 +417,23 @@ def bound(nbytes: float, ops: float, peak: str):
 
 def sm90_resources(report: str) -> list:
     """From nvcc's ptxas report, one line for each bf16 flash kernel on
-    Hopper's machinery (name ending in _sm90_kernel, with its number of
-    consumer warpgroups): registers, static shared memory (the tiles are
-    dynamic shared memory, which ptxas does not print) and spills. ptxas
-    counts the registers a thread has at launch; setmaxnreg then moves them
-    from the producer warpgroup (24) to the consumers (232 or 240)."""
+    Hopper's machinery (name ending in _sm90_kernel, with its template
+    arguments: head dim, consumer warpgroups, then keys a tile or the
+    warpgroups on each 64 keys, and stages): registers, static shared memory
+    (the tiles are dynamic shared memory, which ptxas does not print) and
+    spills. ptxas counts the registers a thread has at launch; setmaxnreg
+    then moves them from the producer warpgroup (24) to the consumers (232
+    or 240), except in the one-consumer kernels above head dim 64, which
+    launch one block an SM and hand nothing over (csrc/sm90.cuh, Regs)."""
     import re
 
     lines, name, spill = [], None, ""
     for line in report.splitlines():
-        m = re.search(r"Compiling entry function '\w*?(flash_\w+_sm90_kernel)(?:ILi(\d)E)?", line)
+        m = re.search(r"Compiling entry function '\w*?(flash_\w+_sm90_kernel)"
+                      r"(?:I((?:Li\d+E)+)E)?", line)
         if m:
-            name = m.group(1) + (f"<{m.group(2)}>" if m.group(2) else "")
+            args = re.findall(r"Li(\d+)E", m.group(2) or "")
+            name = m.group(1) + (f"<{','.join(args)}>" if args else "")
             continue
         if name and "spill" in line:
             spill = line.strip()
@@ -708,11 +718,15 @@ def check_kernels(dev) -> dict:
           for kern in ("K1", "K2") for dt in (f32, bf16)
           for part, B, D in (("encoder", 4, 16), ("decoder", 2, 8))],
         # head dims wider than any model of the repo (no main path launches
-        # them; gd3d takes any): K2 at 96 (padded to 128), 128 and 256 on
-        # flash_bwd_wide.cu, K1 at 192 (padded to 256) and 256; these K2
-        # cases also run twice and must repeat their bits
+        # them; gd3d takes any): K2 at 96 (padded to 128), 128 and 256, K1
+        # at 192 (padded to 256) and 256 (bf16 on TMA and wgmma, fp32 on
+        # the CUDA cores); then bf16 K1 and K2 at the student's width 768
+        # and length 4161 re-headed, whose products are the (2,4161,12,64)
+        # pass's; these K2 cases also run twice and must repeat their bits
         *[(kern, "wide head dim", 2, 673, 4, D, dt, False) for dt in (f32, bf16)
           for kern, D in (("K2", 96), ("K2", 128), ("K1", 192), ("K1", 256), ("K2", 256))],
+        *[(kern, "student width re-headed", 2, 4161, H, D, bf16, False)
+          for H, D in ((6, 128), (3, 256)) for kern in ("K1", "K2")],
     ]
     for kern, where, B, N, H, D, dt, designated in attn_cases:
         attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated,

@@ -33,14 +33,15 @@
 //     A operand of dQ += dS K.
 //   dK, dV and dQ accumulate in fp32 registers and are stored once.
 //
-// * head dims 128 and 256 (no path of the repo; the wrapper pads 65..256 to
-//   them): flash_bwd_wide.cu, the same two passes on the fp32 CUDA cores;
-//   gd3d_flash_bwd below sends those widths there.
-// * bf16 (the student under autocast), head dim 64: flash_bwd_sm90.cu, on
-//   TMA, wgmma and warp specialisation; gd3d_flash_bwd below sends that
-//   case there. Head dims below 64 are zero-padded to 64 by the wrapper
-//   (kernels/flash_bwd_fused.py).
-// * fp32 (the student at its configured compute_dtype): flash_bwd_dkv_tf32_
+// The routes, by dtype and kernel width (the wrapper, kernels/
+// flash_bwd_fused.py, zero-pads head dims up to 256 to the next of 64, 128
+// and 256; no path of the repo trains attention wider than 64):
+// * bf16 at 64 (the student under autocast), 128 and 256:
+//   flash_bwd_sm90.cu, on TMA, wgmma and warp specialisation;
+//   gd3d_flash_bwd below sends every bf16 case there.
+// * fp32 at 128 and 256: flash_bwd_wide.cu, the same two passes on the
+//   fp32 CUDA cores; gd3d_flash_bwd below sends those widths there.
+// * fp32 at 64 (the student at its configured compute_dtype): flash_bwd_dkv_tf32_
 //   kernel and flash_bwd_dq_tf32_kernel, mma.sync m16n8k8 on TF32 operands
 //   at fp32 accuracy: every operand is split into two TF32 parts and every
 //   product is three mma.sync (mma.cuh), whatever
@@ -436,12 +437,11 @@ cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
-// flash_bwd_wide.cu: head dims 128 and 256, both dtypes.
+// flash_bwd_wide.cu: fp32 at head dims 128 and 256.
 cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* di, void* dq, void* dk, void* dv,
                             int B, int N, int M, int H, int D, Strides qs, Strides ks,
-                            Strides vs, Strides dos, float scale, int is_bf16,
-                            cudaStream_t stream);
+                            Strides vs, Strides dos, float scale, cudaStream_t stream);
 
 }  // namespace gd3d
 
@@ -459,13 +459,13 @@ extern "C" int gd3d_flash_bwd(const void* q, const void* k, const void* v,
   const Strides qs{qsb, qsn, qsh}, ks{ksb, ksn, ksh}, vs{vsb, vsn, vsh},
       dos{dosb, dosn, dosh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D != kD)
-    return static_cast<int>(launch_bwd_wide(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, D,
-                                            qs, ks, vs, dos, scale, is_bf16, st));
   // each launcher returns the first launch error of its two kernels
+  if (is_bf16)  // head dims 64, 128 and 256
+    return static_cast<int>(sm90::launch_bwd_bf16(q, k, v, dout, lse, di, dq, dk, dv, B, N, M,
+                                                  H, D, qs, ks, vs, dos, scale, st));
+  if (D != kD)  // fp32 at 128 and 256
+    return static_cast<int>(launch_bwd_wide(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, D,
+                                            qs, ks, vs, dos, scale, st));
   return static_cast<int>(
-      is_bf16 ? sm90::launch_bwd_bf16(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks,
-                                      vs, dos, scale, st)
-              : launch_bwd_tf32(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks, vs,
-                                dos, scale, st));
+      launch_bwd_tf32(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks, vs, dos, scale, st));
 }

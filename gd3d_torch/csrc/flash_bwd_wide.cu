@@ -1,12 +1,13 @@
-// K2 at head dims 128 and 256: flash-attention backward (dQ, dK, dV) from
-// the forward's log-sum-exp, for fp32 and bf16 operands.
+// K2 at head dims 128 and 256 in fp32: flash-attention backward (dQ, dK,
+// dV) from the forward's log-sum-exp.
 //
-// Replaces gd3d/kernels/flash_bwd_fused.py::flash_attention_bwd_fused at
-// the head dims that flash_bwd.cu and flash_bwd_sm90.cu (head dim 64) do not
+// Replaces gd3d/kernels/flash_bwd_fused.py::flash_attention_bwd_fused for
+// fp32 operands at the head dims that flash_bwd.cu (head dim 64) does not
 // hold; the wrapper zero-pads head dims 65..128 to 128 and 129..256 to 256
-// (kernels/flash_bwd_fused.py::bwd_padded). No path of the repo trains
-// attention this wide: these kernels are the simple, exact route, on the
-// fp32 CUDA cores for both dtypes, not a tuned one.
+// (kernels/flash_bwd_fused.py::bwd_padded). bf16 at every width runs
+// flash_bwd_sm90.cu. No path of the repo trains attention this wide: these
+// kernels are the simple, exact route, on the fp32 CUDA cores, not a tuned
+// one.
 //
 // The math and the scheme are flash_bwd.cu's: P = exp(scale Q K^T - lse),
 // dV = P^T dO, dS = P * (dO V^T - di) * scale, dK = dS^T Q, dQ = dS K, in
@@ -37,12 +38,12 @@ namespace gd3d {
 namespace wide {
 
 // dK and dV of kThreads / kParts keys of one (b, h). Grid (ceil(M / rows), H, B).
-template <typename T, int kParts>
+template <int kParts>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                          const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ di,
-                          T* __restrict__ dk, T* __restrict__ dv, int N, int M, int H,
+                          float* __restrict__ dk, float* __restrict__ dv, int N, int M, int H,
                           Strides qs, Strides ks, Strides vs, Strides dos, float scale) {
   constexpr int kRowF = kParts * kPad;
   constexpr int kRows = kThreads / kParts;
@@ -61,21 +62,21 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const float scale_log2 = scale * kLog2e;
   const float* lse_bh = lse + ((long long)b * H + h) * N;
   const float* di_bh = di + ((long long)b * H + h) * N;
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* dob = dout + b * dos.b + h * dos.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* dob = dout + b * dos.b + h * dos.h;
 
   float kr[kHalf], vr[kHalf], dk_acc[kHalf], dv_acc[kHalf];
 #pragma unroll
   for (int d = 0; d < kHalf; ++d) {
-    kr[d] = row_ok ? to_float(k[b * ks.b + h * ks.h + m * ks.n + part * kHalf + d]) : 0.f;
-    vr[d] = row_ok ? to_float(v[b * vs.b + h * vs.h + m * vs.n + part * kHalf + d]) : 0.f;
+    kr[d] = row_ok ? k[b * ks.b + h * ks.h + m * ks.n + part * kHalf + d] : 0.f;
+    vr[d] = row_ok ? v[b * vs.b + h * vs.h + m * vs.n + part * kHalf + d] : 0.f;
     dk_acc[d] = dv_acc[d] = 0.f;
   }
 
   for (int n0 = 0; n0 < N; n0 += kRows) {
     __syncthreads();
-    load_tile_parts<T, kParts, kRows>(Qs, qb, qs.n, n0, N);
-    load_tile_parts<T, kParts, kRows>(Dos, dob, dos.n, n0, N);
+    load_tile_parts<float, kParts, kRows>(Qs, qb, qs.n, n0, N);
+    load_tile_parts<float, kParts, kRows>(Dos, dob, dos.n, n0, N);
     if (threadIdx.x < kRows) {
       const bool ok = n0 + threadIdx.x < N;
       Lse2[threadIdx.x] = ok ? lse_bh[n0 + threadIdx.x] * kLog2e : 0.f;
@@ -97,19 +98,19 @@ flash_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const long long o = (((long long)b * M + m) * H + h) * kDim + part * kHalf;
 #pragma unroll
     for (int d = 0; d < kHalf; ++d) {
-      dk[o + d] = from_float<T>(dk_acc[d]);
-      dv[o + d] = from_float<T>(dv_acc[d]);
+      dk[o + d] = dk_acc[d];
+      dv[o + d] = dv_acc[d];
     }
   }
 }
 
 // dQ of kThreads / kParts queries of one (b, h). Grid (ceil(N / rows), H, B).
-template <typename T, int kParts>
+template <int kParts>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ di,
-                         T* __restrict__ dq, int N, int M, int H, Strides qs, Strides ks,
+                         float* __restrict__ dq, int N, int M, int H, Strides qs, Strides ks,
                          Strides vs, Strides dos, float scale) {
   constexpr int kRowF = kParts * kPad;
   constexpr int kRows = kThreads / kParts;
@@ -124,8 +125,8 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n = blockIdx.x * kRows + row;
   const bool row_ok = n < N;
   const float scale_log2 = scale * kLog2e;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
   const long long bhn = ((long long)b * H + h) * N + n;
   const float lse2 = row_ok ? lse[bhn] * kLog2e : 0.f;
   const float dii = row_ok ? di[bhn] : 0.f;
@@ -133,16 +134,15 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float qr[kHalf], dor[kHalf], dq_acc[kHalf];
 #pragma unroll
   for (int d = 0; d < kHalf; ++d) {
-    qr[d] = row_ok ? to_float(q[b * qs.b + h * qs.h + n * qs.n + part * kHalf + d]) : 0.f;
-    dor[d] = row_ok ? to_float(dout[b * dos.b + h * dos.h + n * dos.n + part * kHalf + d])
-                    : 0.f;
+    qr[d] = row_ok ? q[b * qs.b + h * qs.h + n * qs.n + part * kHalf + d] : 0.f;
+    dor[d] = row_ok ? dout[b * dos.b + h * dos.h + n * dos.n + part * kHalf + d] : 0.f;
     dq_acc[d] = 0.f;
   }
 
   for (int m0 = 0; m0 < M; m0 += kRows) {
     __syncthreads();
-    load_tile_parts<T, kParts, kRows>(Ks, kb, ks.n, m0, M);
-    load_tile_parts<T, kParts, kRows>(Vs, vb, vs.n, m0, M);
+    load_tile_parts<float, kParts, kRows>(Ks, kb, ks.n, m0, M);
+    load_tile_parts<float, kParts, kRows>(Vs, vb, vs.n, m0, M);
     __syncthreads();
     const int rows = min(kRows, M - m0);
     for (int j = 0; j < rows; ++j) {
@@ -156,32 +156,32 @@ flash_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
   if (row_ok) {
     const long long o = (((long long)b * N + n) * H + h) * kDim + part * kHalf;
 #pragma unroll
-    for (int d = 0; d < kHalf; ++d) dq[o + d] = from_float<T>(dq_acc[d]);
+    for (int d = 0; d < kHalf; ++d) dq[o + d] = dq_acc[d];
   }
 }
 
-template <typename T, int kParts>
+template <int kParts>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* di, void* dq, void* dk, void* dv, int B, int N,
                    int M, int H, Strides qs, Strides ks, Strides vs, Strides dos, float scale,
                    cudaStream_t stream) {
   constexpr int kRows = kThreads / kParts;
-  const T* q_ = static_cast<const T*>(q);
-  const T* k_ = static_cast<const T*>(k);
-  const T* v_ = static_cast<const T*>(v);
-  const T* do_ = static_cast<const T*>(dout);
+  const float* q_ = static_cast<const float*>(q);
+  const float* k_ = static_cast<const float*>(k);
+  const float* v_ = static_cast<const float*>(v);
+  const float* do_ = static_cast<const float*>(dout);
   const float* lse_ = static_cast<const float*>(lse);
   const float* di_ = static_cast<const float*>(di);
-  flash_bwd_dkv_wide_kernel<T, kParts><<<dim3((M + kRows - 1) / kRows, H, B), kThreads, 0,
-                                         stream>>>(q_, k_, v_, do_, lse_, di_,
-                                                   static_cast<T*>(dk), static_cast<T*>(dv),
-                                                   N, M, H, qs, ks, vs, dos, scale);
+  flash_bwd_dkv_wide_kernel<kParts><<<dim3((M + kRows - 1) / kRows, H, B), kThreads, 0,
+                                      stream>>>(q_, k_, v_, do_, lse_, di_,
+                                                static_cast<float*>(dk), static_cast<float*>(dv),
+                                                N, M, H, qs, ks, vs, dos, scale);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_wide_kernel<T, kParts><<<dim3((N + kRows - 1) / kRows, H, B), kThreads, 0,
-                                        stream>>>(q_, k_, v_, do_, lse_, di_,
-                                                  static_cast<T*>(dq), N, M, H, qs, ks, vs,
-                                                  dos, scale);
+  flash_bwd_dq_wide_kernel<kParts><<<dim3((N + kRows - 1) / kRows, H, B), kThreads, 0,
+                                     stream>>>(q_, k_, v_, do_, lse_, di_,
+                                               static_cast<float*>(dq), N, M, H, qs, ks, vs, dos,
+                                               scale);
   return cudaGetLastError();
 }
 
@@ -190,19 +190,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* di, void* dq, void* dk, void* dv,
                             int B, int N, int M, int H, int D, Strides qs, Strides ks,
-                            Strides vs, Strides dos, float scale, int is_bf16,
-                            cudaStream_t stream) {
-  using bf16 = __nv_bfloat16;
+                            Strides vs, Strides dos, float scale, cudaStream_t stream) {
   if (D == 128)
-    return is_bf16 ? wide::launch<bf16, 4>(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs,
-                                           ks, vs, dos, scale, stream)
-                   : wide::launch<float, 4>(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H,
-                                            qs, ks, vs, dos, scale, stream);
+    return wide::launch<4>(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks, vs,
+                                  dos, scale, stream);
   if (D == 256)
-    return is_bf16 ? wide::launch<bf16, 8>(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs,
-                                           ks, vs, dos, scale, stream)
-                   : wide::launch<float, 8>(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H,
-                                            qs, ks, vs, dos, scale, stream);
+    return wide::launch<8>(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks, vs,
+                                  dos, scale, stream);
   return cudaErrorInvalidValue;
 }
 

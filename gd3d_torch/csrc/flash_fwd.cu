@@ -9,11 +9,13 @@
 //
 // What bounds it on an H100: at the student's main pass (B=2, N=4161, H=12,
 // D=64) the score and PV products are ~106 GFLOP per layer against ~25 MB of
-// q/k/v/o traffic, so the kernel is bound by arithmetic. Three designs:
+// q/k/v/o traffic, so the kernel is bound by arithmetic. The routes, by
+// dtype and kernel width:
 //
-// * bf16, head dim 64 (the student, DINOv2 and the VGGT aggregator, the
-//   bf16 teacher): flash_fwd_sm90.cu, on TMA, wgmma and warp
-//   specialisation; gd3d_flash_fwd below sends that case there.
+// * bf16 at 64 (the student, DINOv2 and the VGGT aggregator, the bf16
+//   teacher), 128 and 256 (no model of the repo; the wrapper pads head dims
+//   65..256 to them): flash_fwd_sm90.cu, on TMA, wgmma and warp
+//   specialisation; gd3d_flash_fwd below sends every bf16 case there.
 // * fp32, head dim 64 (the frozen CroCo teacher, which runs with TF32 off):
 //   flash_fwd_f32_kernel, on the fp32 CUDA cores, which keeps fp32 exact.
 //   Both products are register-tiled. One block of 128 threads takes 64
@@ -43,12 +45,12 @@
 //   Tiles of 64 keys (8 x 4 of S and of O per thread, 102 KB, 2 blocks an
 //   SM) were tried: no faster at the decoder, and slower at the encoder,
 //   whose 352 blocks then need a second wave.
-// * head dim 128 (the VGGT camera trunk, fp32, N = 2 frames):
+// * fp32 at 128 (the VGGT camera trunk, N = 2 frames):
 //   flash_fwd_kernel, on the fp32 CUDA cores. Four threads own one query
 //   row in registers (one 32-wide part of the head dim each); K/V tiles of
 //   32 keys are staged in shared memory and read back as 16-byte broadcast
 //   vectors.
-// * head dim 256 (no path of the repo; the wrapper pads 129..255 to it):
+// * fp32 at 256 (no path of the repo; the wrapper pads 129..255 to it):
 //   the same kernel with eight threads a row, so a block of 128 threads
 //   owns 16 queries, and K/V tiles of 16 keys, which keeps the two tiles at
 //   36 KB of static shared memory (32-key tiles would pass its 48 KB).
@@ -68,10 +70,10 @@
 
 namespace gd3d {
 
-template <typename T, int kParts, int kKeys>
+template <int kParts, int kKeys>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int N, int M, int H,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                 float* __restrict__ o, float* __restrict__ lse, int N, int M, int H,
                  Strides qs, Strides ks, Strides vs, Strides os, float scale_log2) {
   constexpr int kRowF = kParts * kPad;  // floats per tile row in shared memory
   constexpr int kRows = kThreads / kParts;
@@ -85,16 +87,16 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int n = blockIdx.x * kRows + row;
   const bool row_ok = n < N;
 
-  const T* qb = q + b * qs.b + h * qs.h;
-  const T* kb = k + b * ks.b + h * ks.h;
-  const T* vb = v + b * vs.b + h * vs.h;
+  const float* qb = q + b * qs.b + h * qs.h;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
 
   // scores are kept in log2 units: s2 = scale * log2(e) * q.k
   float qr[kHalf];
   float acc[kHalf];
 #pragma unroll
   for (int d = 0; d < kHalf; ++d) {
-    qr[d] = row_ok ? to_float(qb[n * qs.n + part * kHalf + d]) * scale_log2 : 0.f;
+    qr[d] = row_ok ? qb[n * qs.n + part * kHalf + d] * scale_log2 : 0.f;
     acc[d] = 0.f;
   }
   float m = -INFINITY;
@@ -102,8 +104,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   for (int k0 = 0; k0 < M; k0 += kKeys) {
     __syncthreads();
-    load_tile_parts<T, kParts, kKeys>(Ks, kb, ks.n, k0, M);
-    load_tile_parts<T, kParts, kKeys>(Vs, vb, vs.n, k0, M);
+    load_tile_parts<float, kParts, kKeys>(Ks, kb, ks.n, k0, M);
+    load_tile_parts<float, kParts, kKeys>(Vs, vb, vs.n, k0, M);
     __syncthreads();
 
     float s[kKeys];
@@ -131,23 +133,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
   if (row_ok) {
     const float inv = 1.f / l;
-    T* ob = o + b * os.b + h * os.h + n * os.n + part * kHalf;
+    float* ob = o + b * os.b + h * os.h + n * os.n + part * kHalf;
 #pragma unroll
-    for (int d = 0; d < kHalf; ++d) ob[d] = from_float<T>(acc[d] * inv);
+    for (int d = 0; d < kHalf; ++d) ob[d] = acc[d] * inv;
     if (part == 0) lse[((long long)b * H + h) * N + n] = (m + log2f(l)) * kLn2;
   }
 }
 
-template <typename T, int kParts, int kKeys>
+template <int kParts, int kKeys>
 void launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
                 int N, int M, int H, Strides qs, Strides ks, Strides vs, Strides os,
                 float scale, cudaStream_t stream) {
   constexpr int kRows = kThreads / kParts;
   const dim3 grid((N + kRows - 1) / kRows, H, B);
-  flash_fwd_kernel<T, kParts, kKeys><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), N, M, H, qs, ks, vs, os,
-      scale * kLog2e);
+  flash_fwd_kernel<kParts, kKeys><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), N, M, H,
+      qs, ks, vs, os, scale * kLog2e);
 }
 
 // fp32, head dim 64, register-tiled on the CUDA cores (see the note at the
@@ -350,20 +352,16 @@ extern "C" int gd3d_flash_fwd(const void* q, const void* k, const void* v, void*
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qsn, qsh}, ks{ksb, ksn, ksh}, vs{vsb, vsn, vsh}, os{osb, osn, osh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && D == kD)
+  if (is_bf16)  // head dims 64, 128 and 256
     return static_cast<int>(
-        sm90::launch_fwd_bf16(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st));
-  if (is_bf16 && D == 128)
-    launch_fwd<__nv_bfloat16, 4, 32>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
-  else if (is_bf16)  // head dim 256
-    launch_fwd<__nv_bfloat16, 8, 16>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
-  else if (D == kD) {
+        sm90::launch_fwd_bf16(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, os, scale, st));
+  if (D == kD) {
     const cudaError_t err =
         launch_fwd_f32(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
     if (err != cudaSuccess) return static_cast<int>(err);
   } else if (D == 128)
-    launch_fwd<float, 4, 32>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
+    launch_fwd<4, 32>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
   else  // head dim 256
-    launch_fwd<float, 8, 16>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
+    launch_fwd<8, 16>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,21 +1,28 @@
-// Hopper building blocks of the bf16 flash kernels at head dim 64 (K1
-// forward, K2 backward), as inline PTX for sm_90a: tensor maps and TMA
-// copies, mbarriers, warpgroup matrix products (wgmma) with their
-// shared-memory descriptors, and register handover between warpgroups
-// (setmaxnreg).
+// Hopper building blocks of the bf16 flash kernels (K1 forward, K2
+// backward) at head dims 64, 128 and 256, as inline PTX for sm_90a: tensor
+// maps and TMA copies, mbarriers, warpgroup matrix products (wgmma) with
+// their shared-memory descriptors, and register handover between
+// warpgroups (setmaxnreg).
 //
-// Tiles: rows of head dim 64 in bf16, 128 bytes a row, copied by TMA with
-// the 128-byte swizzle (16-byte chunk c of row r lands at chunk c ^ (r % 8)),
-// so 8 rows make a 1024-byte atom and a tile must start on 1024 bytes. That
-// is the layout wgmma's descriptors call SWIZZLE_128B, read two ways:
+// Tiles: a tile of R rows of head dim D in bf16 lies in shared memory as
+// D / 64 column panels, one after another, each R rows of 64 columns (128
+// bytes a row; the panel of columns 64 p .. 64 p + 63 starts 128 R p bytes
+// into the tile). TMA copies a panel in boxes of 64 rows with the 128-byte
+// swizzle (16-byte chunk c of row r lands at chunk c ^ (r % 8)), so 8 rows
+// make a 1024-byte atom and a tile must start on 1024 bytes. At D = 64 a
+// tile is one panel. That is the layout wgmma's descriptors call
+// SWIZZLE_128B, read two ways:
 //   K-major (the reduction runs along a row: Q and K in S = Q K^T, dO and V
-//   in dP = dO V^T, Q and dO as the B operand of S^T = K Q^T and
-//   dP^T = V dO^T): the start address steps 32 bytes a k-step of 16, 8-row
-//   groups are 1024 bytes apart (SBO);
+//   in dP = dO V^T, K and V as the A operand of S^T = K Q^T and
+//   dP^T = V dO^T, Q and dO as their B operand): k-step kk of 16 columns
+//   reads panel kk / 4, its start address 32 (kk % 4) bytes along the
+//   rows; 8-row groups are 1024 bytes apart (SBO);
 //   MN-major (the reduction runs down the rows: V in O = P V, dO in
 //   dV = P^T dO, Q in dK = dS^T Q, K in dQ = dS K), the descriptor's
 //   transpose bit set: a k-step of 16 rows is two atoms, 2048 bytes; 8-row
-//   groups are 1024 bytes apart (SBO); the 64 columns fill one atom's width.
+//   groups are 1024 bytes apart (SBO); a product n columns wide spans n / 64
+//   panels, 128 R bytes apart (LBO, the step from one 64-column atom to the
+//   next along n).
 //
 // Register layouts (per warp of a warpgroup, lane = 4 g + t; the warp holds
 // rows 16 w .. 16 w + 15 of the 64):
@@ -40,8 +47,8 @@ namespace sm90 {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kRowBytes = 128;  // a tile row: 64 bf16
-constexpr int kBox = 64;        // rows a TMA copy brings (one box)
+constexpr int kRowBytes = 128;  // a panel row: 64 bf16
+constexpr int kBox = 64;        // rows a TMA copy brings (one box of one panel)
 constexpr int kBoxBytes = kBox * kRowBytes;
 
 // ------------------------------------------------------------------ host
@@ -71,18 +78,20 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// The tensor map of a (B, L, H, 64) bf16 view with element strides s (its
-// last dim contiguous): dims (64, L, H, B), boxes of 64 x kBox x 1 x 1, the
-// 128-byte swizzle, rows past L read as zeros. A step along a dim of length
-// 1 is never taken, so it is replaced by one that TMA takes. Returns false
-// where CUDA refuses the map (an address or step off 16 bytes).
-inline bool encode_map(CUtensorMap* map, const void* ptr, int B, int L, int H, Strides s) {
+// The tensor map of a (B, L, H, D) bf16 view with element strides s (its
+// last dim contiguous): dims (D, L, H, B), boxes of 64 x kBox x 1 x 1 (one
+// box of one panel), the 128-byte swizzle, rows past L read as zeros. A
+// step along a dim of length 1 is never taken, so it is replaced by one
+// that TMA takes. Returns false where CUDA refuses the map (an address or
+// step off 16 bytes).
+inline bool encode_map(CUtensorMap* map, const void* ptr, int B, int L, int H, int D,
+                       Strides s) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
-  const long long sn = L == 1 ? 64LL * H : s.n;
-  const long long sh = H == 1 ? 64 : s.h;
+  const long long sn = L == 1 ? (long long)D * H : s.n;
+  const long long sh = H == 1 ? D : s.h;
   const long long sb = B == 1 ? sn * L : s.b;
-  const cuuint64_t dims[4] = {64, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)L, (cuuint64_t)H, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)sn * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
   const cuuint32_t box[4] = {64, kBox, 1, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
@@ -110,14 +119,15 @@ inline bool wide_tiles(int L, int B, int H) {
   return (long long)((L + 127) / 128) * B * H >= 2LL * sm_count();
 }
 
-// The bf16, head-dim-64 launchers (flash_fwd_sm90.cu, flash_bwd_sm90.cu).
+// The bf16 launchers at head dim D = 64, 128 or 256 (flash_fwd_sm90.cu,
+// flash_bwd_sm90.cu); cudaErrorInvalidValue for another D.
 cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int B, int N, int M, int H, Strides qs, Strides ks, Strides vs,
-                            Strides os, float scale, cudaStream_t stream);
+                            int B, int N, int M, int H, int D, Strides qs, Strides ks,
+                            Strides vs, Strides os, float scale, cudaStream_t stream);
 cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* di, void* dq, void* dk, void* dv,
-                            int B, int N, int M, int H, Strides qs, Strides ks, Strides vs,
-                            Strides dos, float scale, cudaStream_t stream);
+                            int B, int N, int M, int H, int D, Strides qs, Strides ks,
+                            Strides vs, Strides dos, float scale, cudaStream_t stream);
 
 // ---------------------------------------------------------------- device
 __device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
@@ -140,7 +150,11 @@ __device__ __forceinline__ void mbar_arrive_tx(uint32_t bar, uint32_t bytes) {
                : "memory");
 }
 
-// Waits until the phase of parity `parity` has completed.
+// Waits until the phase of parity `parity` has completed. (A bounded wait
+// that traps after a timeout was tried: its exit path out of the consumer
+// warpgroups' code made ptxas fit that code within the launch bound instead
+// of the setmaxnreg budget, and every kernel that hands registers over
+// spilled.)
 __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   uint32_t done = 0;
   while (!done) {
@@ -159,21 +173,37 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap& map) {
                : "memory");
 }
 
-// One box (64 columns x kBox rows of head h, batch b, from row `row`) into
-// shared memory at dst, completing on `bar`.
+// One box (columns col .. col + 63 and kBox rows from `row`, of head h and
+// batch b) into shared memory at dst, completing on `bar`.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap& map, uint32_t bar,
-                                         int row, int h, int b) {
+                                         int col, int row, int h, int b) {
   asm volatile(
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(0), "r"(row), "r"(h), "r"(b)
+      "l"(reinterpret_cast<uint64_t>(&map)), "r"(bar), "r"(col), "r"(row), "r"(h), "r"(b)
       : "memory");
 }
 
-// Register handover between warpgroups (setmaxnreg): a block of 128 (kWG +
-// 1) threads launches at 65536 / (128 (kWG + 1)) registers a thread (two
-// blocks an SM at kWG = 1); the producer warpgroup drops to 24 and the
-// consumers take what it gave up, 232 at kWG = 1 and 240 at kWG = 2.
+// Rows row0 .. row0 + kRows - 1 (kRows a multiple of kBox) of the kD / 64
+// panels into a tile at dst whose panels are kPanel bytes apart, completing
+// on `bar`.
+template <int kD, int kRows, int kPanel>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap& map, uint32_t bar,
+                                         int row0, int h, int b) {
+#pragma unroll
+  for (int p = 0; p < kD / 64; ++p)
+#pragma unroll
+    for (int i = 0; i < kRows / kBox; ++i)
+      tma_load(dst + p * kPanel + i * kBoxBytes, map, bar, 64 * p, row0 + i * kBox, h, b);
+}
+
+// Register handover between warpgroups (setmaxnreg), in the plans that
+// hand over (Regs: head dim 64, and two consumer warpgroups at any head
+// dim): a block of 128 (kWG + 1) threads launches at 65536 / (128 (kWG +
+// 1)) registers a thread (two blocks an SM at kWG = 1); the producer
+// warpgroup drops to 24 and the consumers take what it gave up, 232 at
+// kWG = 1 and 240 at kWG = 2. One-consumer plans above head dim 64 hand
+// nothing over (Regs).
 template <int kRegs>
 __device__ __forceinline__ void regs_down() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(kRegs));
@@ -183,6 +213,26 @@ template <int kRegs>
 __device__ __forceinline__ void regs_up() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(kRegs));
 }
+
+// The register plan of a kernel at head dim kD with kWG consumer
+// warpgroups. A block of one consumer warpgroup above head dim 64 takes
+// most of an SM's shared memory, so it runs alone on its SM anyway: it is
+// bounded to one block an SM (up to 255 registers a thread, 150-234 used)
+// and hands nothing over. The others hand over as above. (Bounded to two
+// blocks an SM, ptxas refused head dim 256's m64n256k16 product, whose 128
+// accumulators and operands need 158 registers, within 128; that build
+// also had the trap that mbar_wait's note tells of.)
+template <int kD, int kWG>
+struct Regs {
+  static constexpr bool kHandover = kD == 64 || kWG == 2;
+  static constexpr int kMinBlocks = kD == 64 && kWG == 1 ? 2 : 1;  // for __launch_bounds__
+  __device__ __forceinline__ static void producer() {
+    if constexpr (kHandover) regs_down<24>();
+  }
+  __device__ __forceinline__ static void consumer() {  // all the producer gave up
+    if constexpr (kHandover) regs_up<kWG == 1 ? 232 : 240>();
+  }
+};
 
 // Named barriers (ids 1.., 0 being __syncthreads'): sync waits until n
 // threads have arrived, itself included; arrive does not wait.
@@ -238,20 +288,25 @@ __device__ __forceinline__ void fence_regs(float (&d)[kN]) {
 
 // Shared-memory descriptor of a SWIZZLE_128B tile at `addr` (1024-byte
 // aligned atoms; addr may step inside an atom's first row, as the K-major
-// k-steps do): SBO 1024 bytes, LBO 16 bytes (not read for these layouts).
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         (1ull << 62);
+// k-steps do): SBO 1024 bytes, LBO `lbo` bytes (read only by an MN-major
+// product wider than one 64-column atom).
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// K-major: k-step kk of a tile starts 32 bytes further along the rows.
+// K-major: k-step kk of a tile whose panels are kPanel bytes apart reads
+// panel kk / 4, 32 (kk % 4) bytes along its rows.
+template <int kPanel>
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int kk) {
-  return desc_sw128(tile + kk * 32);
+  return desc_sw128(tile + (kk >> 2) * kPanel + (kk & 3) * 32, 16);
 }
 
-// MN-major: k-step kk starts 16 rows further down.
+// MN-major: k-step kk starts 16 rows further down; a product n columns wide
+// reads n / 64 panels, kPanel bytes apart.
+template <int kPanel>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
-  return desc_sw128(tile + kk * 16 * kRowBytes);
+  return desc_sw128(tile + kk * 16 * kRowBytes, kPanel);
 }
 
 // Two fp32 values rounded to bf16 and packed, lo in the low half.
@@ -284,17 +339,18 @@ __device__ __forceinline__ void a_from_tile(uint32_t (&a)[4], const unsigned cha
   }
 }
 
-// Stores a warpgroup's 64 x 64 accumulator as bf16 rows of a contiguous
-// (rows, stride) output: this thread's rows row0 + g (times mul0) and
-// row0 + g + 8 (times mul1), skipping rows at or past n_rows. row0 is the
-// warp's first row.
-__device__ __forceinline__ void store_acc(const float (&d)[32], float mul0, float mul1,
+// Stores a warpgroup's 64 x kN accumulator as bf16 rows of a (rows,
+// stride) output: this thread's rows row0 + g (times mul0) and row0 + g + 8
+// (times mul1), skipping rows at or past n_rows. row0 is the warp's first
+// row.
+template <int kN>
+__device__ __forceinline__ void store_acc(const float (&d)[kN / 2], float mul0, float mul1,
                                           bf16* __restrict__ out, long long stride, int row0,
                                           int n_rows, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int r0 = row0 + g, r1 = r0 + 8;
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
+  for (int c = 0; c < kN / 8; ++c) {
     const int col = 8 * c + 2 * t;
     if (r0 < n_rows)
       *reinterpret_cast<uint32_t*>(out + r0 * stride + col) =
@@ -305,68 +361,95 @@ __device__ __forceinline__ void store_acc(const float (&d)[32], float mul0, floa
   }
 }
 
-// d = A B (acc = 0) or d += A B, A and B K-major in shared memory, m64n128k16.
-__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(acc));
+// The accumulator registers of a wgmma, as asm operands and as the
+// operand list {%0, ..., %n-1} of its PTX (n = 32, 64 or 128 floats).
+#define GD3D_ACC8(i)                                                                 \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define GD3D_ACC32(i) GD3D_ACC8(i), GD3D_ACC8(i + 8), GD3D_ACC8(i + 16), GD3D_ACC8(i + 24)
+#define GD3D_ACC64(i) GD3D_ACC32(i), GD3D_ACC32(i + 32)
+#define GD3D_ACC128 GD3D_ACC64(0), GD3D_ACC64(64)
+
+#define GD3D_D32 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31" "}"
+#define GD3D_D64 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, " \
+  "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, " \
+  "%62, %63" "}"
+#define GD3D_D128 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
+  "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
+  "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, " \
+  "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, " \
+  "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, " \
+  "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, " \
+  "%92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, " \
+  "%106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, " \
+  "%119, %120, %121, %122, %123, %124, %125, %126, %127" "}"
+
+// d = A B (acc = 0) or d += A B, m64nNk16 with N = kN (64 or 128), A and B
+// K-major in shared memory.
+template <int kN>
+__device__ __forceinline__ void wgmma_ss(float (&d)[kN / 2], uint64_t da, uint64_t db, int acc) {
+  static_assert(kN == 64 || kN == 128, "wgmma_ss: n is 64 or 128");
+  if constexpr (kN == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " GD3D_D32
+        ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+        : GD3D_ACC32(0)
+        : "l"(da), "l"(db), "r"(acc));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " GD3D_D64
+        ", %64, %65, p, 1, 1, 0, 0;\n}\n"
+        : GD3D_ACC64(0)
+        : "l"(da), "l"(db), "r"(acc));
+  }
 }
 
-// d = A B (acc = 0) or d += A B, A a bf16 fragment in registers, B
-// MN-major in shared memory (the transpose bit set), m64n64k16.
-__device__ __forceinline__ void wgmma_rs_n64_mn(float (&d)[32], const uint32_t (&a)[4],
-                                              uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+// d = A B (acc = 0) or d += A B, m64nNk16 with N = kN (64, 128 or 256), A a
+// bf16 fragment in registers, B in shared memory: K-major (kTransB = 0) or
+// MN-major (kTransB = 1, the descriptor's transpose bit).
+template <int kN, int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[kN / 2], const uint32_t (&a)[4],
+                                         uint64_t db, int acc) {
+  static_assert(kN == 64 || kN == 128 || kN == 256, "wgmma_rs: n is 64, 128 or 256");
+  if constexpr (kN == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " GD3D_D32
+        ", {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : GD3D_ACC32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(kTransB));
+  } else if constexpr (kN == 128) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " GD3D_D64
+        ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : GD3D_ACC64(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(kTransB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 " GD3D_D128
+        ", {%128, %129, %130, %131}, %132, p, 1, 1, %134;\n}\n"
+        : GD3D_ACC128
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(kTransB));
+  }
 }
 
-
-// d = A B (acc = 0) or d += A B, A a bf16 fragment in registers, B
-// K-major in shared memory, m64n64k16.
-__device__ __forceinline__ void wgmma_rs_n64_k(float (&d)[32], const uint32_t (&a)[4],
-                                             uint64_t db, int acc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
-}
+#undef GD3D_ACC8
+#undef GD3D_ACC32
+#undef GD3D_ACC64
+#undef GD3D_ACC128
+#undef GD3D_D32
+#undef GD3D_D64
+#undef GD3D_D128
 
 }  // namespace sm90
 }  // namespace gd3d

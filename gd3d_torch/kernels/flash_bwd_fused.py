@@ -1,18 +1,18 @@
 """K2: flash-attention backward (dQ, dK, dV).
 
-Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_bwd.cu (fp32),
-flash_bwd_sm90.cu (bf16) and flash_bwd_wide.cu (head dims 128 and 256), which
-replace
-gd3d/kernels/flash_bwd_fused.py::flash_attention_bwd_fused. gd3d's kernel
-sums per-KV-block dQ partials after one pass; the port runs a dK/dV kernel
-and a second, dQ kernel (see the source notes), which is deterministic.
-Both dtypes run on the tensor cores (fp32 as three TF32 products each) at
-head dim 64 and copy 16 bytes at a time; at head dims 128 and 256 both run
-on the fp32 CUDA cores. The wrapper zero-pads q, k, v and dO along other
-head dims to the next of the three widths (`bwd_padded`; exact, as for K1,
-and the padded columns of dQ, dK and dV come out 0 and are cut off), and
-copies a view off 16 bytes first. `flash_attention_bwd_plain` is the plain PyTorch
-twin.
+Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_bwd_sm90.cu (bf16 at
+every kernel width, 64, 128 and 256: TMA, wgmma and warp specialisation),
+flash_bwd.cu (fp32 at 64: three TF32 products for each fp32 one on the
+tensor cores) and flash_bwd_wide.cu (fp32 at 128 and 256, on the CUDA
+cores), which replace gd3d/kernels/flash_bwd_fused.py::
+flash_attention_bwd_fused. gd3d's kernel sums per-KV-block dQ partials
+after one pass; the port runs a dK/dV kernel and a second, dQ kernel (see
+the source notes), which is deterministic. The wrapper zero-pads q, k, v
+and dO along other head dims to the next of the three widths (`bwd_padded`;
+exact, as for K1, and the padded columns of dQ, dK and dV come out 0 and
+are cut off), and copies a view the kernels cannot read as it is first
+(`fit_views`). A failed build or launch raises; nothing falls back.
+`flash_attention_bwd_plain` is the plain PyTorch twin.
 """
 from __future__ import annotations
 

@@ -1,19 +1,22 @@
 """K1: flash-attention forward with the row log-sum-exp.
 
-Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_fwd.cu (fp32, and head
-dims 128 and 256) and flash_fwd_sm90.cu (bf16 at head dim 64), which replace the
-stock TPU Pallas flash forward that gd3d reaches through
-gd3d/ops/attention.py::_flash_call. `flash_attention_fwd_plain` is its plain
-PyTorch twin: the CPU path, and the oracle the kernel is checked against.
+Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_fwd_sm90.cu (bf16 at
+every kernel width, 64, 128 and 256: TMA, wgmma and warp specialisation)
+and flash_fwd.cu (fp32: the register-tiled kernel at 64, the CUDA-core
+kernel at 128 and 256), which replace the stock TPU Pallas flash forward
+that gd3d reaches through gd3d/ops/attention.py::_flash_call.
+`flash_attention_fwd_plain` is its plain PyTorch twin: the CPU path, and the
+oracle the kernel is checked against.
 
 The kernels take head dims 64, 128 and 256; gd3d's flash takes any. The
 wrapper zero-pads q, k and v along D to the next kernel width (`fwd_padded`),
-which
-is exact: zero columns leave Q K^T and the LSE unchanged, and O's padded
-columns come out 0 and are cut off. Wider head dims raise (no model of the
-repo goes past 128). A view the kernels cannot read as it is
-(its last dim strided, or its address or a (B, N, H) step off 16 bytes) is
-copied to a fresh contiguous tensor first (`fit_views`).
+which is exact: zero columns leave Q K^T and the LSE unchanged, and O's
+padded columns come out 0 and are cut off. Wider head dims raise. A view
+the kernels cannot read as it is (its last dim strided, or, for the bf16
+kernels' TMA copies and the fp32 head-dim-64 kernel's cp.async, its address
+or a (B, N, H) step off 16 bytes) is copied to a fresh contiguous tensor
+first (`fit_views`). A failed build or launch raises; nothing falls back to
+another kernel or to the plain twin.
 """
 from __future__ import annotations
 

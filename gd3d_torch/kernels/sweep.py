@@ -15,21 +15,30 @@ per setting and run: the median device time in ms of each case, and a
 one-element add timed the same way ("floor", what a launch costs with no
 work).
 
-    python3 -m gd3d_torch.kernels.sweep k2 [--parent OTHER/flash_bwd.cu]
+    python3 -m gd3d_torch.kernels.sweep k2 [--parent OTHER/csrc]
 
 The fp32 K2 (K2_SETTINGS): its TF32 passes (GD3D_TF32_PASSES in
 csrc/mma.cuh: 3, the split-precision build, or 1, single-pass TF32) and
 the rows a warp takes at a time (GD3D_TF32_CHUNK in csrc/flash_bwd.cu: 32
 or 16); the shipped defaults, p3 c32, come first. With --parent another
-revision's csrc/flash_bwd.cu is built beside them (it includes its own
-directory's headers). Each build is held to the plain twin at the fp32
-student's four lengths (tolerance 1e-4 of max(1, max |plain|)) and at
-(2, 673, 3, 64) to the tight bound TIGHT (2e-5); the 1-pass build is
-expected to miss both and is only reported. Then each is timed at the four
-lengths, in order and again in reverse. K2 builds are libraries of
-csrc/flash_bwd.cu and csrc/flash_bwd_sm90.cu (the bf16 route it links to;
-a parent's own where it has one), timed the same way. To compare whole steps, run
-two revisions' chip_smoke.py in one call.
+revision's csrc/flash_bwd.cu is built beside them (with its own
+flash_bwd_sm90.cu, the bf16 route it links to, where it has one, and its
+own headers). Each build is held to the plain twin at the fp32 student's
+four lengths (tolerance 1e-4 of max(1, max |plain|)) and at (2, 673, 3, 64)
+to the tight bound TIGHT (2e-5); the 1-pass build is expected to miss both
+and is only reported. Then each is timed at the four lengths, in order and
+again in reverse. To compare whole steps, run two revisions' chip_smoke.py
+in one call.
+
+    python3 -m gd3d_torch.kernels.sweep wide [--parent OTHER/csrc]
+
+The bf16 K1 and K2 at head dims 128 and 256 (and 64, the student's, as the
+yardstick), through gd3d_flash_fwd / gd3d_flash_bwd: the shipped build of
+WIDE_SOURCES and, with --parent, another revision's, built and timed the
+same way as k2's. Each is held at every one of WIDE_CASES to the plain
+twins (a single 64 x 64 tile first; bf16 tolerance 1e-2, LSE 1e-4, of
+max(1, max |plain|)); then K1 and K2 are timed at each case, and K2's two
+kernels apart at the long cases (torch.profiler).
 """
 from __future__ import annotations
 
@@ -163,32 +172,77 @@ K2_SETTINGS = ((3, 32), (1, 32), (3, 16))
 K2_SOURCES = ("flash_bwd.cu", "flash_bwd_sm90.cu")
 
 
-def k2_variants(parent: str | None):
-    """(name, library, sources, flags) of each K2 build."""
-    src = [build.CSRC_DIR / name for name in K2_SOURCES]
-    out = [(f"p{p} c{c}", build.library_path().with_name(f"libgd3d_sweep_k2_p{p}c{c}.so"),
-            src, (f"-DGD3D_TF32_PASSES={p}", f"-DGD3D_TF32_CHUNK={c}"))
-           for p, c in K2_SETTINGS]
+def variants(tag: str, sources, settings, parent: str | None):
+    """(name, library, sources, flags) of each build of `sources` (names in
+    csrc/): one for each (name, flags) of `settings`, and with `parent`
+    (another revision's csrc directory) one of the parent's copies of those
+    sources that it has."""
+    src = [build.CSRC_DIR / name for name in sources]
+    out = [(name, build.library_path().with_name(f"libgd3d_sweep_{tag}_{i}.so"), src, flags)
+           for i, (name, flags) in enumerate(settings)]
     if parent:
-        out.append(("parent", build.library_path().with_name("libgd3d_sweep_k2_parent.so"),
-                    [p for p in (Path(parent).resolve().with_name(name) for name in K2_SOURCES)
+        out.append(("parent", build.library_path().with_name(f"libgd3d_sweep_{tag}_parent.so"),
+                    [p for p in (Path(parent).resolve() / name for name in sources)
                      if p.exists()], ()))
     return out
+
+
+def build_all(builds) -> dict:
+    """Compiles every build at once, prints ptxas's registers and spills of
+    each, and returns name -> library."""
+    with ThreadPoolExecutor(len(builds)) as pool:  # every nvcc process at once
+        reports = list(pool.map(lambda b: build.compile_library(*b[1:]), builds))
+    for (name, *_), report in zip(builds, reports):
+        for line in report.splitlines():
+            if "Used" in line or "spill" in line or "Compiling entry" in line:
+                print(f"{name}: {line.strip()}", flush=True)
+    return {name: build.load(so) for name, so, _, _ in builds}
+
+
+def err_over_max(got, want) -> float:
+    """The largest max |got - want| / max(1, max |want|) over the pairs."""
+    return max(float((a.float() - b.float()).abs().max()) / max(1.0, float(b.float().abs().max()))
+               for a, b in zip(got, want))
+
+
+def time_turns(mode: str, libs: dict, calls: dict) -> None:
+    """Times each of `calls` (case -> (fn(lib), iterations)) with every
+    library, in order and again in reverse; one JSON line per library and
+    turn."""
+    order = list(libs.items())
+    for run, turn in enumerate((order, order[::-1])):
+        for name, lib in turn:
+            times = {case: time_ms(lambda fn=fn, lib=lib: fn(lib), iters)[0]
+                     for case, (fn, iters) in calls.items()}
+            print(json.dumps({"run": run, mode: name, "ms": times}), flush=True)
 
 
 def k2_call(lib, q, k, v, lse, do, di, scale):
     B, N, H, D = q.shape
     M = k.shape[1]
-    dq = torch.empty((B, N, H, D), device=q.device)
-    dk = torch.empty((B, M, H, D), device=q.device)
-    dv = torch.empty((B, M, H, D), device=q.device)
+    dq = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, M, H, D), dtype=q.dtype, device=q.device)
+    dv = torch.empty((B, M, H, D), dtype=q.dtype, device=q.device)
     err = lib.gd3d_flash_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         di.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, N, M, H, D,
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], float(scale), 0,
-        torch.cuda.current_stream().cuda_stream)
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *do.stride()[:3], float(scale),
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
     build.check(err, "sweep flash_bwd")
     return dq, dk, dv
+
+
+def k1_call(lib, q, k, v, scale):
+    B, N, H, D = q.shape
+    o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
+    err = lib.gd3d_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        B, N, k.shape[1], H, D, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+        *o.stride()[:3], float(scale), int(q.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream)
+    build.check(err, "sweep flash_fwd")
+    return o, lse
 
 
 def k2_cases(dev):
@@ -208,23 +262,15 @@ def k2_cases(dev):
 
 
 def k2(dev, parent: str | None) -> int:
-    variants = k2_variants(parent)
-    with ThreadPoolExecutor(len(variants)) as pool:  # every nvcc process at once
-        reports = list(pool.map(lambda v: build.compile_library(*v[1:]), variants))
-    for (name, *_), report in zip(variants, reports):
-        for line in report.splitlines():
-            if "Used" in line or "spill" in line or "Compiling entry" in line:
-                print(f"{name}: {line.strip()}", flush=True)
-    libs = {name: build.load(so) for name, so, _, _ in variants}
+    libs = build_all(variants(
+        "k2", K2_SOURCES, [(f"p{p} c{c}", (f"-DGD3D_TF32_PASSES={p}", f"-DGD3D_TF32_CHUNK={c}"))
+                           for p, c in K2_SETTINGS], parent))
     with no_tf32():  # the plain twin in full fp32
         work = k2_cases(dev)
     ok = True
     for name, lib in libs.items():
-        errs = {}
-        for case, (args, want) in work.items():
-            got = k2_call(lib, *args)
-            errs[case] = max(float((a - b).abs().max()) / max(1.0, float(b.abs().max()))
-                             for a, b in zip(got, want))
+        errs = {case: err_over_max(k2_call(lib, *args), want)
+                for case, (args, want) in work.items()}
         tight = errs["(2,673,3,64)"] <= TIGHT
         within = all(e <= 1e-4 for e in errs.values())
         print(json.dumps({"k2": name, "err_over_max": errs, "within_1e-4": within,
@@ -234,19 +280,91 @@ def k2(dev, parent: str | None) -> int:
     if not ok:
         print("sweep: a K2 build disagrees with its plain twin", file=sys.stderr)
         return 1
-    order = list(libs.items())
-    for run, turn in enumerate((order, order[::-1])):
-        for name, lib in turn:
-            times = {case: time_ms(lambda a=args, lib=lib: k2_call(lib, *a), 10)[0]
-                     for case, (args, _) in work.items() if not case.endswith(",3,64)")}
-            print(json.dumps({"run": run, "k2": name, "ms": times}), flush=True)
+    time_turns("k2", libs, {case: (lambda lib, a=args: k2_call(lib, *a), 10)
+                            for case, (args, _) in work.items() if not case.endswith(",3,64)")})
     return 0
+
+
+# ------------------------------------------------------- bf16 K1 / K2 wide
+# the sources of gd3d_flash_fwd and gd3d_flash_bwd
+WIDE_SOURCES = ("flash_fwd.cu", "flash_fwd_sm90.cu", "flash_bwd.cu", "flash_bwd_sm90.cu",
+                "flash_bwd_wide.cu")
+# (B, N, H, D): one tile at each new width, ragged lengths, chip_smoke.py's
+# wide cases, the student's width 768 re-headed, and its head-dim-64 pass
+WIDE_CASES = ((1, 64, 1, 128), (1, 64, 1, 256), (1, 81, 2, 128), (1, 81, 2, 256),
+              (2, 673, 4, 128), (2, 673, 4, 256), (2, 4161, 6, 128), (2, 4161, 3, 256),
+              (2, 4161, 12, 64))
+
+
+def wide_cases(dev):
+    """(B, N, H, D) -> (operands of K2, plain O and LSE, plain gradients),
+    bf16, M = N."""
+    g = torch.Generator(device=dev).manual_seed(1234)
+    out = {}
+    for B, N, H, D in WIDE_CASES:
+        q, k, v, do = (torch.randn((B, N, H, D), generator=g, device=dev).bfloat16()
+                       for _ in range(4))
+        scale = D ** -0.5
+        o, lse = flash_attention_fwd_plain(q, k, v, scale)
+        di = torch.einsum("bnhd,bnhd->bhn", o.float(), do.float()).contiguous()
+        args = (q, k, v, lse, do, di, scale)
+        out[(B, N, H, D)] = (args, (o, lse), flash_attention_bwd_plain(*args))
+    return out
+
+
+def wide(dev, parent: str | None) -> int:
+    libs = build_all(variants("wide", WIDE_SOURCES, (("shipped", ()),), parent))
+    work = wide_cases(dev)
+    ok = True
+    for name, lib in libs.items():
+        errs = {}
+        for case, (args, (o, lse), grads) in work.items():
+            q, k, v, _, _, _, scale = args
+            got = k1_call(lib, q, k, v, scale)
+            errs[str(case)] = {"o": err_over_max(got[:1], (o,)),
+                               "lse": err_over_max(got[1:], (lse,)),
+                               "grads": err_over_max(k2_call(lib, *args), grads)}
+        within = all(e["o"] <= 1e-2 and e["lse"] <= 1e-4 and e["grads"] <= 1e-2
+                     for e in errs.values())
+        print(json.dumps({"wide": name, "ok": within, "err_over_max": errs}), flush=True)
+        ok &= within
+    if not ok:
+        print("sweep: a wide build disagrees with its plain twin", file=sys.stderr)
+        return 1
+    calls = {}
+    for case, (args, _, _) in work.items():
+        iters = 10 if case[1] > 1000 else 30
+        calls[f"K1 {case}"] = (lambda lib, a=args: k1_call(lib, *a[:3], a[6]), iters)
+        calls[f"K2 {case}"] = (lambda lib, a=args: k2_call(lib, *a), iters)
+    time_turns("wide", libs, calls)
+    for name, lib in libs.items():  # K2's two kernels apart, at the long cases
+        for case, (args, _, _) in work.items():
+            if case[1] > 1000:
+                split = kernel_ms(lambda: k2_call(lib, *args))
+                print(json.dumps({"wide": name, "case": str(case), "K2 kernels ms": split}),
+                      flush=True)
+    return 0
+
+
+def kernel_ms(fn, iters: int = 10) -> dict:
+    """Device time of each kernel that `fn` launches, in ms a call
+    (torch.profiler over `iters` calls after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key[:80]: e.device_time_total / 1e3 / iters for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("what", nargs="?", choices=("k5k3", "k2"), default="k5k3")
-    ap.add_argument("--parent", help="another revision's flash_bwd.cu (k2)")
+    ap.add_argument("what", nargs="?", choices=("k5k3", "k2", "wide"), default="k5k3")
+    ap.add_argument("--parent", help="another revision's csrc directory (k2, wide)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("sweep: no CUDA device", file=sys.stderr)
@@ -257,6 +375,8 @@ def main() -> int:
                          timeout=60, check=True).stdout.strip(), flush=True)
     if args.what == "k2":
         return k2(dev, args.parent)
+    if args.what == "wide":
+        return wide(dev, args.parent)
     return k5_k3(dev)
 
 

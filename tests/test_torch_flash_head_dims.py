@@ -218,13 +218,14 @@ def _branch_sources(entry_file: str, branch: str, launcher: str):
 
 
 @pytest.mark.parametrize("entry_file,branch,launcher", [
-    ("flash_fwd.cu", "if (is_bf16 && D == kD)", "launch_fwd_bf16"),
-    ("flash_bwd.cu", "is_bf16 ? sm90::", "launch_bwd_bf16"),
+    ("flash_fwd.cu", "if (is_bf16)  // head dims 64, 128 and 256", "launch_fwd_bf16"),
+    ("flash_bwd.cu", "if (is_bf16)  // head dims 64, 128 and 256", "launch_bwd_bf16"),
 ])
 def test_bf16_head_dim_64_branch_reaches_the_hopper_kernels(entry_file, branch, launcher):
-    """The bf16, head-dim-64 branch of gd3d_flash_fwd and gd3d_flash_bwd
-    reaches kernels built on TMA (cp.async.bulk.tensor) and wgmma, and
-    nothing of the Ampere route (mma.sync) is in their sources."""
+    """The bf16 branch of gd3d_flash_fwd and gd3d_flash_bwd (head dim 64,
+    and 128 and 256 since those widths joined it) reaches kernels built on
+    TMA (cp.async.bulk.tensor) and wgmma, and nothing of the Ampere route
+    (mma.sync) is in their sources."""
     text = _branch_sources(entry_file, branch, launcher)
     assert "wgmma.mma_async" in text and "cp.async.bulk.tensor" in text
     assert "mma.sync" not in text

@@ -12,7 +12,8 @@ another order). bf16: tol 1e-2. The plain twins compute in fp32 from the
 bf16 operands and round only the output; the bf16 flash kernels (K1, K2,
 on TMA and wgmma) also round P (K1, and dV in K2) and dS (dK, dQ) to bf16
 before the next product, a relative error of at most 2^-9 per term, which
-stays within a few ulps of bf16 (2^-8) of the largest output. The wrappers
+stays within a few ulps of bf16 (2^-8) of the largest output; at every
+kernel width (64, 128 and 256). The wrappers
 zero-pad head dims below the kernels' widths and copy views off 16 bytes;
 the tests below that once held a refusal of such a view now hold the copied
 route to the plain twin. The fp32
@@ -174,6 +175,85 @@ def test_flash_kernels_at_other_head_dims_match_plain(dev, dtype, D):
     for a, b in zip(grads, flash_attention_bwd_plain(q, k, v, lse_ref, do, di, scale)):
         assert a.shape == b.shape
         assert_close(a, b, dtype)
+
+
+# Head dims the wrapper runs at the bf16 Hopper kernels' widths 128 and 256
+# (65..128 and 129..256 zero-padded; 72, 80 and 104 are common ViT-H,
+# SigLIP and bigG head dims), and lengths off their 64-key tiles
+WIDE_DIMS = [65, 72, 80, 96, 104, 128, 129, 160, 192, 256]
+WIDE_LENGTHS = LENGTHS + [(64, 80), (100, 81), (81, 673)]
+
+
+def _wide_views(g, B, N, M, H, D, dev):
+    """q from one projection, k and v from another, bf16 (B, N|M, H, D)."""
+    q = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(torch.bfloat16)[:, :, 0]
+    kv = torch.randn((B, M, 3, H, D), generator=g, device=dev).to(torch.bfloat16)
+    return q, kv[:, :, 1], kv[:, :, 2]
+
+
+def _check_bf16_k1_k2(q, k, v, g, dev):
+    """K1 and K2 (one launch each) against the plain twins at the caller's
+    scale; returns K2's operands."""
+    scale = q.shape[-1] ** -0.5
+    before = launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, scale)
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
+    assert o.shape == q.shape
+    assert_close(o, o_ref, torch.bfloat16)
+    assert_close(lse, lse_ref, torch.float32)
+    do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    di = torch.einsum("bnhd,bnhd->bhn", o_ref.float(), do.float()).contiguous()
+    args = (q, k, v, lse_ref, do, di, scale)
+    grads = flash_attention_bwd_fused(*args)
+    after = launch_counts()
+    assert (after["K1"] - before["K1"], after["K2"] - before["K2"]) == (1, 1)
+    for a, b in zip(grads, flash_attention_bwd_plain(*args)):
+        assert a.shape == b.shape
+        assert_close(a, b, torch.bfloat16)
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", WIDE_DIMS)
+@pytest.mark.parametrize("N,M", WIDE_LENGTHS)
+def test_bf16_flash_kernels_at_wide_head_dims_match_plain(dev, D, N, M):
+    """The bf16 K1 and K2 on TMA and wgmma at kernel widths 128 and 256 (S
+    and dP read D / 64 column panels; O, dQ, dK and dV span them in one
+    product), over lengths that straddle the 64- and 128-row blocks and the
+    64- and 128-key tiles, with M != N."""
+    g = torch.Generator(device=dev).manual_seed(N * 1000 + M + D)
+    _check_bf16_k1_k2(*_wide_views(g, 2, N, M, 3, D, dev), g, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [72, 128, 256])
+def test_bf16_flash_kernels_copy_misaligned_wide_views(dev, D):
+    """Views whose row step or address is off 16 bytes, which TMA cannot
+    read: the wrappers copy them (padding does, below 128 and 256), and K1
+    and K2 on them equal their plain twins."""
+    g = torch.Generator(device=dev).manual_seed(300 + D)
+    wide = torch.randn((1, 70, 3 * 2 * D + 4), generator=g, device=dev).to(torch.bfloat16)
+    row_step = wide[..., :6 * D].reshape(1, 70, 3, 2, D)[:, :, 0]
+    flat = torch.randn((70 * 2 * D + 1,), generator=g, device=dev).to(torch.bfloat16)
+    shifted = flat[1:].view(1, 70, 2, D)
+    ok = torch.randn((1, 70, 2, D), generator=g, device=dev).to(torch.bfloat16)
+    for bad in (row_step, shifted):
+        for qkv in ((bad, ok, ok), (ok, bad, ok), (ok, ok, bad)):
+            _check_bf16_k1_k2(*qkv, g, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("N", [673, 4161])
+def test_bf16_flash_bwd_repeats_at_wide_head_dims(dev, D, N):
+    """The bf16 K2 at widths 128 and 256 sums in a fixed order (no atomics;
+    at 256 two warpgroups hold halves of dK and dV): two calls give the same
+    bits, at the student's width 768 re-headed (H = 768 / D)."""
+    g = torch.Generator(device=dev).manual_seed(N + D)
+    args = _check_bf16_k1_k2(*_wide_views(g, 2, N, N, 768 // D, D, dev), g, dev)
+    first = flash_attention_bwd_fused(*args)
+    second = flash_attention_bwd_fused(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 def _misaligned(dtype, dev, g):

@@ -1,6 +1,7 @@
-"""The kernels at their new widths, on the CPU: K1 and K2 at head dims 96,
-128, 192 and 256 through the wrappers' padding route, K4 / K4b's plain twin
-at hidden widths 192 and 256, and which source each head dim reaches.
+"""The kernels at their wide widths, on the CPU: K1 and K2 at head dims 72,
+80, 96, 104, 128, 160, 192 and 256 through the wrappers' padding route, K4 /
+K4b's plain twin at hidden widths 192 and 256, and which source each dtype
+and head dim reaches.
 
 The padding route (`fwd_padded`, `bwd_padded`) runs here through the plain
 twins, exactly as it wraps the kernel launches on the card: q, k, v (and
@@ -68,7 +69,12 @@ class _Recorder:
         return self.plain(q, *rest)
 
 
-@pytest.mark.parametrize("D", [96, 128, 192, 256])
+# 72, 80 and 104: head dims of common ViT-H, SigLIP and bigG backbones; 160
+# one that pads to 256
+PADDED_DIMS = [72, 80, 96, 104, 128, 160, 192, 256]
+
+
+@pytest.mark.parametrize("D", PADDED_DIMS)
 def test_padded_route_forward_matches_gd3d(D):
     B, N, M, H = 2, 37, 45, 2
     q, k, v, _ = _inputs(D, B, N, M, H, D)
@@ -83,7 +89,7 @@ def test_padded_route_forward_matches_gd3d(D):
     assert_close(lse.numpy(), np.asarray(jax.nn.logsumexp(logits, -1)))
 
 
-@pytest.mark.parametrize("D", [96, 128, 192, 256])
+@pytest.mark.parametrize("D", PADDED_DIMS)
 def test_padded_route_backward_matches_gd3d_fused_kernel_interpret(D):
     """gd3d's one-pass Pallas backward in interpret mode, fed the row max m
     and sum l where the port takes lse = m + log l, on (B, H, N, D)."""
@@ -134,28 +140,42 @@ def _in_order(text: str, *parts: str) -> None:
 
 
 def test_entry_points_send_each_head_dim_to_its_kernel():
-    """gd3d_flash_fwd: bf16 at 64 -> the Hopper kernel, bf16 and fp32 at 128
-    -> the CUDA-core kernel with 4 threads a row (as before), at 256 -> the
-    same kernel with 8 threads a row and 16-key tiles; fp32 at 64 -> the
-    register-tiled kernel. gd3d_flash_bwd: every width but 64 -> the wide
-    kernels first, 64 as before."""
+    """gd3d_flash_fwd: bf16 at every width (64, 128, 256) -> the Hopper
+    kernels on TMA and wgmma (flash_fwd_sm90.cu); fp32 at 64 -> the
+    register-tiled kernel, at 128 -> the CUDA-core kernel with 4 threads a
+    row, at 256 -> the same kernel with 8 threads a row and 16-key tiles.
+    gd3d_flash_bwd: bf16 at every width -> the Hopper kernels
+    (flash_bwd_sm90.cu); fp32 at 128 and 256 -> flash_bwd_wide.cu's
+    CUDA-core kernels, fp32 only; fp32 at 64 -> split TF32. The
+    Hopper launchers instantiate their wgmma kernels at 64, 128 and 256."""
     text = (CSRC / "flash_fwd.cu").read_text()
     fwd = text[text.index('extern "C" int gd3d_flash_fwd('):]
     _in_order(fwd, "(D != 64 && D != 128 && D != 256)",
-              "if (is_bf16 && D == kD)", "sm90::launch_fwd_bf16(",
-              "if (is_bf16 && D == 128)", "launch_fwd<__nv_bfloat16, 4, 32>(",
-              "else if (is_bf16)  // head dim 256", "launch_fwd<__nv_bfloat16, 8, 16>(",
-              "else if (D == kD)", "launch_fwd_f32(",
-              "else if (D == 128)", "launch_fwd<float, 4, 32>(",
-              "else  // head dim 256", "launch_fwd<float, 8, 16>(")
+              "if (is_bf16)  // head dims 64, 128 and 256", "sm90::launch_fwd_bf16(",
+              "if (D == kD)", "launch_fwd_f32(",
+              "else if (D == 128)", "launch_fwd<4, 32>(",
+              "else  // head dim 256", "launch_fwd<8, 16>(")
+    assert "__nv_bfloat16" not in fwd  # the CUDA-core kernels take fp32 only
     text = (CSRC / "flash_bwd.cu").read_text()
     bwd = text[text.index('extern "C" int gd3d_flash_bwd('):]
-    _in_order(bwd, "(D != kD && D != 128 && D != 256)", "if (D != kD)", "launch_bwd_wide(",
-              "is_bf16 ? sm90::launch_bwd_bf16", ": launch_bwd_tf32(")
+    _in_order(bwd, "(D != kD && D != 128 && D != 256)",
+              "if (is_bf16)  // head dims 64, 128 and 256", "sm90::launch_bwd_bf16(",
+              "if (D != kD)  // fp32 at 128 and 256", "launch_bwd_wide(", "launch_bwd_tf32(")
     wide = (CSRC / "flash_bwd_wide.cu").read_text()
-    _in_order(wide, "if (D == 128)", "wide::launch<bf16, 4>", "wide::launch<float, 4>",
-              "if (D == 256)", "wide::launch<bf16, 8>", "wide::launch<float, 8>")
-    assert "mma." not in wide and "wgmma" not in wide  # the fp32 CUDA cores, both dtypes
+    _in_order(wide, "if (D == 128)", "wide::launch<4>", "if (D == 256)", "wide::launch<8>")
+    assert "__nv_bfloat16" not in wide and "typename T" not in wide and "is_bf16" not in wide
+    assert "mma." not in wide and "wgmma" not in wide  # the fp32 CUDA cores
+    fwd90 = (CSRC / "flash_fwd_sm90.cu").read_text()
+    _in_order(fwd90, "flash_fwd_sm90_kernel(", "wgmma_ss<kKeys>(", "wgmma_rs<kD, 1>(",
+              "cudaError_t launch_fwd_bf16(", "if (D == 64)", "launch_fwd_plan<64, 1, 128, 3>(",
+              "if (D == 256)", "launch_fwd_plan<256, 1, 64, 2>(",
+              "launch_fwd_plan<128, 2, 128, 2>(", "launch_fwd_plan<128, 1, 64, 2>(")
+    bwd90 = (CSRC / "flash_bwd_sm90.cu").read_text()
+    _in_order(bwd90, "flash_bwd_dkv_sm90_kernel(", "wgmma_rs<L::kCols, 1>(",
+              "flash_bwd_dq_sm90_kernel(", "wgmma_rs<kD, 1>(",
+              "cudaError_t launch_bwd_bf16(", "launch_bwd_plans<64>(",
+              "launch_bwd_plans<128>(", "launch_bwd_plans<256>(")
+    assert "wgmma.mma_async" in (CSRC / "sm90.cuh").read_text()
 
 
 def _rank_setup(seed, n, h):
