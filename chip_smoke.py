@@ -28,9 +28,10 @@ report), then runs these phases in order, one or more printed lines each:
               training shapes, and K4 and K4b at
               the MASt3R keypoint count, run twice and must give the same
               bits; head dims wider than any model's (K2 at 96, 128 and 256,
-              K1 at 192 and 256, both dtypes, at (2,673,4,D), and bf16 K1 and
-              K2 at the student's width re-headed, (2,4161,6,128) and
-              (2,4161,3,256): bf16 on TMA and wgmma, fp32 on the CUDA cores;
+              K1 at 192 and 256, both dtypes, at (2,673,4,D), and K1 and K2
+              in both dtypes at the student's width re-headed, (2,4161,6,128)
+              and (2,4161,3,256): bf16 on TMA and wgmma, fp32 on split TF32
+              (mma.sync, bound against 165 TFLOP/s as the fp32 K2);
               no main path launches them; every such K2 case runs twice and
               must give the same bits) and K4 / K4b at a
               256-wide depth head (the wide kernel); K5 on one tensor and
@@ -322,7 +323,7 @@ import time
 # K1's entry holds its designated case, bf16 at the student's main pass
 # (flash_fwd_sm90.cu, which runs bf16 at head dims 64, 128 and 256; fp32
 # runs flash_fwd.cu); K2's the fp32 one (flash_bwd.cu; fp32 at 128 and 256
-# runs flash_bwd_wide.cu) and "K2 bf16" the bf16 one at the same shape
+# runs flash_bwd_tf32_wide.cu) and "K2 bf16" the bf16 one at the same shape
 # (flash_bwd_sm90.cu, bf16 at 64, 128 and 256), whose launches are the
 # bf16 K2 launches of the step runs (run_steps: the steps phase and the
 # surface phase's bf16 envelope) and of the sequence phase's bf16 rings,
@@ -376,8 +377,9 @@ STATE_TOL = 1e-3
 STEREOFLOW_GRIDS = {"CroCo-Stereo": (22, 44), "CroCo-Flow": (20, 24)}
 STEREOFLOW_LENGTHS = {t: gh * gw for t, (gh, gw) in STEREOFLOW_GRIDS.items()}
 HBM_BYTES_PER_S = 3.35e12
-# H100 SXM, dense. "tf32x3": the fp32 K2's route, three TF32 products on the
-# tensor cores (495 TFLOP/s) for each fp32 product
+# H100 SXM, dense. "tf32x3": the route of the fp32 K2 and of the fp32 K1
+# above head dim 64, three TF32 products on the tensor cores (495 TFLOP/s)
+# for each fp32 product
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 
 
@@ -523,7 +525,7 @@ def attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated, repeat=False
             nbytes=4 * B * N * H * D * elt + B * H * N * 4,
             ops=4.0 * B * H * N * N * D, dtype=dname, iters=iters,
             run_library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
-            designated=designated)
+            designated=designated, peak="tf32x3" if dt == torch.float32 and D > 64 else None)
     else:
         o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
         do = torch.randn((B, N, H, D), generator=g, device=dev).to(dt)
@@ -720,12 +722,12 @@ def check_kernels(dev) -> dict:
         # head dims wider than any model of the repo (no main path launches
         # them; gd3d takes any): K2 at 96 (padded to 128), 128 and 256, K1
         # at 192 (padded to 256) and 256 (bf16 on TMA and wgmma, fp32 on
-        # the CUDA cores); then bf16 K1 and K2 at the student's width 768
-        # and length 4161 re-headed, whose products are the (2,4161,12,64)
-        # pass's; these K2 cases also run twice and must repeat their bits
+        # split TF32); then K1 and K2 at the student's width 768 and length
+        # 4161 re-headed, whose products are the (2,4161,12,64) pass's;
+        # these K2 cases also run twice and must repeat their bits
         *[(kern, "wide head dim", 2, 673, 4, D, dt, False) for dt in (f32, bf16)
           for kern, D in (("K2", 96), ("K2", 128), ("K1", 192), ("K1", 256), ("K2", 256))],
-        *[(kern, "student width re-headed", 2, 4161, H, D, bf16, False)
+        *[(kern, "student width re-headed", 2, 4161, H, D, dt, False) for dt in (bf16, f32)
           for H, D in ((6, 128), (3, 256)) for kern in ("K1", "K2")],
     ]
     for kern, where, B, N, H, D, dt, designated in attn_cases:

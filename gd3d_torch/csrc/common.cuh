@@ -69,64 +69,11 @@ __device__ __forceinline__ float fast_rcp(float x) {
 }
 
 // Flash tiles: head_dim 64, 64 rows (queries or keys) per tile, 128
-// threads a block. kHalf and kPad belong to the CUDA-core K1 at head dim 128
-// (below): a thread owns a 32-wide part of a row, and a tile row lives in
-// shared memory as parts 36 floats apart, so the threads of a row read
-// 16-byte vectors from disjoint banks.
+// threads a block.
 constexpr int kD = 64;
-constexpr int kHalf = 32;
 constexpr int kTile = 64;
 constexpr int kThreads = 128;
-constexpr int kPad = 36;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// Tile loads and dot products of K1 at head dim 32 * kParts: kParts
-// consecutive threads own one row, each a 32-wide part, and a tile row lives
-// in shared memory as kParts parts kPad floats apart.
-template <typename T, int kParts, int kRows>
-__device__ __forceinline__ void load_tile_parts(float* dst, const T* __restrict__ src,
-                                                long long row_stride, int row0, int n_rows) {
-  constexpr int kDim = 32 * kParts;
-  for (int idx = threadIdx.x; idx < kRows * kDim; idx += kThreads) {
-    const int r = idx / kDim;
-    const int d = idx % kDim;
-    const int gr = row0 + r;
-    const float val = gr < n_rows ? to_float(src[gr * row_stride + d]) : 0.f;
-    dst[r * (kParts * kPad) + (d / kHalf) * kPad + (d % kHalf)] = val;
-  }
-}
-
-// Dot product of a thread's 32-wide register part with a tile row's part,
-// completed across the row's kParts threads (a butterfly over lane bits).
-template <int kParts>
-__device__ __forceinline__ float parts_dot(const float* reg, const float* tile_row_part) {
-  const float4* t = reinterpret_cast<const float4*>(tile_row_part);
-  float acc = 0.f;
-#pragma unroll
-  for (int c = 0; c < kHalf / 4; ++c) {
-    const float4 x = t[c];
-    acc = fmaf(reg[4 * c + 0], x.x, acc);
-    acc = fmaf(reg[4 * c + 1], x.y, acc);
-    acc = fmaf(reg[4 * c + 2], x.z, acc);
-    acc = fmaf(reg[4 * c + 3], x.w, acc);
-  }
-#pragma unroll
-  for (int o = 1; o < kParts; o <<= 1) acc += __shfl_xor_sync(0xffffffffu, acc, o);
-  return acc;
-}
-
-// reg += w * tile_row_half.
-__device__ __forceinline__ void axpy_row(float* reg, float w, const float* tile_row_half) {
-  const float4* t = reinterpret_cast<const float4*>(tile_row_half);
-#pragma unroll
-  for (int c = 0; c < kHalf / 4; ++c) {
-    const float4 x = t[c];
-    reg[4 * c + 0] = fmaf(w, x.x, reg[4 * c + 0]);
-    reg[4 * c + 1] = fmaf(w, x.y, reg[4 * c + 1]);
-    reg[4 * c + 2] = fmaf(w, x.z, reg[4 * c + 2]);
-    reg[4 * c + 3] = fmaf(w, x.w, reg[4 * c + 3]);
-  }
-}
 
 }  // namespace gd3d

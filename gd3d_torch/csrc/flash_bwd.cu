@@ -39,8 +39,10 @@
 // * bf16 at 64 (the student under autocast), 128 and 256:
 //   flash_bwd_sm90.cu, on TMA, wgmma and warp specialisation;
 //   gd3d_flash_bwd below sends every bf16 case there.
-// * fp32 at 128 and 256: flash_bwd_wide.cu, the same two passes on the
-//   fp32 CUDA cores; gd3d_flash_bwd below sends those widths there.
+// * fp32 at 128 and 256: flash_bwd_tf32_wide.cu, the same two passes (in
+//   one launch) and the same split TF32 as at 64, with teams of warps that
+//   split the head dim and the block's own rows in shared memory;
+//   gd3d_flash_bwd below sends those widths there.
 // * fp32 at 64 (the student at its configured compute_dtype): flash_bwd_dkv_tf32_
 //   kernel and flash_bwd_dq_tf32_kernel, mma.sync m16n8k8 on TF32 operands
 //   at fp32 accuracy: every operand is split into two TF32 parts and every
@@ -96,96 +98,10 @@ constexpr int kChunk = GD3D_TF32_CHUNK;
 constexpr int kNt = kChunk / 8;  // n-tiles of S (k-steps of the second products) a chunk
 static_assert(kChunk == 16 || kChunk == 32, "chunks of 16 or 32 rows");
 constexpr int kTileF = kTile * kD;  // floats per raw tile: 64 rows of 64, unpadded
-// Split tiles have rows of 68 floats. The two ways the products read a tile
-// then hit 32 banks: 8 rows g at 4 columns t (an S-type product's B
-// operand: bank 4 g + t + const) and the 4 rows 2t (or 2t + 1) at 8 columns
-// g (a P- or dS-type product's: bank 8 t + g + const).
-constexpr int kLd = kD + 4;
+constexpr int kLd = kD + 4;  // floats a split tile's row (mma.cuh: no bank conflicts)
 constexpr int kSplitF = kTile * kLd;
 constexpr int kDkvSmem = (2 * kTileF + 2 * kTile + 4 * kSplitF + 2 * kTile) * 4;  // 103424 bytes
 constexpr int kDqSmem = (2 * kTileF + 4 * kSplitF) * 4;                          // 102400 bytes
-
-// Rows [row0, row0 + 64) of a (rows, 64) fp32 slice with row stride
-// `stride` (elements) into an unpadded raw tile; rows at or past n_rows
-// become zeros. src and stride * 4 bytes must fall on 16 bytes.
-__device__ __forceinline__ void load_raw_async(uint32_t dst, const float* __restrict__ src,
-                                               long long stride, int row0, int n_rows) {
-#pragma unroll
-  for (int i = 0; i < kTileF / 4 / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c >> 4;
-    const int col = (c & 15) * 4;
-    const bool ok = row0 + r < n_rows;
-    cp_async16(dst + (r * kD + col) * 4, ok ? src + (long long)(row0 + r) * stride + col : src,
-               ok);
-  }
-}
-
-// A raw tile into its TF32 parts, hi and lo, in rows of kLd floats.
-__device__ __forceinline__ void split_tile(const float* __restrict__ raw, float* __restrict__ hi,
-                                           float* __restrict__ lo) {
-#pragma unroll
-  for (int i = 0; i < kTileF / 4 / kThreads; ++i) {
-    const int c = threadIdx.x + i * kThreads;
-    const int r = c >> 4;
-    const int col = (c & 15) * 4;
-    const float4 x = *reinterpret_cast<const float4*>(raw + r * kD + col);
-    const float4 h = make_float4(tc::round_tf32(x.x), tc::round_tf32(x.y),
-                                 tc::round_tf32(x.z), tc::round_tf32(x.w));
-    const float4 l = make_float4(tc::round_tf32(x.x - h.x), tc::round_tf32(x.y - h.y),
-                                 tc::round_tf32(x.z - h.z), tc::round_tf32(x.w - h.w));
-    const int o = r * kLd + col;
-    *reinterpret_cast<float4*>(hi + o) = h;
-    *reinterpret_cast<float4*>(lo + o) = l;
-  }
-}
-
-// A B fragment of a split tile at offsets o0 (b0) and o1 (b1): hi0, hi1,
-// lo0, lo1, as mma_split takes it.
-__device__ __forceinline__ void load_b(uint32_t (&b)[4], const float* hi, const float* lo,
-                                       int o0, int o1) {
-  b[0] = __float_as_uint(hi[o0]);
-  b[1] = __float_as_uint(hi[o1]);
-  b[2] = __float_as_uint(lo[o0]);
-  b[3] = __float_as_uint(lo[o1]);
-}
-
-// The warp's 16 rows (first + g, first + g + 8) of a (rows, 64) fp32 slice
-// as A fragments of the 8 k-steps over the head dim, in fp32 (split at
-// use); rows at or past n_rows are zeros. Read once a block, from device
-// memory.
-__device__ __forceinline__ void load_a_rows(float (&a)[8][4], const float* __restrict__ src,
-                                            long long stride, int first, int n_rows, int lane) {
-  const int g = lane >> 2, t = lane & 3;
-  const bool ok0 = first + g < n_rows, ok1 = first + g + 8 < n_rows;
-  const float* r0 = src + (long long)(first + g) * stride;
-  const float* r1 = src + (long long)(first + g + 8) * stride;
-#pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    a[kk][0] = ok0 ? r0[8 * kk + t] : 0.f;
-    a[kk][1] = ok1 ? r1[8 * kk + t] : 0.f;
-    a[kk][2] = ok0 ? r0[8 * kk + t + 4] : 0.f;
-    a[kk][3] = ok1 ? r1[8 * kk + t + 4] : 0.f;
-  }
-}
-
-// Writes a warp's 16 x 64 fp32 C tile to rows first + g, first + g + 8 of
-// a (rows, 64) slice with row stride `stride`; rows at or past n_rows are
-// skipped.
-__device__ __forceinline__ void store_c_rows(const float (&c)[8][4], float* __restrict__ dst,
-                                             long long stride, int first, int n_rows,
-                                             int lane) {
-  const int g = lane >> 2, t = lane & 3;
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = first + g + 8 * half;
-    if (r >= n_rows) continue;
-    float* row = dst + (long long)r * stride + 2 * t;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-      *reinterpret_cast<float2*>(row + nt * 8) = make_float2(c[nt][2 * half], c[nt][2 * half + 1]);
-  }
-}
 }  // namespace tf32
 
 // dK, dV for one 64-key tile of one (b, h), looping over every query tile.
@@ -218,8 +134,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   const float* di_bh = di + ((long long)b * H + h) * N;
 
   auto load_query_tile = [&](int i0) {
-    load_raw_async(smem_u32(rawQ), qb, qs.n, i0, N);
-    load_raw_async(smem_u32(rawO), dob, dos.n, i0, N);
+    tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawQ), qb, qs.n, i0, N);
+    tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawO), dob, dos.n, i0, N);
     if (tid < kTile)
       tc::load_vec_async(smem_u32(rawStats), lse_bh, i0, N, tid);
     else
@@ -229,8 +145,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   cp_async_commit();
 
   float kf[8][4], vf[8][4];  // the warp's 16 keys of K and V, A fragments in fp32
-  load_a_rows(kf, k + b * ks.b + h * ks.h, ks.n, key0 + warp * 16, M, lane);
-  load_a_rows(vf, v + b * vs.b + h * vs.h, vs.n, key0 + warp * 16, M, lane);
+  tc::load_a_rows(kf, k + b * ks.b + h * ks.h, ks.n, key0 + warp * 16, M, lane);
+  tc::load_a_rows(vf, v + b * vs.b + h * vs.h, vs.n, key0 + warp * 16, M, lane);
   float dk_acc[8][4] = {};
   float dv_acc[8][4] = {};
   const float scale_log2 = scale * kLog2e;
@@ -238,8 +154,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   for (int i = 0; i < n_tiles; ++i) {
     cp_async_wait<0>();
     __syncthreads();  // tile i has landed; every warp is done with tile i - 1
-    split_tile(rawQ, Qhi, Qlo);
-    split_tile(rawO, Ohi, Olo);
+    tc::split_rows<kTile, kD, kLd>(rawQ, Qhi, Qlo);
+    tc::split_rows<kTile, kD, kLd>(rawO, Ohi, Olo);
     stats[tid] = rawStats[tid];
     __syncthreads();
     if (i + 1 < n_tiles) {  // the raw tiles are free: copy the next during the products
@@ -258,9 +174,9 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
         for (int nt = 0; nt < kNt; ++nt) {
           const int o0 = (c0 + nt * 8 + g) * kLd + 8 * kk + t, o1 = o0 + 4;
           uint32_t bq[4], bo[4];
-          load_b(bq, Qhi, Qlo, o0, o1);
+          tc::load_b(bq, Qhi, Qlo, o0, o1);
           tc::mma_split(s[nt], ka, bq);
-          load_b(bo, Ohi, Olo, o0, o1);
+          tc::load_b(bo, Ohi, Olo, o0, o1);
           tc::mma_split(dp[nt], va, bo);
         }
       }
@@ -288,9 +204,9 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
         for (int nd = 0; nd < 8; ++nd) {
           const int o0 = (c0 + kq * 8 + 2 * t) * kLd + 8 * nd + g, o1 = o0 + kLd;
           uint32_t bo[4], bq[4];
-          load_b(bo, Ohi, Olo, o0, o1);
+          tc::load_b(bo, Ohi, Olo, o0, o1);
           tc::mma_split(dv_acc[nd], pa, bo);
-          load_b(bq, Qhi, Qlo, o0, o1);
+          tc::load_b(bq, Qhi, Qlo, o0, o1);
           tc::mma_split(dk_acc[nd], da, bq);
         }
       }
@@ -298,8 +214,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   }
 
   const long long off = (long long)b * M * H * kD + h * kD;
-  store_c_rows(dk_acc, dk + off, (long long)H * kD, key0 + warp * 16, M, lane);
-  store_c_rows(dv_acc, dv + off, (long long)H * kD, key0 + warp * 16, M, lane);
+  tc::store_c_rows(dk_acc, dk + off, (long long)H * kD, key0 + warp * 16, M, lane);
+  tc::store_c_rows(dv_acc, dv + off, (long long)H * kD, key0 + warp * 16, M, lane);
 }
 
 // dQ for one 64-query tile of one (b, h), looping over every key tile.
@@ -326,13 +242,13 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
 
-  load_raw_async(smem_u32(rawK), kb, ks.n, 0, M);
-  load_raw_async(smem_u32(rawV), vb, vs.n, 0, M);
+  tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawK), kb, ks.n, 0, M);
+  tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawV), vb, vs.n, 0, M);
   cp_async_commit();
 
   float qf[8][4], of[8][4];  // the warp's 16 queries of Q and dO, A fragments in fp32
-  load_a_rows(qf, q + b * qs.b + h * qs.h, qs.n, q0 + warp * 16, N, lane);
-  load_a_rows(of, dout + b * dos.b + h * dos.h, dos.n, q0 + warp * 16, N, lane);
+  tc::load_a_rows(qf, q + b * qs.b + h * qs.h, qs.n, q0 + warp * 16, N, lane);
+  tc::load_a_rows(of, dout + b * dos.b + h * dos.h, dos.n, q0 + warp * 16, N, lane);
   // this lane's rows g and g + 8: lse in log2 units and di
   const float* lse_bh = lse + ((long long)b * H + h) * N;
   const float* di_bh = di + ((long long)b * H + h) * N;
@@ -349,12 +265,12 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
   for (int j = 0; j < n_tiles; ++j) {
     cp_async_wait<0>();
     __syncthreads();  // tile j has landed; every warp is done with tile j - 1
-    split_tile(rawK, Khi, Klo);
-    split_tile(rawV, Vhi, Vlo);
+    tc::split_rows<kTile, kD, kLd>(rawK, Khi, Klo);
+    tc::split_rows<kTile, kD, kLd>(rawV, Vhi, Vlo);
     __syncthreads();
     if (j + 1 < n_tiles) {
-      load_raw_async(smem_u32(rawK), kb, ks.n, (j + 1) * kTile, M);
-      load_raw_async(smem_u32(rawV), vb, vs.n, (j + 1) * kTile, M);
+      tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawK), kb, ks.n, (j + 1) * kTile, M);
+      tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawV), vb, vs.n, (j + 1) * kTile, M);
       cp_async_commit();
     }
 #pragma unroll 1  // two chunks in flight spill (see the note at the top)
@@ -369,9 +285,9 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
         for (int nt = 0; nt < kNt; ++nt) {
           const int o0 = (c0 + nt * 8 + g) * kLd + 8 * kk + t, o1 = o0 + 4;
           uint32_t bk[4], bv[4];
-          load_b(bk, Khi, Klo, o0, o1);
+          tc::load_b(bk, Khi, Klo, o0, o1);
           tc::mma_split(s[nt], qa, bk);
-          load_b(bv, Vhi, Vlo, o0, o1);
+          tc::load_b(bv, Vhi, Vlo, o0, o1);
           tc::mma_split(dp[nt], oa, bv);
         }
       }
@@ -397,15 +313,15 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
         for (int nd = 0; nd < 8; ++nd) {
           const int o0 = (c0 + kq * 8 + 2 * t) * kLd + 8 * nd + g;
           uint32_t bk[4];
-          load_b(bk, Khi, Klo, o0, o0 + kLd);
+          tc::load_b(bk, Khi, Klo, o0, o0 + kLd);
           tc::mma_split(dq_acc[nd], da, bk);
         }
       }
     }
   }
 
-  store_c_rows(dq_acc, dq + (long long)b * N * H * kD + h * kD, (long long)H * kD,
-               q0 + warp * 16, N, lane);
+  tc::store_c_rows(dq_acc, dq + (long long)b * N * H * kD + h * kD, (long long)H * kD,
+                   q0 + warp * 16, N, lane);
 }
 
 cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v, const void* dout,
@@ -437,11 +353,11 @@ cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v, const v
   return cudaGetLastError();
 }
 
-// flash_bwd_wide.cu: fp32 at head dims 128 and 256.
-cudaError_t launch_bwd_wide(const void* q, const void* k, const void* v, const void* dout,
-                            const void* lse, const void* di, void* dq, void* dk, void* dv,
-                            int B, int N, int M, int H, int D, Strides qs, Strides ks,
-                            Strides vs, Strides dos, float scale, cudaStream_t stream);
+// flash_bwd_tf32_wide.cu: fp32 at head dims 128 and 256.
+cudaError_t launch_bwd_tf32_wide(const void* q, const void* k, const void* v, const void* dout,
+                                 const void* lse, const void* di, void* dq, void* dk, void* dv,
+                                 int B, int N, int M, int H, int D, Strides qs, Strides ks,
+                                 Strides vs, Strides dos, float scale, cudaStream_t stream);
 
 }  // namespace gd3d
 
@@ -463,9 +379,9 @@ extern "C" int gd3d_flash_bwd(const void* q, const void* k, const void* v,
   if (is_bf16)  // head dims 64, 128 and 256
     return static_cast<int>(sm90::launch_bwd_bf16(q, k, v, dout, lse, di, dq, dk, dv, B, N, M,
                                                   H, D, qs, ks, vs, dos, scale, st));
-  if (D != kD)  // fp32 at 128 and 256
-    return static_cast<int>(launch_bwd_wide(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, D,
-                                            qs, ks, vs, dos, scale, st));
+  if (D != kD)  // fp32 at 128 and 256: split TF32 on mma.sync
+    return static_cast<int>(launch_bwd_tf32_wide(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H,
+                                                 D, qs, ks, vs, dos, scale, st));
   return static_cast<int>(
       launch_bwd_tf32(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks, vs, dos, scale, st));
 }

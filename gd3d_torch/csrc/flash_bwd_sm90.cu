@@ -3,7 +3,7 @@
 // the caller) on Hopper's own machinery. gd3d_flash_bwd (flash_bwd.cu)
 // sends every bf16 case here (the wrapper zero-pads other head dims up to
 // 256 to the next of the three); fp32 stays in flash_bwd.cu (head dim 64)
-// and flash_bwd_wide.cu (128 and 256). Head dim 64 is the student under
+// and flash_bwd_tf32_wide.cu (128 and 256). Head dim 64 is the student under
 // autocast; no model of the repo trains bf16 attention at 128 or 256.
 //
 // Replaces, as the rest of K2 does, gd3d/kernels/flash_bwd_fused.py::

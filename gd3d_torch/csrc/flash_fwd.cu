@@ -45,112 +45,55 @@
 //   Tiles of 64 keys (8 x 4 of S and of O per thread, 102 KB, 2 blocks an
 //   SM) were tried: no faster at the decoder, and slower at the encoder,
 //   whose 352 blocks then need a second wave.
-// * fp32 at 128 (the VGGT camera trunk, N = 2 frames):
-//   flash_fwd_kernel, on the fp32 CUDA cores. Four threads own one query
-//   row in registers (one 32-wide part of the head dim each); K/V tiles of
-//   32 keys are staged in shared memory and read back as 16-byte broadcast
-//   vectors.
-// * fp32 at 256 (no path of the repo; the wrapper pads 129..255 to it):
-//   the same kernel with eight threads a row, so a block of 128 threads
-//   owns 16 queries, and K/V tiles of 16 keys, which keeps the two tiles at
-//   36 KB of static shared memory (32-key tiles would pass its 48 KB).
+// * fp32 at 128 (the VGGT camera trunk, N = 2 frames) and 256 (no path of
+//   the repo; the wrapper pads 65..255 to them): flash_fwd_tf32_kernel, on
+//   the tensor cores at fp32 accuracy, as the fp32 K2 (mma.cuh): every
+//   operand split into TF32 hi and lo parts, every product three mma.sync
+//   m16n8k8, whatever torch.backends.cuda.matmul.allow_tf32 says. A block
+//   takes 16 queries a group of warps and walks the keys in tiles of 32. S
+//   = Q K^T leaves P in accumulator fragments, which pass to O += P V as A
+//   fragments (C column 2t as A column t, 2t + 1 as t + 4, a_from_c_tf32;
+//   V's B rows t and t + 4 then hold keys 2t and 2t + 1). A lane owns its
+//   scores, so every exponential is computed once in a warp (one ex2 in
+//   log2 units); the row max takes two shuffles over the row's 4 lanes, and
+//   the row sum stays a per-lane partial until the end. K and V tiles come
+//   in by 16-byte cp.async, zero-filled past M, into raw tiles during the
+//   products on the tile before, and are split once a block into hi and lo
+//   tiles with rows of D + 4 floats (no bank conflicts), whose S-type B
+//   fragments come by ldmatrix. Q stays in registers (fp32, split at use).
+//   The budget: a warp's O takes D / 2 floats a thread (16 rows of D) and
+//   its Q as many, 256 at D = 256. So at 256 a team of 4 warps owns the 16
+//   queries and splits the head dim (FwdPlan, mma.cuh's warp teams): each
+//   runs S over its 64 columns, the team sums the parts (same bits in every
+//   warp), all four run the same softmax, and each runs O += P V into its
+//   64 columns. The kernel is bound by the latency of each warp's chains of
+//   mma.sync more than by the tensor cores, so what counts is the warps an
+//   SM holds.
+//   - D = 128: 4 warps, one a group (64 queries), 100352 bytes of shared
+//     memory, 2 blocks an SM, 234 registers, no spills.
+//   - D = 256: 3 groups of 4 warps (48 queries, 384 threads), 229376
+//     bytes, 1 block of 12 warps an SM, 161 registers, no spills.
+//   The grid, reckoned at the widths' cases: 11 x 8 = 88 blocks at
+//   (2,673,4,128), 15 x 8 = 120 at (2,673,4,256), one wave; 66 x 12 = 792
+//   at (2,4161,6,128), three waves of 264; 87 x 6 = 522 at (2,4161,3,256),
+//   four waves of 132 (the last nearly full); 16 at the camera trunk's
+//   (1,2,16,128), a 2-key tile each.
 //
 // Layout: q, k, v are (B, N, H, D) views read through their strides; o is a
 // contiguous (B, N, H, D) tensor and lse a contiguous (B, H, N) fp32 tensor.
 // D is 64, 128 or 256: the wrapper zero-pads other head dims to the next of
-// the three (kernels/flash_fwd.py). The bf16 and the fp32 head-dim-64 kernels
-// copy 16 bytes at a time (TMA, cp.async): the views' addresses and
-// (B, N, H) steps must fall on 16 bytes (the wrapper copies a view that
-// does not). Ragged sequence lengths (2, 672, 673, 1374, 4161, ...) are
-// masked inside the kernels: keys past M score -inf (their rows are copied
-// as zeros), queries past N are computed but not stored. The CUDA-core
-// kernels' grid: (ceil(N / rows per block), H, B), 128 threads.
+// the three (kernels/flash_fwd.py). Every kernel copies 16 bytes at a time
+// (TMA, cp.async): the views' addresses and (B, N, H) steps must fall on
+// 16 bytes (the wrapper copies a view that does not). Ragged sequence
+// lengths (2, 672, 673, 1374, 4161, ...) are masked inside the kernels:
+// keys past M score -inf (their rows are copied as zeros), queries past N
+// are computed but not stored. The fp32 kernels' grid: (ceil(N / queries a
+// block), H, B).
 #include "common.cuh"
+#include "mma.cuh"
 #include "sm90.cuh"
 
 namespace gd3d {
-
-template <int kParts, int kKeys>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                 float* __restrict__ o, float* __restrict__ lse, int N, int M, int H,
-                 Strides qs, Strides ks, Strides vs, Strides os, float scale_log2) {
-  constexpr int kRowF = kParts * kPad;  // floats per tile row in shared memory
-  constexpr int kRows = kThreads / kParts;
-  __shared__ __align__(16) float Ks[kKeys * kRowF];
-  __shared__ __align__(16) float Vs[kKeys * kRowF];
-
-  const int b = blockIdx.z;
-  const int h = blockIdx.y;
-  const int row = threadIdx.x / kParts;
-  const int part = threadIdx.x % kParts;
-  const int n = blockIdx.x * kRows + row;
-  const bool row_ok = n < N;
-
-  const float* qb = q + b * qs.b + h * qs.h;
-  const float* kb = k + b * ks.b + h * ks.h;
-  const float* vb = v + b * vs.b + h * vs.h;
-
-  // scores are kept in log2 units: s2 = scale * log2(e) * q.k
-  float qr[kHalf];
-  float acc[kHalf];
-#pragma unroll
-  for (int d = 0; d < kHalf; ++d) {
-    qr[d] = row_ok ? qb[n * qs.n + part * kHalf + d] * scale_log2 : 0.f;
-    acc[d] = 0.f;
-  }
-  float m = -INFINITY;
-  float l = 0.f;
-
-  for (int k0 = 0; k0 < M; k0 += kKeys) {
-    __syncthreads();
-    load_tile_parts<float, kParts, kKeys>(Ks, kb, ks.n, k0, M);
-    load_tile_parts<float, kParts, kKeys>(Vs, vb, vs.n, k0, M);
-    __syncthreads();
-
-    float s[kKeys];
-    float tile_max = -INFINITY;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const float dot = parts_dot<kParts>(qr, Ks + j * kRowF + part * kPad);
-      s[j] = (k0 + j < M) ? dot : -INFINITY;
-      tile_max = fmaxf(tile_max, s[j]);
-    }
-    // every tile holds at least one real key, so m_new is finite
-    const float m_new = fmaxf(m, tile_max);
-    const float corr = exp2f(m - m_new);
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < kHalf; ++d) acc[d] *= corr;
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const float p = exp2f(s[j] - m_new);
-      l += p;
-      axpy_row(acc, p, Vs + j * kRowF + part * kPad);
-    }
-    m = m_new;
-  }
-
-  if (row_ok) {
-    const float inv = 1.f / l;
-    float* ob = o + b * os.b + h * os.h + n * os.n + part * kHalf;
-#pragma unroll
-    for (int d = 0; d < kHalf; ++d) ob[d] = acc[d] * inv;
-    if (part == 0) lse[((long long)b * H + h) * N + n] = (m + log2f(l)) * kLn2;
-  }
-}
-
-template <int kParts, int kKeys>
-void launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int B,
-                int N, int M, int H, Strides qs, Strides ks, Strides vs, Strides os,
-                float scale, cudaStream_t stream) {
-  constexpr int kRows = kThreads / kParts;
-  const dim3 grid((N + kRows - 1) / kRows, H, B);
-  flash_fwd_kernel<kParts, kKeys><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), N, M, H,
-      qs, ks, vs, os, scale * kLog2e);
-}
 
 // fp32, head dim 64, register-tiled on the CUDA cores (see the note at the
 // top). Shared memory, in floats: Q (kBQ x kLd), K stages 0 and 1, V stages 0
@@ -335,7 +278,189 @@ cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* o,
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), static_cast<float*>(lse), N, M, H, qs, ks, vs, os,
       scale * kLog2e);
-  return cudaSuccess;
+  return cudaGetLastError();
+}
+
+// fp32 at head dims 128 and 256 on split TF32 (see the note at the top).
+// Shared memory, in floats: the raw K and V tiles that cp.async fills, the
+// split tiles the products read (K hi, K lo, V hi, V lo), and (teams of
+// more than one warp) each warp's part of S.
+namespace tf32_wide {
+template <int D>
+struct FwdPlan {
+  static_assert(D == 128 || D == 256, "kernel widths 128 and 256");
+  static constexpr int kLd = D + 4;                 // floats a row the products read
+  static constexpr int kGroups = D == 128 ? 4 : 3;  // 16-query groups a block
+  static constexpr int kTeam = D == 128 ? 1 : 4;    // warps a group, splitting D
+  static constexpr int kN = 32 * kTeam * kGroups;   // threads a block
+  static constexpr int kRows = 16 * kGroups;        // queries a block
+  static constexpr int kKeys = 32;  // keys a tile
+  static constexpr int kNt = kKeys / 8;             // n-tiles of S
+  static constexpr int kKs = kNt < 4 ? 2 : 1;       // partial sums of S over k-steps
+  static constexpr int kSteps = D / 8 / kTeam;      // k-steps (n-tiles of O) a warp
+  static constexpr int kXF = kTeam > 1 ? tc::team_part_floats<kNt * 4>() : 0;  // a warp's S
+  static constexpr int kRawF = kKeys * D;
+  static constexpr int kSplitF = kKeys * kLd;
+  static constexpr int kSmem = (2 * kRawF + 4 * kSplitF + kTeam * kGroups * kXF) * 4;
+  static constexpr int kBlocks = D == 128 ? 2 : 1;  // blocks an SM
+  static_assert(kBlocks * (kSmem + 1024) <= 233472, "shared memory an SM");
+};
+}  // namespace tf32_wide
+
+template <int D>
+__global__ void __launch_bounds__(tf32_wide::FwdPlan<D>::kN, tf32_wide::FwdPlan<D>::kBlocks)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int N, int M, int H, Strides qs, Strides ks,
+                      Strides vs, Strides os, float scale_log2) {
+  using P = tf32_wide::FwdPlan<D>;
+  constexpr int kLd = P::kLd, kKeys = P::kKeys, kNt = P::kNt, kKs = P::kKs, kN = P::kN;
+  constexpr int kSteps = P::kSteps, kTeam = P::kTeam;
+  extern __shared__ __align__(16) float smem_f[];
+  float* rawK = smem_f;
+  float* rawV = rawK + P::kRawF;
+  float* Khi = rawV + P::kRawF;
+  float* Klo = Khi + P::kSplitF;
+  float* Vhi = Klo + P::kSplitF;
+  float* Vlo = Vhi + P::kSplitF;
+  float* xch = Vlo + P::kSplitF;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int group = warp % P::kGroups;  // the 16 queries
+  const int part = warp / P::kGroups;   // the part of the head dim
+  const int b = blockIdx.z;
+  const int h = blockIdx.y;
+  const int q0 = blockIdx.x * P::kRows;
+  const float* kb = k + b * ks.b + h * ks.h;
+  const float* vb = v + b * vs.b + h * vs.h;
+  auto copy_tile = [&](int j0) {
+    tc::copy_rows_async<kKeys, D, D, kN>(smem_u32(rawK), kb, ks.n, j0, M);
+    tc::copy_rows_async<kKeys, D, D, kN>(smem_u32(rawV), vb, vs.n, j0, M);
+    cp_async_commit();
+  };
+  copy_tile(0);
+  // the group's 16 queries over this warp's part of the head dim: A
+  // fragments in fp32, split at use
+  float qf[kSteps][4];
+  tc::load_a_rows(qf, q + b * qs.b + h * qs.h + part * kSteps * 8, qs.n, q0 + group * 16, N,
+                  lane);
+  float* team_xch = xch + group * kTeam * P::kXF;
+  const uint32_t kb_lane = tc::b_lane_addr<kLd>(Khi, Klo, lane);
+
+  float acc[kSteps][4] = {};  // O, rows g and g + 8, this warp's columns
+  float m[2] = {-INFINITY, -INFINITY};  // row maxima in log2 units
+  float l[2] = {0.f, 0.f};              // this lane's part of the row sums
+  const int n_tiles = (M + kKeys - 1) / kKeys;
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j has landed; every warp is done with tile j - 1
+    tc::split_rows<kKeys, D, kLd, kN>(rawK, Khi, Klo);
+    tc::split_rows<kKeys, D, kLd, kN>(rawV, Vhi, Vlo);
+    __syncthreads();
+    if (j + 1 < n_tiles) copy_tile((j + 1) * kKeys);  // during the products
+
+    float s[kKs][1][kNt][4] = {};  // S: 16 queries x kKeys keys, this warp's part
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const tc::SplitA qa = tc::split_a(qf[u][0], qf[u][1], qf[u][2], qf[u][3]);
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt) {
+        uint32_t bk[4];
+        tc::ldmatrix_x4(bk, kb_lane + (nt * 8 * kLd + 8 * (part * kSteps + u)) * 4);
+        tc::mma_split(s[u % kKs][0][nt], qa, bk);
+      }
+    }
+    if constexpr (kKs == 2) {
+#pragma unroll
+      for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[0][0][nt][e] += s[1][0][nt][e];
+    }
+    tc::team_sum<kTeam>(s[0], team_xch, part, group, lane);  // the whole S, in every warp
+    float (&sc)[kNt][4] = s[0][0];
+    // online softmax over the tile in log2 units, the same in every warp;
+    // keys past M score -inf (every tile holds a real key, so the new
+    // maxima are finite)
+    const int k0 = j * kKeys;
+    const bool ragged = k0 + kKeys > M;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool past = ragged && k0 + nt * 8 + 2 * t + (e & 1) >= M;
+        sc[nt][e] = past ? -INFINITY : sc[nt][e] * scale_log2;
+        mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // over the row's 4 lanes
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float corr = fast_exp2(m[r] - mx[r]);
+      m[r] = mx[r];
+      l[r] *= corr;
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        acc[u][2 * r] *= corr;
+        acc[u][2 * r + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int nt = 0; nt < kNt; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // one exponential a score
+        const float p = fast_exp2(sc[nt][e] - m[e >> 1]);
+        l[e >> 1] += p;
+        sc[nt][e] = p;
+      }
+    // O += P V into this warp's columns, over the tile's keys 8 at a time
+    // (keys 2t, 2t + 1 in B's rows t, t + 4, head dims g of each 8)
+#pragma unroll
+    for (int kq = 0; kq < kNt; ++kq) {
+      const tc::SplitA pa = tc::a_from_c_tf32(sc[kq]);
+#pragma unroll
+      for (int u = 0; u < kSteps; ++u) {
+        const int o0 = (kq * 8 + 2 * t) * kLd + 8 * (part * kSteps + u) + g;
+        uint32_t bv[4];
+        tc::load_b(bv, Vhi, Vlo, o0, o0 + kLd);
+        tc::mma_split(acc[u], pa, bv);
+      }
+    }
+  }
+
+  float* ob = o + b * os.b + h * os.h + part * kSteps * 8;
+  float* lse_bh = lse + ((long long)b * H + h) * N;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    const int n = q0 + group * 16 + g + 8 * r;
+    if (n >= N) continue;
+    const float inv = 1.f / l[r];
+    float* row = ob + n * os.n + 2 * t;
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u)
+      *reinterpret_cast<float2*>(row + 8 * u) =
+          make_float2(acc[u][2 * r] * inv, acc[u][2 * r + 1] * inv);
+    if (t == 0 && part == 0) lse_bh[n] = (m[r] + log2f(l[r])) * kLn2;
+  }
+}
+
+template <int D>
+cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v, void* o, void* lse,
+                            int B, int N, int M, int H, Strides qs, Strides ks, Strides vs,
+                            Strides os, float scale, cudaStream_t stream) {
+  using P = tf32_wide::FwdPlan<D>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + P::kRows - 1) / P::kRows, H, B);
+  flash_fwd_tf32_kernel<D><<<grid, P::kN, P::kSmem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(o), static_cast<float*>(lse), N, M, H, qs, ks, vs, os,
+      scale * kLog2e);
+  return cudaGetLastError();
 }
 
 }  // namespace gd3d
@@ -355,13 +480,12 @@ extern "C" int gd3d_flash_fwd(const void* q, const void* k, const void* v, void*
   if (is_bf16)  // head dims 64, 128 and 256
     return static_cast<int>(
         sm90::launch_fwd_bf16(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, os, scale, st));
-  if (D == kD) {
-    const cudaError_t err =
-        launch_fwd_f32(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  } else if (D == 128)
-    launch_fwd<4, 32>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
-  else  // head dim 256
-    launch_fwd<8, 16>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err;
+  if (D == kD)  // fp32 at 64: the CUDA cores
+    err = launch_fwd_f32(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
+  else if (D == 128)  // fp32 at 128 and 256: split TF32 on mma.sync
+    err = launch_fwd_tf32<128>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
+  else
+    err = launch_fwd_tf32<256>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
+  return static_cast<int>(err);
 }

@@ -2,9 +2,9 @@
 
 Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_bwd_sm90.cu (bf16 at
 every kernel width, 64, 128 and 256: TMA, wgmma and warp specialisation),
-flash_bwd.cu (fp32 at 64: three TF32 products for each fp32 one on the
-tensor cores) and flash_bwd_wide.cu (fp32 at 128 and 256, on the CUDA
-cores), which replace gd3d/kernels/flash_bwd_fused.py::
+flash_bwd.cu (fp32 at 64) and flash_bwd_tf32_wide.cu (fp32 at 128 and 256),
+both three TF32 products for each fp32 one on the tensor cores, which
+replace gd3d/kernels/flash_bwd_fused.py::
 flash_attention_bwd_fused. gd3d's kernel sums per-KV-block dQ partials
 after one pass; the port runs a dK/dV kernel and a second, dQ kernel (see
 the source notes), which is deterministic. The wrapper zero-pads q, k, v

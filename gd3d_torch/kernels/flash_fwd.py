@@ -2,8 +2,8 @@
 
 Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_fwd_sm90.cu (bf16 at
 every kernel width, 64, 128 and 256: TMA, wgmma and warp specialisation)
-and flash_fwd.cu (fp32: the register-tiled kernel at 64, the CUDA-core
-kernel at 128 and 256), which replace the stock TPU Pallas flash forward
+and flash_fwd.cu (fp32: the register-tiled CUDA-core kernel at 64, split
+TF32 on mma.sync at 128 and 256), which replace the stock TPU Pallas flash forward
 that gd3d reaches through gd3d/ops/attention.py::_flash_call.
 `flash_attention_fwd_plain` is its plain PyTorch twin: the CPU path, and the
 oracle the kernel is checked against.
@@ -12,10 +12,9 @@ The kernels take head dims 64, 128 and 256; gd3d's flash takes any. The
 wrapper zero-pads q, k and v along D to the next kernel width (`fwd_padded`),
 which is exact: zero columns leave Q K^T and the LSE unchanged, and O's
 padded columns come out 0 and are cut off. Wider head dims raise. A view
-the kernels cannot read as it is (its last dim strided, or, for the bf16
-kernels' TMA copies and the fp32 head-dim-64 kernel's cp.async, its address
-or a (B, N, H) step off 16 bytes) is copied to a fresh contiguous tensor
-first (`fit_views`). A failed build or launch raises; nothing falls back to
+the kernels cannot read as it is (its last dim strided, or, for the 16-byte
+copies every kernel makes (TMA, cp.async), its address or a (B, N, H) step
+off 16 bytes) is copied to a fresh contiguous tensor first (`fit_views`). A failed build or launch raises; nothing falls back to
 another kernel or to the plain twin.
 """
 from __future__ import annotations
@@ -81,9 +80,9 @@ def check_views(*ts: torch.Tensor, head_dims=HEAD_DIMS, fp32_copies_16: bool = F
     """The layout the flash kernels take, on any device: tensors of one dtype
     (fp32 or bf16), (B, N, H, D) with D in `head_dims` and a contiguous last
     dim. bf16 views must be `aligned_16`, and with `fp32_copies_16` (K1 and
-    K2, whose fp32 head-dim-64 kernels copy 16 bytes at a time) fp32 views of
-    head dim 64 too. It raises where a view does not fit (the wrappers pass
-    it views that `fit_views` and `fwd_padded` made fit)."""
+    K2, whose fp32 kernels copy 16 bytes at a time at every width) fp32
+    views too. It raises where a view does not fit (the wrappers pass it
+    views that `fit_views` and `fwd_padded` made fit)."""
     t0 = ts[0]
     for t in ts:
         if t.dtype != t0.dtype or t.dtype not in DTYPES:
@@ -94,8 +93,7 @@ def check_views(*ts: torch.Tensor, head_dims=HEAD_DIMS, fp32_copies_16: bool = F
             raise ValueError(f"flash kernels take (B, N, H, D) views with D in "
                              f"{head_dims} and a contiguous last dim, got shape "
                              f"{tuple(t.shape)} strides {t.stride()}")
-        copies_16 = t.dtype == torch.bfloat16 or (fp32_copies_16 and t.shape[-1] == 64)
-        if copies_16 and not aligned_16(t):
+        if (t.dtype == torch.bfloat16 or fp32_copies_16) and not aligned_16(t):
             raise ValueError(f"this flash kernel copies 16-byte chunks: the "
                              f"{t.dtype} view's address and its (B, N, H) steps must "
                              f"fall on 16 bytes, got offset {t.data_ptr() % 16} strides "

@@ -15,30 +15,32 @@ per setting and run: the median device time in ms of each case, and a
 one-element add timed the same way ("floor", what a launch costs with no
 work).
 
-    python3 -m gd3d_torch.kernels.sweep k2 [--parent OTHER/csrc]
+    python3 -m gd3d_torch.kernels.sweep k2 [--parent OTHER/csrc ...]
 
 The fp32 K2 (K2_SETTINGS): its TF32 passes (GD3D_TF32_PASSES in
 csrc/mma.cuh: 3, the split-precision build, or 1, single-pass TF32) and
 the rows a warp takes at a time (GD3D_TF32_CHUNK in csrc/flash_bwd.cu: 32
-or 16); the shipped defaults, p3 c32, come first. With --parent another
-revision's csrc/flash_bwd.cu is built beside them (with its own
-flash_bwd_sm90.cu, the bf16 route it links to, where it has one, and its
-own headers). Each build is held to the plain twin at the fp32 student's
-four lengths (tolerance 1e-4 of max(1, max |plain|)) and at (2, 673, 3, 64)
-to the tight bound TIGHT (2e-5); the 1-pass build is expected to miss both
-and is only reported. Then each is timed at the four lengths, in order and
+or 16); the shipped defaults, p3 c32, come first. With each --parent
+another revision's csrc/flash_bwd*.cu (flash_bwd.cu with the routes it
+links to, and its own headers) is built beside them. Each build is held to
+the plain twin at the fp32 student's four lengths (tolerance 1e-4 of max(1,
+max |plain|)) and at (2, 673, 3, 64) to the tight bound TIGHT (2e-5); the
+1-pass build is expected to miss both and is only reported. Then each is timed at the four lengths, in order and
 again in reverse. To compare whole steps, run two revisions' chip_smoke.py
 in one call.
 
-    python3 -m gd3d_torch.kernels.sweep wide [--parent OTHER/csrc]
+    python3 -m gd3d_torch.kernels.sweep wide [--parent OTHER/csrc ...]
 
-The bf16 K1 and K2 at head dims 128 and 256 (and 64, the student's, as the
-yardstick), through gd3d_flash_fwd / gd3d_flash_bwd: the shipped build of
-WIDE_SOURCES and, with --parent, another revision's, built and timed the
-same way as k2's. Each is held at every one of WIDE_CASES to the plain
-twins (a single 64 x 64 tile first; bf16 tolerance 1e-2, LSE 1e-4, of
-max(1, max |plain|)); then K1 and K2 are timed at each case, and K2's two
-kernels apart at the long cases (torch.profiler).
+K1 and K2 in bf16 and in fp32 at head dims 128 and 256 (and 64, the
+student's, as the yardstick), through gd3d_flash_fwd / gd3d_flash_bwd: the
+shipped build of the flash sources (csrc/flash_*.cu) and, with each
+--parent, another revision's, built from that revision's own flash sources
+and timed the same way as k2's (a scratch copy whose plans are changed
+times another plan: csrc/flash_fwd.cu's FwdPlan, flash_bwd_tf32_wide.cu's
+Plan, sm90.cuh's wide_tiles). Each is held at every one of WIDE_CASES to
+the plain twins (a single 64 x 64 tile first; tolerance of max(1, max
+|plain|): bf16 1e-2, fp32 1e-4, LSE 1e-4); then K1 and K2 are timed at
+each case, and K2's kernels apart at the long cases (torch.profiler).
 """
 from __future__ import annotations
 
@@ -169,21 +171,27 @@ TIGHT = 2e-5  # the card test's bound at (2, 673, 3, 64)
 
 # (TF32 passes, chunk rows); the shipped build first
 K2_SETTINGS = ((3, 32), (1, 32), (3, 16))
-K2_SOURCES = ("flash_bwd.cu", "flash_bwd_sm90.cu")
+K2_SOURCES = "flash_bwd*.cu"  # gd3d_flash_bwd and the launchers it calls
 
 
-def variants(tag: str, sources, settings, parent: str | None):
-    """(name, library, sources, flags) of each build of `sources` (names in
-    csrc/): one for each (name, flags) of `settings`, and with `parent`
-    (another revision's csrc directory) one of the parent's copies of those
-    sources that it has."""
-    src = [build.CSRC_DIR / name for name in sources]
+def revision_name(csrc: str) -> str:
+    """A build's name for another revision's csrc directory: the directory
+    that holds its package (outputs/parent/gd3d_torch/csrc -> "parent")."""
+    return Path(csrc).resolve().parents[1].name
+
+
+def variants(tag: str, pattern: str, settings, parents):
+    """(name, library, sources, flags) of each build of the csrc sources
+    that `pattern` matches: one for each (name, flags) of `settings`, and
+    for each of `parents` (other revisions' csrc directories) one of the
+    sources it holds that match."""
+    src = sorted(build.CSRC_DIR.glob(pattern))
     out = [(name, build.library_path().with_name(f"libgd3d_sweep_{tag}_{i}.so"), src, flags)
            for i, (name, flags) in enumerate(settings)]
-    if parent:
-        out.append(("parent", build.library_path().with_name(f"libgd3d_sweep_{tag}_parent.so"),
-                    [p for p in (Path(parent).resolve() / name for name in sources)
-                     if p.exists()], ()))
+    for parent in parents or ():
+        name = revision_name(parent)
+        out.append((name, build.library_path().with_name(f"libgd3d_sweep_{tag}_{name}.so"),
+                    sorted(Path(parent).resolve().glob(pattern)), ()))
     return out
 
 
@@ -261,13 +269,13 @@ def k2_cases(dev):
     return out
 
 
-def k2(dev, parent: str | None) -> int:
+def k2(dev, parents) -> int:
     libs = build_all(variants(
         "k2", K2_SOURCES, [(f"p{p} c{c}", (f"-DGD3D_TF32_PASSES={p}", f"-DGD3D_TF32_CHUNK={c}"))
-                           for p, c in K2_SETTINGS], parent))
+                           for p, c in K2_SETTINGS], parents))
     with no_tf32():  # the plain twin in full fp32
         work = k2_cases(dev)
-    ok = True
+    ok, shipped = True, {f"p{p} c{c}" for p, c in K2_SETTINGS}
     for name, lib in libs.items():
         errs = {case: err_over_max(k2_call(lib, *args), want)
                 for case, (args, want) in work.items()}
@@ -276,7 +284,7 @@ def k2(dev, parent: str | None) -> int:
         print(json.dumps({"k2": name, "err_over_max": errs, "within_1e-4": within,
                           "within_tight": tight}), flush=True)
         if not name.startswith("p1 "):
-            ok &= within and (tight or name == "parent")
+            ok &= within and (tight or name not in shipped)
     if not ok:
         print("sweep: a K2 build disagrees with its plain twin", file=sys.stderr)
         return 1
@@ -285,47 +293,50 @@ def k2(dev, parent: str | None) -> int:
     return 0
 
 
-# ------------------------------------------------------- bf16 K1 / K2 wide
-# the sources of gd3d_flash_fwd and gd3d_flash_bwd
-WIDE_SOURCES = ("flash_fwd.cu", "flash_fwd_sm90.cu", "flash_bwd.cu", "flash_bwd_sm90.cu",
-                "flash_bwd_wide.cu")
-# (B, N, H, D): one tile at each new width, ragged lengths, chip_smoke.py's
-# wide cases, the student's width 768 re-headed, and its head-dim-64 pass
+# ------------------------------------------------------------ K1 / K2 wide
+# (B, N, H, D): one tile at each wide width, ragged lengths, chip_smoke.py's
+# wide cases, the student's width 768 re-headed, its head-dim-64 pass, and
+# the VGGT camera trunk (fp32 at 128 on a main path)
 WIDE_CASES = ((1, 64, 1, 128), (1, 64, 1, 256), (1, 81, 2, 128), (1, 81, 2, 256),
               (2, 673, 4, 128), (2, 673, 4, 256), (2, 4161, 6, 128), (2, 4161, 3, 256),
-              (2, 4161, 12, 64))
+              (2, 4161, 12, 64), (1, 2, 16, 128))
+WIDE_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 
 def wide_cases(dev):
-    """(B, N, H, D) -> (operands of K2, plain O and LSE, plain gradients),
-    bf16, M = N."""
+    """(dtype name, B, N, H, D) -> (operands of K2, plain O and LSE, plain
+    gradients), bf16 and fp32, M = N."""
     g = torch.Generator(device=dev).manual_seed(1234)
     out = {}
-    for B, N, H, D in WIDE_CASES:
-        q, k, v, do = (torch.randn((B, N, H, D), generator=g, device=dev).bfloat16()
-                       for _ in range(4))
-        scale = D ** -0.5
-        o, lse = flash_attention_fwd_plain(q, k, v, scale)
-        di = torch.einsum("bnhd,bnhd->bhn", o.float(), do.float()).contiguous()
-        args = (q, k, v, lse, do, di, scale)
-        out[(B, N, H, D)] = (args, (o, lse), flash_attention_bwd_plain(*args))
+    for dt in (torch.bfloat16, torch.float32):
+        for B, N, H, D in WIDE_CASES:
+            q, k, v, do = (torch.randn((B, N, H, D), generator=g, device=dev).to(dt)
+                           for _ in range(4))
+            scale = D ** -0.5
+            o, lse = flash_attention_fwd_plain(q, k, v, scale)
+            di = torch.einsum("bnhd,bnhd->bhn", o.float(), do.float()).contiguous()
+            args = (q, k, v, lse, do, di, scale)
+            out[(str(dt).removeprefix("torch."), B, N, H, D)] = (
+                args, (o, lse), flash_attention_bwd_plain(*args))
     return out
 
 
-def wide(dev, parent: str | None) -> int:
-    libs = build_all(variants("wide", WIDE_SOURCES, (("shipped", ()),), parent))
-    work = wide_cases(dev)
+def wide(dev, parents) -> int:
+    libs = build_all(variants("wide", "flash_*.cu", (("shipped", ()),), parents))
+    with no_tf32():  # the plain twins in full fp32
+        work = wide_cases(dev)
     ok = True
     for name, lib in libs.items():
         errs = {}
         for case, (args, (o, lse), grads) in work.items():
             q, k, v, _, _, _, scale = args
             got = k1_call(lib, q, k, v, scale)
-            errs[str(case)] = {"o": err_over_max(got[:1], (o,)),
-                               "lse": err_over_max(got[1:], (lse,)),
-                               "grads": err_over_max(k2_call(lib, *args), grads)}
-        within = all(e["o"] <= 1e-2 and e["lse"] <= 1e-4 and e["grads"] <= 1e-2
-                     for e in errs.values())
+            e = {"o": err_over_max(got[:1], (o,)), "lse": err_over_max(got[1:], (lse,)),
+                 "grads": err_over_max(k2_call(lib, *args), grads)}
+            tol = WIDE_TOL[q.dtype]
+            e["ok"] = e["o"] <= tol and e["lse"] <= 1e-4 and e["grads"] <= tol
+            errs[str(case)] = e
+        within = all(e["ok"] for e in errs.values())
         print(json.dumps({"wide": name, "ok": within, "err_over_max": errs}), flush=True)
         ok &= within
     if not ok:
@@ -333,13 +344,13 @@ def wide(dev, parent: str | None) -> int:
         return 1
     calls = {}
     for case, (args, _, _) in work.items():
-        iters = 10 if case[1] > 1000 else 30
+        iters = 10 if case[2] > 1000 else 30
         calls[f"K1 {case}"] = (lambda lib, a=args: k1_call(lib, *a[:3], a[6]), iters)
         calls[f"K2 {case}"] = (lambda lib, a=args: k2_call(lib, *a), iters)
     time_turns("wide", libs, calls)
     for name, lib in libs.items():  # K2's two kernels apart, at the long cases
         for case, (args, _, _) in work.items():
-            if case[1] > 1000:
+            if case[2] > 1000:
                 split = kernel_ms(lambda: k2_call(lib, *args))
                 print(json.dumps({"wide": name, "case": str(case), "K2 kernels ms": split}),
                       flush=True)
@@ -364,7 +375,8 @@ def kernel_ms(fn, iters: int = 10) -> dict:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("what", nargs="?", choices=("k5k3", "k2", "wide"), default="k5k3")
-    ap.add_argument("--parent", help="another revision's csrc directory (k2, wide)")
+    ap.add_argument("--parent", action="append",
+                    help="another revision's csrc directory (k2, wide); may be repeated")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("sweep: no CUDA device", file=sys.stderr)

@@ -162,9 +162,10 @@ def test_check_views_accepts_the_fp32_layouts_the_models_pass(layout):
 
 @pytest.mark.parametrize("how", ["row_step", "address"])
 def test_check_views_refuses_misaligned_fp32_views(how):
-    """An fp32 head-dim-64 view whose address or row step is off 16 bytes
-    raises (nothing is copied to make it fit); K2's fp32 kernel and the
-    head-dim-128 kernel read 4 bytes at a time and take it."""
+    """An fp32 view whose address or row step is off 16 bytes raises
+    (nothing is copied to make it fit), at head dim 64 and at 128, since the
+    fp32 K1 and K2 copy 16 bytes at a time at every width; without
+    fp32_copies_16 only the layout is checked, and it fits."""
     if how == "row_step":
         wide = torch.zeros((1, 70, 3 * 2 * 64 + 2))  # row step 386 * 4 bytes
         bad = wide[..., :384].reshape(1, 70, 3, 2, 64)[:, :, 0]
@@ -174,6 +175,7 @@ def test_check_views_refuses_misaligned_fp32_views(how):
     assert not aligned_16(bad)
     with pytest.raises(ValueError, match="16 bytes"):
         check_views(ok, bad, ok, fp32_copies_16=True)
-    check_views(ok, bad, ok, head_dims=(64,))  # K2 fp32: no 16-byte copies
+    check_views(ok, bad, ok, head_dims=(64,))  # the layout alone
     wide128 = torch.zeros((1, 70, 2 * 128 + 2))[..., :256].reshape(1, 70, 2, 128)
-    check_views(wide128, wide128, wide128, fp32_copies_16=True)  # head dim 128
+    with pytest.raises(ValueError, match="16 bytes"):  # head dim 128
+        check_views(wide128, wide128, wide128, fp32_copies_16=True)

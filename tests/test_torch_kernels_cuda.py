@@ -17,9 +17,10 @@ kernel width (64, 128 and 256). The wrappers
 zero-pad head dims below the kernels' widths and copy views off 16 bytes;
 the tests below that once held a refusal of such a view now hold the copied
 route to the plain twin. The fp32
-K2 runs on the tensor cores as three TF32 products for each fp32 product
-(split operands); `test_flash_bwd_fp32_keeps_fp32_precision` holds it to
-TIGHT_K2, which single-pass TF32 misses by more than 10x.
+K2, and the fp32 K1 at 128 and 256, run on the tensor cores as three TF32
+products for each fp32 product (split operands);
+`test_flash_bwd_fp32_keeps_fp32_precision` holds K2 to TIGHT_K2, which
+single-pass TF32 misses by more than 10x.
 """
 import pytest
 import torch
@@ -177,31 +178,31 @@ def test_flash_kernels_at_other_head_dims_match_plain(dev, dtype, D):
         assert_close(a, b, dtype)
 
 
-# Head dims the wrapper runs at the bf16 Hopper kernels' widths 128 and 256
-# (65..128 and 129..256 zero-padded; 72, 80 and 104 are common ViT-H,
-# SigLIP and bigG head dims), and lengths off their 64-key tiles
+# Head dims the wrapper runs at the kernel widths 128 and 256 (65..128 and
+# 129..256 zero-padded; 72, 80 and 104 are common ViT-H, SigLIP and bigG
+# head dims), and lengths off the kernels' 16-, 32- and 64-row tiles
 WIDE_DIMS = [65, 72, 80, 96, 104, 128, 129, 160, 192, 256]
 WIDE_LENGTHS = LENGTHS + [(64, 80), (100, 81), (81, 673)]
 
 
-def _wide_views(g, B, N, M, H, D, dev):
-    """q from one projection, k and v from another, bf16 (B, N|M, H, D)."""
-    q = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(torch.bfloat16)[:, :, 0]
-    kv = torch.randn((B, M, 3, H, D), generator=g, device=dev).to(torch.bfloat16)
+def _wide_views(g, B, N, M, H, D, dev, dtype=torch.bfloat16):
+    """q from one projection, k and v from another, (B, N|M, H, D)."""
+    q = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(dtype)[:, :, 0]
+    kv = torch.randn((B, M, 3, H, D), generator=g, device=dev).to(dtype)
     return q, kv[:, :, 1], kv[:, :, 2]
 
 
-def _check_bf16_k1_k2(q, k, v, g, dev):
+def _check_k1_k2(q, k, v, g, dev):
     """K1 and K2 (one launch each) against the plain twins at the caller's
-    scale; returns K2's operands."""
-    scale = q.shape[-1] ** -0.5
+    scale, to the tolerance of q's dtype; returns K2's operands."""
+    dtype, scale = q.dtype, q.shape[-1] ** -0.5
     before = launch_counts()
     o, lse = flash_attention_fwd(q, k, v, scale)
     o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
     assert o.shape == q.shape
-    assert_close(o, o_ref, torch.bfloat16)
+    assert_close(o, o_ref, dtype)
     assert_close(lse, lse_ref, torch.float32)
-    do = torch.randn(q.shape, generator=g, device=dev).to(torch.bfloat16)
+    do = torch.randn(q.shape, generator=g, device=dev).to(dtype)
     di = torch.einsum("bnhd,bnhd->bhn", o_ref.float(), do.float()).contiguous()
     args = (q, k, v, lse_ref, do, di, scale)
     grads = flash_attention_bwd_fused(*args)
@@ -209,8 +210,18 @@ def _check_bf16_k1_k2(q, k, v, g, dev):
     assert (after["K1"] - before["K1"], after["K2"] - before["K2"]) == (1, 1)
     for a, b in zip(grads, flash_attention_bwd_plain(*args)):
         assert a.shape == b.shape
-        assert_close(a, b, torch.bfloat16)
+        assert_close(a, b, dtype)
     return args
+
+
+def _misaligned_wide(g, D, dtype, dev):
+    """(1, 70, 2, D) views off 16 bytes: a row step 8 bytes past a multiple
+    of 16 (a slice of a wider projection) and an address one element in."""
+    elt = torch.finfo(dtype).bits // 8
+    wide = torch.randn((1, 70, 3 * 2 * D + 8 // elt), generator=g, device=dev).to(dtype)
+    row_step = wide[..., :6 * D].reshape(1, 70, 3, 2, D)[:, :, 0]
+    flat = torch.randn((70 * 2 * D + 1,), generator=g, device=dev).to(dtype)
+    return row_step, flat[1:].view(1, 70, 2, D)
 
 
 @pytest.mark.cuda
@@ -222,7 +233,27 @@ def test_bf16_flash_kernels_at_wide_head_dims_match_plain(dev, D, N, M):
     product), over lengths that straddle the 64- and 128-row blocks and the
     64- and 128-key tiles, with M != N."""
     g = torch.Generator(device=dev).manual_seed(N * 1000 + M + D)
-    _check_bf16_k1_k2(*_wide_views(g, 2, N, M, 3, D, dev), g, dev)
+    _check_k1_k2(*_wide_views(g, 2, N, M, 3, D, dev), g, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", WIDE_DIMS)
+@pytest.mark.parametrize("N,M", WIDE_LENGTHS)
+def test_fp32_flash_kernels_at_wide_head_dims_match_plain(dev, D, N, M):
+    """The fp32 K1 and K2 on split TF32 (mma.sync) at kernel widths 128 and
+    256, over lengths that straddle their 64-row blocks and their 16- and
+    32-row streamed tiles, with M != N: fp32 accuracy (tol 1e-4), LSE
+    included."""
+    g = torch.Generator(device=dev).manual_seed(N * 1000 + M + D + 7)
+    _check_k1_k2(*_wide_views(g, 2, N, M, 3, D, dev, torch.float32), g, dev)
+
+
+def _check_misaligned_wide(D, dtype, dev):
+    g = torch.Generator(device=dev).manual_seed(300 + D)
+    ok = torch.randn((1, 70, 2, D), generator=g, device=dev).to(dtype)
+    for bad in _misaligned_wide(g, D, dtype, dev):
+        for qkv in ((bad, ok, ok), (ok, bad, ok), (ok, ok, bad)):
+            _check_k1_k2(*qkv, g, dev)
 
 
 @pytest.mark.cuda
@@ -231,15 +262,24 @@ def test_bf16_flash_kernels_copy_misaligned_wide_views(dev, D):
     """Views whose row step or address is off 16 bytes, which TMA cannot
     read: the wrappers copy them (padding does, below 128 and 256), and K1
     and K2 on them equal their plain twins."""
-    g = torch.Generator(device=dev).manual_seed(300 + D)
-    wide = torch.randn((1, 70, 3 * 2 * D + 4), generator=g, device=dev).to(torch.bfloat16)
-    row_step = wide[..., :6 * D].reshape(1, 70, 3, 2, D)[:, :, 0]
-    flat = torch.randn((70 * 2 * D + 1,), generator=g, device=dev).to(torch.bfloat16)
-    shifted = flat[1:].view(1, 70, 2, D)
-    ok = torch.randn((1, 70, 2, D), generator=g, device=dev).to(torch.bfloat16)
-    for bad in (row_step, shifted):
-        for qkv in ((bad, ok, ok), (ok, bad, ok), (ok, ok, bad)):
-            _check_bf16_k1_k2(*qkv, g, dev)
+    _check_misaligned_wide(D, torch.bfloat16, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [72, 128, 256])
+def test_fp32_flash_kernels_copy_misaligned_wide_views(dev, D):
+    """The same for fp32, whose kernels at 128 and 256 copy 16 bytes at a
+    time (cp.async): the wrappers copy such a view, and K1 and K2 on it
+    equal their plain twins at fp32 accuracy."""
+    _check_misaligned_wide(D, torch.float32, dev)
+
+
+def _check_repeats_wide(D, N, dtype, dev):
+    g = torch.Generator(device=dev).manual_seed(N + D)
+    args = _check_k1_k2(*_wide_views(g, 2, N, N, 768 // D, D, dev, dtype), g, dev)
+    first = flash_attention_bwd_fused(*args)
+    second = flash_attention_bwd_fused(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
 
 
 @pytest.mark.cuda
@@ -249,11 +289,17 @@ def test_bf16_flash_bwd_repeats_at_wide_head_dims(dev, D, N):
     """The bf16 K2 at widths 128 and 256 sums in a fixed order (no atomics;
     at 256 two warpgroups hold halves of dK and dV): two calls give the same
     bits, at the student's width 768 re-headed (H = 768 / D)."""
-    g = torch.Generator(device=dev).manual_seed(N + D)
-    args = _check_bf16_k1_k2(*_wide_views(g, 2, N, N, 768 // D, D, dev), g, dev)
-    first = flash_attention_bwd_fused(*args)
-    second = flash_attention_bwd_fused(*args)
-    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    _check_repeats_wide(D, N, torch.bfloat16, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("N", [673, 4161])
+def test_fp32_flash_bwd_repeats_at_wide_head_dims(dev, D, N):
+    """The fp32 K2 at widths 128 and 256 (split TF32; at 256 dV and dK in
+    two sweeps) sums in a fixed order with no atomics: two calls give the
+    same bits, at the student's width 768 re-headed."""
+    _check_repeats_wide(D, N, torch.float32, dev)
 
 
 def _misaligned(dtype, dev, g):

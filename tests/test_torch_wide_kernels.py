@@ -21,6 +21,7 @@ terms per output in another order; padded zero columns add exact zeros);
 K4 as tests/test_torch_pairwise_rank.py (sums rtol 2e-5 / atol 2e-4,
 counts exact, gradients rtol 5e-4 / atol 5e-6).
 """
+import re
 from pathlib import Path
 
 import jax
@@ -34,7 +35,8 @@ from gd3d.kernels.pairwise_rank import _pairwise_rank_sums, pairwise_ranking_sum
 from gd3d.ops.attention import scaled_dot_attention as jax_attention
 from gd3d_torch.kernels.flash_bwd_fused import bwd_padded, flash_attention_bwd_plain
 from gd3d_torch.kernels.flash_fwd import (
-    HEAD_DIMS, flash_attention_fwd_plain, fwd_padded, kernel_width)
+    HEAD_DIMS, aligned_16, check_views, fit_views, flash_attention_fwd_plain, fwd_padded,
+    kernel_width)
 from gd3d_torch.kernels.pairwise_rank import (
     pairwise_rank_bwd_plain, pairwise_rank_sums_plain, pairwise_ranking_sums)
 from torch_threads import one_torch_thread  # noqa: F401
@@ -142,29 +144,52 @@ def _in_order(text: str, *parts: str) -> None:
 def test_entry_points_send_each_head_dim_to_its_kernel():
     """gd3d_flash_fwd: bf16 at every width (64, 128, 256) -> the Hopper
     kernels on TMA and wgmma (flash_fwd_sm90.cu); fp32 at 64 -> the
-    register-tiled kernel, at 128 -> the CUDA-core kernel with 4 threads a
-    row, at 256 -> the same kernel with 8 threads a row and 16-key tiles.
-    gd3d_flash_bwd: bf16 at every width -> the Hopper kernels
-    (flash_bwd_sm90.cu); fp32 at 128 and 256 -> flash_bwd_wide.cu's
-    CUDA-core kernels, fp32 only; fp32 at 64 -> split TF32. The
-    Hopper launchers instantiate their wgmma kernels at 64, 128 and 256."""
+    register-tiled CUDA-core kernel, at 128 and 256 -> flash_fwd_tf32_kernel
+    on split TF32. gd3d_flash_bwd: bf16 at every width -> the Hopper kernels
+    (flash_bwd_sm90.cu); fp32 at 128 and 256 -> flash_bwd_tf32_wide.cu's
+    kernel (both passes, warp teams summing their parts of S^T and dP^T),
+    at 64 -> flash_bwd.cu's, all split TF32. The fp32 kernels at 128 and
+    256 run every product as mma.sync on TF32 hi and lo parts (mma_split),
+    and no CUDA-core attention kernel is left at those widths: fp32 K1 at
+    64 is the only CUDA-core one. The Hopper launchers instantiate their
+    wgmma kernels at 64, 128 and 256."""
     text = (CSRC / "flash_fwd.cu").read_text()
     fwd = text[text.index('extern "C" int gd3d_flash_fwd('):]
     _in_order(fwd, "(D != 64 && D != 128 && D != 256)",
               "if (is_bf16)  // head dims 64, 128 and 256", "sm90::launch_fwd_bf16(",
-              "if (D == kD)", "launch_fwd_f32(",
-              "else if (D == 128)", "launch_fwd<4, 32>(",
-              "else  // head dim 256", "launch_fwd<8, 16>(")
-    assert "__nv_bfloat16" not in fwd  # the CUDA-core kernels take fp32 only
+              "if (D == kD)  // fp32 at 64: the CUDA cores", "launch_fwd_f32(",
+              "else if (D == 128)  // fp32 at 128 and 256: split TF32 on mma.sync",
+              "launch_fwd_tf32<128>(", "else", "launch_fwd_tf32<256>(")
+    fwd_tf32 = text[text.index("flash_fwd_tf32_kernel("):text.index("cudaError_t launch_fwd_tf32(")]
+    _in_order(fwd_tf32, "tc::split_a", "tc::mma_split(s[", "tc::a_from_c_tf32(",
+              "tc::mma_split(acc[")
     text = (CSRC / "flash_bwd.cu").read_text()
     bwd = text[text.index('extern "C" int gd3d_flash_bwd('):]
     _in_order(bwd, "(D != kD && D != 128 && D != 256)",
               "if (is_bf16)  // head dims 64, 128 and 256", "sm90::launch_bwd_bf16(",
-              "if (D != kD)  // fp32 at 128 and 256", "launch_bwd_wide(", "launch_bwd_tf32(")
-    wide = (CSRC / "flash_bwd_wide.cu").read_text()
-    _in_order(wide, "if (D == 128)", "wide::launch<4>", "if (D == 256)", "wide::launch<8>")
-    assert "__nv_bfloat16" not in wide and "typename T" not in wide and "is_bf16" not in wide
-    assert "mma." not in wide and "wgmma" not in wide  # the fp32 CUDA cores
+              "if (D != kD)  // fp32 at 128 and 256: split TF32 on mma.sync",
+              "launch_bwd_tf32_wide(", "launch_bwd_tf32(")
+    wide = re.sub(r"//[^\n]*", "", (CSRC / "flash_bwd_tf32_wide.cu").read_text())
+    _in_order(wide, "void dkv_block(", "tc::mma_split(x[", "tc::team_sum<kTeam>(",
+              "tc::a_from_c_tf32(", "tc::mma_split(dv_acc[", "tc::mma_split(dk_acc[",
+              "void dq_block(", "tc::mma_split(x[", "tc::team_sum<kTeam>(",
+              "tc::a_from_c_tf32(", "tc::mma_split(dq_acc[",
+              "flash_bwd_tf32_wide_kernel(", "dkv_block<D>(", "dq_block<D>(",
+              "cudaError_t launch_bwd_tf32_wide(", "if (D == 128)",
+              "tf32_wide::launch<128>(", "tf32_wide::launch<256>(")
+    assert "__nv_bfloat16" not in wide and "wgmma" not in wide and "is_bf16" not in wide
+    mma = (CSRC / "mma.cuh").read_text()
+    assert "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32" in mma
+    assert "cvt.rna.tf32.f32" in mma and "GD3D_TF32_PASSES 3" in mma
+    # every fp32 attention kernel but the one at 64 runs on mma.sync
+    kernels = {name for f in ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_tf32_wide.cu")
+               for name in re.findall(r"^(flash_\w+_kernel)\(", (CSRC / f).read_text(), re.M)}
+    assert kernels == {"flash_fwd_f32_kernel", "flash_fwd_tf32_kernel",
+                       "flash_bwd_dkv_tf32_kernel", "flash_bwd_dq_tf32_kernel",
+                       "flash_bwd_tf32_wide_kernel"}
+    assert not (CSRC / "flash_bwd_wide.cu").exists()
+    common = (CSRC / "common.cuh").read_text()
+    assert not re.search(r"\b(kParts|kHalf|kPad|load_tile_parts|parts_dot|axpy_row)\b", common)
     fwd90 = (CSRC / "flash_fwd_sm90.cu").read_text()
     _in_order(fwd90, "flash_fwd_sm90_kernel(", "wgmma_ss<kKeys>(", "wgmma_rs<kD, 1>(",
               "cudaError_t launch_fwd_bf16(", "if (D == 64)", "launch_fwd_plan<64, 1, 128, 3>(",
@@ -176,6 +201,46 @@ def test_entry_points_send_each_head_dim_to_its_kernel():
               "cudaError_t launch_bwd_bf16(", "launch_bwd_plans<64>(",
               "launch_bwd_plans<128>(", "launch_bwd_plans<256>(")
     assert "wgmma.mma_async" in (CSRC / "sm90.cuh").read_text()
+
+
+def _misaligned_fp32(D, how):
+    """A (1, 70, 2, D) fp32 view off 16 bytes: its row step (a slice of a
+    projection 2 floats wider) or its address (4 bytes in)."""
+    if how == "row_step":
+        wide = torch.zeros((1, 70, 3 * 2 * D + 2))
+        return wide[..., :6 * D].reshape(1, 70, 3, 2, D)[:, :, 0]
+    return torch.zeros((70 * 2 * D + 1,))[1:].view(1, 70, 2, D)
+
+
+@pytest.mark.parametrize("how", ["row_step", "address"])
+@pytest.mark.parametrize("D", [128, 256])
+def test_check_views_refuses_misaligned_wide_fp32_views(D, how):
+    """The fp32 K1 and K2 at 128 and 256 copy 16 bytes at a time (cp.async),
+    so the wrappers' check refuses an fp32 view at those widths whose address
+    or row step is off 16 bytes, as it refuses one at 64; an aligned view
+    passes."""
+    bad = _misaligned_fp32(D, how)
+    ok = torch.zeros((1, 70, 2, D))
+    assert not aligned_16(bad) and aligned_16(ok)
+    for views in ((bad, ok, ok), (ok, bad, ok), (ok, ok, bad)):
+        with pytest.raises(ValueError, match="16 bytes"):
+            check_views(*views, fp32_copies_16=True)
+    check_views(ok, ok, ok, fp32_copies_16=True)
+
+
+@pytest.mark.parametrize("how", ["row_step", "address"])
+@pytest.mark.parametrize("D", [128, 256])
+def test_fit_views_copies_misaligned_wide_fp32_views(D, how):
+    """fit_views hands the kernels a fresh contiguous copy of such a view
+    (same values, 16-byte aligned), which the check then takes, and leaves
+    an aligned view as it is."""
+    bad = _misaligned_fp32(D, how)
+    bad.copy_(torch.from_numpy(np.random.RandomState(D).randn(*bad.shape).astype(np.float32)))
+    ok = torch.zeros((1, 70, 2, D))
+    fitted, same = fit_views(bad, ok)
+    assert same is ok and fitted.data_ptr() != bad.data_ptr()
+    assert fitted.is_contiguous() and aligned_16(fitted) and torch.equal(fitted, bad)
+    check_views(fitted, ok, ok, fp32_copies_16=True)
 
 
 def _rank_setup(seed, n, h):
