@@ -28,15 +28,21 @@ report), then runs these phases in order, one or more printed lines each:
               training shapes, and K4 and K4b at
               the MASt3R keypoint count, run twice and must give the same
               bits; head dims wider than any model's (K2 at 96, 128 and 256,
-              K1 at 192 and 256, both dtypes, at (2,673,4,D), and K1 and K2
-              in both dtypes at the student's width re-headed, (2,4161,6,128)
-              and (2,4161,3,256): bf16 on TMA and wgmma, fp32 on split TF32
-              (mma.sync, bound against 165 TFLOP/s as the fp32 K2);
-              no main path launches them; every such K2 case runs twice and
-              must give the same bits) and K4 / K4b at a
-              256-wide depth head (the wide kernel); K5 on one tensor and
-              on each main-path layer's q and k in one launch; K1 and K2 at head dims 16 and 8 in both dtypes (the
-              --tiny stereo model, zero-padded to 64 by the wrappers); one
+              K1 at 192 and 256, both dtypes, at (2,673,4,D), 96 and 192
+              read direct at the widths 128 and 256, and K1 and K2 in both
+              dtypes at the student's width re-headed, (2,4161,6,128) and
+              (2,4161,3,256): bf16 on TMA and wgmma, fp32 on split TF32
+              (mma.sync, bound against 165 TFLOP/s as the fp32 K2); no main
+              path launches them; every such K2 case runs twice and must
+              give the same bits) and K4 / K4b at a 256-wide depth head
+              (the wide kernel); K5 on one tensor and on each main-path
+              layer's q and k in one launch; K1 and K2 at head dims 16 and
+              8 in both dtypes (the --tiny stereo model, read direct at
+              width 64; K2 runs twice and must give the same bits), and at
+              head dims the wrappers zero-pad to 64 (bf16 20, fp32 6: rows
+              off 16 bytes; K2 runs twice); every K1 and K2 case names its
+              route, direct or padded, and fails if its launch took
+              another; one
               view off 16 bytes each for K1, K2, K3 and K5 (the wrappers copy
               it); K4 and K4b at a depth-head width of 48. The build line
               before it lists the bf16 flash kernels on TMA and wgmma
@@ -499,24 +505,38 @@ class KernelReport:
 
 def attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated, repeat=False):
     """K1 or K2 against its plain twin at one shape, q, k, v as the strided
-    (B, N, H, D) views of one qkv projection; a K2 case with `repeat` also
-    runs twice and must repeat its bits."""
+    (B, N, H, D) views of one qkv projection; the case names the route its
+    head dim takes by the wrappers' rule (direct or padded, runs_direct) and
+    fails if its first launch took the other (the padded-launch count); a K2
+    case with `repeat` also runs twice and must repeat its bits."""
     import torch
     import torch.nn.functional as F
 
+    from gd3d_torch.kernels import padded_launches
     from gd3d_torch.kernels.flash_bwd_fused import (
         flash_attention_bwd_fused, flash_attention_bwd_plain)
-    from gd3d_torch.kernels.flash_fwd import flash_attention_fwd, flash_attention_fwd_plain
+    from gd3d_torch.kernels.flash_fwd import (
+        flash_attention_fwd, flash_attention_fwd_plain, runs_direct)
 
     qkv = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(dt)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     scale = D ** -0.5
     elt, dname = q.element_size(), str(dt).split(".")[-1]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-    tag = f"{where} B={B} N={N} H={H} D={D} {dname}"
+    route = "direct" if runs_direct(D, dt) else "padded"
+    tag = f"{where} B={B} N={N} H={H} D={D} {dname} route={route}"
     iters = 10 if N > 1000 else 30
+    padded = padded_launches()[kern]
+
+    def took_route():
+        took = "padded" if padded_launches()[kern] > padded else "direct"
+        if took != route:
+            log(f"kernels: {kern} {tag}: the launch took the {took} route FAIL")
+            rep.ok = False
+
     if kern == "K1":
         o, lse = flash_attention_fwd(q, k, v, scale)
+        took_route()
         o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
         rep.check(
             kern, tag, [("o", o, o_ref, dname), ("lse", lse, lse_ref, "float32")],
@@ -531,6 +551,7 @@ def attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated, repeat=False
         do = torch.randn((B, N, H, D), generator=g, device=dev).to(dt)
         di = torch.einsum("bnhd,bnhd->bhn", o_ref.float(), do.float()).contiguous()
         grads = flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale)
+        took_route()
         refs = flash_attention_bwd_plain(q, k, v, lse_ref, do, di, scale)
         if repeat:
             # every sum runs in a fixed order: the same bits again
@@ -715,13 +736,20 @@ def check_kernels(dev) -> dict:
           for kern in ("K1", "K2") for task, N in STEREOFLOW_LENGTHS.items()
           for part, B, H in (("encoder", 4, 16), ("decoder", 2, 12))],
         # cli.stereoflow train --tiny (64x96 crops, 24 tokens, batch 2): head
-        # dims 16 (encoder, both views) and 8 (decoder), zero-padded to 64
+        # dims 16 (encoder, both views) and 8 (decoder), read direct at width
+        # 64 (their rows are 16-byte multiples in both dtypes)
         *[(kern, f"CroCo-Stereo --tiny {part}", B, 24, 2, D, dt, False)
           for kern in ("K1", "K2") for dt in (f32, bf16)
           for part, B, D in (("encoder", 4, 16), ("decoder", 2, 8))],
+        # the pad route, at the --tiny length: head dims whose rows are no
+        # multiple of 16 bytes (bf16 20, fp32 6), zero-padded to width 64 by
+        # the wrappers and O, dQ, dK, dV cut back; K2 runs twice and must
+        # give the same bits
+        *[(kern, "pad route", 4, 24, 2, D, dt, False)
+          for kern in ("K1", "K2") for dt, D in ((bf16, 20), (f32, 6))],
         # head dims wider than any model of the repo (no main path launches
-        # them; gd3d takes any): K2 at 96 (padded to 128), 128 and 256, K1
-        # at 192 (padded to 256) and 256 (bf16 on TMA and wgmma, fp32 on
+        # them; gd3d takes any): K2 at 96 (read direct at width 128), 128 and
+        # 256, K1 at 192 (direct at 256) and 256 (bf16 on TMA and wgmma, fp32 on
         # split TF32); then K1 and K2 at the student's width 768 and length
         # 4161 re-headed, whose products are the (2,4161,12,64) pass's;
         # these K2 cases also run twice and must repeat their bits
@@ -732,7 +760,7 @@ def check_kernels(dev) -> dict:
     ]
     for kern, where, B, N, H, D, dt, designated in attn_cases:
         attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated,
-                  repeat=designated or N in STEREOFLOW_LENGTHS.values() or D > 64)
+                  repeat=designated or N in STEREOFLOW_LENGTHS.values() or D != 64)
 
     # K3 at the cost volume of one pair (M = N on both paths), masked rows in;
     # and an odd M, whose rows start off 16 bytes. The kernel reads no cost
@@ -3314,7 +3342,8 @@ SF_STEP = {"K1": 36, "K2": 36, "K5 fwd": 48, "K5 bwd": 48}
 SF_STEPS = 2
 SF_EVAL_PAIRS = 1  # KITTI pairs the eval CLI runs on
 # the card against the CPU on a small model (head dim 64) and on --tiny
-# (head dims 16 and 8, zero-padded to 64 by the flash wrappers): the train
+# (head dims 16 and 8, which the flash kernels read direct at width 64, no
+# launch on the pad route): the train
 # phase's tolerances, fp32 loss 1e-4 relative, the gradients, the AdamW
 # moments and the updated weights 1e-3 of each tensor's largest value
 SF_LOSS_TOL = 1e-4
@@ -3520,7 +3549,8 @@ def check_stereoflow_agree(dev, root, gpu: str) -> None:
 
 def check_stereoflow_tiny(dev, root, gpu: str) -> dict:
     """(b2) gd3d_torch.cli.stereoflow train --tiny (head dims 16 and 8, which
-    the flash wrappers zero-pad to 64) for two steps on the card and the same
+    the flash kernels read direct at width 64: no K1 or K2 launch may take
+    the pad route) for two steps on the card and the same
     steps on the CPU (the first at the warm-up's zero learning rate, so the
     second moves the weights), from one init file on (a)'s stereo tree: the
     last loss (SF_LOSS_TOL), and AdamW's moments and the updated weights
@@ -3529,6 +3559,7 @@ def check_stereoflow_tiny(dev, root, gpu: str) -> dict:
     import torch
 
     from gd3d_torch.cli import stereoflow as sf_cli
+    from gd3d_torch.kernels import padded_launches
     from gd3d_torch.models.stereoflow import StereoFlow
     from gd3d_torch.models.vit import init_params_
 
@@ -3547,6 +3578,7 @@ def check_stereoflow_tiny(dev, root, gpu: str) -> dict:
         runs[device] = (res["records"][-1]["loss"],
                         *({k: v.detach().cpu() for k, v in d.items()}
                           for d in (opt.mu, opt.nu, opt.params)), c, c_by, wall)
+    padded = padded_launches()  # the card run's, counted from 0 by _counted_run
     (lc, *cpu, _, _, wall_c), (lg, *card, c, c_by, wall_g) = runs["cpu"], runs["cuda"]
 
     def worst(a, b):
@@ -3555,17 +3587,18 @@ def check_stereoflow_tiny(dev, root, gpu: str) -> dict:
 
     errs = {name: worst(g, w) for name, g, w in zip(("mu", "nu", "params"), card, cpu)}
     loss_err = abs(lg - lc) / abs(lc)
-    launched = c["K1"] > 0 and c["K2"] > 0 and c["K5"] > 0
+    launched = c["K1"] > 0 and c["K2"] > 0 and c["K5"] > 0 and not any(padded.values())
     ok = launched and loss_err <= SF_LOSS_TOL and all(
         math.isfinite(e) and e <= SF_STATE_TOL for e in errs.values())
     log(f"stereoflow: train --tiny two steps, card against CPU (head dims 16 and 8, 64x96 "
         f"crop, batch 2): loss {lg:.6f} vs {lc:.6f} rel {loss_err:.3e} (tol {SF_LOSS_TOL:g}); "
         "worst tensor " + " ".join(f"{k} {e:.3e}" for k, e in errs.items())
         + f" (tol {SF_STATE_TOL:g} of its max); card wall {wall_g:.2f} s, CPU {wall_c:.2f} s; "
-        f"launches {c} by length {c_by['K1']} {c_by['K2']} {'OK' if ok else 'FAIL'} [{gpu}]")
+        f"launches {c} by length {c_by['K1']} {c_by['K2']} on the pad route {padded} "
+        f"{'OK' if ok else 'FAIL'} [{gpu}]")
     if not ok:
-        raise AssertionError("stereoflow: the --tiny step on the card disagrees with the CPU's "
-                             "or launched no kernel")
+        raise AssertionError("stereoflow: the --tiny step on the card disagrees with the CPU's, "
+                             "launched no kernel or padded a flash launch")
     return c
 
 

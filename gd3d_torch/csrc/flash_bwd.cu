@@ -33,9 +33,14 @@
 //     A operand of dQ += dS K.
 //   dK, dV and dQ accumulate in fp32 registers and are stored once.
 //
-// The routes, by dtype and kernel width (the wrapper, kernels/
-// flash_bwd_fused.py, zero-pads head dims up to 256 to the next of 64, 128
-// and 256; no path of the repo trains attention wider than 64):
+// The routes, by dtype and kernel width, the least of 64, 128 and 256 that
+// holds the head dim D (no path of the repo trains attention wider than
+// 64; the --tiny CroCo-Stereo model trains at 16 and 8). A D below its
+// width whose rows are 16-byte multiples (fp32 D a multiple of 4, bf16 a
+// multiple of 8) runs on the caller's own rows: the copies fill the columns
+// past D with zeros, which add nothing to S or dP and leave dQ's, dK's and
+// dV's columns past D unstored; the wrapper (kernels/flash_bwd_fused.py)
+// zero-pads any other D to the width.
 // * bf16 at 64 (the student under autocast), 128 and 256:
 //   flash_bwd_sm90.cu, on TMA, wgmma and warp specialisation;
 //   gd3d_flash_bwd below sends every bf16 case there.
@@ -74,7 +79,8 @@
 //
 // Layout: q, k, v, dout are (B, N, H, D) views read through their strides,
 // whose addresses and (B, N, H) steps fall on 16 bytes (the wrapper copies
-// a view that does not); dq, dk, dv are contiguous (B, N|M, H, D); lse and di are
+// a view that does not); dq, dk, dv are contiguous (B, N|M, H, D), D
+// columns a row at any width; lse and di are
 // contiguous (B, H, N) fp32. Ragged lengths are masked in the kernels: rows
 // past N or M are copied as zeros, which makes a padded query's terms
 // exactly 0 (its Q and dO rows are 0, and so are its lse and di), and the
@@ -110,7 +116,7 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
                           const float* __restrict__ v, const float* __restrict__ dout,
                           const float* __restrict__ lse, const float* __restrict__ di,
                           float* __restrict__ dk, float* __restrict__ dv, int N, int M, int H,
-                          Strides qs, Strides ks, Strides vs, Strides dos, float scale) {
+                          int D, Strides qs, Strides ks, Strides vs, Strides dos, float scale) {
   using namespace tf32;
   extern __shared__ __align__(16) float smem_f[];
   float* rawQ = smem_f;
@@ -134,8 +140,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   const float* di_bh = di + ((long long)b * H + h) * N;
 
   auto load_query_tile = [&](int i0) {
-    tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawQ), qb, qs.n, i0, N);
-    tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawO), dob, dos.n, i0, N);
+    tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawQ), qb, qs.n, i0, N, D);
+    tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawO), dob, dos.n, i0, N, D);
     if (tid < kTile)
       tc::load_vec_async(smem_u32(rawStats), lse_bh, i0, N, tid);
     else
@@ -145,8 +151,8 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
   cp_async_commit();
 
   float kf[8][4], vf[8][4];  // the warp's 16 keys of K and V, A fragments in fp32
-  tc::load_a_rows(kf, k + b * ks.b + h * ks.h, ks.n, key0 + warp * 16, M, lane);
-  tc::load_a_rows(vf, v + b * vs.b + h * vs.h, vs.n, key0 + warp * 16, M, lane);
+  tc::load_a_rows(kf, k + b * ks.b + h * ks.h, ks.n, key0 + warp * 16, M, D, lane);
+  tc::load_a_rows(vf, v + b * vs.b + h * vs.h, vs.n, key0 + warp * 16, M, D, lane);
   float dk_acc[8][4] = {};
   float dv_acc[8][4] = {};
   const float scale_log2 = scale * kLog2e;
@@ -213,9 +219,9 @@ flash_bwd_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__
     }
   }
 
-  const long long off = (long long)b * M * H * kD + h * kD;
-  tc::store_c_rows(dk_acc, dk + off, (long long)H * kD, key0 + warp * 16, M, lane);
-  tc::store_c_rows(dv_acc, dv + off, (long long)H * kD, key0 + warp * 16, M, lane);
+  const long long off = ((long long)b * M * H + h) * D;
+  tc::store_c_rows(dk_acc, dk + off, (long long)H * D, key0 + warp * 16, M, D, lane);
+  tc::store_c_rows(dv_acc, dv + off, (long long)H * D, key0 + warp * 16, M, D, lane);
 }
 
 // dQ for one 64-query tile of one (b, h), looping over every key tile.
@@ -223,8 +229,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, const float* __restrict__ dout,
                          const float* __restrict__ lse, const float* __restrict__ di,
-                         float* __restrict__ dq, int N, int M, int H, Strides qs, Strides ks,
-                         Strides vs, Strides dos, float scale) {
+                         float* __restrict__ dq, int N, int M, int H, int D, Strides qs,
+                         Strides ks, Strides vs, Strides dos, float scale) {
   using namespace tf32;
   extern __shared__ __align__(16) float smem_f[];
   float* rawK = smem_f;
@@ -242,13 +248,13 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
 
-  tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawK), kb, ks.n, 0, M);
-  tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawV), vb, vs.n, 0, M);
+  tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawK), kb, ks.n, 0, M, D);
+  tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawV), vb, vs.n, 0, M, D);
   cp_async_commit();
 
   float qf[8][4], of[8][4];  // the warp's 16 queries of Q and dO, A fragments in fp32
-  tc::load_a_rows(qf, q + b * qs.b + h * qs.h, qs.n, q0 + warp * 16, N, lane);
-  tc::load_a_rows(of, dout + b * dos.b + h * dos.h, dos.n, q0 + warp * 16, N, lane);
+  tc::load_a_rows(qf, q + b * qs.b + h * qs.h, qs.n, q0 + warp * 16, N, D, lane);
+  tc::load_a_rows(of, dout + b * dos.b + h * dos.h, dos.n, q0 + warp * 16, N, D, lane);
   // this lane's rows g and g + 8: lse in log2 units and di
   const float* lse_bh = lse + ((long long)b * H + h) * N;
   const float* di_bh = di + ((long long)b * H + h) * N;
@@ -269,8 +275,8 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
     tc::split_rows<kTile, kD, kLd>(rawV, Vhi, Vlo);
     __syncthreads();
     if (j + 1 < n_tiles) {
-      tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawK), kb, ks.n, (j + 1) * kTile, M);
-      tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawV), vb, vs.n, (j + 1) * kTile, M);
+      tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawK), kb, ks.n, (j + 1) * kTile, M, D);
+      tc::copy_rows_async<kTile, kD, kD>(smem_u32(rawV), vb, vs.n, (j + 1) * kTile, M, D);
       cp_async_commit();
     }
 #pragma unroll 1  // two chunks in flight spill (see the note at the top)
@@ -320,14 +326,14 @@ flash_bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ 
     }
   }
 
-  tc::store_c_rows(dq_acc, dq + (long long)b * N * H * kD + h * kD, (long long)H * kD,
-                   q0 + warp * 16, N, lane);
+  tc::store_c_rows(dq_acc, dq + ((long long)b * N * H + h) * D, (long long)H * D,
+                   q0 + warp * 16, N, D, lane);
 }
 
 cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* di, void* dq, void* dk, void* dv,
-                            int B, int N, int M, int H, Strides qs, Strides ks, Strides vs,
-                            Strides dos, float scale, cudaStream_t stream) {
+                            int B, int N, int M, int H, int D, Strides qs, Strides ks,
+                            Strides vs, Strides dos, float scale, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dkv_tf32_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          tf32::kDkvSmem);
@@ -344,16 +350,16 @@ cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* v, const v
   const dim3 grid_kv((M + kTile - 1) / kTile, H, B);
   flash_bwd_dkv_tf32_kernel<<<grid_kv, kThreads, tf32::kDkvSmem, stream>>>(
       q_, k_, v_, do_, lse_, di_, static_cast<float*>(dk), static_cast<float*>(dv), N, M, H,
-      qs, ks, vs, dos, scale);
+      D, qs, ks, vs, dos, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid_q((N + kTile - 1) / kTile, H, B);
   flash_bwd_dq_tf32_kernel<<<grid_q, kThreads, tf32::kDqSmem, stream>>>(
-      q_, k_, v_, do_, lse_, di_, static_cast<float*>(dq), N, M, H, qs, ks, vs, dos, scale);
+      q_, k_, v_, do_, lse_, di_, static_cast<float*>(dq), N, M, H, D, qs, ks, vs, dos, scale);
   return cudaGetLastError();
 }
 
-// flash_bwd_tf32_wide.cu: fp32 at head dims 128 and 256.
+// flash_bwd_tf32_wide.cu: fp32 at widths 128 and 256 (head dims 68..256).
 cudaError_t launch_bwd_tf32_wide(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* di, void* dq, void* dk, void* dv,
                                  int B, int N, int M, int H, int D, Strides qs, Strides ks,
@@ -370,7 +376,9 @@ extern "C" int gd3d_flash_bwd(const void* q, const void* k, const void* v,
                               long long dosb, long long dosn, long long dosh, float scale,
                               int is_bf16, void* stream) {
   using namespace gd3d;
-  if ((D != kD && D != 128 && D != 256) || N <= 0 || M <= 0 || B <= 0 || H <= 0)
+  // any head dim up to 256 whose rows are 16-byte multiples, at the least
+  // kernel width that holds it
+  if (D <= 0 || D > 256 || D % (is_bf16 ? 8 : 4) != 0 || N <= 0 || M <= 0 || B <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qsn, qsh}, ks{ksb, ksn, ksh}, vs{vsb, vsn, vsh},
       dos{dosb, dosn, dosh};
@@ -379,9 +387,9 @@ extern "C" int gd3d_flash_bwd(const void* q, const void* k, const void* v,
   if (is_bf16)  // head dims 64, 128 and 256
     return static_cast<int>(sm90::launch_bwd_bf16(q, k, v, dout, lse, di, dq, dk, dv, B, N, M,
                                                   H, D, qs, ks, vs, dos, scale, st));
-  if (D != kD)  // fp32 at 128 and 256: split TF32 on mma.sync
+  if (D > kD)  // fp32 at widths 128 and 256: split TF32 on mma.sync
     return static_cast<int>(launch_bwd_tf32_wide(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H,
                                                  D, qs, ks, vs, dos, scale, st));
-  return static_cast<int>(
-      launch_bwd_tf32(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks, vs, dos, scale, st));
+  return static_cast<int>(launch_bwd_tf32(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, D, qs,
+                                          ks, vs, dos, scale, st));
 }

@@ -1,10 +1,14 @@
-// K2 in bf16 at head dims 64, 128 and 256: the flash-attention backward
-// (dQ, dK, dV from the forward's log-sum-exp, with di = rowsum(O * dO) from
-// the caller) on Hopper's own machinery. gd3d_flash_bwd (flash_bwd.cu)
-// sends every bf16 case here (the wrapper zero-pads other head dims up to
-// 256 to the next of the three); fp32 stays in flash_bwd.cu (head dim 64)
-// and flash_bwd_tf32_wide.cu (128 and 256). Head dim 64 is the student under
-// autocast; no model of the repo trains bf16 attention at 128 or 256.
+// K2 in bf16 at the kernel widths 64, 128 and 256: the flash-attention
+// backward (dQ, dK, dV from the forward's log-sum-exp, with di = rowsum(O *
+// dO) from the caller) on Hopper's own machinery. gd3d_flash_bwd
+// (flash_bwd.cu) sends every bf16 case here; fp32 stays in flash_bwd.cu
+// (width 64) and flash_bwd_tf32_wide.cu (128 and 256). A head dim D below
+// its width (a multiple of 8) runs at that width on the caller's own rows,
+// as K1 does (flash_fwd_sm90.cu): the columns past D arrive as zeros, add
+// nothing to S or dP, and come out of dQ, dK and dV as columns that are
+// not stored (the wrapper zero-pads any other D up to 256). Head dim 64 is
+// the student under autocast, 16 and 8 the --tiny CroCo-Stereo model; no
+// model of the repo trains bf16 attention above 64.
 //
 // Replaces, as the rest of K2 does, gd3d/kernels/flash_bwd_fused.py::
 // flash_attention_bwd_fused. Like flash_bwd.cu it takes the second-pass
@@ -82,7 +86,8 @@
 //
 // Ragged lengths: rows past N or M arrive as zeros. A padded query then has
 // Q and dO rows of 0, and the producer gives it lse = di = 0, so its P is 1
-// and its dP is 0: every term it adds to dV and dK is 0.
+// and its dP is 0: every term it adds to dV and dK is 0. dQ, dK and dV are
+// contiguous (B, N|M, H, D): the stores write D columns a row, H * D apart.
 #include "sm90.cuh"
 
 namespace gd3d {
@@ -111,7 +116,7 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tdo,
                           const float* __restrict__ lse, const float* __restrict__ di,
                           bf16* __restrict__ dk, bf16* __restrict__ dv, int N, int M, int H,
-                          float scale) {
+                          int D, float scale) {
   using L = DkvPlan<kD, kWG, kSplit, kStages>;
   constexpr int kS = kStages;
   constexpr bool kRegKV = kD == 64;  // K and V as register fragments
@@ -327,10 +332,11 @@ flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         mbar_arrive(q_empty(i % kS));
       }
     }
-    const long long off = (long long)b * M * H * kD + h * kD + c % kSplit * L::kCols;
+    const int col0 = c % kSplit * L::kCols;  // this warpgroup's first column
+    const long long off = ((long long)b * M * H + h) * D + col0;
     const int row0 = key0 + grp * 64 + warp * 16;
-    store_acc<L::kCols>(dk_acc, 1.f, 1.f, dk + off, (long long)H * kD, row0, M, lane);
-    store_acc<L::kCols>(dv_acc, 1.f, 1.f, dv + off, (long long)H * kD, row0, M, lane);
+    store_acc<L::kCols>(dk_acc, 1.f, 1.f, dk + off, (long long)H * D, row0, M, D - col0, lane);
+    store_acc<L::kCols>(dv_acc, 1.f, 1.f, dv + off, (long long)H * D, row0, M, D - col0, lane);
   }
 }
 
@@ -354,7 +360,7 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                          const __grid_constant__ CUtensorMap tv,
                          const __grid_constant__ CUtensorMap tdo,
                          const float* __restrict__ lse, const float* __restrict__ di,
-                         bf16* __restrict__ dq, int N, int M, int H, float scale) {
+                         bf16* __restrict__ dq, int N, int M, int H, int D, float scale) {
   using L = DqPlan<kD, kWG, kKeys, kStages>;
   constexpr int kS = kStages;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
@@ -498,14 +504,15 @@ flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     fence_regs(dq_acc);
     mbar_arrive(kv_empty((n_tiles - 1) % kS));
-    store_acc<kD>(dq_acc, 1.f, 1.f, dq + (long long)b * N * H * kD + h * kD, (long long)H * kD,
-                  row0, N, lane);
+    store_acc<kD>(dq_acc, 1.f, 1.f, dq + ((long long)b * N * H + h) * D, (long long)H * D,
+                  row0, N, D, lane);
   }
 }
 
 template <int kD, int kWG, int kSplit, int kStages>
 cudaError_t launch_dkv(const CUtensorMap* maps, const float* lse, const float* di, void* dk,
-                       void* dv, int B, int N, int M, int H, float scale, cudaStream_t stream) {
+                       void* dv, int B, int N, int M, int H, int D, float scale,
+                       cudaStream_t stream) {
   using L = DkvPlan<kD, kWG, kSplit, kStages>;
   const auto kernel = flash_bwd_dkv_sm90_kernel<kD, kWG, kSplit, kStages>;
   const cudaError_t attr =
@@ -514,13 +521,13 @@ cudaError_t launch_dkv(const CUtensorMap* maps, const float* lse, const float* d
   const dim3 grid((M + L::kKeys - 1) / L::kKeys, H, B);
   kernel<<<grid, 128 * (kWG + 1), L::kBytes, stream>>>(
       maps[0], maps[1], maps[2], maps[3], lse, di, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), N, M, H, scale);
+      static_cast<bf16*>(dv), N, M, H, D, scale);
   return cudaGetLastError();
 }
 
 template <int kD, int kWG, int kKeys, int kStages>
 cudaError_t launch_dq(const CUtensorMap* maps, const float* lse, const float* di, void* dq,
-                      int B, int N, int M, int H, float scale, cudaStream_t stream) {
+                      int B, int N, int M, int H, int D, float scale, cudaStream_t stream) {
   using L = DqPlan<kD, kWG, kKeys, kStages>;
   const auto kernel = flash_bwd_dq_sm90_kernel<kD, kWG, kKeys, kStages>;
   const cudaError_t attr =
@@ -528,50 +535,51 @@ cudaError_t launch_dq(const CUtensorMap* maps, const float* lse, const float* di
   if (attr != cudaSuccess) return attr;
   const dim3 grid((N + L::kRows - 1) / L::kRows, H, B);
   kernel<<<grid, 128 * (kWG + 1), L::kBytes, stream>>>(
-      maps[0], maps[1], maps[2], maps[3], lse, di, static_cast<bf16*>(dq), N, M, H, scale);
+      maps[0], maps[1], maps[2], maps[3], lse, di, static_cast<bf16*>(dq), N, M, H, D, scale);
   return cudaGetLastError();
 }
 
-// The two kernels at one head dim: 128-row (128-key) blocks where they fill
-// two waves, else 64-row ones; head dim 256 has one plan of each.
+// The two kernels at one kernel width kD (head dim D <= kD): 128-row
+// (128-key) blocks where they fill two waves, else 64-row ones; width 256
+// has one plan of each.
 template <int kD>
 cudaError_t launch_bwd_plans(const CUtensorMap* maps, const float* lse, const float* di,
-                             void* dq, void* dk, void* dv, int B, int N, int M, int H,
+                             void* dq, void* dk, void* dv, int B, int N, int M, int H, int D,
                              float scale, cudaStream_t stream) {
   cudaError_t err;
   if constexpr (kD == 256)
-    err = launch_dkv<256, 2, 2, 2>(maps, lse, di, dk, dv, B, N, M, H, scale, stream);
+    err = launch_dkv<256, 2, 2, 2>(maps, lse, di, dk, dv, B, N, M, H, D, scale, stream);
   else if (wide_tiles(M, B, H))
-    err = launch_dkv<kD, 2, 1, 4>(maps, lse, di, dk, dv, B, N, M, H, scale, stream);
+    err = launch_dkv<kD, 2, 1, 4>(maps, lse, di, dk, dv, B, N, M, H, D, scale, stream);
   else
-    err = launch_dkv<kD, 1, 1, kD == 64 ? 4 : 2>(maps, lse, di, dk, dv, B, N, M, H, scale,
+    err = launch_dkv<kD, 1, 1, kD == 64 ? 4 : 2>(maps, lse, di, dk, dv, B, N, M, H, D, scale,
                                                  stream);
   if (err != cudaSuccess) return err;
   constexpr int kKeys = kD == 64 ? 128 : 64;
   if constexpr (kD == 256)
-    return launch_dq<256, 1, 64, 2>(maps, lse, di, dq, B, N, M, H, scale, stream);
+    return launch_dq<256, 1, 64, 2>(maps, lse, di, dq, B, N, M, H, D, scale, stream);
   else if (wide_tiles(N, B, H))
-    return launch_dq<kD, 2, kKeys, 3>(maps, lse, di, dq, B, N, M, H, scale, stream);
+    return launch_dq<kD, 2, kKeys, 3>(maps, lse, di, dq, B, N, M, H, D, scale, stream);
   else
-    return launch_dq<kD, 1, kKeys, 2>(maps, lse, di, dq, B, N, M, H, scale, stream);
+    return launch_dq<kD, 1, kKeys, 2>(maps, lse, di, dq, B, N, M, H, D, scale, stream);
 }
 
 cudaError_t launch_bwd_bf16(const void* q, const void* k, const void* v, const void* dout,
                             const void* lse, const void* di, void* dq, void* dk, void* dv,
                             int B, int N, int M, int H, int D, Strides qs, Strides ks,
                             Strides vs, Strides dos, float scale, cudaStream_t stream) {
-  if (D != 64 && D != 128 && D != 256) return cudaErrorInvalidValue;
-  CUtensorMap maps[4];  // q, k, v, dO
+  if (D <= 0 || D > 256 || D % 8 != 0) return cudaErrorInvalidValue;
+  CUtensorMap maps[4];  // q, k, v, dO, each at its true head dim
   if (!encode_map(&maps[0], q, B, N, H, D, qs) || !encode_map(&maps[1], k, B, M, H, D, ks) ||
       !encode_map(&maps[2], v, B, M, H, D, vs) || !encode_map(&maps[3], dout, B, N, H, D, dos))
     return cudaErrorInvalidValue;
   const float* lse_ = static_cast<const float*>(lse);
   const float* di_ = static_cast<const float*>(di);
-  if (D == 64)
-    return launch_bwd_plans<64>(maps, lse_, di_, dq, dk, dv, B, N, M, H, scale, stream);
-  if (D == 128)
-    return launch_bwd_plans<128>(maps, lse_, di_, dq, dk, dv, B, N, M, H, scale, stream);
-  return launch_bwd_plans<256>(maps, lse_, di_, dq, dk, dv, B, N, M, H, scale, stream);
+  if (D <= 64)
+    return launch_bwd_plans<64>(maps, lse_, di_, dq, dk, dv, B, N, M, H, D, scale, stream);
+  if (D <= 128)
+    return launch_bwd_plans<128>(maps, lse_, di_, dq, dk, dv, B, N, M, H, D, scale, stream);
+  return launch_bwd_plans<256>(maps, lse_, di_, dq, dk, dv, B, N, M, H, D, scale, stream);
 }
 
 }  // namespace sm90

@@ -2,10 +2,14 @@
 // dV) from the forward's log-sum-exp, on the tensor cores.
 //
 // Replaces gd3d/kernels/flash_bwd_fused.py::flash_attention_bwd_fused for
-// fp32 operands at the kernel widths 128 and 256 (the wrapper zero-pads head
-// dims 65..128 and 129..256 to them, kernels/flash_bwd_fused.py::bwd_padded;
-// bf16 at every width runs flash_bwd_sm90.cu, fp32 at 64 flash_bwd.cu). No
-// path of the repo trains attention this wide; gd3d takes any head dim.
+// fp32 operands at the kernel widths 128 and 256 (head dims 65..128 and
+// 129..256; bf16 at every width runs flash_bwd_sm90.cu, fp32 at 64
+// flash_bwd.cu). A head dim Dh below the width D that is a multiple of 4
+// runs on the caller's own rows: the copies fill the columns past Dh with
+// zeros, which add nothing to S^T or dP^T, and the stores write Dh
+// columns; the wrapper zero-pads any other head dim to the width
+// (kernels/flash_bwd_fused.py::bwd_padded). No path of the repo trains
+// attention this wide; gd3d takes any head dim.
 //
 // What bounds it on an H100: arithmetic, seven tile products a (query, key)
 // pair, each three TF32 mma.sync (mma.cuh: every fp32 operand split into a
@@ -63,10 +67,11 @@
 //
 // Layout: q, k, v, dout are (B, N, H, D) views read through their strides,
 // whose addresses and (B, N, H) steps fall on 16 bytes (the wrapper copies
-// a view that does not); dq, dk, dv are contiguous (B, N|M, H, D); lse and
-// di are contiguous (B, H, N) fp32. Rows past N or M are copied as zeros:
-// a padded query's Q and dO rows are 0 and its lse and di read as 0, so it
-// adds exactly 0 to dK and dV; the dQ pass gives keys past M a P of 0.
+// a view that does not), Dh columns a row; dq, dk, dv are contiguous
+// (B, N|M, H, Dh); lse and di are contiguous (B, H, N) fp32. Rows past N or
+// M are copied as zeros: a padded query's Q and dO rows are 0 and its lse
+// and di read as 0, so it adds exactly 0 to dK and dV; the dQ pass gives
+// keys past M a P of 0.
 #include "common.cuh"
 #include "mma.cuh"
 
@@ -105,7 +110,7 @@ __device__ __forceinline__ void dkv_block(int tile, int b, const float* __restri
                                           const float* __restrict__ dout,
                                           const float* __restrict__ lse,
                                           const float* __restrict__ di, float* __restrict__ dk,
-                                          float* __restrict__ dv, int N, int M, int H,
+                                          float* __restrict__ dv, int N, int M, int H, int Dh,
                                           Strides qs, Strides ks, Strides vs, Strides dos,
                                           float scale) {
   using P = Plan<D>;
@@ -133,12 +138,14 @@ __device__ __forceinline__ void dkv_block(int tile, int b, const float* __restri
   const float* lse_bh = lse + ((long long)b * H + h) * N;
   const float* di_bh = di + ((long long)b * H + h) * N;
   auto copy_tile = [&](int i0) {
-    tc::copy_rows_async<kRows, D, D, kN>(smem_u32(rawQ), qb, qs.n, i0, N);
-    tc::copy_rows_async<kRows, D, D, kN>(smem_u32(rawO), dob, dos.n, i0, N);
+    tc::copy_rows_async<kRows, D, D, kN>(smem_u32(rawQ), qb, qs.n, i0, N, Dh);
+    tc::copy_rows_async<kRows, D, D, kN>(smem_u32(rawO), dob, dos.n, i0, N, Dh);
     cp_async_commit();
   };
-  tc::copy_rows_async<P::kOwn, D, kLd, kN>(smem_u32(Ks), k + b * ks.b + h * ks.h, ks.n, key0, M);
-  tc::copy_rows_async<P::kOwn, D, kLd, kN>(smem_u32(Vs), v + b * vs.b + h * vs.h, vs.n, key0, M);
+  tc::copy_rows_async<P::kOwn, D, kLd, kN>(smem_u32(Ks), k + b * ks.b + h * ks.h, ks.n, key0, M,
+                                           Dh);
+  tc::copy_rows_async<P::kOwn, D, kLd, kN>(smem_u32(Vs), v + b * vs.b + h * vs.h, vs.n, key0, M,
+                                           Dh);
   copy_tile(0);
   const uint32_t ka_lane = tc::a_lane_addr<kLd>(Ks + group * 16 * kLd, lane);  // its 16 keys
   const uint32_t va_lane = tc::a_lane_addr<kLd>(Vs + group * 16 * kLd, lane);
@@ -221,10 +228,11 @@ __device__ __forceinline__ void dkv_block(int tile, int b, const float* __restri
       }
     }
   }
-  const long long off = (long long)b * M * H * D + h * D + part * kSteps * 8;
-  const long long stride = (long long)H * D;
-  tc::store_c_rows(dk_acc, dk + off, stride, key0 + group * 16, M, lane);
-  tc::store_c_rows(dv_acc, dv + off, stride, key0 + group * 16, M, lane);
+  const int col0 = part * kSteps * 8;  // this warp's first column
+  const long long off = ((long long)b * M * H + h) * Dh + col0;
+  const long long stride = (long long)H * Dh;
+  tc::store_c_rows(dk_acc, dk + off, stride, key0 + group * 16, M, Dh - col0, lane);
+  tc::store_c_rows(dv_acc, dv + off, stride, key0 + group * 16, M, Dh - col0, lane);
 }
 
 // dQ for the kOwn queries of tile `tile` of one (b, h), looping over every
@@ -238,8 +246,8 @@ __device__ __forceinline__ void dq_block(int tile, int b, const float* __restric
                                          const float* __restrict__ dout,
                                          const float* __restrict__ lse,
                                          const float* __restrict__ di, float* __restrict__ dq,
-                                         int N, int M, int H, Strides qs, Strides ks, Strides vs,
-                                         Strides dos, float scale) {
+                                         int N, int M, int H, int Dh, Strides qs, Strides ks,
+                                         Strides vs, Strides dos, float scale) {
   using P = Plan<D>;
   constexpr int kLd = P::kLd, kRows = P::kRows, kNt = P::kNt, kKs = P::kKs, kN = P::kN;
   constexpr int kSteps = P::kSteps, kTeam = P::kTeam;
@@ -263,13 +271,14 @@ __device__ __forceinline__ void dq_block(int tile, int b, const float* __restric
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
   auto copy_tile = [&](int j0) {
-    tc::copy_rows_async<kRows, D, D, kN>(smem_u32(rawK), kb, ks.n, j0, M);
-    tc::copy_rows_async<kRows, D, D, kN>(smem_u32(rawV), vb, vs.n, j0, M);
+    tc::copy_rows_async<kRows, D, D, kN>(smem_u32(rawK), kb, ks.n, j0, M, Dh);
+    tc::copy_rows_async<kRows, D, D, kN>(smem_u32(rawV), vb, vs.n, j0, M, Dh);
     cp_async_commit();
   };
-  tc::copy_rows_async<P::kOwn, D, kLd, kN>(smem_u32(Qs), q + b * qs.b + h * qs.h, qs.n, q0, N);
+  tc::copy_rows_async<P::kOwn, D, kLd, kN>(smem_u32(Qs), q + b * qs.b + h * qs.h, qs.n, q0, N,
+                                           Dh);
   tc::copy_rows_async<P::kOwn, D, kLd, kN>(smem_u32(Os), dout + b * dos.b + h * dos.h, dos.n,
-                                           q0, N);
+                                           q0, N, Dh);
   copy_tile(0);
   // this lane's rows g and g + 8: lse in log2 units and di
   const float* lse_bh = lse + ((long long)b * H + h) * N;
@@ -350,8 +359,9 @@ __device__ __forceinline__ void dq_block(int tile, int b, const float* __restric
       }
     }
   }
-  tc::store_c_rows(dq_acc, dq + (long long)b * N * H * D + h * D + part * kSteps * 8,
-                   (long long)H * D, q0 + group * 16, N, lane);
+  const int col0 = part * kSteps * 8;  // this warp's first column
+  tc::store_c_rows(dq_acc, dq + ((long long)b * N * H + h) * Dh + col0, (long long)H * Dh,
+                   q0 + group * 16, N, Dh - col0, lane);
 }
 
 // Both passes in one launch, the role in the grid's slowest dimension: z in
@@ -367,23 +377,23 @@ flash_bwd_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict_
                            const float* __restrict__ v, const float* __restrict__ dout,
                            const float* __restrict__ lse, const float* __restrict__ di,
                            float* __restrict__ dq, float* __restrict__ dk,
-                           float* __restrict__ dv, int B, int N, int M, int H, Strides qs,
-                           Strides ks, Strides vs, Strides dos, float scale) {
+                           float* __restrict__ dv, int B, int N, int M, int H, int Dh,
+                           Strides qs, Strides ks, Strides vs, Strides dos, float scale) {
   const int tile = blockIdx.x;
   const int role = blockIdx.z / B;  // 0: dK/dV, 1: dQ
   const int b = blockIdx.z % B;
   if (role == 0) {
     if (tile * Plan<D>::kOwn < M)
-      dkv_block<D>(tile, b, q, k, v, dout, lse, di, dk, dv, N, M, H, qs, ks, vs, dos, scale);
+      dkv_block<D>(tile, b, q, k, v, dout, lse, di, dk, dv, N, M, H, Dh, qs, ks, vs, dos, scale);
   } else if (tile * Plan<D>::kOwn < N) {
-    dq_block<D>(tile, b, q, k, v, dout, lse, di, dq, N, M, H, qs, ks, vs, dos, scale);
+    dq_block<D>(tile, b, q, k, v, dout, lse, di, dq, N, M, H, Dh, qs, ks, vs, dos, scale);
   }
 }
 
 template <int D>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* dout,
                    const float* lse, const float* di, float* dq, float* dk, float* dv, int B,
-                   int N, int M, int H, Strides qs, Strides ks, Strides vs, Strides dos,
+                   int N, int M, int H, int Dh, Strides qs, Strides ks, Strides vs, Strides dos,
                    float scale, cudaStream_t stream) {
   using P = Plan<D>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -391,14 +401,14 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   if (err != cudaSuccess) return err;
   const dim3 grid(((M > N ? M : N) + P::kOwn - 1) / P::kOwn, H, 2 * B);
   flash_bwd_tf32_wide_kernel<D><<<grid, P::kN, P::kSmem, stream>>>(
-      q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, qs, ks, vs, dos, scale);
+      q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H, Dh, qs, ks, vs, dos, scale);
   return cudaGetLastError();
 }
 
 }  // namespace tf32_wide
 
-// fp32 K2 at head dims 128 and 256 (gd3d_flash_bwd, flash_bwd.cu, sends
-// them here); returns the launch error.
+// fp32 K2 at the widths 128 and 256, head dim D in 65..256 (gd3d_flash_bwd,
+// flash_bwd.cu, sends them here); returns the launch error.
 cudaError_t launch_bwd_tf32_wide(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* di, void* dq, void* dk, void* dv,
                                  int B, int N, int M, int H, int D, Strides qs, Strides ks,
@@ -412,10 +422,10 @@ cudaError_t launch_bwd_tf32_wide(const void* q, const void* k, const void* v, co
   float* dq_ = static_cast<float*>(dq);
   float* dk_ = static_cast<float*>(dk);
   float* dv_ = static_cast<float*>(dv);
-  if (D == 128)
-    return tf32_wide::launch<128>(q_, k_, v_, do_, lse_, di_, dq_, dk_, dv_, B, N, M, H, qs, ks,
-                                  vs, dos, scale, stream);
-  return tf32_wide::launch<256>(q_, k_, v_, do_, lse_, di_, dq_, dk_, dv_, B, N, M, H, qs, ks,
+  if (D <= 128)
+    return tf32_wide::launch<128>(q_, k_, v_, do_, lse_, di_, dq_, dk_, dv_, B, N, M, H, D, qs,
+                                  ks, vs, dos, scale, stream);
+  return tf32_wide::launch<256>(q_, k_, v_, do_, lse_, di_, dq_, dk_, dv_, B, N, M, H, D, qs, ks,
                                 vs, dos, scale, stream);
 }
 

@@ -13,8 +13,8 @@
 // dtype and kernel width:
 //
 // * bf16 at 64 (the student, DINOv2 and the VGGT aggregator, the bf16
-//   teacher), 128 and 256 (no model of the repo; the wrapper pads head dims
-//   65..256 to them): flash_fwd_sm90.cu, on TMA, wgmma and warp
+//   teacher, and the --tiny CroCo-Stereo model's 16 and 8), 128 and 256 (no
+//   model of the repo): flash_fwd_sm90.cu, on TMA, wgmma and warp
 //   specialisation; gd3d_flash_fwd below sends every bf16 case there.
 // * fp32, head dim 64 (the frozen CroCo teacher, which runs with TF32 off):
 //   flash_fwd_f32_kernel, on the fp32 CUDA cores, which keeps fp32 exact.
@@ -46,13 +46,13 @@
 //   SM) were tried: no faster at the decoder, and slower at the encoder,
 //   whose 352 blocks then need a second wave.
 // * fp32 at 128 (the VGGT camera trunk, N = 2 frames) and 256 (no path of
-//   the repo; the wrapper pads 65..255 to them): flash_fwd_tf32_kernel, on
-//   the tensor cores at fp32 accuracy, as the fp32 K2 (mma.cuh): every
-//   operand split into TF32 hi and lo parts, every product three mma.sync
-//   m16n8k8, whatever torch.backends.cuda.matmul.allow_tf32 says. A block
-//   takes 16 queries a group of warps and walks the keys in tiles of 32. S
-//   = Q K^T leaves P in accumulator fragments, which pass to O += P V as A
-//   fragments (C column 2t as A column t, 2t + 1 as t + 4, a_from_c_tf32;
+//   the repo): flash_fwd_tf32_kernel, on the tensor cores at fp32
+//   accuracy, as the fp32 K2 (mma.cuh): every operand split into TF32 hi
+//   and lo parts, every product three mma.sync m16n8k8, whatever
+//   torch.backends.cuda.matmul.allow_tf32 says. A block takes 16 queries a
+//   group of warps and walks the keys in tiles of 32. S = Q K^T leaves P
+//   in accumulator fragments, which pass to O += P V as A fragments (C
+//   column 2t as A column t, 2t + 1 as t + 4, a_from_c_tf32;
 //   V's B rows t and t + 4 then hold keys 2t and 2t + 1). A lane owns its
 //   scores, so every exponential is computed once in a warp (one ex2 in
 //   log2 units); the row max takes two shuffles over the row's 4 lanes, and
@@ -80,9 +80,15 @@
 //   (1,2,16,128), a 2-key tile each.
 //
 // Layout: q, k, v are (B, N, H, D) views read through their strides; o is a
-// contiguous (B, N, H, D) tensor and lse a contiguous (B, H, N) fp32 tensor.
-// D is 64, 128 or 256: the wrapper zero-pads other head dims to the next of
-// the three (kernels/flash_fwd.py). Every kernel copies 16 bytes at a time
+// (B, N, H, D) tensor written through its strides and lse a contiguous
+// (B, H, N) fp32 tensor. Each kernel runs at a width of 64, 128 or 256, the
+// least that holds D. A head dim below its width whose rows are 16-byte
+// multiples (fp32 D a multiple of 4, bf16 a multiple of 8) runs on the
+// caller's own rows: the copies fill the columns past D with zeros (cp.async
+// with no source bytes, TMA past the map's D), which add nothing to Q K^T
+// and leave P V's columns past D at 0, and the stores write D columns. The
+// wrapper zero-pads any other head dim to the width (kernels/flash_fwd.py:
+// runs_direct, fwd_padded). Every kernel copies 16 bytes at a time
 // (TMA, cp.async): the views' addresses and (B, N, H) steps must fall on
 // 16 bytes (the wrapper copies a view that does not). Ragged sequence
 // lengths (2, 672, 673, 1374, 4161, ...) are masked inside the kernels:
@@ -109,17 +115,18 @@ constexpr int kRQ = kBQ / kTY;        // query rows per thread
 constexpr int kDC = kD / (4 * kTX);   // float4 columns of O per thread
 constexpr int kSmemBytes = (kBQ * kLd + 4 * kBK * kLd + kBQ * kLdP) * 4;
 
-// Rows [row0, row0 + kRows) of a (rows, 64) fp32 slice with row stride `stride`
-// (elements) into a tile of kLd-float rows; rows at or past n_rows are zeros.
+// Rows [row0, row0 + kRows) of a (rows, D) fp32 slice with row stride
+// `stride` (elements), D <= 64 a multiple of 4, into a tile of kLd-float
+// rows; rows at or past n_rows and columns at or past D are zeros.
 template <int kRows>
 __device__ __forceinline__ void load_rows_async(uint32_t dst, const float* __restrict__ src,
-                                                long long stride, int row0, int n_rows) {
+                                                long long stride, int row0, int n_rows, int D) {
 #pragma unroll
   for (int i = 0; i < kRows * (kD / 4) / kThreads; ++i) {
     const int c = threadIdx.x + i * kThreads;
     const int r = c >> 4;
     const int col = (c & 15) * 4;
-    const bool ok = row0 + r < n_rows;
+    const bool ok = row0 + r < n_rows && col < D;
     const float* g = ok ? src + (long long)(row0 + r) * stride + col : src;
     cp_async16(dst + (r * kLd + col) * 4, g, ok);
   }
@@ -129,8 +136,8 @@ __device__ __forceinline__ void load_rows_async(uint32_t dst, const float* __res
 __global__ void __launch_bounds__(kThreads, 3)
 flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     float* __restrict__ lse, int N, int M, int H, Strides qs, Strides ks,
-                     Strides vs, Strides os, float scale_log2) {
+                     float* __restrict__ lse, int N, int M, int H, int D, Strides qs,
+                     Strides ks, Strides vs, Strides os, float scale_log2) {
   using namespace f32;
   extern __shared__ __align__(16) float smem_f[];
   float* Qs = smem_f;
@@ -147,9 +154,9 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const uint32_t sK = smem_u32(Ks);
   const uint32_t sV = smem_u32(Vs);
 
-  load_rows_async<kBQ>(smem_u32(Qs), q + b * qs.b + h * qs.h, qs.n, q0, N);
-  load_rows_async<kBK>(sK, kb, ks.n, 0, M);
-  load_rows_async<kBK>(sV, vb, vs.n, 0, M);
+  load_rows_async<kBQ>(smem_u32(Qs), q + b * qs.b + h * qs.h, qs.n, q0, N, D);
+  load_rows_async<kBK>(sK, kb, ks.n, 0, M, D);
+  load_rows_async<kBK>(sV, vb, vs.n, 0, M, D);
   cp_async_commit();
 
   // thread rows: ty + kTY * i; S keys: tx + kTX * j; O dims: 4 * (tx + kTX * c)
@@ -168,8 +175,8 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int t = 0; t < n_tiles; ++t) {
     const int st = t & 1;
     if (t + 1 < n_tiles) {
-      load_rows_async<kBK>(sK + (st ^ 1) * kBK * kLd * 4, kb, ks.n, (t + 1) * kBK, M);
-      load_rows_async<kBK>(sV + (st ^ 1) * kBK * kLd * 4, vb, vs.n, (t + 1) * kBK, M);
+      load_rows_async<kBK>(sK + (st ^ 1) * kBK * kLd * 4, kb, ks.n, (t + 1) * kBK, M, D);
+      load_rows_async<kBK>(sV + (st ^ 1) * kBK * kLd * 4, vb, vs.n, (t + 1) * kBK, M, D);
     }
     cp_async_commit();  // an empty group on the last tile keeps the count
     cp_async_wait<1>();
@@ -259,24 +266,26 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float inv = 1.f / l[i];
 #pragma unroll
     for (int c = 0; c < kDC; ++c) {
-      *reinterpret_cast<float4*>(ob + n * os.n + 4 * (tx + kTX * c)) =
-          make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv, acc[i][4 * c + 2] * inv,
-                      acc[i][4 * c + 3] * inv);
+      const int col = 4 * (tx + kTX * c);
+      if (col < D)
+        *reinterpret_cast<float4*>(ob + n * os.n + col) =
+            make_float4(acc[i][4 * c] * inv, acc[i][4 * c + 1] * inv, acc[i][4 * c + 2] * inv,
+                        acc[i][4 * c + 3] * inv);
     }
     if (tx == 0) lse_bh[n] = (m[i] + log2f(l[i])) * kLn2;
   }
 }
 
 cudaError_t launch_fwd_f32(const void* q, const void* k, const void* v, void* o, void* lse,
-                           int B, int N, int M, int H, Strides qs, Strides ks, Strides vs,
-                           Strides os, float scale, cudaStream_t stream) {
+                           int B, int N, int M, int H, int D, Strides qs, Strides ks,
+                           Strides vs, Strides os, float scale, cudaStream_t stream) {
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, f32::kSmemBytes);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + f32::kBQ - 1) / f32::kBQ, H, B);
   flash_fwd_f32_kernel<<<grid, kThreads, f32::kSmemBytes, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), N, M, H, qs, ks, vs, os,
+      static_cast<float*>(o), static_cast<float*>(lse), N, M, H, D, qs, ks, vs, os,
       scale * kLog2e);
   return cudaGetLastError();
 }
@@ -311,8 +320,8 @@ template <int D>
 __global__ void __launch_bounds__(tf32_wide::FwdPlan<D>::kN, tf32_wide::FwdPlan<D>::kBlocks)
 flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                       const float* __restrict__ v, float* __restrict__ o,
-                      float* __restrict__ lse, int N, int M, int H, Strides qs, Strides ks,
-                      Strides vs, Strides os, float scale_log2) {
+                      float* __restrict__ lse, int N, int M, int H, int Dh, Strides qs,
+                      Strides ks, Strides vs, Strides os, float scale_log2) {
   using P = tf32_wide::FwdPlan<D>;
   constexpr int kLd = P::kLd, kKeys = P::kKeys, kNt = P::kNt, kKs = P::kKs, kN = P::kN;
   constexpr int kSteps = P::kSteps, kTeam = P::kTeam;
@@ -335,15 +344,16 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* kb = k + b * ks.b + h * ks.h;
   const float* vb = v + b * vs.b + h * vs.h;
   auto copy_tile = [&](int j0) {
-    tc::copy_rows_async<kKeys, D, D, kN>(smem_u32(rawK), kb, ks.n, j0, M);
-    tc::copy_rows_async<kKeys, D, D, kN>(smem_u32(rawV), vb, vs.n, j0, M);
+    tc::copy_rows_async<kKeys, D, D, kN>(smem_u32(rawK), kb, ks.n, j0, M, Dh);
+    tc::copy_rows_async<kKeys, D, D, kN>(smem_u32(rawV), vb, vs.n, j0, M, Dh);
     cp_async_commit();
   };
   copy_tile(0);
   // the group's 16 queries over this warp's part of the head dim: A
   // fragments in fp32, split at use
+  const int col0 = part * kSteps * 8;  // this warp's first column
   float qf[kSteps][4];
-  tc::load_a_rows(qf, q + b * qs.b + h * qs.h + part * kSteps * 8, qs.n, q0 + group * 16, N,
+  tc::load_a_rows(qf, q + b * qs.b + h * qs.h + col0, qs.n, q0 + group * 16, N, Dh - col0,
                   lane);
   float* team_xch = xch + group * kTeam * P::kXF;
   const uint32_t kb_lane = tc::b_lane_addr<kLd>(Khi, Klo, lane);
@@ -429,7 +439,7 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  float* ob = o + b * os.b + h * os.h + part * kSteps * 8;
+  float* ob = o + b * os.b + h * os.h + col0;
   float* lse_bh = lse + ((long long)b * H + h) * N;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -441,16 +451,17 @@ flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* row = ob + n * os.n + 2 * t;
 #pragma unroll
     for (int u = 0; u < kSteps; ++u)
-      *reinterpret_cast<float2*>(row + 8 * u) =
-          make_float2(acc[u][2 * r] * inv, acc[u][2 * r + 1] * inv);
+      if (8 * u + 2 * t < Dh - col0)
+        *reinterpret_cast<float2*>(row + 8 * u) =
+            make_float2(acc[u][2 * r] * inv, acc[u][2 * r + 1] * inv);
     if (t == 0 && part == 0) lse_bh[n] = (m[r] + log2f(l[r])) * kLn2;
   }
 }
 
 template <int D>
 cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v, void* o, void* lse,
-                            int B, int N, int M, int H, Strides qs, Strides ks, Strides vs,
-                            Strides os, float scale, cudaStream_t stream) {
+                            int B, int N, int M, int H, int Dh, Strides qs, Strides ks,
+                            Strides vs, Strides os, float scale, cudaStream_t stream) {
   using P = tf32_wide::FwdPlan<D>;
   const cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_tf32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, P::kSmem);
@@ -458,7 +469,7 @@ cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v, void* o
   const dim3 grid((N + P::kRows - 1) / P::kRows, H, B);
   flash_fwd_tf32_kernel<D><<<grid, P::kN, P::kSmem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(o), static_cast<float*>(lse), N, M, H, qs, ks, vs, os,
+      static_cast<float*>(o), static_cast<float*>(lse), N, M, H, Dh, qs, ks, vs, os,
       scale * kLog2e);
   return cudaGetLastError();
 }
@@ -473,7 +484,9 @@ extern "C" int gd3d_flash_fwd(const void* q, const void* k, const void* v, void*
                               long long osb, long long osn, long long osh, float scale,
                               int is_bf16, void* stream) {
   using namespace gd3d;
-  if ((D != 64 && D != 128 && D != 256) || N <= 0 || M <= 0 || B <= 0 || H <= 0)
+  // any head dim up to 256 whose rows are 16-byte multiples, at the least
+  // kernel width that holds it
+  if (D <= 0 || D > 256 || D % (is_bf16 ? 8 : 4) != 0 || N <= 0 || M <= 0 || B <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qsn, qsh}, ks{ksb, ksn, ksh}, vs{vsb, vsn, vsh}, os{osb, osn, osh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -481,11 +494,11 @@ extern "C" int gd3d_flash_fwd(const void* q, const void* k, const void* v, void*
     return static_cast<int>(
         sm90::launch_fwd_bf16(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, os, scale, st));
   cudaError_t err;
-  if (D == kD)  // fp32 at 64: the CUDA cores
-    err = launch_fwd_f32(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
-  else if (D == 128)  // fp32 at 128 and 256: split TF32 on mma.sync
-    err = launch_fwd_tf32<128>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
+  if (D <= kD)  // fp32 at width 64: the CUDA cores
+    err = launch_fwd_f32(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, os, scale, st);
+  else if (D <= 128)  // fp32 at widths 128 and 256: split TF32 on mma.sync
+    err = launch_fwd_tf32<128>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, os, scale, st);
   else
-    err = launch_fwd_tf32<256>(q, k, v, o, lse, B, N, M, H, qs, ks, vs, os, scale, st);
+    err = launch_fwd_tf32<256>(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, os, scale, st);
   return static_cast<int>(err);
 }

@@ -1,11 +1,14 @@
-// K1 in bf16 at head dims 64, 128 and 256: the flash-attention forward
-// with the row log-sum-exp, on Hopper's own machinery. gd3d_flash_fwd
-// (flash_fwd.cu) sends every bf16 case here (the wrapper zero-pads other
-// head dims up to 256 to the next of the three); fp32 stays there. Head dim
-// 64 is the student, DINOv2 and the VGGT aggregator and the bf16 CroCo
-// teacher; no model of the repo runs bf16 attention at 128 or 256, which
-// serve the head dims 65..256 (72, 80 and 104 among them) that wider
-// backbones have.
+// K1 in bf16 at the kernel widths 64, 128 and 256: the flash-attention
+// forward with the row log-sum-exp, on Hopper's own machinery.
+// gd3d_flash_fwd (flash_fwd.cu) sends every bf16 case here; fp32 stays
+// there. A head dim D below its width (a multiple of 8, so that its rows
+// are 16-byte multiples) runs at that width on the caller's own rows: TMA
+// fills each box's columns past D with zeros, which add nothing to Q K^T,
+// and only D columns of O are stored (the wrapper zero-pads any other D up
+// to 256). Head dim 64 is the student, DINOv2 and the VGGT aggregator and
+// the bf16 CroCo teacher, 16 and 8 the --tiny CroCo-Stereo model; no model
+// of the repo runs bf16 attention above 64, which serves the head dims
+// 72..256 (72, 80 and 104 among them) that wider backbones have.
 //
 // Replaces, as the rest of K1 does, the stock TPU Pallas flash forward that
 // gd3d calls through gd3d/ops/attention.py::_flash_call.
@@ -68,11 +71,13 @@
 //     registers; (2, 4161, 3, 256) makes 396 blocks, three full waves
 //     (0.2070 ms).
 // * Epilogue: O scaled by 1 / l and stored as bf16 pairs straight from the
-//   accumulator, rows past N skipped; the LSE as fp32 (B, H, N).
+//   accumulator, rows past N and columns past D skipped, through O's own
+//   strides; the LSE as fp32 (B, H, N).
 //
-// Layout: q, k, v are (B, N|M, H, kD) bf16 views read by TMA through their
-// strides (their addresses and (B, N, H) steps on 16 bytes: the wrapper
-// copies a view that is not); rows past N or M arrive as zeros.
+// Layout: q, k, v are (B, N|M, H, D) bf16 views, D <= kD, read by TMA
+// through their strides (their addresses and (B, N, H) steps on 16 bytes:
+// the wrapper copies a view that is not); rows past N or M and columns past
+// D arrive as zeros.
 #include "sm90.cuh"
 
 namespace gd3d {
@@ -94,7 +99,7 @@ __global__ void __launch_bounds__(128 * (kWG + 1), (Regs<kD, kWG>::kMinBlocks))
 flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
                       const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
-                      float* __restrict__ lse, int N, int M, int H, Strides os,
+                      float* __restrict__ lse, int N, int M, int H, int D, Strides os,
                       float scale_log2) {
   using L = FwdPlan<kD, kWG, kKeys, kStages>;
   constexpr int kS = kStages;
@@ -258,7 +263,8 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     }
     const int row0 = q0 + c * 64 + warp * 16;
-    store_acc<kD>(acc, 1.f / l[0], 1.f / l[1], o + b * os.b + h * os.h, os.n, row0, N, lane);
+    store_acc<kD>(acc, 1.f / l[0], 1.f / l[1], o + b * os.b + h * os.h, os.n, row0, N, D,
+                  lane);
     if (t == 0) {
       float* lse_bh = lse + ((long long)b * H + h) * N;
       const int n = row0 + (lane >> 2);
@@ -270,7 +276,7 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int kD, int kWG, int kKeys, int kStages>
 cudaError_t launch_fwd_plan(const CUtensorMap* maps, void* o, void* lse, int B, int N, int M,
-                            int H, Strides os, float scale, cudaStream_t stream) {
+                            int H, int D, Strides os, float scale, cudaStream_t stream) {
   constexpr int kSmem = FwdPlan<kD, kWG, kKeys, kStages>::kSmem;
   const auto kernel = flash_fwd_sm90_kernel<kD, kWG, kKeys, kStages>;
   const cudaError_t attr =
@@ -279,26 +285,26 @@ cudaError_t launch_fwd_plan(const CUtensorMap* maps, void* o, void* lse, int B, 
   const dim3 grid((N + 64 * kWG - 1) / (64 * kWG), H, B);
   kernel<<<grid, 128 * (kWG + 1), kSmem, stream>>>(maps[0], maps[1], maps[2],
                                                    static_cast<bf16*>(o),
-                                                   static_cast<float*>(lse), N, M, H, os,
-                                                   scale * kLog2e);
+                                                   static_cast<float*>(lse), N, M, H, D,
+                                                   os, scale * kLog2e);
   return cudaGetLastError();
 }
 
 cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                             int B, int N, int M, int H, int D, Strides qs, Strides ks,
                             Strides vs, Strides os, float scale, cudaStream_t stream) {
-  if (D != 64 && D != 128 && D != 256) return cudaErrorInvalidValue;
-  CUtensorMap maps[3];  // q, k, v
+  if (D <= 0 || D > 256 || D % 8 != 0) return cudaErrorInvalidValue;
+  CUtensorMap maps[3];  // q, k, v, each at its true head dim
   if (!encode_map(&maps[0], q, B, N, H, D, qs) || !encode_map(&maps[1], k, B, M, H, D, ks) ||
       !encode_map(&maps[2], v, B, M, H, D, vs))
     return cudaErrorInvalidValue;
-  if (D == 64)
-    return launch_fwd_plan<64, 1, 128, 3>(maps, o, lse, B, N, M, H, os, scale, stream);
-  if (D == 256)
-    return launch_fwd_plan<256, 1, 64, 2>(maps, o, lse, B, N, M, H, os, scale, stream);
+  if (D <= 64)
+    return launch_fwd_plan<64, 1, 128, 3>(maps, o, lse, B, N, M, H, D, os, scale, stream);
+  if (D > 128)
+    return launch_fwd_plan<256, 1, 64, 2>(maps, o, lse, B, N, M, H, D, os, scale, stream);
   if (wide_tiles(N, B, H))
-    return launch_fwd_plan<128, 2, 128, 2>(maps, o, lse, B, N, M, H, os, scale, stream);
-  return launch_fwd_plan<128, 1, 64, 2>(maps, o, lse, B, N, M, H, os, scale, stream);
+    return launch_fwd_plan<128, 2, 128, 2>(maps, o, lse, B, N, M, H, D, os, scale, stream);
+  return launch_fwd_plan<128, 1, 64, 2>(maps, o, lse, B, N, M, H, D, os, scale, stream);
 }
 
 }  // namespace sm90

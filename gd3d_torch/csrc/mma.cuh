@@ -111,10 +111,13 @@ __device__ __forceinline__ void mma_split(float (&c)[4], const SplitA& a, const 
 // Rows [row0, row0 + kRows) of a (rows, D) fp32 slice with row stride
 // `stride` (elements) into shared memory rows of kLd floats, 16 bytes a
 // copy, the kN threads of the block taking a share each; rows at or past
-// n_rows become zeros. src and stride * 4 bytes must fall on 16 bytes.
+// n_rows and columns at or past n_cols (a head dim below the kernel width
+// D, a multiple of 4) become zeros, and are not read. src and stride * 4
+// bytes must fall on 16 bytes.
 template <int kRows, int D, int kLd, int kN = kThreads>
 __device__ __forceinline__ void copy_rows_async(uint32_t dst, const float* __restrict__ src,
-                                                long long stride, int row0, int n_rows) {
+                                                long long stride, int row0, int n_rows,
+                                                int n_cols) {
   constexpr int kChunks = D / 4;  // 16-byte copies a row
   constexpr int kAll = kRows * kChunks;
 #pragma unroll
@@ -123,7 +126,7 @@ __device__ __forceinline__ void copy_rows_async(uint32_t dst, const float* __res
     if (kAll % kN != 0 && c >= kAll) break;
     const int r = c / kChunks;
     const int col = (c % kChunks) * 4;
-    const bool ok = row0 + r < n_rows;
+    const bool ok = row0 + r < n_rows && col < n_cols;
     cp_async16(dst + (r * kLd + col) * 4, ok ? src + (long long)(row0 + r) * stride + col : src,
                ok);
   }
@@ -204,29 +207,34 @@ __device__ __forceinline__ SplitA split_a_ldm(uint32_t addr) {
 
 // The warp's 16 rows (first + g, first + g + 8) of a (rows, 8 kSteps) fp32
 // slice as A fragments of its kSteps k-steps, in fp32 (split at use); rows
-// at or past n_rows are zeros. Read once a block, from device memory.
+// at or past n_rows and columns at or past n_cols are zeros. Read once a
+// block, from device memory.
 template <int kSteps>
 __device__ __forceinline__ void load_a_rows(float (&a)[kSteps][4], const float* __restrict__ src,
-                                            long long stride, int first, int n_rows, int lane) {
+                                            long long stride, int first, int n_rows, int n_cols,
+                                            int lane) {
   const int g = lane >> 2, t = lane & 3;
   const bool ok0 = first + g < n_rows, ok1 = first + g + 8 < n_rows;
   const float* r0 = src + (long long)(first + g) * stride;
   const float* r1 = src + (long long)(first + g + 8) * stride;
 #pragma unroll
   for (int kk = 0; kk < kSteps; ++kk) {
-    a[kk][0] = ok0 ? r0[8 * kk + t] : 0.f;
-    a[kk][1] = ok1 ? r1[8 * kk + t] : 0.f;
-    a[kk][2] = ok0 ? r0[8 * kk + t + 4] : 0.f;
-    a[kk][3] = ok1 ? r1[8 * kk + t + 4] : 0.f;
+    const bool lo = 8 * kk + t < n_cols, hi = 8 * kk + t + 4 < n_cols;
+    a[kk][0] = ok0 && lo ? r0[8 * kk + t] : 0.f;
+    a[kk][1] = ok1 && lo ? r1[8 * kk + t] : 0.f;
+    a[kk][2] = ok0 && hi ? r0[8 * kk + t + 4] : 0.f;
+    a[kk][3] = ok1 && hi ? r1[8 * kk + t + 4] : 0.f;
   }
 }
 
 // Writes a warp's 16 x (8 kTiles) fp32 C tile to rows first + g, first + g
-// + 8 of a slice with row stride `stride`; rows at or past n_rows are
-// skipped.
+// + 8 of a slice with row stride `stride`; rows at or past n_rows and
+// columns at or past n_cols (a head dim below the kernel width, a multiple
+// of 4, past the slice's first column) are skipped.
 template <int kTiles>
 __device__ __forceinline__ void store_c_rows(const float (&c)[kTiles][4], float* __restrict__ dst,
-                                             long long stride, int first, int n_rows, int lane) {
+                                             long long stride, int first, int n_rows, int n_cols,
+                                             int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
@@ -235,7 +243,9 @@ __device__ __forceinline__ void store_c_rows(const float (&c)[kTiles][4], float*
     float* row = dst + (long long)r * stride + 2 * t;
 #pragma unroll
     for (int nt = 0; nt < kTiles; ++nt)
-      *reinterpret_cast<float2*>(row + nt * 8) = make_float2(c[nt][2 * half], c[nt][2 * half + 1]);
+      if (nt * 8 + 2 * t < n_cols)
+        *reinterpret_cast<float2*>(row + nt * 8) =
+            make_float2(c[nt][2 * half], c[nt][2 * half + 1]);
   }
 }
 

@@ -1,5 +1,5 @@
 // Hopper building blocks of the bf16 flash kernels (K1 forward, K2
-// backward) at head dims 64, 128 and 256, as inline PTX for sm_90a: tensor
+// backward) at the kernel widths 64, 128 and 256, as inline PTX for sm_90a: tensor
 // maps and TMA copies, mbarriers, warpgroup matrix products (wgmma) with
 // their shared-memory descriptors, and register handover between
 // warpgroups (setmaxnreg).
@@ -80,10 +80,15 @@ inline EncodeTiled encode_tiled() {
 
 // The tensor map of a (B, L, H, D) bf16 view with element strides s (its
 // last dim contiguous): dims (D, L, H, B), boxes of 64 x kBox x 1 x 1 (one
-// box of one panel), the 128-byte swizzle, rows past L read as zeros. A
-// step along a dim of length 1 is never taken, so it is replaced by one
-// that TMA takes. Returns false where CUDA refuses the map (an address or
-// step off 16 bytes).
+// box of one panel), the 128-byte swizzle. TMA fills what a box holds past
+// the view with zeros: rows past L, and columns past D where D is below
+// the kernel width (D a multiple of 8: 16-byte rows), up to whole panels
+// past D (the fourth at D = 192, width 256). A box counts its full
+// kBoxBytes towards its barrier's transaction count however much of it lies
+// out of bounds, so every stage expects the same bytes at any D. A step
+// along a dim of length 1 is never taken, so it is replaced by one that TMA
+// takes. Returns false where CUDA refuses the map (an address or step off
+// 16 bytes).
 inline bool encode_map(CUtensorMap* map, const void* ptr, int B, int L, int H, int D,
                        Strides s) {
   const EncodeTiled fn = encode_tiled();
@@ -119,8 +124,9 @@ inline bool wide_tiles(int L, int B, int H) {
   return (long long)((L + 127) / 128) * B * H >= 2LL * sm_count();
 }
 
-// The bf16 launchers at head dim D = 64, 128 or 256 (flash_fwd_sm90.cu,
-// flash_bwd_sm90.cu); cudaErrorInvalidValue for another D.
+// The bf16 launchers at any head dim D up to 256 that is a multiple of 8
+// (flash_fwd_sm90.cu, flash_bwd_sm90.cu), at the kernel width 64, 128 or 256
+// that holds it; cudaErrorInvalidValue for another D.
 cudaError_t launch_fwd_bf16(const void* q, const void* k, const void* v, void* o, void* lse,
                             int B, int N, int M, int H, int D, Strides qs, Strides ks,
                             Strides vs, Strides os, float scale, cudaStream_t stream);
@@ -341,16 +347,19 @@ __device__ __forceinline__ void a_from_tile(uint32_t (&a)[4], const unsigned cha
 
 // Stores a warpgroup's 64 x kN accumulator as bf16 rows of a (rows,
 // stride) output: this thread's rows row0 + g (times mul0) and row0 + g + 8
-// (times mul1), skipping rows at or past n_rows. row0 is the warp's first
-// row.
+// (times mul1), skipping rows at or past n_rows and the 8-column chunks at
+// or past n_cols (the output's head dim past the accumulator's first
+// column, a multiple of 8; the columns past it hold the zero columns of a
+// head dim below the kernel width). row0 is the warp's first row.
 template <int kN>
 __device__ __forceinline__ void store_acc(const float (&d)[kN / 2], float mul0, float mul1,
                                           bf16* __restrict__ out, long long stride, int row0,
-                                          int n_rows, int lane) {
+                                          int n_rows, int n_cols, int lane) {
   const int g = lane >> 2, t = lane & 3;
   const int r0 = row0 + g, r1 = r0 + 8;
 #pragma unroll
   for (int c = 0; c < kN / 8; ++c) {
+    if (8 * c >= n_cols) break;
     const int col = 8 * c + 2 * t;
     if (r0 < n_rows)
       *reinterpret_cast<uint32_t*>(out + r0 * stride + col) =

@@ -3,8 +3,10 @@
 Each wrapper adds one to its `launches` count where it launches its kernel,
 and nowhere else, so a run can show that its main path went through the
 kernels. The flash wrappers (K1, K2) and K5 also count by dtype and
-length (`launches_by`), at the same place, and K5 counts its backward
-launches (-f0) apart as well (`launches_bwd`).
+length (`launches_by`), at the same place, and those that took the pad
+route (`launches_padded`, K1 and K2: head dims whose rows are no multiple
+of 16 bytes); K5 counts its backward launches (-f0) apart as well
+(`launches_bwd`).
 """
 from __future__ import annotations
 
@@ -39,6 +41,8 @@ def reset_launch_counts() -> None:
             fn.launches_by.clear()
         if hasattr(fn, "launches_bwd"):
             fn.launches_bwd = 0
+        if hasattr(fn, "launches_padded"):
+            fn.launches_padded = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -57,3 +61,10 @@ def backward_launches() -> Dict[str, int]:
     """Of each kernel's launches, those of a backward where the kernel also
     runs forward (K5 with -f0): kernel id -> launches."""
     return {k: fn.launches_bwd for k, fn in wrappers().items() if hasattr(fn, "launches_bwd")}
+
+
+def padded_launches() -> Dict[str, int]:
+    """Of the flash kernels' launches, those on the pad route (operands
+    zero-padded to the kernel width): kernel id -> launches."""
+    return {k: fn.launches_padded for k, fn in wrappers().items()
+            if hasattr(fn, "launches_padded")}

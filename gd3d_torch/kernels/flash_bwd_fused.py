@@ -7,21 +7,27 @@ both three TF32 products for each fp32 one on the tensor cores, which
 replace gd3d/kernels/flash_bwd_fused.py::
 flash_attention_bwd_fused. gd3d's kernel sums per-KV-block dQ partials
 after one pass; the port runs a dK/dV kernel and a second, dQ kernel (see
-the source notes), which is deterministic. The wrapper zero-pads q, k, v
-and dO along other head dims to the next of the three widths (`bwd_padded`;
-exact, as for K1, and the padded columns of dQ, dK and dV come out 0 and
-are cut off), and copies a view the kernels cannot read as it is first
-(`fit_views`). A failed build or launch raises; nothing falls back.
+the source notes), which is deterministic. K1's routing rule
+(kernels/flash_fwd.py::runs_direct) routes each head dim: where a row of D
+elements is a multiple of 16 bytes the kernels read the caller's q, k, v
+and dO at the width `kernel_width(D)` (zero-filled past D) and write D
+columns of dQ, dK and dV (the direct route); any other D takes the pad
+route (`bwd_padded`: q, k, v and dO zero-padded along D to the width, dQ,
+dK and dV cut back; exact, as for K1). A view the kernels cannot read as
+it is is copied first (`fit_views`). A failed build or a refused launch
+raises; nothing falls back.
 `flash_attention_bwd_plain` is the plain PyTorch twin.
 """
 from __future__ import annotations
 
 from collections import Counter
+from functools import partial
 
 import torch
 
 from gd3d_torch.kernels import build
-from gd3d_torch.kernels.flash_fwd import check_operands, fit_views, kernel_width, pad_head_dim
+from gd3d_torch.kernels.flash_fwd import (
+    check_operands, fit_views, kernel_width, pad_head_dim, runs_direct)
 
 
 def flash_attention_bwd_plain(q, k, v, lse, do, di, scale: float):
@@ -41,7 +47,7 @@ def flash_attention_bwd_plain(q, k, v, lse, do, di, scale: float):
 
 
 def bwd_padded(run, q, k, v, lse, do, di, scale: float):
-    """K2's route at any head dim D up to 256: `run` (the kernels' launch, or
+    """K2's pad route at any head dim D up to 256: `run` (the kernels' launch, or
     a plain twin) on q, k, v and dO zero-padded along D to the kernel width
     (64, 128 or 256), with the caller's scale; dQ, dK and dV cut back to D
     columns. di = rowsum(O * dO) is the same either way."""
@@ -53,7 +59,15 @@ def bwd_padded(run, q, k, v, lse, do, di, scale: float):
     return tuple(g[..., :D] for g in run(q, k, v, lse, do, di, scale))
 
 
-def _launch(q, k, v, lse, do, di, scale: float):
+def bwd_routed(run, q, k, v, lse, do, di, scale: float):
+    """K2 by K1's routing rule: `run` on the operands as they are where their
+    head dim runs direct, else through `bwd_padded`."""
+    if runs_direct(q.shape[-1], q.dtype):
+        return run(q, k, v, lse, do, di, scale)
+    return bwd_padded(run, q, k, v, lse, do, di, scale)
+
+
+def _launch(q, k, v, lse, do, di, scale: float, padded: bool = False):
     q, k, v, do = fit_views(q, k, v, do)
     check_operands(q, k, v, do, fp32_copies_16=True)
     B, N, H, D = q.shape
@@ -75,17 +89,21 @@ def _launch(q, k, v, lse, do, di, scale: float):
         float(scale), int(q.dtype == torch.bfloat16), stream)
     build.check(err, "flash_attention_bwd_fused")
     flash_attention_bwd_fused.launches += 1
+    flash_attention_bwd_fused.launches_padded += padded
     flash_attention_bwd_fused.launches_by[(str(q.dtype).removeprefix("torch."), N)] += 1
     return dq, dk, dv
 
 
 def flash_attention_bwd_fused(q, k, v, lse, do, di, scale: float):
-    """K2. CPU tensors run the plain twin; CUDA tensors launch the kernels
-    (through `bwd_padded`)."""
+    """K2. CPU tensors run the plain twin; CUDA tensors launch the kernels,
+    direct or on the pad route by `runs_direct`."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, lse, do, di, scale)
-    return bwd_padded(_launch, q, k, v, lse, do, di, scale)
+    if runs_direct(q.shape[-1], q.dtype):
+        return _launch(q, k, v, lse, do, di, scale)
+    return bwd_padded(partial(_launch, padded=True), q, k, v, lse, do, di, scale)
 
 
 flash_attention_bwd_fused.launches = 0
+flash_attention_bwd_fused.launches_padded = 0  # of them, launches on the pad route
 flash_attention_bwd_fused.launches_by = Counter()  # (dtype, N) -> launches

@@ -8,18 +8,26 @@ that gd3d reaches through gd3d/ops/attention.py::_flash_call.
 `flash_attention_fwd_plain` is its plain PyTorch twin: the CPU path, and the
 oracle the kernel is checked against.
 
-The kernels take head dims 64, 128 and 256; gd3d's flash takes any. The
-wrapper zero-pads q, k and v along D to the next kernel width (`fwd_padded`),
-which is exact: zero columns leave Q K^T and the LSE unchanged, and O's
-padded columns come out 0 and are cut off. Wider head dims raise. A view
-the kernels cannot read as it is (its last dim strided, or, for the 16-byte
-copies every kernel makes (TMA, cp.async), its address or a (B, N, H) step
-off 16 bytes) is copied to a fresh contiguous tensor first (`fit_views`). A failed build or launch raises; nothing falls back to
-another kernel or to the plain twin.
+The kernels run at the widths 64, 128 and 256; gd3d's flash takes any head
+dim. One static rule, chosen from (D, dtype) alone and shared with K2
+(`runs_direct`), routes a head dim D up to 256: where a row of D elements
+is a multiple of 16 bytes (bf16 D a multiple of 8, fp32 a multiple of 4),
+the kernels read the caller's D columns at the width `kernel_width(D)`,
+their loads filling the columns past D with zeros (TMA, cp.async), and
+write D columns of O back: no copy, no slice (the direct route). Any other
+D takes the pad route (`fwd_padded`): q, k and v zero-padded along D to the
+width, O cut back to D columns. Both are exact: zero columns leave Q K^T
+and the LSE unchanged. Wider head dims raise. A view the kernels cannot
+read as it is (its last dim strided, or, for the 16-byte copies every
+kernel makes (TMA, cp.async), its address or a (B, N, H) step off 16 bytes)
+is copied to a fresh contiguous tensor first (`fit_views`). A failed build
+or a refused launch raises; nothing falls back to the other route, another
+kernel or the plain twin.
 """
 from __future__ import annotations
 
 from collections import Counter
+from functools import partial
 
 import torch
 import torch.nn.functional as F
@@ -70,6 +78,14 @@ def kernel_width(D: int, widths=HEAD_DIMS) -> int:
     raise ValueError(f"the flash kernels take head dims up to {max(widths)}, got {D}")
 
 
+def runs_direct(D: int, dtype: torch.dtype, widths=HEAD_DIMS) -> bool:
+    """The static routing rule of K1 and K2: head dim D runs direct (the
+    kernels read and write D columns at `kernel_width(D)`) where D is at most
+    the widest kernel and a row of D elements of `dtype` is a multiple of 16
+    bytes; any other D takes the pad route."""
+    return 0 < D <= max(widths) and D * (torch.finfo(dtype).bits // 8) % 16 == 0
+
+
 def pad_head_dim(width: int, *ts: torch.Tensor):
     """Each tensor zero-padded along its last dim to `width` (itself where it
     is that wide already)."""
@@ -78,21 +94,24 @@ def pad_head_dim(width: int, *ts: torch.Tensor):
 
 def check_views(*ts: torch.Tensor, head_dims=HEAD_DIMS, fp32_copies_16: bool = False) -> None:
     """The layout the flash kernels take, on any device: tensors of one dtype
-    (fp32 or bf16), (B, N, H, D) with D in `head_dims` and a contiguous last
-    dim. bf16 views must be `aligned_16`, and with `fp32_copies_16` (K1 and
-    K2, whose fp32 kernels copy 16 bytes at a time at every width) fp32
-    views too. It raises where a view does not fit (the wrappers pass it
-    views that `fit_views` and `fwd_padded` made fit)."""
+    (fp32 or bf16), (B, N, H, D) with a contiguous last dim and D a head dim
+    they read direct at one of the widths `head_dims` (`runs_direct`: up to
+    the widest, a row of D a multiple of 16 bytes). bf16 views must be
+    `aligned_16`, and with `fp32_copies_16` (K1 and K2, whose fp32 kernels
+    copy 16 bytes at a time at every width) fp32 views too. It raises where
+    a view does not fit (the wrappers pass it views that `fit_views` and
+    `fwd_padded` made fit)."""
     t0 = ts[0]
     for t in ts:
         if t.dtype != t0.dtype or t.dtype not in DTYPES:
             raise ValueError(f"flash kernels take one dtype of {DTYPES}, got "
                              f"{[x.dtype for x in ts]}")
-        if (t.dim() != 4 or t.shape[-1] not in head_dims or t.shape[-1] != t0.shape[-1]
-                or t.stride(-1) != 1):
-            raise ValueError(f"flash kernels take (B, N, H, D) views with D in "
-                             f"{head_dims} and a contiguous last dim, got shape "
-                             f"{tuple(t.shape)} strides {t.stride()}")
+        if (t.dim() != 4 or not runs_direct(t.shape[-1], t.dtype, head_dims)
+                or t.shape[-1] != t0.shape[-1] or t.stride(-1) != 1):
+            raise ValueError(f"flash kernels take (B, N, H, D) views with D up to "
+                             f"{max(head_dims)}, a row of D a multiple of 16 bytes, and a "
+                             f"contiguous last dim, got {t.dtype} shape {tuple(t.shape)} "
+                             f"strides {t.stride()}")
         if (t.dtype == torch.bfloat16 or fp32_copies_16) and not aligned_16(t):
             raise ValueError(f"this flash kernel copies 16-byte chunks: the "
                              f"{t.dtype} view's address and its (B, N, H) steps must "
@@ -111,9 +130,9 @@ def check_operands(*ts: torch.Tensor, **layout) -> None:
 
 
 def fwd_padded(run, q, k, v, scale: float):
-    """K1's route at any head dim D up to 256: `run` (the kernel's launch, or
-    a plain twin) on q, k, v zero-padded along D to the kernel width, with
-    the caller's scale; O cut back to D columns."""
+    """K1's pad route at any head dim D up to 256: `run` (the kernel's
+    launch, or a plain twin) on q, k, v zero-padded along D to the kernel
+    width, with the caller's scale; O cut back to D columns."""
     D = q.shape[-1]
     width = kernel_width(D)
     if width == D:
@@ -122,7 +141,15 @@ def fwd_padded(run, q, k, v, scale: float):
     return o[..., :D], lse
 
 
-def _launch(q, k, v, scale: float):
+def fwd_routed(run, q, k, v, scale: float):
+    """K1 by the routing rule: `run` on q, k, v as they are where their head
+    dim runs direct, else through `fwd_padded`."""
+    if runs_direct(q.shape[-1], q.dtype):
+        return run(q, k, v, scale)
+    return fwd_padded(run, q, k, v, scale)
+
+
+def _launch(q, k, v, scale: float, padded: bool = False):
     q, k, v = fit_views(q, k, v)
     check_operands(q, k, v, fp32_copies_16=True)
     B, N, H, D = q.shape
@@ -139,17 +166,21 @@ def _launch(q, k, v, scale: float):
         float(scale), int(q.dtype == torch.bfloat16), stream)
     build.check(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_padded += padded
     flash_attention_fwd.launches_by[(str(q.dtype).removeprefix("torch."), N)] += 1
     return o, lse
 
 
 def flash_attention_fwd(q, k, v, scale: float):
-    """K1. CPU tensors run the plain twin; CUDA tensors launch the kernel
-    (through `fwd_padded`)."""
+    """K1. CPU tensors run the plain twin; CUDA tensors launch the kernel,
+    direct or on the pad route by `runs_direct`."""
     if q.device.type == "cpu":
         return flash_attention_fwd_plain(q, k, v, scale)
-    return fwd_padded(_launch, q, k, v, scale)
+    if runs_direct(q.shape[-1], q.dtype):
+        return _launch(q, k, v, scale)
+    return fwd_padded(partial(_launch, padded=True), q, k, v, scale)
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_padded = 0  # of them, launches on the pad route
 flash_attention_fwd.launches_by = Counter()  # (dtype, N) -> launches

@@ -40,7 +40,16 @@ times another plan: csrc/flash_fwd.cu's FwdPlan, flash_bwd_tf32_wide.cu's
 Plan, sm90.cuh's wide_tiles). Each is held at every one of WIDE_CASES to
 the plain twins (a single 64 x 64 tile first; tolerance of max(1, max
 |plain|): bf16 1e-2, fp32 1e-4, LSE 1e-4); then K1 and K2 are timed at
-each case, and K2's kernels apart at the long cases (torch.profiler).
+each case, and K2's kernels apart at the long cases (torch.profiler). The
+cases at head dims below their kernel width (the --tiny stereo model's 16
+and 8, and 96 and 192 at (2,673,4,D)) run each build by the routes it
+takes: a build that reads such a head dim direct (asked once, at D = 8) by
+the wrappers' rule (flash_fwd.py::fwd_routed), an older one on the pad
+route (fwd_padded: F.pad copies, the kernel at the width, O sliced), as
+the wrappers of its revision ran it. That fork (takes_direct, the pad
+branch of k1_routed / k2_routed) serves only parents whose kernels refuse
+a head dim below the width; once no parent compared is that old, remove
+it and time every build through fwd_routed / bwd_routed.
 """
 from __future__ import annotations
 
@@ -55,8 +64,8 @@ import torch
 
 from gd3d_torch.kernels import build
 from gd3d_torch.kernels.cost_kl import _reference_rows
-from gd3d_torch.kernels.flash_bwd_fused import flash_attention_bwd_plain
-from gd3d_torch.kernels.flash_fwd import flash_attention_fwd_plain
+from gd3d_torch.kernels.flash_bwd_fused import bwd_padded, bwd_routed, flash_attention_bwd_plain
+from gd3d_torch.kernels.flash_fwd import flash_attention_fwd_plain, fwd_padded, fwd_routed
 from gd3d_torch.kernels.rope2d import _NO_TASK, _task, rope2d_plain, vec_width
 from gd3d_torch.kernels.timing import time_ms
 from gd3d_torch.ops.masks import masked_patch_cost
@@ -295,11 +304,14 @@ def k2(dev, parents) -> int:
 
 # ------------------------------------------------------------ K1 / K2 wide
 # (B, N, H, D): one tile at each wide width, ragged lengths, chip_smoke.py's
-# wide cases, the student's width 768 re-headed, its head-dim-64 pass, and
-# the VGGT camera trunk (fp32 at 128 on a main path)
+# wide cases, the student's width 768 re-headed, its head-dim-64 pass, the
+# VGGT camera trunk (fp32 at 128 on a main path), and the head dims below
+# their kernel width: the --tiny stereo model's encoder and decoder, and
+# chip_smoke.py's 96 and 192 at (2,673,4,D)
 WIDE_CASES = ((1, 64, 1, 128), (1, 64, 1, 256), (1, 81, 2, 128), (1, 81, 2, 256),
               (2, 673, 4, 128), (2, 673, 4, 256), (2, 4161, 6, 128), (2, 4161, 3, 256),
-              (2, 4161, 12, 64), (1, 2, 16, 128))
+              (2, 4161, 12, 64), (1, 2, 16, 128), (4, 24, 2, 16), (2, 24, 2, 8),
+              (2, 673, 4, 96), (2, 673, 4, 192))
 WIDE_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 
@@ -321,8 +333,35 @@ def wide_cases(dev):
     return out
 
 
+def takes_direct(lib) -> bool:
+    """Whether a build's gd3d_flash_fwd reads a head dim below its kernel
+    width as it is (bf16 at D = 8), or refuses it (an older revision's)."""
+    q = torch.zeros((1, 8, 1, 8), dtype=torch.bfloat16, device="cuda")
+    lse = torch.empty((1, 1, 8), device="cuda")
+    err = lib.gd3d_flash_fwd(
+        q.data_ptr(), q.data_ptr(), q.data_ptr(), torch.empty_like(q).data_ptr(),
+        lse.data_ptr(), 1, 8, 8, 1, 8, *(q.stride()[:3] * 4), 1.0, 1,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return err == 0
+
+
+def k1_routed(lib, direct: bool, q, k, v, scale):
+    """K1 of one build by its revision's route (takes_direct)."""
+    return (fwd_routed if direct else fwd_padded)(
+        lambda *a: k1_call(lib, *a), q, k, v, scale)
+
+
+def k2_routed(lib, direct: bool, *args):
+    """K2 of one build by its revision's route (takes_direct)."""
+    return (bwd_routed if direct else bwd_padded)(lambda *a: k2_call(lib, *a), *args)
+
+
 def wide(dev, parents) -> int:
     libs = build_all(variants("wide", "flash_*.cu", (("shipped", ()),), parents))
+    direct = {lib: takes_direct(lib) for lib in libs.values()}  # by library
+    print(json.dumps({"wide": "reads head dims below the width direct",
+                      **{name: direct[lib] for name, lib in libs.items()}}), flush=True)
     with no_tf32():  # the plain twins in full fp32
         work = wide_cases(dev)
     ok = True
@@ -330,9 +369,9 @@ def wide(dev, parents) -> int:
         errs = {}
         for case, (args, (o, lse), grads) in work.items():
             q, k, v, _, _, _, scale = args
-            got = k1_call(lib, q, k, v, scale)
+            got = k1_routed(lib, direct[lib], q, k, v, scale)
             e = {"o": err_over_max(got[:1], (o,)), "lse": err_over_max(got[1:], (lse,)),
-                 "grads": err_over_max(k2_call(lib, *args), grads)}
+                 "grads": err_over_max(k2_routed(lib, direct[lib], *args), grads)}
             tol = WIDE_TOL[q.dtype]
             e["ok"] = e["o"] <= tol and e["lse"] <= 1e-4 and e["grads"] <= tol
             errs[str(case)] = e
@@ -345,8 +384,9 @@ def wide(dev, parents) -> int:
     calls = {}
     for case, (args, _, _) in work.items():
         iters = 10 if case[2] > 1000 else 30
-        calls[f"K1 {case}"] = (lambda lib, a=args: k1_call(lib, *a[:3], a[6]), iters)
-        calls[f"K2 {case}"] = (lambda lib, a=args: k2_call(lib, *a), iters)
+        calls[f"K1 {case}"] = (lambda lib, a=args: k1_routed(lib, direct[lib], *a[:3], a[6]),
+                               iters)
+        calls[f"K2 {case}"] = (lambda lib, a=args: k2_routed(lib, direct[lib], *a), iters)
     time_turns("wide", libs, calls)
     for name, lib in libs.items():  # K2's two kernels apart, at the long cases
         for case, (args, _, _) in work.items():

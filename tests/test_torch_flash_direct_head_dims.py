@@ -1,0 +1,177 @@
+"""K1 and K2's routing rule, on the CPU: which head dims the kernels read
+direct (the caller's D columns at the kernel width, no copy) and which take
+the pad route, and the direct route held to gd3d.
+
+The rule (kernels/flash_fwd.py::runs_direct, shared by both wrappers) is
+chosen from (D, dtype) alone: a head dim up to 256 whose row of D elements
+is a multiple of 16 bytes runs direct, any other takes `fwd_padded` /
+`bwd_padded`. The routes (`fwd_routed`, `bwd_routed`) run here through the
+plain twins, exactly as they wrap the kernel launches on the card, with a
+recorder that sees the operands `run` is given. The direct route is held,
+on numpy-seeded inputs, to gd3d/ops/attention.py::scaled_dot_attention
+(its einsum route off the TPU, as gd3d's own tests run it), the log-sum-exp
+of its logits, and jax.grad through it. The kernels themselves run on the
+card: tests/test_torch_kernels_cuda.py and chip_smoke.py's kernels phase.
+
+Tolerance: 1e-5 of max(1, max |reference|) in fp32, as
+tests/test_torch_flash_head_dims.py (sums of up to 192 terms per output in
+another order).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gd3d.ops.attention import scaled_dot_attention as jax_attention
+from gd3d_torch.kernels import padded_launches, reset_launch_counts, wrappers
+from gd3d_torch.kernels.flash_bwd_fused import bwd_routed, flash_attention_bwd_plain
+from gd3d_torch.kernels.flash_fwd import (
+    check_views, flash_attention_fwd_plain, fwd_routed, kernel_width, runs_direct)
+from torch_threads import one_torch_thread  # noqa: F401
+
+TOL = 1e-5
+F32, BF16 = torch.float32, torch.bfloat16
+
+# (D, dtype) -> route: a row of D elements a multiple of 16 bytes (bf16 D a
+# multiple of 8, fp32 a multiple of 4) up to 256 runs direct
+ROUTES = {
+    (1, F32): "padded", (6, F32): "padded", (8, F32): "direct", (16, F32): "direct",
+    (20, F32): "direct", (48, F32): "direct", (64, F32): "direct", (72, F32): "direct",
+    (96, F32): "direct", (192, F32): "direct", (256, F32): "direct",
+    (1, BF16): "padded", (6, BF16): "padded", (8, BF16): "direct", (16, BF16): "direct",
+    (20, BF16): "padded", (48, BF16): "direct", (64, BF16): "direct", (72, BF16): "direct",
+    (96, BF16): "direct", (192, BF16): "direct", (256, BF16): "direct",
+}
+
+
+def assert_close(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    err = float(np.abs(got - want).max())
+    assert err <= TOL * max(1.0, float(np.abs(want).max())), err
+
+
+class _Recorder:
+    """A `run` for the routes that records the head dim of every operand it
+    is given and answers with the plain twin."""
+
+    def __init__(self, plain):
+        self.plain, self.dims = plain, []
+
+    def __call__(self, *args):
+        self.dims.append({t.shape[-1] for t in args if torch.is_tensor(t) and t.dim() == 4})
+        return self.plain(*args)
+
+
+def _inputs(seed, B, N, M, H, D):
+    rng = np.random.RandomState(seed)
+    q, k, v = (rng.randn(B, L, H, D).astype(np.float32) for L in (N, M, M))
+    do = rng.randn(B, N, H, D).astype(np.float32)
+    return q, k, v, do
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [1, 6, 8, 16, 20, 48, 64, 72, 96, 192, 256])
+def test_routing_rule_sends_each_head_dim_to_its_route(D, dtype):
+    """runs_direct gives each (D, dtype) its route, and both wrappers' routes
+    follow it: the direct route hands `run` the D-wide operands, the pad
+    route the operands zero-padded to kernel_width(D); O, dQ, dK and dV come
+    back D wide either way."""
+    want = ROUTES[(D, dtype)]
+    assert runs_direct(D, dtype) == (want == "direct")
+    width = D if want == "direct" else kernel_width(D)
+    x = torch.zeros((1, 3, 2, D), dtype=dtype)
+    lse = torch.zeros((1, 2, 3))
+    fwd = _Recorder(flash_attention_fwd_plain)
+    o, _ = fwd_routed(fwd, x, x, x, 0.1)
+    bwd = _Recorder(flash_attention_bwd_plain)
+    grads = bwd_routed(bwd, x, x, x, lse, x, lse, 0.1)
+    assert fwd.dims == bwd.dims == [{width}]
+    assert o.shape == x.shape and all(g.shape == x.shape for g in grads)
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["float32", "bfloat16"])
+def test_routes_refuse_wider_than_the_kernels(dtype):
+    """Head dims past 256 run neither route: they raise before any launch."""
+    assert not runs_direct(264, dtype)
+    x = torch.zeros((1, 3, 1, 264), dtype=dtype)
+    with pytest.raises(ValueError, match="up to 256, got 264"):
+        fwd_routed(flash_attention_fwd_plain, x, x, x, 0.1)
+    lse = torch.zeros((1, 1, 3))
+    with pytest.raises(ValueError, match="up to 256, got 264"):
+        bwd_routed(flash_attention_bwd_plain, x, x, x, lse, x, lse, 0.1)
+
+
+@pytest.mark.parametrize("D", [8, 16, 96, 192])
+def test_direct_route_forward_matches_gd3d(D):
+    """The direct route at head dims below their kernel widths (64, 128,
+    256): `run` gets q, k, v unpadded, and O and the LSE match gd3d's
+    attention and the log-sum-exp of its logits at the caller's scale."""
+    B, N, M, H = 2, 37, 45, 3
+    q, k, v, _ = _inputs(300 + D, B, N, M, H, D)
+    scale = D ** -0.5
+    run = _Recorder(flash_attention_fwd_plain)
+    o, lse = fwd_routed(run, *map(torch.from_numpy, (q, k, v)), scale)
+    assert kernel_width(D) > D and run.dims == [{D}]
+    assert o.shape == (B, N, H, D) and lse.shape == (B, H, N)
+    want = jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale)
+    assert_close(o.numpy(), np.asarray(want))
+    logits = jnp.einsum("bnhd,bmhd->bhnm", jnp.asarray(q), jnp.asarray(k)) * scale
+    assert_close(lse.numpy(), np.asarray(jax.nn.logsumexp(logits, -1)))
+
+
+@pytest.mark.parametrize("D", [8, 16, 96, 192])
+def test_direct_route_gradients_match_gd3d(D):
+    """The direct route of K2: `run` gets q, k, v and dO unpadded, and dQ, dK
+    and dV match jax.grad through gd3d's attention."""
+    B, N, M, H = 2, 41, 33, 2
+    q, k, v, do = _inputs(400 + D, B, N, M, H, D)
+    scale = D ** -0.5
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = flash_attention_fwd_plain(tq, tk, tv, scale)
+    di = torch.einsum("bnhd,bnhd->bhn", o, tdo).contiguous()
+    run = _Recorder(flash_attention_bwd_plain)
+    grads = bwd_routed(run, tq, tk, tv, lse, tdo, di, scale)
+    assert run.dims == [{D}]
+
+    def loss(q, k, v):
+        return jnp.sum(jax_attention(q, k, v, scale) * jnp.asarray(do))
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    for g, w, x in zip(grads, want, (q, k, v)):
+        assert g.shape == x.shape
+        assert_close(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [8, 16, 48, 72, 96, 192])
+def test_check_views_accepts_direct_head_dims_below_their_width(D, dtype):
+    """The launch's layout check takes the direct head dims below their
+    kernel widths, as strided views of one qkv projection."""
+    qkv = torch.zeros((2, 37, 3, 2, D), dtype=dtype)
+    check_views(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], fp32_copies_16=True)
+
+
+@pytest.mark.parametrize("D,dtype", [(1, F32), (6, F32), (10, F32), (1, BF16), (6, BF16),
+                                     (20, BF16), (100, BF16), (264, F32)],
+                         ids=lambda x: str(x).removeprefix("torch."))
+def test_check_views_refuses_head_dims_off_16_bytes(D, dtype):
+    """A head dim whose row is no multiple of 16 bytes (or wider than 256)
+    never reaches a kernel: the check refuses it (the wrappers send it down
+    the pad route first)."""
+    x = torch.zeros((1, 5, 2, D), dtype=dtype)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        check_views(x, x, x)
+
+
+def test_padded_launches_are_counted_apart_and_reset():
+    """K1 and K2 count their pad-route launches (`launches_padded`) beside
+    their launches; reset_launch_counts zeroes both, as it does before a
+    counted run."""
+    fns = wrappers()
+    for kern in ("K1", "K2"):
+        fns[kern].launches_padded = 3
+    assert padded_launches() == {"K1": 3, "K2": 3}
+    reset_launch_counts()
+    assert padded_launches() == {"K1": 0, "K2": 0}
+    assert all(fns[k].launches == 0 for k in ("K1", "K2"))

@@ -4,9 +4,11 @@ depth-head widths that are no multiple of 32, the copies that make a view
 fit, and which source the bf16 head-dim-64 branch reaches.
 
 The padding route (`fwd_padded`, `bwd_padded`) runs here through the plain
-twins, exactly as it wraps the kernel launches on the card: q, k, v (and
-dO) zero-padded along D to 64, the caller's scale, O, dQ, dK, dV cut back
-to D columns. It is held, on the same numpy-seeded inputs, to the unpadded
+twins, exactly as it wraps the kernel launches on the card for the head
+dims whose rows are no multiple of 16 bytes (the others are read direct:
+tests/test_torch_flash_direct_head_dims.py): q, k, v (and dO) zero-padded
+along D to 64, the caller's scale, O, dQ, dK, dV cut back to D columns.
+It is held, on the same numpy-seeded inputs, to the unpadded
 plain twin and to gd3d's attention on the CPU (gd3d/ops/attention.py::
 scaled_dot_attention, its einsum route off the TPU, as gd3d's own tests run
 it) with jax.grad for the gradients.

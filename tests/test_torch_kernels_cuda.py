@@ -13,8 +13,9 @@ bf16 operands and round only the output; the bf16 flash kernels (K1, K2,
 on TMA and wgmma) also round P (K1, and dV in K2) and dS (dK, dQ) to bf16
 before the next product, a relative error of at most 2^-9 per term, which
 stays within a few ulps of bf16 (2^-8) of the largest output; at every
-kernel width (64, 128 and 256). The wrappers
-zero-pad head dims below the kernels' widths and copy views off 16 bytes;
+kernel width (64, 128 and 256). The kernels read head dims below their
+widths whose rows are 16-byte multiples direct, the wrappers zero-pad the
+other head dims below the kernels' widths and copy views off 16 bytes;
 the tests below that once held a refusal of such a view now hold the copied
 route to the plain twin. The fp32
 K2, and the fp32 K1 at 128 and 256, run on the tensor cores as three TF32
@@ -25,7 +26,7 @@ single-pass TF32 misses by more than 10x.
 import pytest
 import torch
 
-from gd3d_torch.kernels import build, launch_counts
+from gd3d_torch.kernels import build, launch_counts, padded_launches
 from gd3d_torch.kernels.cost_kl import (
     _reference_rows, masked_softmax_kl_fwd, masked_softmax_kl_rows)
 from gd3d_torch.kernels.flash_bwd_fused import (
@@ -154,9 +155,10 @@ def test_flash_bwd_bf16_repeats_at_student_lengths(dev, N):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [1, 8, 16, 48, 96, 128, 192, 256])
 def test_flash_kernels_at_other_head_dims_match_plain(dev, dtype, D):
-    """K1 and K2 at head dims the wrapper zero-pads to 64, 128 or 256, and at
-    the wide kernels' own widths 128 and 256, against the plain twins at the
-    true head dim and the caller's scale; one launch each."""
+    """K1 and K2 at head dims below the widths 64, 128 or 256 (read direct,
+    or zero-padded by the wrapper at D = 1), and at the wide kernels' own
+    widths 128 and 256, against the plain twins at the true head dim and the
+    caller's scale; one launch each."""
     g = torch.Generator(device=dev).manual_seed(D)
     B, N, M, H = 2, 129, 200, 3
     q = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(dtype)[:, :, 0]
@@ -176,6 +178,67 @@ def test_flash_kernels_at_other_head_dims_match_plain(dev, dtype, D):
     for a, b in zip(grads, flash_attention_bwd_plain(q, k, v, lse_ref, do, di, scale)):
         assert a.shape == b.shape
         assert_close(a, b, dtype)
+
+
+# Head dims below their kernel width that run direct: in both dtypes 8, 16,
+# 48, 96 and 192; in fp32 also head dims a multiple of 4 but not of 8, whose
+# last 8-column k-step is half zeros: 4, 20 and 36 (width 64), 100 (width
+# 128, whose K2 warp teams of 2 split D at column 64), 132 (width 256: in
+# the teams of 4 of K1 and K2, the third warp holds 4 columns and the fourth
+# none) and 196 (the fourth holds 4)
+DIRECT_DIMS = [*((D, dt) for D in (8, 16, 48, 96, 192)
+                 for dt in (torch.float32, torch.bfloat16)),
+               *((D, torch.float32) for D in (4, 20, 36, 100, 132, 196))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype", DIRECT_DIMS)
+@pytest.mark.parametrize("B,N,H", [(4, 24, 2), (2, 673, 4), (2, 2049, 8)])
+def test_flash_kernels_read_head_dims_below_their_width_direct(dev, dtype, D, B, N, H):
+    """Head dims below their kernel width whose rows are 16-byte multiples
+    run direct: the kernels read the strided q, k, v views of one qkv
+    projection as they are (TMA and cp.async fill the columns past D with
+    zeros; at D = 192 a whole 64-column panel of width 256) and write
+    contiguous (B, N, H, D) outputs, one launch each and none on the pad
+    route; O, the LSE, dQ, dK and dV match the plain twins, and K2 repeats
+    its bits. (4, 24, 2): the --tiny stereo model's length; (2, 2049, 8):
+    long enough for the two-consumer plans of the bf16 kernels and for many
+    key tiles of every plan."""
+    g = torch.Generator(device=dev).manual_seed(B * N + D)
+    qkv = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(dtype)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    scale = D ** -0.5
+    before, padded = launch_counts(), padded_launches()
+    o, lse = flash_attention_fwd(q, k, v, scale)
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
+    assert o.shape == (B, N, H, D) and o.is_contiguous()
+    assert_close(o, o_ref, dtype)
+    assert_close(lse, lse_ref, torch.float32)
+    do = torch.randn((B, N, H, D), generator=g, device=dev).to(dtype)
+    di = torch.einsum("bnhd,bnhd->bhn", o_ref.float(), do.float()).contiguous()
+    args = (q, k, v, lse_ref, do, di, scale)
+    grads = flash_attention_bwd_fused(*args)
+    again = flash_attention_bwd_fused(*args)
+    after = launch_counts()
+    assert (after["K1"] - before["K1"], after["K2"] - before["K2"]) == (1, 2)
+    assert padded_launches() == padded
+    for a, b, c in zip(grads, flash_attention_bwd_plain(*args), again):
+        assert a.shape == b.shape and a.is_contiguous()
+        assert_close(a, b, dtype)
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,dtype", [(1, torch.float32), (6, torch.float32),
+                                     (20, torch.bfloat16), (100, torch.bfloat16)])
+def test_flash_kernels_count_the_pad_route(dev, D, dtype):
+    """Head dims whose rows are no multiple of 16 bytes take the pad route,
+    and K1 and K2 count those launches as padded."""
+    g = torch.Generator(device=dev).manual_seed(700 + D)
+    q, k, v = _wide_views(g, 2, 70, 90, 3, D, dev, dtype)
+    padded = padded_launches()
+    _check_k1_k2(q, k, v, g, dev)
+    assert padded_launches() == {"K1": padded["K1"] + 1, "K2": padded["K2"] + 1}
 
 
 # Head dims the wrapper runs at the kernel widths 128 and 256 (65..128 and

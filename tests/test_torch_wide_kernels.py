@@ -4,8 +4,10 @@ K4b's plain twin at hidden widths 192 and 256, and which source each dtype
 and head dim reaches.
 
 The padding route (`fwd_padded`, `bwd_padded`) runs here through the plain
-twins, exactly as it wraps the kernel launches on the card: q, k, v (and
-dO) zero-padded along D to the kernel width (128 or 256), the caller's
+twins, exactly as it wraps the kernel launches on the card for the head
+dims whose rows are no multiple of 16 bytes (65, 129; the others are read
+direct: tests/test_torch_flash_direct_head_dims.py): q, k, v (and dO)
+zero-padded along D to the kernel width (128 or 256), the caller's
 scale, O, dQ, dK, dV cut back to D columns. It is held, on the same
 numpy-seeded inputs, to gd3d: K1 to gd3d/ops/attention.py::
 scaled_dot_attention (its einsum route off the TPU) and the log-sum-exp of
@@ -142,32 +144,35 @@ def _in_order(text: str, *parts: str) -> None:
 
 
 def test_entry_points_send_each_head_dim_to_its_kernel():
-    """gd3d_flash_fwd: bf16 at every width (64, 128, 256) -> the Hopper
-    kernels on TMA and wgmma (flash_fwd_sm90.cu); fp32 at 64 -> the
-    register-tiled CUDA-core kernel, at 128 and 256 -> flash_fwd_tf32_kernel
-    on split TF32. gd3d_flash_bwd: bf16 at every width -> the Hopper kernels
-    (flash_bwd_sm90.cu); fp32 at 128 and 256 -> flash_bwd_tf32_wide.cu's
-    kernel (both passes, warp teams summing their parts of S^T and dP^T),
-    at 64 -> flash_bwd.cu's, all split TF32. The fp32 kernels at 128 and
+    """Each entry point takes any head dim up to 256 whose rows are 16-byte
+    multiples (bf16 a multiple of 8, fp32 of 4) and runs it at the least
+    width that holds it. gd3d_flash_fwd: bf16 at every width (64, 128,
+    256) -> the Hopper kernels on TMA and wgmma (flash_fwd_sm90.cu); fp32
+    at 64 -> the register-tiled CUDA-core kernel, at 128 and 256 ->
+    flash_fwd_tf32_kernel on split TF32. gd3d_flash_bwd: bf16 at every
+    width -> the Hopper kernels (flash_bwd_sm90.cu); fp32 at 128 and 256 ->
+    flash_bwd_tf32_wide.cu's kernel (both passes, warp teams summing their
+    parts of S^T and dP^T), at 64 -> flash_bwd.cu's, all split TF32. The
+    fp32 kernels at 128 and
     256 run every product as mma.sync on TF32 hi and lo parts (mma_split),
     and no CUDA-core attention kernel is left at those widths: fp32 K1 at
     64 is the only CUDA-core one. The Hopper launchers instantiate their
     wgmma kernels at 64, 128 and 256."""
     text = (CSRC / "flash_fwd.cu").read_text()
     fwd = text[text.index('extern "C" int gd3d_flash_fwd('):]
-    _in_order(fwd, "(D != 64 && D != 128 && D != 256)",
+    _in_order(fwd, "D % (is_bf16 ? 8 : 4) != 0",
               "if (is_bf16)  // head dims 64, 128 and 256", "sm90::launch_fwd_bf16(",
-              "if (D == kD)  // fp32 at 64: the CUDA cores", "launch_fwd_f32(",
-              "else if (D == 128)  // fp32 at 128 and 256: split TF32 on mma.sync",
+              "if (D <= kD)  // fp32 at width 64: the CUDA cores", "launch_fwd_f32(",
+              "else if (D <= 128)  // fp32 at widths 128 and 256: split TF32 on mma.sync",
               "launch_fwd_tf32<128>(", "else", "launch_fwd_tf32<256>(")
     fwd_tf32 = text[text.index("flash_fwd_tf32_kernel("):text.index("cudaError_t launch_fwd_tf32(")]
     _in_order(fwd_tf32, "tc::split_a", "tc::mma_split(s[", "tc::a_from_c_tf32(",
               "tc::mma_split(acc[")
     text = (CSRC / "flash_bwd.cu").read_text()
     bwd = text[text.index('extern "C" int gd3d_flash_bwd('):]
-    _in_order(bwd, "(D != kD && D != 128 && D != 256)",
+    _in_order(bwd, "D % (is_bf16 ? 8 : 4) != 0",
               "if (is_bf16)  // head dims 64, 128 and 256", "sm90::launch_bwd_bf16(",
-              "if (D != kD)  // fp32 at 128 and 256: split TF32 on mma.sync",
+              "if (D > kD)  // fp32 at widths 128 and 256: split TF32 on mma.sync",
               "launch_bwd_tf32_wide(", "launch_bwd_tf32(")
     wide = re.sub(r"//[^\n]*", "", (CSRC / "flash_bwd_tf32_wide.cu").read_text())
     _in_order(wide, "void dkv_block(", "tc::mma_split(x[", "tc::team_sum<kTeam>(",
@@ -175,7 +180,7 @@ def test_entry_points_send_each_head_dim_to_its_kernel():
               "void dq_block(", "tc::mma_split(x[", "tc::team_sum<kTeam>(",
               "tc::a_from_c_tf32(", "tc::mma_split(dq_acc[",
               "flash_bwd_tf32_wide_kernel(", "dkv_block<D>(", "dq_block<D>(",
-              "cudaError_t launch_bwd_tf32_wide(", "if (D == 128)",
+              "cudaError_t launch_bwd_tf32_wide(", "if (D <= 128)",
               "tf32_wide::launch<128>(", "tf32_wide::launch<256>(")
     assert "__nv_bfloat16" not in wide and "wgmma" not in wide and "is_bf16" not in wide
     mma = (CSRC / "mma.cuh").read_text()
@@ -192,8 +197,8 @@ def test_entry_points_send_each_head_dim_to_its_kernel():
     assert not re.search(r"\b(kParts|kHalf|kPad|load_tile_parts|parts_dot|axpy_row)\b", common)
     fwd90 = (CSRC / "flash_fwd_sm90.cu").read_text()
     _in_order(fwd90, "flash_fwd_sm90_kernel(", "wgmma_ss<kKeys>(", "wgmma_rs<kD, 1>(",
-              "cudaError_t launch_fwd_bf16(", "if (D == 64)", "launch_fwd_plan<64, 1, 128, 3>(",
-              "if (D == 256)", "launch_fwd_plan<256, 1, 64, 2>(",
+              "cudaError_t launch_fwd_bf16(", "if (D <= 64)", "launch_fwd_plan<64, 1, 128, 3>(",
+              "if (D > 128)", "launch_fwd_plan<256, 1, 64, 2>(",
               "launch_fwd_plan<128, 2, 128, 2>(", "launch_fwd_plan<128, 1, 64, 2>(")
     bwd90 = (CSRC / "flash_bwd_sm90.cu").read_text()
     _in_order(bwd90, "flash_bwd_dkv_sm90_kernel(", "wgmma_rs<L::kCols, 1>(",
