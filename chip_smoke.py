@@ -34,7 +34,11 @@ report), then runs these phases in order, one or more printed lines each:
               (2,4161,3,256): bf16 on TMA and wgmma, fp32 on split TF32
               (mma.sync, bound against 165 TFLOP/s as the fp32 K2); no main
               path launches them; every such K2 case runs twice and must
-              give the same bits) and K4 / K4b at a 256-wide depth head
+              give the same bits), K1 and K2 above 256 (the chunked
+              kernels, flash_chunked.cu: (2,673,2,512) and (2,673,2,320)
+              in both dtypes read direct, fp32 258 zero-padded to 264; K2
+              runs twice and must give the same bits; the "K1 wide" and
+              "K2 wide" entries) and K4 / K4b at a 256-wide depth head
               (the wide kernel); K5 on one tensor and on each main-path
               layer's q and k in one launch; K1 and K2 at head dims 16 and
               8 in both dtypes (the --tiny stereo model, read direct at
@@ -87,7 +91,10 @@ report), then runs these phases in order, one or more printed lines each:
               step counts, the accumulation buffer) must equal the straight
               run's (RESUME_TOL, STATE_TOL; the counts exactly); (b) the
               objaverse MASt3R path (384x512 teacher frames, the batch's
-              depth maps), --dev --multistep 2; (c) VGGT ScanNet++, --dev.
+              depth maps), --dev --multistep 2, its --config a YAML file
+              with %YAML, ---, an anchor, a << merge and an alias that
+              must resolve to the named config first
+              (merged_config_yaml); (c) VGGT ScanNet++, --dev.
               Each run prints its step records (losses, ap_pos_overflow for
               ME), median step time and peak memory, and asserts finite
               metrics, changed trainable tensors, unchanged frozen and
@@ -266,7 +273,13 @@ report), then runs these phases in order, one or more printed lines each:
               JPEG, lossy, lossless and alpha WebP, RLE8, 5-6-5 and 32-bit
               BMP, Adam7 and 2-bit PNG; the EXR writer's values of ZIP, PIZ
               and RLE depth; h5py's arrays of HDF5 depth at both file
-              formats; with host ms per decode at the sizes users meet (854x480
+              formats; PIL's RGB of three animated WebPs (frame 0 on its
+              canvas: PIL's save_all with alpha, ANMF frames at offsets,
+              lossy with ALPH and lossless); h5py's arrays (h5_digest) of
+              HDF5 files of the lzf, szip, n-bit and scale-offset filters,
+              nested compound, space-padded and variable-length strings,
+              enum and array types, soft, external and dense links and
+              external storage; with host ms per decode at the sizes users meet (854x480
               4:2:0 progressive JPEG, 512x384 lossy and lossless WebP, a
               512x384 24-bit BMP, a 1024x768 ZIP EXR and a 1024x768 chunked
               gzip HDF5 depth, the last three written here and read back
@@ -321,6 +334,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -341,6 +355,13 @@ REPLACES = {
            "gd3d/kernels/flash_bwd_fused.py:262"),
     "K2 bf16": ("flash_attention_bwd_fused", "gd3d_torch/csrc/flash_bwd_sm90.cu",
                 "gd3d/kernels/flash_bwd_fused.py:262"),
+    # K1 and K2 above head dim 256 (no path launches them): their designated
+    # cases are fp32 at (2,673,2,512); launches are the chunked kernels' on
+    # the paths ("K1 wide" / "K2 wide" of kernels.launch_counts)
+    "K1 wide": ("flash_attention_fwd", "gd3d_torch/csrc/flash_chunked.cu",
+                "gd3d/ops/attention.py:180"),
+    "K2 wide": ("flash_attention_bwd_fused", "gd3d_torch/csrc/flash_chunked.cu",
+                "gd3d/kernels/flash_bwd_fused.py:262"),
     "K3": ("masked_softmax_kl_rows", "gd3d_torch/csrc/cost_kl.cu",
            "gd3d/kernels/cost_kl.py:59"),
     "K4": ("pairwise_rank_fwd", "gd3d_torch/csrc/pairwise_rank.cu",
@@ -351,7 +372,7 @@ REPLACES = {
 }
 # the kernels' launch counters (gd3d_torch.kernels.launch_counts), which a
 # run that must launch every kernel checks
-KERNELS = tuple(k for k in REPLACES if k != "K2 bf16")
+KERNELS = tuple(k for k in REPLACES if k not in ("K2 bf16", "K1 wide", "K2 wide"))
 # Tolerance: max abs error <= TOL[dtype] * max(1, max |plain|). fp32: the
 # kernels and the plain twins sum in different orders (<= 6401 terms);
 # bf16: both round an fp32 result to bf16 (8 mantissa bits), so one ulp of
@@ -503,12 +524,14 @@ class KernelReport:
                                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated, repeat=False):
+def attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated, repeat=False, entry=None):
     """K1 or K2 against its plain twin at one shape, q, k, v as the strided
     (B, N, H, D) views of one qkv projection; the case names the route its
     head dim takes by the wrappers' rule (direct or padded, runs_direct) and
     fails if its first launch took the other (the padded-launch count); a K2
-    case with `repeat` also runs twice and must repeat its bits."""
+    case with `repeat` also runs twice and must repeat its bits. A
+    designated case fills `entry`'s JSON entry (by default the kernel's;
+    K2's by dtype)."""
     import torch
     import torch.nn.functional as F
 
@@ -545,7 +568,8 @@ def attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated, repeat=False
             nbytes=4 * B * N * H * D * elt + B * H * N * 4,
             ops=4.0 * B * H * N * N * D, dtype=dname, iters=iters,
             run_library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
-            designated=designated, peak="tf32x3" if dt == torch.float32 and D > 64 else None)
+            designated=designated, entry=entry,
+            peak="tf32x3" if dt == torch.float32 and 64 < D <= 256 else None)
     else:
         o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
         do = torch.randn((B, N, H, D), generator=g, device=dev).to(dt)
@@ -572,8 +596,9 @@ def attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated, repeat=False
             ops=10.0 * B * H * N * N * D, dtype=dname, iters=iters,
             run_library=lambda: torch.autograd.grad(out, (ql, kl, vl), doh,
                                                     retain_graph=True),
-            designated=designated, entry="K2" if dt == torch.float32 else "K2 bf16",
-            peak="tf32x3" if dt == torch.float32 else None)
+            designated=designated,
+            entry=entry or ("K2" if dt == torch.float32 else "K2 bf16"),
+            peak="tf32x3" if dt == torch.float32 and D <= 256 else None)
 
 
 def rope_pair_case(rep, g, dev, where, B, N, H, dt, kind, qpos, kpos, designated=False):
@@ -671,6 +696,26 @@ def misaligned_cases(rep, g, dev) -> None:
               dtype="float32", iters=20)
 
 
+# K1 and K2 above head dim 256 (flash_chunked.cu; gd3d takes any head dim,
+# no model of the repo goes past 128): (B, N, H, D, dtype, designated); 512
+# and 320 read direct in both dtypes, fp32 258 (rows off 16 bytes)
+# zero-padded to 264. Operands are strided views of one qkv projection.
+WIDE_CASES = (*[(2, 673, 2, D, dt, (D, dt) == (512, "float32"))
+                for D in (512, 320) for dt in ("float32", "bfloat16")],
+              (2, 673, 2, 258, "float32", False))
+
+
+def check_wide_kernels(rep, g, dev) -> None:
+    """K1 and K2 at WIDE_CASES against their plain twins, with SDPA's time
+    beside; every K2 case runs twice and must repeat its bits."""
+    import torch
+
+    for B, N, H, D, dname, designated in WIDE_CASES:
+        for kern in ("K1", "K2"):
+            attn_case(rep, g, dev, kern, "above 256 (chunked)", B, N, H, D,
+                      getattr(torch, dname), designated, repeat=True, entry=f"{kern} wide")
+
+
 def check_kernels(dev) -> dict:
     """Each kernel against its plain twin on the same inputs, at the shapes
     the main paths give it."""
@@ -761,6 +806,7 @@ def check_kernels(dev) -> dict:
     for kern, where, B, N, H, D, dt, designated in attn_cases:
         attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated,
                   repeat=designated or N in STEREOFLOW_LENGTHS.values() or D != 64)
+    check_wide_kernels(rep, g, dev)
 
     # K3 at the cost volume of one pair (M = N on both paths), masked rows in;
     # and an odd M, whose rows start off 16 bytes. The kernel reads no cost
@@ -1142,7 +1188,7 @@ def run_steps(name, setup, dev, n_steps: int, check_teacher=None, expect=()) -> 
         raise AssertionError(f"{name}: trainable parameters did not change: {stuck or 'all'}")
     if moved or teacher_after != teacher_sum:
         raise AssertionError(f"{name}: frozen parameters changed: {moved[:5]}")
-    if min(counts.values()) <= 0:
+    if min(counts[k] for k in KERNELS) <= 0:
         raise AssertionError(f"{name}: a kernel of the path never launched: {counts}")
     profile_step(name, step, batch)
     return {**counts, "K2 bf16": sum(c for (d, _), c in counts_by["K2"].items()
@@ -1478,6 +1524,31 @@ def resume_errors(straight: dict, resumed: dict) -> tuple:
     return errs, counts
 
 
+def merged_config_yaml(root, name: str):
+    """The bundled config `name` rewritten as a YAML file that uses what a
+    plain reader would not take: a --- document with its keys shared through an anchor and a <<
+    merge, its evaluation methods through an alias. It must resolve to the
+    named config, field for field; the train phase runs it by its path."""
+    import dataclasses
+
+    from gd3d_torch.core import config as cfglib
+    from gd3d_torch.core.yaml_reader import read_yaml
+
+    raw = read_yaml(str(cfglib.bundled_config_path(name)))
+    methods = "".join(f"  - {m}\n" for m in raw["evaluation_methods"])
+    path = root / f"{name}_merged.yaml"
+    path.write_text(f"%YAML 1.1\n---\nshared: &shared\n  matcher: {raw['matcher']}\n"
+                    f"  dataset: {raw['dataset']}\n<<: *shared\nmethods: &methods\n{methods}"
+                    f"evaluation_methods: *methods\n...\n")
+    same = (dataclasses.asdict(cfglib.resolve_config(str(path)))
+            == dataclasses.asdict(cfglib.resolve_config(name)))
+    log(f"train: --config {path.name} (---, &/*, <<) resolves to {name}: {same} "
+        f"{'OK' if same else 'FAIL'}")
+    if not same:
+        raise AssertionError(f"{path.name} does not resolve to {name}")
+    return path
+
+
 def check_train(dev) -> dict:
     """The train phase: gd3d_torch.cli.train at full width on synthetic
     data, with the named configs' fp32 students and seeded random weights.
@@ -1499,6 +1570,7 @@ def check_train(dev) -> dict:
     total = {k: 0 for k in REPLACES}
     with tempfile.TemporaryDirectory() as tmp:
         root = Path(tmp)
+        mast3r_yaml = merged_config_yaml(root, "finetune_timm_mast3r_objaverse")
         me = ["--config", "finetune_timm_me_objaverse", "--synthetic", "--steps-per-epoch", "1"]
         runs = [
             ("ME straight", [*me, "--epochs", "2"], root / "me_straight", me_expect, ("K1", "K2"),
@@ -1507,7 +1579,7 @@ def check_train(dev) -> dict:
              ("K1", "K2"), ("depth_diff_head.", ".lora_a_"), False),
             ("ME resumed", [*me, "--epochs", "2", "--resume", str(root / "me_split" / "last")],
              root / "me_split", me_expect, ("K1", "K2"), ("depth_diff_head.",), False),
-            ("objaverse MASt3R", ["--config", "finetune_timm_mast3r_objaverse", "--dev",
+            ("objaverse MASt3R", ["--config", str(mast3r_yaml), "--dev",
                                   "--multistep", "2"], root / "mast3r", mast3r_expect, every,
              ("depth_diff_head.depth_attention.",), True),
             ("VGGT", ["--config", "finetune_timm_vggt_scannetpp", "--dev"], root / "vggt",
@@ -4176,6 +4248,31 @@ def _view_mismatches(got, want, where=""):
     return [] if got == want else [f"{where}: {got!r} != {want!r}"]
 
 
+def h5_digest(a) -> str:
+    """tests/torch_formats_gen.py's digest of an HDF5 array: its dtype and
+    shape, then its bytes, or, for an object array, each element's (bytes,
+    or an array's dtype and bytes)."""
+    import hashlib
+
+    import numpy as np
+
+    def plain(dt):  # the dtype without h5py's metadata
+        if dt.names:
+            return [(n, plain(dt.fields[n][0]), dt.fields[n][1]) for n in dt.names]
+        return [plain(dt.subdtype[0]), dt.subdtype[1]] if dt.subdtype else dt.str
+
+    h = hashlib.sha256(f"{plain(a.dtype)} {a.dtype.itemsize} {a.shape}".encode())
+    if a.dtype != object:
+        h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+    for x in a.reshape(-1):
+        if isinstance(x, np.ndarray):
+            h.update(f"{x.dtype.str} {x.shape}".encode() + x.tobytes())
+        else:
+            h.update(len(x).to_bytes(8, "little") + x)
+    return h.hexdigest()
+
+
 def _formats_digest(kind, name):
     """The port's array of one committed fixture (as
     tests/test_torch_formats_wiring.py takes it), and the seconds its
@@ -4196,6 +4293,16 @@ def _formats_digest(kind, name):
         arr = exr.read_exr(root / name)
     elif kind == "hdf5":
         arr = hdf5.read_dataset(root / name, "depth")
+    elif kind == "hdf5_more":
+        file, dataset = name.split("#")
+        cwd = os.getcwd()
+        os.chdir(root)  # external storage is named from the working directory, as HDF5 does
+        try:
+            arr = hdf5.read_dataset(root / file, dataset)
+        finally:
+            os.chdir(cwd)
+        dt = time.perf_counter() - t0
+        return h5_digest(arr), dt, arr
     else:
         arr = flowio.read_gt(str(root / name), "stereo" if name.endswith(".h5") else "flow")
     dt = time.perf_counter() - t0
@@ -4222,8 +4329,10 @@ def check_formats_fixtures(tmp, gpu: str) -> None:
             if got != want:
                 bad.append(f"{kind} {name}")
     n = sum(len(v) for v in digests.values())
-    log(f"formats: (a) {n} committed fixtures decoded to their digests (PIL's RGB, gd3d's "
-        f"load_image_mast3r, the EXR writer's values, h5py's arrays, gd3d's flowio) "
+    log(f"formats: (a) {n} committed fixtures decoded to their digests (PIL's RGB, animated "
+        f"WebPs' frame 0 included, gd3d's load_image_mast3r, the EXR writer's values, h5py's "
+        f"arrays, {len(digests['hdf5_more'])} of them of other filters, types, links and "
+        f"storage, gd3d's flowio) "
         f"{not bad} {'OK' if not bad else 'FAIL ' + str(bad)}")
     # the same pixels as a 512x384 24-bit BMP, and 1024x768 EXR and HDF5 depth
     rgb = decoded["lossy_512x384.webp"]
@@ -4454,8 +4563,8 @@ def check_sequence(dev) -> dict:
                 c = kernels.launch_counts()
                 want = n * n if name == "ring" else n
                 launched = c["K1"] == want and c["K2"] == want
-                counts["K1"] += c["K1"]
-                counts["K2"] += c["K2"]
+                for kern in ("K1", "K2", "K1 wide", "K2 wide"):
+                    counts[kern] += c[kern]
                 if dt == torch.bfloat16:
                     counts["K2 bf16"] += c["K2"]
                 again = fwd_bwd()
@@ -4739,6 +4848,8 @@ def main() -> int:
     log(f"phase: sequence done at {time.perf_counter() - t_start:.1f} s")
     check_tail(dev)
     log(f"phase: tail done at {time.perf_counter() - t_start:.1f} s")
+    log(f"kernels: chunked K1 / K2 launches on the paths: "
+        f"{ {k: counts[k] for k in ('K1 wide', 'K2 wide')} }")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

@@ -237,13 +237,18 @@ def load_yaml_config(path: str) -> DistillConfig:
     return cfg
 
 
+def bundled_config_path(name: str) -> str:
+    """Where the bundled config `name` lies (gd3d_torch/configs/<name>.yaml)."""
+    return os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "configs", f"{name}.yaml")
+
+
 def resolve_config(name_or_path: str) -> DistillConfig:
     """A NAMED_CONFIGS key, a bundled config name
     (gd3d_torch/configs/<name>.yaml) or an explicit .yaml path."""
     if name_or_path.endswith((".yaml", ".yml")):
         return load_yaml_config(name_or_path)
-    bundled = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                           "configs", f"{name_or_path}.yaml")
+    bundled = bundled_config_path(name_or_path)
     if os.path.exists(bundled):
         return load_yaml_config(bundled)
     return NAMED_CONFIGS[name_or_path]()

@@ -86,6 +86,7 @@
 // exactly 0 (its Q and dO rows are 0, and so are its lse and di), and the
 // dQ kernels give keys past M a P of 0.
 #include "common.cuh"
+#include "flash_chunked.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
 
@@ -376,13 +377,16 @@ extern "C" int gd3d_flash_bwd(const void* q, const void* k, const void* v,
                               long long dosb, long long dosn, long long dosh, float scale,
                               int is_bf16, void* stream) {
   using namespace gd3d;
-  // any head dim up to 256 whose rows are 16-byte multiples, at the least
-  // kernel width that holds it
-  if (D <= 0 || D > 256 || D % (is_bf16 ? 8 : 4) != 0 || N <= 0 || M <= 0 || B <= 0 || H <= 0)
+  // any head dim whose rows are 16-byte multiples: up to 256 at the least
+  // kernel width that holds it, wider in column chunks (flash_chunked.cu)
+  if (D <= 0 || D % (is_bf16 ? 8 : 4) != 0 || N <= 0 || M <= 0 || B <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qsn, qsh}, ks{ksb, ksn, ksh}, vs{vsb, vsn, vsh},
       dos{dosb, dosn, dosh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > chunked::kChunk)
+    return static_cast<int>(chunked::launch_bwd(q, k, v, dout, lse, di, dq, dk, dv, B, N, M, H,
+                                                D, qs, ks, vs, dos, scale, is_bf16, st));
   // each launcher returns the first launch error of its two kernels
   if (is_bf16)  // head dims 64, 128 and 256
     return static_cast<int>(sm90::launch_bwd_bf16(q, k, v, dout, lse, di, dq, dk, dv, B, N, M,

@@ -96,6 +96,7 @@
 // are computed but not stored. The fp32 kernels' grid: (ceil(N / queries a
 // block), H, B).
 #include "common.cuh"
+#include "flash_chunked.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
 
@@ -484,12 +485,15 @@ extern "C" int gd3d_flash_fwd(const void* q, const void* k, const void* v, void*
                               long long osb, long long osn, long long osh, float scale,
                               int is_bf16, void* stream) {
   using namespace gd3d;
-  // any head dim up to 256 whose rows are 16-byte multiples, at the least
-  // kernel width that holds it
-  if (D <= 0 || D > 256 || D % (is_bf16 ? 8 : 4) != 0 || N <= 0 || M <= 0 || B <= 0 || H <= 0)
+  // any head dim whose rows are 16-byte multiples: up to 256 at the least
+  // kernel width that holds it, wider in column chunks (flash_chunked.cu)
+  if (D <= 0 || D % (is_bf16 ? 8 : 4) != 0 || N <= 0 || M <= 0 || B <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qsn, qsh}, ks{ksb, ksn, ksh}, vs{vsb, vsn, vsh}, os{osb, osn, osh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D > chunked::kChunk)
+    return static_cast<int>(
+        chunked::launch_fwd(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, os, scale, is_bf16, st));
   if (is_bf16)  // head dims 64, 128 and 256
     return static_cast<int>(
         sm90::launch_fwd_bf16(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, os, scale, st));

@@ -99,15 +99,18 @@ def lanczos_coeffs(in_size: int, out_size: int) -> Tuple[np.ndarray, np.ndarray]
 
 
 @functools.lru_cache(maxsize=64)
-def coeffs(in_size: int, out_size: int, kind: str) -> Tuple[np.ndarray, np.ndarray]:
-    """lanczos_coeffs for the filter `kind` ("lanczos" or "bicubic")."""
+def coeffs_float(in_size: int, out_size: int, kind: str):
+    """Pillow's precompute_coeffs: (first input index (out,), float64 weights
+    (out, ksize) normalised to sum 1, zero past each window, the window's
+    tap count (out,))."""
     kernel, base_support = FILTERS[kind]
     scale = in_size / out_size
     filterscale = max(scale, 1.0)
     support = base_support * filterscale
     ksize = int(math.ceil(support)) * 2 + 1
     first = np.zeros(out_size, np.int64)
-    weights = np.zeros((out_size, ksize), np.int64)
+    taps = np.zeros(out_size, np.int64)
+    weights = np.zeros((out_size, ksize), np.float64)
     for xx in range(out_size):
         center = (xx + 0.5) * scale
         ss = 1.0 / filterscale
@@ -119,10 +122,18 @@ def coeffs(in_size: int, out_size: int, kind: str) -> Tuple[np.ndarray, np.ndarr
             ww += v
         if ww != 0.0:
             k = [v / ww for v in k]
-        for x, v in enumerate(k):
-            weights[xx, x] = (int(-0.5 + v * (1 << PRECISION_BITS)) if v < 0
-                              else int(0.5 + v * (1 << PRECISION_BITS)))
-        first[xx] = xmin
+        weights[xx, :xmax] = k
+        first[xx], taps[xx] = xmin, xmax
+    return first, weights, taps
+
+
+@functools.lru_cache(maxsize=64)
+def coeffs(in_size: int, out_size: int, kind: str) -> Tuple[np.ndarray, np.ndarray]:
+    """lanczos_coeffs for the filter `kind` ("lanczos" or "bicubic"): the
+    weights of coeffs_float rounded half away from zero to PRECISION_BITS."""
+    first, k, _ = coeffs_float(in_size, out_size, kind)
+    scaled = k * (1 << PRECISION_BITS)
+    weights = np.where(k < 0, (-0.5 + scaled).astype(np.int64), (0.5 + scaled).astype(np.int64))
     return first, weights
 
 
@@ -156,6 +167,57 @@ def resize(img: np.ndarray, size: Tuple[int, int], kind: str) -> np.ndarray:
         out = _pass(out, w, 1, kind)
     if h != img.shape[0]:
         out = _pass(out, h, 0, kind)
+    return out if out is not img else img.copy()
+
+
+def _round_up(ss: np.ndarray) -> np.ndarray:
+    """Resample.c's ROUND_UP: (int)(f + 0.5) or (int)(f - 0.5), truncated;
+    past the int range (and NaN) x86's conversion gives INT_MIN."""
+    v = np.trunc(np.where(ss >= 0.0, ss + 0.5, ss - 0.5))
+    bad = ~((v >= -2.0 ** 31) & (v < 2.0 ** 31))
+    return np.where(bad, -2 ** 31, np.where(bad, 0, v).astype(np.int64))
+
+
+def _pass_wide(img: np.ndarray, out_size: int, axis: int) -> np.ndarray:
+    """One pass of Pillow's 32-bit and 16-bit resamplers (ImagingResample*_
+    32bpc, _16bpc) along `axis` of a 2-d image: each sample the float64 sum,
+    in order, of the window's taps times the float64 weights; float32 ("F")
+    stores the sum as it is, int32 ("I") rounds it (ROUND_UP), uint16
+    ("I;16") rounds it and keeps CLIP8(v % 256) and CLIP8(v >> 8) as its low
+    and high bytes."""
+    first, weights, taps = coeffs_float(img.shape[axis], out_size, "bicubic")
+    src = img.astype(np.float64)
+    shape = [1, 1]
+    shape[axis] = out_size
+    ss = np.zeros(img.shape[:axis] + (out_size,) + img.shape[axis + 1:], np.float64)
+    for j in range(weights.shape[1]):
+        idx = np.minimum(first + j, img.shape[axis] - 1)
+        term = weights[:, j].reshape(shape) * np.take(src, idx, axis=axis)
+        ss = np.where((j < taps).reshape(shape), ss + term, ss)
+    if img.dtype == np.float32:
+        return ss.astype(np.float32)
+    v = _round_up(ss)
+    if img.dtype == np.int32:
+        return v.astype(np.int32)
+    lo = np.clip(np.fmod(v, 256), 0, 255)  # C's %: the sign of v
+    hi = np.clip(v >> 8, 0, 255)
+    return (lo + (hi << 8)).astype(np.uint16)
+
+
+def resize_wide(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """PIL's bicubic resize (Image.resize's default) of a 2-d float32 ("F"),
+    int32 ("I") or little-endian uint16 ("I;16") image to size = (width,
+    height): the horizontal pass
+    where the width changes, then the vertical one."""
+    if img.dtype not in (np.float32, np.int32, np.uint16) or img.ndim != 2:
+        raise ValueError(f"resize_wide takes 2-d float32, int32 or uint16 images, got "
+                         f"{img.dtype} {img.shape}")
+    w, h = size
+    out = img
+    if w != img.shape[1]:
+        out = _pass_wide(out, w, 1)
+    if h != img.shape[0]:
+        out = _pass_wide(out, h, 0)
     return out if out is not img else img.copy()
 
 

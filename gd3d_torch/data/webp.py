@@ -18,9 +18,12 @@ alpha) and np.asarray of the image:
     (yuv.h: MultHi by 19077, 26149, 6419, 13320, 33050, then the 6-bit
     clip), with no dithering, as Pillow asks for none.
 
+  * animations (VP8X, ANIM, ANMF): frame 0 as WebPAnimDecoder renders it
+    for Pillow, on a transparent black canvas of VP8X's size at the frame's
+    offset, in "RGBA" where VP8X flags alpha, else "RGB".
+
 `pil_rgb` is Image.open(f).convert("RGB") with gd3d's white composite of RGBA
-when asked. Animated files (ANIM / ANMF) raise ValueError naming the file;
-so do files libwebp would refuse.
+when asked. Files libwebp would refuse raise ValueError naming the file.
 """
 from __future__ import annotations
 
@@ -44,11 +47,18 @@ def is_webp(data: bytes) -> bool:
 
 
 def _chunks(data: bytes, name: str) -> Dict[bytes, bytes]:
+    """The first chunk of each kind of a RIFF WebP file."""
     if not is_webp(data):
         raise ValueError(f"{name}: not a WebP file")
-    end = min(len(data), 8 + int.from_bytes(data[4:8], "little"))
+    return _chunk_list(data[12:min(len(data), 8 + int.from_bytes(data[4:8], "little"))], name)
+
+
+def _chunk_list(data: bytes, name: str) -> Dict[bytes, bytes]:
+    """The first chunk of each kind in a run of RIFF chunks (a file's, or an
+    ANMF frame's)."""
+    end = len(data)
     out: Dict[bytes, bytes] = {}
-    pos = 12
+    pos = 0
     while pos + 8 <= end:
         kind = data[pos:pos + 4]
         n = int.from_bytes(data[pos + 4:pos + 8], "little")
@@ -192,25 +202,15 @@ def _alpha(chunk: bytes, w: int, h: int, name: str) -> np.ndarray:
     return _unfilter_alpha(a, filt) if filt else a
 
 
-def decode_webp(src: Source, name: Optional[str] = None) -> WebP:
-    """The file's pixels in Pillow's mode (see WebP)."""
-    data, name = read_source(src, name)
-    ch = _chunks(data, name)
-    if b"ANIM" in ch or b"ANMF" in ch:
-        raise ValueError(f"{name}: animated WebP is not supported (still images only)")
-    alpha_flag = False
-    if b"VP8X" in ch:
-        alpha_flag = bool(ch[b"VP8X"][0] & 0x10)
-        if ch[b"VP8X"][0] & 0x02:
-            raise ValueError(f"{name}: animated WebP is not supported (still images only)")
+def _frame_rgba(ch: Dict[bytes, bytes], name: str) -> Tuple[np.ndarray, bool]:
+    """One image's chunks (VP8L, or VP8 with an optional ALPH) as (H, W, 4)
+    non-premultiplied RGBA, and whether it carries alpha of its own."""
     try:
         if b"VP8L" in ch:
             argb = vp8l.decode_vp8l(ch[b"VP8L"])
-            has_alpha = alpha_flag or vp8l.vp8l_header(ch[b"VP8L"])[2]
             px = np.stack([(argb >> 16) & 255, (argb >> 8) & 255, argb & 255, argb >> 24],
                           -1).astype(np.uint8)
-            return WebP("RGBA", px) if has_alpha else WebP("RGB", np.ascontiguousarray(
-                px[..., :3]))
+            return px, vp8l.vp8l_header(ch[b"VP8L"])[2]
         if b"VP8 " not in ch:
             raise ValueError("no image chunk")
         y, u, v = vp8.decode_vp8(ch[b"VP8 "])
@@ -219,11 +219,51 @@ def decode_webp(src: Source, name: Optional[str] = None) -> WebP:
     h, w = y.shape
     rgb = yuv_to_rgb(y, upsample(u, h, w), upsample(v, h, w))
     if b"ALPH" in ch:
-        a = _alpha(ch[b"ALPH"], w, h, name)
-        return WebP("RGBA", np.concatenate([rgb, a[..., None]], -1))
-    if alpha_flag:
-        return WebP("RGBA", np.concatenate([rgb, np.full((h, w, 1), 255, np.uint8)], -1))
-    return WebP("RGB", rgb)
+        return np.concatenate([rgb, _alpha(ch[b"ALPH"], w, h, name)[..., None]], -1), True
+    return np.concatenate([rgb, np.full((h, w, 1), 255, np.uint8)], -1), False
+
+
+def _first_frame(ch: Dict[bytes, bytes], name: str) -> np.ndarray:
+    """An animation's frame 0 as libwebp's WebPAnimDecoder renders it: a
+    key frame, so the canvas (VP8X's size) starts transparent black and the
+    frame's RGBA is written at its offset, unblended."""
+    x = ch[b"VP8X"]
+    cw, chh = 1 + int.from_bytes(x[4:7], "little"), 1 + int.from_bytes(x[7:10], "little")
+    frame = ch.get(b"ANMF")
+    if frame is None or len(frame) < 16:
+        raise ValueError(f"{name}: animated WebP without a frame")
+    fx, fy = 2 * int.from_bytes(frame[0:3], "little"), 2 * int.from_bytes(frame[3:6], "little")
+    fw, fh = 1 + int.from_bytes(frame[6:9], "little"), 1 + int.from_bytes(frame[9:12], "little")
+    if fx + fw > cw or fy + fh > chh:
+        raise ValueError(f"{name}: WebP frame 0 ({fw}x{fh} at {fx},{fy}) outside its "
+                         f"{cw}x{chh} canvas")
+    px, _ = _frame_rgba(_chunk_list(frame[16:], name), name)
+    if px.shape[:2] != (fh, fw):
+        raise ValueError(f"{name}: WebP frame 0 is {px.shape[1]}x{px.shape[0]}, its ANMF "
+                         f"header says {fw}x{fh}")
+    canvas = np.zeros((chh, cw, 4), np.uint8)
+    canvas[fy:fy + fh, fx:fx + fw] = px
+    return canvas
+
+
+def decode_webp(src: Source, name: Optional[str] = None) -> WebP:
+    """The file's pixels in Pillow's mode (see WebP); of an animation, its
+    first frame on the canvas."""
+    data, name = read_source(src, name)
+    ch = _chunks(data, name)
+    alpha_flag = False
+    if b"VP8X" in ch:
+        alpha_flag = bool(ch[b"VP8X"][0] & 0x10)
+        if ch[b"VP8X"][0] & 0x02 or b"ANIM" in ch or b"ANMF" in ch:
+            canvas = _first_frame(ch, name)
+            return WebP("RGBA", canvas) if alpha_flag else WebP(
+                "RGB", np.ascontiguousarray(canvas[..., :3]))
+    elif b"ANIM" in ch or b"ANMF" in ch:
+        raise ValueError(f"{name}: animated WebP without a VP8X chunk")
+    px, has_alpha = _frame_rgba(ch, name)
+    if alpha_flag or has_alpha:
+        return WebP("RGBA", px)
+    return WebP("RGB", np.ascontiguousarray(px[..., :3]))
 
 
 def pil_rgb(webp: WebP, composite: bool = True) -> np.ndarray:

@@ -5,8 +5,9 @@ and nowhere else, so a run can show that its main path went through the
 kernels. The flash wrappers (K1, K2) and K5 also count by dtype and
 length (`launches_by`), at the same place, and those that took the pad
 route (`launches_padded`, K1 and K2: head dims whose rows are no multiple
-of 16 bytes); K5 counts its backward launches (-f0) apart as well
-(`launches_bwd`).
+of 16 bytes) and those on the chunked kernels (`launches_wide`, head
+dims above 256, read by `launch_counts` as "K1 wide" and "K2 wide"); K5
+counts its backward launches (-f0) apart as well (`launches_bwd`).
 """
 from __future__ import annotations
 
@@ -43,10 +44,17 @@ def reset_launch_counts() -> None:
             fn.launches_bwd = 0
         if hasattr(fn, "launches_padded"):
             fn.launches_padded = 0
+        if hasattr(fn, "launches_wide"):
+            fn.launches_wide = 0
 
 
 def launch_counts() -> Dict[str, int]:
-    return {k: fn.launches for k, fn in wrappers().items()}
+    """Kernel id -> launches, and of K1's and K2's launches those on the
+    chunked kernels as "K1 wide" and "K2 wide"."""
+    fns = wrappers()
+    return {**{k: fn.launches for k, fn in fns.items()},
+            **{f"{k} wide": fn.launches_wide for k, fn in fns.items()
+               if hasattr(fn, "launches_wide")}}
 
 
 def launch_counts_by() -> Dict[str, Dict[Tuple[str, int], int]]:
@@ -68,3 +76,4 @@ def padded_launches() -> Dict[str, int]:
     zero-padded to the kernel width): kernel id -> launches."""
     return {k: fn.launches_padded for k, fn in wrappers().items()
             if hasattr(fn, "launches_padded")}
+

@@ -3,8 +3,9 @@
 Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_bwd_sm90.cu (bf16 at
 every kernel width, 64, 128 and 256: TMA, wgmma and warp specialisation),
 flash_bwd.cu (fp32 at 64) and flash_bwd_tf32_wide.cu (fp32 at 128 and 256),
-both three TF32 products for each fp32 one on the tensor cores, which
-replace gd3d/kernels/flash_bwd_fused.py::
+both three TF32 products for each fp32 one on the tensor cores, and
+flash_chunked.cu (both dtypes above 256: column chunks on the CUDA cores,
+dQ, dK and dV in one launch), which replace gd3d/kernels/flash_bwd_fused.py::
 flash_attention_bwd_fused. gd3d's kernel sums per-KV-block dQ partials
 after one pass; the port runs a dK/dV kernel and a second, dQ kernel (see
 the source notes), which is deterministic. K1's routing rule
@@ -27,7 +28,7 @@ import torch
 
 from gd3d_torch.kernels import build
 from gd3d_torch.kernels.flash_fwd import (
-    check_operands, fit_views, kernel_width, pad_head_dim, runs_direct)
+    check_operands, fit_views, kernel_width, pad_head_dim, runs_chunked, runs_direct)
 
 
 def flash_attention_bwd_plain(q, k, v, lse, do, di, scale: float):
@@ -47,10 +48,11 @@ def flash_attention_bwd_plain(q, k, v, lse, do, di, scale: float):
 
 
 def bwd_padded(run, q, k, v, lse, do, di, scale: float):
-    """K2's pad route at any head dim D up to 256: `run` (the kernels' launch, or
-    a plain twin) on q, k, v and dO zero-padded along D to the kernel width
-    (64, 128 or 256), with the caller's scale; dQ, dK and dV cut back to D
-    columns. di = rowsum(O * dO) is the same either way."""
+    """K2's pad route at any head dim D: `run` (the kernels' launch, or a
+    plain twin) on q, k, v and dO zero-padded along D to the kernel width
+    (64, 128, 256, or above 256 a multiple of 8), with the caller's scale;
+    dQ, dK and dV cut back to D columns. di = rowsum(O * dO) is the same
+    either way."""
     D = q.shape[-1]
     width = kernel_width(D)
     if width == D:
@@ -90,6 +92,7 @@ def _launch(q, k, v, lse, do, di, scale: float, padded: bool = False):
     build.check(err, "flash_attention_bwd_fused")
     flash_attention_bwd_fused.launches += 1
     flash_attention_bwd_fused.launches_padded += padded
+    flash_attention_bwd_fused.launches_wide += runs_chunked(D)
     flash_attention_bwd_fused.launches_by[(str(q.dtype).removeprefix("torch."), N)] += 1
     return dq, dk, dv
 
@@ -106,4 +109,5 @@ def flash_attention_bwd_fused(q, k, v, lse, do, di, scale: float):
 
 flash_attention_bwd_fused.launches = 0
 flash_attention_bwd_fused.launches_padded = 0  # of them, launches on the pad route
+flash_attention_bwd_fused.launches_wide = 0  # of them, on the chunked kernels (as K1's)
 flash_attention_bwd_fused.launches_by = Counter()  # (dtype, N) -> launches

@@ -1,23 +1,25 @@
 """K1: flash-attention forward with the row log-sum-exp.
 
 Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_fwd_sm90.cu (bf16 at
-every kernel width, 64, 128 and 256: TMA, wgmma and warp specialisation)
-and flash_fwd.cu (fp32: the register-tiled CUDA-core kernel at 64, split
-TF32 on mma.sync at 128 and 256), which replace the stock TPU Pallas flash forward
-that gd3d reaches through gd3d/ops/attention.py::_flash_call.
+every kernel width, 64, 128 and 256: TMA, wgmma and warp specialisation),
+flash_fwd.cu (fp32: the register-tiled CUDA-core kernel at 64, split
+TF32 on mma.sync at 128 and 256) and flash_chunked.cu (both dtypes above
+256: column chunks on the CUDA cores), which replace the stock TPU Pallas
+flash forward that gd3d reaches through gd3d/ops/attention.py::_flash_call.
 `flash_attention_fwd_plain` is its plain PyTorch twin: the CPU path, and the
 oracle the kernel is checked against.
 
-The kernels run at the widths 64, 128 and 256; gd3d's flash takes any head
-dim. One static rule, chosen from (D, dtype) alone and shared with K2
-(`runs_direct`), routes a head dim D up to 256: where a row of D elements
-is a multiple of 16 bytes (bf16 D a multiple of 8, fp32 a multiple of 4),
-the kernels read the caller's D columns at the width `kernel_width(D)`,
-their loads filling the columns past D with zeros (TMA, cp.async), and
-write D columns of O back: no copy, no slice (the direct route). Any other
-D takes the pad route (`fwd_padded`): q, k and v zero-padded along D to the
-width, O cut back to D columns. Both are exact: zero columns leave Q K^T
-and the LSE unchanged. Wider head dims raise. A view the kernels cannot
+gd3d's flash takes any head dim, and so do the kernels. One static rule,
+chosen from (D, dtype) alone and shared with K2 (`runs_direct`), routes a
+head dim D: where a row of D elements is a multiple of 16 bytes (bf16 D a
+multiple of 8, fp32 a multiple of 4), the kernels read the caller's D
+columns at the width `kernel_width(D)` (64, 128 or 256; above 256 the
+chunked kernels, in 64-column panels, at D itself), their loads filling the columns past
+D with zeros (TMA, cp.async, 16-byte loads), and write D columns of O back:
+no copy, no slice (the direct route). Any other D takes the pad route
+(`fwd_padded`): q, k and v zero-padded along D to the width, O cut back to
+D columns. Both are exact: zero columns leave Q K^T and the LSE unchanged.
+A view the kernels cannot
 read as it is (its last dim strided, or, for the 16-byte copies every
 kernel makes (TMA, cp.async), its address or a (B, N, H) step off 16 bytes)
 is copied to a fresh contiguous tensor first (`fit_views`). A failed build
@@ -71,19 +73,26 @@ def fit_views(*ts: torch.Tensor):
 
 def kernel_width(D: int, widths=HEAD_DIMS) -> int:
     """The kernel width that head dim D runs at: the least of `widths` that
-    holds it."""
+    holds it, or above the widest (the chunked kernels, which take any row
+    of 16 bytes), the next multiple of 8: a 16-byte row in either dtype."""
     for w in widths:
         if D <= w:
             return w
-    raise ValueError(f"the flash kernels take head dims up to {max(widths)}, got {D}")
+    return -(-D // 8) * 8
 
 
-def runs_direct(D: int, dtype: torch.dtype, widths=HEAD_DIMS) -> bool:
+def runs_chunked(D: int) -> bool:
+    """Whether head dim D runs on the chunked kernels (flash_chunked.cu):
+    above the widest kernel width."""
+    return D > HEAD_DIMS[-1]
+
+
+def runs_direct(D: int, dtype: torch.dtype) -> bool:
     """The static routing rule of K1 and K2: head dim D runs direct (the
-    kernels read and write D columns at `kernel_width(D)`) where D is at most
-    the widest kernel and a row of D elements of `dtype` is a multiple of 16
-    bytes; any other D takes the pad route."""
-    return 0 < D <= max(widths) and D * (torch.finfo(dtype).bits // 8) % 16 == 0
+    kernels read and write D columns at `kernel_width(D)`) where a row of D
+    elements of `dtype` is a multiple of 16 bytes; any other D takes the pad
+    route."""
+    return D > 0 and D * (torch.finfo(dtype).bits // 8) % 16 == 0
 
 
 def pad_head_dim(width: int, *ts: torch.Tensor):
@@ -92,26 +101,24 @@ def pad_head_dim(width: int, *ts: torch.Tensor):
     return tuple(t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1])) for t in ts)
 
 
-def check_views(*ts: torch.Tensor, head_dims=HEAD_DIMS, fp32_copies_16: bool = False) -> None:
+def check_views(*ts: torch.Tensor, fp32_copies_16: bool = False) -> None:
     """The layout the flash kernels take, on any device: tensors of one dtype
     (fp32 or bf16), (B, N, H, D) with a contiguous last dim and D a head dim
-    they read direct at one of the widths `head_dims` (`runs_direct`: up to
-    the widest, a row of D a multiple of 16 bytes). bf16 views must be
-    `aligned_16`, and with `fp32_copies_16` (K1 and K2, whose fp32 kernels
-    copy 16 bytes at a time at every width) fp32 views too. It raises where
-    a view does not fit (the wrappers pass it views that `fit_views` and
-    `fwd_padded` made fit)."""
+    they read direct (`runs_direct`: a row of D a multiple of 16 bytes).
+    bf16 views must be `aligned_16`, and with `fp32_copies_16` (K1 and K2,
+    whose fp32 kernels copy 16 bytes at a time at every width) fp32 views
+    too. It raises where a view does not fit (the wrappers pass it views
+    that `fit_views` and `fwd_padded` made fit)."""
     t0 = ts[0]
     for t in ts:
         if t.dtype != t0.dtype or t.dtype not in DTYPES:
             raise ValueError(f"flash kernels take one dtype of {DTYPES}, got "
                              f"{[x.dtype for x in ts]}")
-        if (t.dim() != 4 or not runs_direct(t.shape[-1], t.dtype, head_dims)
+        if (t.dim() != 4 or not runs_direct(t.shape[-1], t.dtype)
                 or t.shape[-1] != t0.shape[-1] or t.stride(-1) != 1):
-            raise ValueError(f"flash kernels take (B, N, H, D) views with D up to "
-                             f"{max(head_dims)}, a row of D a multiple of 16 bytes, and a "
-                             f"contiguous last dim, got {t.dtype} shape {tuple(t.shape)} "
-                             f"strides {t.stride()}")
+            raise ValueError(f"flash kernels take (B, N, H, D) views with a row of D a "
+                             f"multiple of 16 bytes and a contiguous last dim, got "
+                             f"{t.dtype} shape {tuple(t.shape)} strides {t.stride()}")
         if (t.dtype == torch.bfloat16 or fp32_copies_16) and not aligned_16(t):
             raise ValueError(f"this flash kernel copies 16-byte chunks: the "
                              f"{t.dtype} view's address and its (B, N, H) steps must "
@@ -130,9 +137,9 @@ def check_operands(*ts: torch.Tensor, **layout) -> None:
 
 
 def fwd_padded(run, q, k, v, scale: float):
-    """K1's pad route at any head dim D up to 256: `run` (the kernel's
-    launch, or a plain twin) on q, k, v zero-padded along D to the kernel
-    width, with the caller's scale; O cut back to D columns."""
+    """K1's pad route at any head dim D: `run` (the kernel's launch, or a
+    plain twin) on q, k, v zero-padded along D to the kernel width, with the
+    caller's scale; O cut back to D columns."""
     D = q.shape[-1]
     width = kernel_width(D)
     if width == D:
@@ -167,6 +174,7 @@ def _launch(q, k, v, scale: float, padded: bool = False):
     build.check(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_padded += padded
+    flash_attention_fwd.launches_wide += runs_chunked(D)
     flash_attention_fwd.launches_by[(str(q.dtype).removeprefix("torch."), N)] += 1
     return o, lse
 
@@ -183,4 +191,5 @@ def flash_attention_fwd(q, k, v, scale: float):
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_padded = 0  # of them, launches on the pad route
+flash_attention_fwd.launches_wide = 0  # of them, on the chunked kernels (above 256)
 flash_attention_fwd.launches_by = Counter()  # (dtype, N) -> launches

@@ -8,8 +8,9 @@ launch the hand-written kernels; for CPU tensors they run their plain
 PyTorch twins. The TPU plumbing of gd3d's dispatch (tile plans, segment-id
 padding, head packing, partitioning wrappers) has no counterpart: the
 kernels read the (B, N, H, D) layout through strides, mask ragged lengths
-and read head dims below their widths 64, 128 and 256 themselves (where a
-row is a multiple of 16 bytes; the wrappers zero-pad the other head dims).
+and read any head dim themselves (below their widths 64, 128 and 256, and
+above 256 in column chunks) where a row is a multiple of 16 bytes; the
+wrappers zero-pad the other head dims.
 """
 from __future__ import annotations
 

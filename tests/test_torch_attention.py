@@ -175,7 +175,7 @@ def test_check_views_refuses_misaligned_fp32_views(how):
     assert not aligned_16(bad)
     with pytest.raises(ValueError, match="16 bytes"):
         check_views(ok, bad, ok, fp32_copies_16=True)
-    check_views(ok, bad, ok, head_dims=(64,))  # the layout alone
+    check_views(ok, bad, ok)  # the layout alone
     wide128 = torch.zeros((1, 70, 2 * 128 + 2))[..., :256].reshape(1, 70, 2, 128)
     with pytest.raises(ValueError, match="16 bytes"):  # head dim 128
         check_views(wide128, wide128, wide128, fp32_copies_16=True)

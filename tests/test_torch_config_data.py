@@ -73,6 +73,19 @@ def test_yaml_overrides_methods_and_refuses_what_it_cannot_read(tmp_path):
             cfglib.load_yaml_config(str(odd))
 
 
+def test_yaml_with_document_marker_anchor_and_merge_resolves_as_gd3ds(tmp_path):
+    """A config that starts with ---, shares its keys through an anchor and
+    a << merge, and repeats a list by an alias: resolve_config gives what
+    gd3d's load_yaml_config gives."""
+    p = tmp_path / "merged.yaml"
+    p.write_text("%YAML 1.1\n---\ncommon: &common\n  matcher: vggt\n  dataset: scannetpp\n"
+                 "<<: *common\nevaluation_methods: &methods\n  - tracking\n  - pose\n"
+                 "again: *methods\n...\n")
+    got, want = cfglib.resolve_config(str(p)), jcfglib.load_yaml_config(str(p))
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.evaluation_methods == ("tracking", "pose")
+
+
 @pytest.mark.parametrize("seed,batch,img,n_kps", [(0, 1, 64, 64), (42, 2, 64, 128),
                                                    (10042, 1, 96, 300)])
 def test_synthetic_me_batch_is_bit_identical(seed, batch, img, n_kps):

@@ -3,9 +3,9 @@ direct (the caller's D columns at the kernel width, no copy) and which take
 the pad route, and the direct route held to gd3d.
 
 The rule (kernels/flash_fwd.py::runs_direct, shared by both wrappers) is
-chosen from (D, dtype) alone: a head dim up to 256 whose row of D elements
-is a multiple of 16 bytes runs direct, any other takes `fwd_padded` /
-`bwd_padded`. The routes (`fwd_routed`, `bwd_routed`) run here through the
+chosen from (D, dtype) alone: a head dim whose row of D elements is a
+multiple of 16 bytes runs direct (above 256 on the chunked kernels), any
+other takes `fwd_padded` / `bwd_padded`. The routes (`fwd_routed`, `bwd_routed`) run here through the
 plain twins, exactly as they wrap the kernel launches on the card, with a
 recorder that sees the operands `run` is given. The direct route is held,
 on numpy-seeded inputs, to gd3d/ops/attention.py::scaled_dot_attention
@@ -24,17 +24,18 @@ import pytest
 import torch
 
 from gd3d.ops.attention import scaled_dot_attention as jax_attention
-from gd3d_torch.kernels import padded_launches, reset_launch_counts, wrappers
+from gd3d_torch.kernels import launch_counts, padded_launches, reset_launch_counts, wrappers
 from gd3d_torch.kernels.flash_bwd_fused import bwd_routed, flash_attention_bwd_plain
 from gd3d_torch.kernels.flash_fwd import (
-    check_views, flash_attention_fwd_plain, fwd_routed, kernel_width, runs_direct)
+    check_views, flash_attention_fwd_plain, fwd_routed, kernel_width, runs_chunked, runs_direct)
 from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
 F32, BF16 = torch.float32, torch.bfloat16
 
 # (D, dtype) -> route: a row of D elements a multiple of 16 bytes (bf16 D a
-# multiple of 8, fp32 a multiple of 4) up to 256 runs direct
+# multiple of 8, fp32 a multiple of 4) runs direct (above 256 on the chunked
+# kernels)
 ROUTES = {
     (1, F32): "padded", (6, F32): "padded", (8, F32): "direct", (16, F32): "direct",
     (20, F32): "direct", (48, F32): "direct", (64, F32): "direct", (72, F32): "direct",
@@ -42,6 +43,9 @@ ROUTES = {
     (1, BF16): "padded", (6, BF16): "padded", (8, BF16): "direct", (16, BF16): "direct",
     (20, BF16): "padded", (48, BF16): "direct", (64, BF16): "direct", (72, BF16): "direct",
     (96, BF16): "direct", (192, BF16): "direct", (256, BF16): "direct",
+    # above 256, the chunked kernels by the same rule (padded to a multiple of 8)
+    (257, F32): "padded", (260, F32): "direct", (300, F32): "direct", (512, F32): "direct",
+    (257, BF16): "padded", (260, BF16): "padded", (300, BF16): "padded", (512, BF16): "direct",
 }
 
 
@@ -71,7 +75,7 @@ def _inputs(seed, B, N, M, H, D):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16], ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [1, 6, 8, 16, 20, 48, 64, 72, 96, 192, 256])
+@pytest.mark.parametrize("D", [1, 6, 8, 16, 20, 48, 64, 72, 96, 192, 256, 257, 260, 300, 512])
 def test_routing_rule_sends_each_head_dim_to_its_route(D, dtype):
     """runs_direct gives each (D, dtype) its route, and both wrappers' routes
     follow it: the direct route hands `run` the D-wide operands, the pad
@@ -92,14 +96,18 @@ def test_routing_rule_sends_each_head_dim_to_its_route(D, dtype):
 
 @pytest.mark.parametrize("dtype", [F32, BF16], ids=["float32", "bfloat16"])
 def test_routes_refuse_wider_than_the_kernels(dtype):
-    """Head dims past 256 run neither route: they raise before any launch."""
-    assert not runs_direct(264, dtype)
+    """Head dims past 256 are refused no more: 264 (a 16-byte row in both
+    dtypes) runs direct on the chunked kernels, at its own width (above 256
+    the kernel width is the next multiple of 8), and nothing raises."""
+    assert runs_direct(264, dtype) and runs_chunked(264) and kernel_width(264) == 264
     x = torch.zeros((1, 3, 1, 264), dtype=dtype)
-    with pytest.raises(ValueError, match="up to 256, got 264"):
-        fwd_routed(flash_attention_fwd_plain, x, x, x, 0.1)
+    fwd = _Recorder(flash_attention_fwd_plain)
+    o, _ = fwd_routed(fwd, x, x, x, 0.1)
     lse = torch.zeros((1, 1, 3))
-    with pytest.raises(ValueError, match="up to 256, got 264"):
-        bwd_routed(flash_attention_bwd_plain, x, x, x, lse, x, lse, 0.1)
+    bwd = _Recorder(flash_attention_bwd_plain)
+    grads = bwd_routed(bwd, x, x, x, lse, x, lse, 0.1)
+    assert fwd.dims == bwd.dims == [{264}]
+    assert o.shape == x.shape and all(g.shape == x.shape for g in grads)
 
 
 @pytest.mark.parametrize("D", [8, 16, 96, 192])
@@ -144,19 +152,20 @@ def test_direct_route_gradients_match_gd3d(D):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16], ids=["float32", "bfloat16"])
-@pytest.mark.parametrize("D", [8, 16, 48, 72, 96, 192])
+@pytest.mark.parametrize("D", [8, 16, 48, 72, 96, 192, 264, 320, 512])
 def test_check_views_accepts_direct_head_dims_below_their_width(D, dtype):
     """The launch's layout check takes the direct head dims below their
-    kernel widths, as strided views of one qkv projection."""
+    kernel widths, and above 256 those of the chunked kernels, as strided
+    views of one qkv projection."""
     qkv = torch.zeros((2, 37, 3, 2, D), dtype=dtype)
     check_views(qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2], fp32_copies_16=True)
 
 
 @pytest.mark.parametrize("D,dtype", [(1, F32), (6, F32), (10, F32), (1, BF16), (6, BF16),
-                                     (20, BF16), (100, BF16), (264, F32)],
+                                     (20, BF16), (100, BF16), (258, F32), (300, BF16)],
                          ids=lambda x: str(x).removeprefix("torch."))
 def test_check_views_refuses_head_dims_off_16_bytes(D, dtype):
-    """A head dim whose row is no multiple of 16 bytes (or wider than 256)
+    """A head dim whose row is no multiple of 16 bytes, below 256 or above,
     never reaches a kernel: the check refuses it (the wrappers send it down
     the pad route first)."""
     x = torch.zeros((1, 5, 2, D), dtype=dtype)
@@ -175,3 +184,18 @@ def test_padded_launches_are_counted_apart_and_reset():
     reset_launch_counts()
     assert padded_launches() == {"K1": 0, "K2": 0}
     assert all(fns[k].launches == 0 for k in ("K1", "K2"))
+
+
+def test_chunked_launches_are_read_with_the_launches_and_reset():
+    """K1 and K2 count their launches on the chunked kernels (head dims above
+    256, `launches_wide`); launch_counts reads them as "K1 wide" and "K2
+    wide" beside the kernels' launches, and reset_launch_counts zeroes them
+    with the rest, so a counted run sees only its own."""
+    fns = wrappers()
+    for kern, n in (("K1", 2), ("K2", 5)):
+        fns[kern].launches = fns[kern].launches_wide = n
+    counts = launch_counts()
+    assert set(counts) == set(fns) | {"K1 wide", "K2 wide"}
+    assert (counts["K1"], counts["K2"], counts["K1 wide"], counts["K2 wide"]) == (2, 5, 2, 5)
+    reset_launch_counts()
+    assert all(n == 0 for n in launch_counts().values())

@@ -109,21 +109,83 @@ def test_padded_columns_come_out_zero():
 @pytest.mark.parametrize("D,widths,want", [(1, (64, 128), 64), (64, (64, 128), 64),
                                            (65, (64, 128), 128), (127, (64, 128), 128),
                                            (48, (64,), 64), (127, HEAD_DIMS, 128),
-                                           (129, HEAD_DIMS, 256), (255, HEAD_DIMS, 256)])
+                                           (129, HEAD_DIMS, 256), (255, HEAD_DIMS, 256),
+                                           (257, HEAD_DIMS, 264), (320, HEAD_DIMS, 320),
+                                           (321, HEAD_DIMS, 328), (513, (64,), 520)])
 def test_kernel_width(D, widths, want):
     assert kernel_width(D, widths) == want
 
 
 def test_route_refuses_wider_than_the_kernels():
-    """K1 and K2 take head dims up to 256 (no model of the repo goes past
-    128); wider ones raise, naming the width, before any launch."""
+    """Head dims past 256 are refused no more: the pad route takes 320 as it
+    is (a multiple of 8, the kernel width above 256) and pads 257 to 264,
+    before any launch, and O, dQ, dK and dV come back D wide."""
     x = torch.zeros((1, 4, 1, 320))
-    with pytest.raises(ValueError, match="up to 256, got 320"):
-        fwd_padded(flash_attention_fwd_plain, x, x, x, 0.1)
+    run = _Widths(flash_attention_fwd_plain)
+    o, _ = fwd_padded(run, x, x, x, 0.1)
+    assert run.widths == [320] and o.shape == x.shape
     lse = torch.zeros((1, 1, 4))
-    with pytest.raises(ValueError, match="up to 256, got 257"):
-        y = torch.zeros((1, 4, 1, 257))
-        bwd_padded(flash_attention_bwd_plain, y, y, y, lse, y, lse, 0.1)
+    y = torch.zeros((1, 4, 1, 257))
+    run = _Widths(flash_attention_bwd_plain)
+    grads = bwd_padded(run, y, y, y, lse, y, lse, 0.1)
+    assert run.widths == [264] and all(g.shape == y.shape for g in grads)
+
+
+class _Widths:
+    """A `run` for the routes that records the head dim it is given and
+    answers with the plain twin."""
+
+    def __init__(self, plain):
+        self.plain, self.widths = plain, []
+
+    def __call__(self, *args):
+        self.widths.append(args[0].shape[-1])
+        return self.plain(*args)
+
+
+# head dims above 256 (the chunked kernels' route); 257 and 300 are no
+# multiple of their 64-column panels, 320, 384 and 512 are, and 257 is
+# also off 16 bytes
+WIDE_DIMS = [257, 300, 320, 384, 512]
+
+
+@pytest.mark.parametrize("D", WIDE_DIMS)
+def test_wide_head_dims_forward_matches_gd3d(D):
+    """Above 256, both routes (the pad route through `fwd_padded`, as the
+    wrapper runs it for 257, and the unpadded twin, as the direct route
+    reads the others) against gd3d's attention with force_xla and the
+    log-sum-exp of its logits."""
+    B, N, M, H = 1, 33, 29, 2
+    q, k, v, _ = _inputs(500 + D, B, N, M, H, D)
+    scale = D ** -0.5
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    want = jax_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), scale, force_xla=True)
+    logits = jnp.einsum("bnhd,bmhd->bhnm", jnp.asarray(q), jnp.asarray(k)) * scale
+    for o, lse in (fwd_padded(flash_attention_fwd_plain, tq, tk, tv, scale),
+                   flash_attention_fwd_plain(tq, tk, tv, scale)):
+        assert o.shape == (B, N, H, D)
+        assert_close(o.numpy(), np.asarray(want))
+        assert_close(lse.numpy(), np.asarray(jax.nn.logsumexp(logits, -1)))
+
+
+@pytest.mark.parametrize("D", WIDE_DIMS)
+def test_wide_head_dims_gradients_match_gd3d(D):
+    """Above 256, K2's routes against jax.vjp through gd3d's attention
+    (force_xla) with the same cotangent."""
+    B, N, M, H = 1, 31, 35, 2
+    q, k, v, do = _inputs(600 + D, B, N, M, H, D)
+    scale = D ** -0.5
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = flash_attention_fwd_plain(tq, tk, tv, scale)
+    di = torch.einsum("bnhd,bnhd->bhn", o, tdo).contiguous()
+    _, vjp = jax.vjp(lambda q, k, v: jax_attention(q, k, v, scale, force_xla=True),
+                     jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    want = vjp(jnp.asarray(do))
+    for grads in (bwd_padded(flash_attention_bwd_plain, tq, tk, tv, lse, tdo, di, scale),
+                  flash_attention_bwd_plain(tq, tk, tv, lse, tdo, di, scale)):
+        for g, w, x in zip(grads, want, (q, k, v)):
+            assert g.shape == x.shape
+            assert_close(g.numpy(), np.asarray(w))
 
 
 @pytest.mark.parametrize("how", ["address", "row_step", "last_dim", "expanded"])

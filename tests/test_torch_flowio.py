@@ -111,13 +111,22 @@ def test_hdf5_codecs_match_gd3d(tmp_path, libver, chunks):
 
 
 def test_hdf5_refusals_name_the_file(tmp_path):
-    """An lzf-compressed flow and a file that is no HDF5 at all."""
+    """A flow stored as a virtual dataset (which data/hdf5.py refuses) and a
+    file that is no HDF5 at all; an lzf-compressed flow, refused until the
+    reader decoded lzf, reads as gd3d's."""
     import h5py
 
+    flow = (np.random.RandomState(5).randn(4, 5, 2) * 10).astype(np.float32)
     p = str(tmp_path / "lzf.flo5")
     with h5py.File(p, "w") as f:
-        f.create_dataset("flow", data=np.zeros((4, 5, 2), np.float32), compression="lzf")
-    with pytest.raises(ValueError, match="lzf.flo5.*lzf filter"):
+        f.create_dataset("flow", data=flow, compression="lzf")
+    np.testing.assert_array_equal(T.read_gt(p, "flow"), J.read_gt(p, "flow"))
+    p = str(tmp_path / "virtual.flo5")
+    with h5py.File(p, "w") as f:
+        layout = h5py.VirtualLayout(shape=flow.shape, dtype="f4")
+        layout[:] = h5py.VirtualSource("src.h5", "flow", shape=flow.shape)
+        f.create_virtual_dataset("flow", layout)
+    with pytest.raises(ValueError, match="virtual.flo5.*virtual dataset"):
         T.read_gt(p, "flow")
     bad = tmp_path / "x.h5"
     bad.write_bytes(b"not hdf5")

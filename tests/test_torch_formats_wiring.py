@@ -1,7 +1,9 @@
 """The formats slice wired through the port, against gd3d on the CPU:
 
   * the committed fixtures (gd3d_torch/data/testdata/formats, written by
-    tests/torch_formats_gen.py): PIL, h5py, gd3d's load_image_mast3r and
+    tests/torch_formats_gen.py; the animated WebPs and the HDF5 filters,
+    types, links and external storage among them): PIL, h5py, gd3d's
+    load_image_mast3r and
     gd3d's flowio still give the committed digests, so the fixtures cannot
     drift, and the port gives them too (what chip_smoke.py's formats phase
     checks on the card's machine);
@@ -19,6 +21,7 @@ import json
 import os
 import shutil
 import sys
+from contextlib import chdir
 from pathlib import Path
 
 import numpy as np
@@ -51,6 +54,12 @@ def port_digest(kind, name):
         return sha(exr.read_exr(FORMATS / name))
     if kind == "hdf5":
         return sha(hdf5.read_dataset(FORMATS / name, "depth"))
+    if kind == "hdf5_more":
+        from torch_formats_gen import h5_digest
+
+        file, dataset = name.split("#")
+        with chdir(FORMATS):  # external storage is named from the working directory
+            return h5_digest(hdf5.read_dataset(FORMATS / file, dataset))
     return sha(flowio.read_gt(str(FORMATS / name), "stereo" if name.endswith(".h5") else "flow"))
 
 
@@ -71,6 +80,14 @@ def reference_digest(kind, name):
 
         with h5py.File(FORMATS / name) as f:
             return sha(np.asarray(f["depth"]))
+    if kind == "hdf5_more":
+        import h5py
+
+        from torch_formats_gen import h5_digest
+
+        file, dataset = name.split("#")
+        with chdir(FORMATS), h5py.File(FORMATS / file) as f:
+            return h5_digest(f[dataset][()])
     import gd3d.data.flowio as gflow
 
     return sha(gflow.read_gt(str(FORMATS / name), "stereo" if name.endswith(".h5") else "flow"))

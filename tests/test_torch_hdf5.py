@@ -129,15 +129,8 @@ def _refusal(tmp_path, make, match):
 
 
 @pytest.mark.parametrize("what,match", [
-    ("lzf", "lzf filter"),
-    ("compound", "compound datatype"),
-    ("string", "string datatype"),
-    ("external_link", "external link"),
-    ("soft_link", "soft link"),
-    ("dense_links", "dense"),
-    ("external_storage", "external storage"),
     ("virtual", "virtual"),
-    ("scaleoffset", "scaleoffset filter"),
+    ("reference", "reference datatype"),
     ("not_hdf5", "not an HDF5 file"),
 ])
 def test_unsupported_files_are_refused(tmp_path, what, match):
@@ -146,29 +139,189 @@ def test_unsupported_files_are_refused(tmp_path, what, match):
             path.write_bytes(b"\x89PNG\r\n\x1a\n" + bytes(100))
             return
         with h5py.File(path, "w", libver="latest") as f:
-            if what == "lzf":
-                f.create_dataset("x", data=A, compression="lzf")
-            elif what == "scaleoffset":
-                f.create_dataset("x", data=(A * 100).astype("i4"), scaleoffset=0)
-            elif what == "compound":
-                f.create_dataset("x", data=np.zeros(4, [("a", "f4"), ("b", "i2")]))
-            elif what == "string":
-                f.create_dataset("x", data=np.array([b"ab", b"cd"]))
-            elif what == "external_link":
-                f["x"] = h5py.ExternalLink("other.h5", "/y")
-            elif what == "soft_link":
+            if what == "reference":
                 f.create_dataset("y", data=A)
-                f["x"] = h5py.SoftLink("/y")
-            elif what == "dense_links":
-                for i in range(12):
-                    f.create_dataset(f"d{i}", data=A[:2])
-                f.create_dataset("x", data=A)
-            elif what == "external_storage":
-                ext = str(path) + ".raw"
-                A.tofile(ext)
-                f.create_dataset("x", shape=A.shape, dtype=A.dtype, external=[(ext, 0, A.nbytes)])
+                f.create_dataset("x", data=np.array([f["y"].ref] * 2, h5py.ref_dtype))
             elif what == "virtual":
                 layout = h5py.VirtualLayout(shape=(4,), dtype="f4")
                 layout[:] = h5py.VirtualSource("src.h5", "y", shape=(4,))
                 f.create_virtual_dataset("x", layout)
     _refusal(tmp_path, make, match)
+
+
+# Files of every filter, type, link and storage kind beyond the numeric
+# datasets above that h5py writes (see write_case); each read back as h5py's
+# dset[()] (dtype, shape and values; object arrays element by element)
+MORE_CASES = [
+    "lzf", "lzf_incompressible", "szip_f4", "szip_f8", "szip_i2", "szip_i2be", "szip_u1",
+    "szip_smooth", "nbit_i31", "nbit_i10", "nbit_f4", "nbit_u16", "scaleoffset",
+    "scaleoffset_be", "scaleoffset_float", "scaleoffset_double", "compound", "compound_nested",
+    "string", "string_nullterm", "string_spacepad", "vlen_str", "vlen_str_v0", "vlen_seq",
+    "enum", "array", "soft_link", "soft_link_rel", "soft_link_v0", "external_link",
+    "dense_links", "external_storage", "offsets_2", "offsets_4", "int10_no_filter",
+]
+
+
+def write_case(path, what, data=None):
+    """Write the HDF5 file of case `what` (MORE_CASES) at `path` with h5py;
+    `data` (float32, 3-d, default A) sets the numbers. Returns the name of the
+    dataset to read. External files go beside `path` (the external-storage
+    file under a name relative to the working directory, which must be
+    path's directory, as HDF5 resolves it from there)."""
+    A = globals()["A"] if data is None else data
+    rng = np.random.RandomState(len(what))
+    path = str(path)
+    libver = "earliest" if what.endswith("_v0") else "latest"
+    if what.startswith("offsets_"):
+        size = int(what.split("_")[1])
+        fcpl = h5py.h5p.create(h5py.h5p.FILE_CREATE)
+        fcpl.set_sizes(size, size)
+        fid = h5py.h5f.create(path.encode(), h5py.h5f.ACC_TRUNC, fcpl=fcpl)
+        with h5py.File(fid) as f:
+            f.create_dataset("g/x", data=A[:6], chunks=(2, 8, 2), compression="gzip")
+            f.create_dataset("c", data=A[:3])
+        return "g/x"
+    chunks = (min(8, A.shape[0]), min(8, A.shape[1]), A.shape[2])
+    with h5py.File(path, "w", libver=libver) as f:
+        if what == "lzf":
+            f.create_dataset("x", data=A, compression="lzf", chunks=chunks)
+        elif what == "lzf_incompressible":
+            f.create_dataset("x", data=rng.randint(0, 255, (40, 40), "u1"), compression="lzf")
+        elif what.startswith("szip"):
+            kind = what.split("_")[1]
+            x = {"f4": (A - 0.5) * 10, "i2": ((A - 0.5) * 2000).astype("<i2"),
+                 "u1": (A * 255).astype("u1"), "f8": A.astype(">f8"),
+                 "i2be": ((A - 0.5) * 2000).astype(">i2"),
+                 "smooth": np.cumsum(np.ones(A.shape, "<i4"), 1).astype("<i4")}[kind]
+            opts = ("ec", 16) if kind in ("i2", "smooth") else ("nn", 8)
+            f.create_dataset("x", data=x, compression="szip", compression_opts=opts,
+                             chunks=(min(16, A.shape[0]),) + A.shape[1:])
+        elif what.startswith("nbit"):
+            kind = what.split("_")[1]
+            base = {"i31": h5py.h5t.STD_I32LE, "i10": h5py.h5t.STD_I16BE,
+                    "f4": h5py.h5t.IEEE_F32LE, "u16": h5py.h5t.STD_U16LE}[kind].copy()
+            if kind in ("i31", "i10"):
+                base.set_precision(31 if kind == "i31" else 10)
+            dcpl = h5py.h5p.create(h5py.h5p.DATASET_CREATE)
+            dcpl.set_chunk(chunks)
+            dcpl.set_filter(h5py.h5z.FILTER_NBIT, h5py.h5z.FLAG_OPTIONAL)
+            did = h5py.h5d.create(f.id, b"x", base, h5py.h5s.create_simple(A.shape), dcpl=dcpl)
+            vals = {"i31": ((A - 0.5) * 3e6).astype("<i4"), "i10": ((A - 0.5) * 900).astype("<i2"),
+                    "f4": A, "u16": (A * 60000).astype("<u2")}[kind]
+            did.write(h5py.h5s.ALL, h5py.h5s.ALL, vals)
+        elif what == "int10_no_filter":  # a 10-bit integer in 2 bytes, no filter
+            t = h5py.h5t.STD_I16BE.copy()
+            t.set_precision(10)
+            did = h5py.h5d.create(f.id, b"x", t, h5py.h5s.create_simple((6,)))
+            did.write(h5py.h5s.ALL, h5py.h5s.ALL, np.array([-600, -3, 0, 7, 511, 700], "<i2"))
+        elif what.startswith("scaleoffset"):
+            x = {"scaleoffset": ((A - 0.3) * 1000).astype("<i4"),
+                 "scaleoffset_be": ((A - 0.3) * 1000).astype(">i2"),
+                 "scaleoffset_float": (A - 0.5) * 7,
+                 "scaleoffset_double": ((A - 0.5) * 7).astype("<f8")}[what]
+            factor = {"scaleoffset_float": 3, "scaleoffset_double": 2}.get(what, 0)
+            f.create_dataset("x", data=x, scaleoffset=factor, chunks=chunks)
+        elif what == "compound":
+            x = np.zeros(6, [("a", "<f4"), ("b", ">i2"), ("c", "u1")])
+            x["a"], x["b"], x["c"] = rng.rand(6), rng.randint(-99, 99, 6), np.arange(6)
+            f.create_dataset("x", data=x, chunks=(4,), compression="gzip")
+        elif what == "compound_nested":
+            inner = np.dtype([("u", "<i4"), ("v", "<f8", (2,))])
+            x = np.zeros((3, 2), [("p", inner), ("q", "S3"), ("r", "<f2")])
+            x["p"]["u"] = rng.randint(0, 9, (3, 2))
+            x["p"]["v"] = rng.rand(3, 2, 2)
+            x["q"] = [[b"ab", b"c"], [b"def", b""], [b"x", b"yz"]]
+            x["r"] = rng.rand(3, 2)
+            f.create_dataset("x", data=x)
+        elif what == "string":
+            f.create_dataset("x", data=np.array([b"ab", b"cd", b"", b"xyz"]))
+        elif what in ("string_nullterm", "string_spacepad"):
+            t = h5py.h5t.C_S1.copy()
+            t.set_size(5)
+            t.set_strpad(h5py.h5t.STR_NULLTERM if what == "string_nullterm"
+                         else h5py.h5t.STR_SPACEPAD)
+            did = h5py.h5d.create(f.id, b"x", t, h5py.h5s.create_simple((4,)))
+            did.write(h5py.h5s.ALL, h5py.h5s.ALL, np.array([b"ab", b"cdefg", b"", b"x y"], "S5"))
+        elif what.startswith("vlen_str"):
+            f.create_dataset("x", data=np.array(["a", "bc\u00e9", "", "long string " * 3], object),
+                             dtype=h5py.string_dtype())
+        elif what == "vlen_seq":
+            d = f.create_dataset("x", (4,), dtype=h5py.vlen_dtype(np.dtype("<i4")))
+            for i in range(4):
+                d[i] = np.arange(i * 3, dtype="<i4") - i
+        elif what == "enum":
+            dt = h5py.enum_dtype({"RED": 0, "GREEN": 1, "BLUE": 42}, basetype="i2")
+            f.create_dataset("x", data=np.array([0, 42, 1, 1], "i2"), dtype=dt)
+        elif what == "array":
+            t = h5py.h5t.array_create(h5py.h5t.IEEE_F32LE, (3, 2))
+            did = h5py.h5d.create(f.id, b"x", t, h5py.h5s.create_simple((5,)))
+            buf = rng.rand(5, 3, 2).astype("<f4").tobytes()
+            did.write(h5py.h5s.ALL, h5py.h5s.ALL, np.frombuffer(buf, [("a", "<f4", (3, 2))]),
+                      mtype=t)
+        elif what.startswith("soft_link"):
+            f.create_dataset("g/y", data=A)
+            if what == "soft_link_v0":
+                f["x"] = h5py.SoftLink("/g/y")
+                return "x"
+            f["g2/x"] = h5py.SoftLink("/g/y")
+            f["x"] = h5py.SoftLink("g2/x")
+            f["g/rel"] = h5py.SoftLink("y")
+            return "g/rel" if what.endswith("rel") else "x"
+        elif what == "external_link":
+            other = os.path.join(os.path.dirname(path), "external_link_target.h5")
+            with h5py.File(other, "w") as g:
+                g.create_dataset("grp/y", data=A)
+            f["x"] = h5py.ExternalLink("external_link_target.h5", "/grp/y")
+        elif what == "dense_links":
+            for i in range(12):
+                f.create_dataset(f"d{i}", data=np.float32(i))
+            f.create_dataset("x", data=A)
+        elif what == "external_storage":
+            ext = os.path.basename(path) + ".raw"
+            (A * 3).tofile(os.path.join(os.path.dirname(path), ext))
+            f.create_dataset("x", shape=A.shape, dtype=A.dtype, external=[(ext, 0, A.nbytes)])
+        else:
+            raise KeyError(what)
+    return "x"
+
+
+def assert_same_as_h5py(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape, (got.dtype, want.dtype)
+    if want.dtype != object:
+        np.testing.assert_array_equal(got, want)
+        return
+    for a, b in zip(got.reshape(-1), want.reshape(-1)):
+        if isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+        else:
+            assert type(a) is type(b) and a == b
+
+
+@pytest.mark.parametrize("what", MORE_CASES)
+def test_more_files_match_h5py(tmp_path, monkeypatch, what):
+    """Each filter (lzf, szip, n-bit, scale-offset), type (compound and
+    nested, fixed and variable-length strings, sequences, enum, array, a
+    narrow integer), link (soft, relative, in an old-style group, external,
+    dense storage), external storage and small offset size that h5py
+    writes reads back as h5py's dset[()]: the former refusals of lzf,
+    compound, string, external and soft links, dense links, external
+    storage and scale-offset among them."""
+    monkeypatch.chdir(tmp_path)  # HDF5 finds external storage from here
+    path = tmp_path / f"{what}.h5"
+    name = write_case(path, what)
+    with h5py.File(path) as f:
+        want = f[name][()]
+    assert_same_as_h5py(hdf5.read_dataset(path, name), want)
+
+
+def test_external_link_file_is_found_beside_the_referring_file(tmp_path, monkeypatch):
+    """HDF5 looks for an external link's file beside the referring file
+    before the working directory; a missing one raises naming it."""
+    sub = tmp_path / "sub"
+    sub.mkdir()
+    write_case(sub / "e.h5", "external_link")
+    monkeypatch.chdir(tmp_path)
+    np.testing.assert_array_equal(hdf5.read_dataset(sub / "e.h5", "x"), A)
+    (sub / "external_link_target.h5").unlink()
+    with pytest.raises(ValueError, match="external_link_target.h5"):
+        hdf5.read_dataset(sub / "e.h5", "x")

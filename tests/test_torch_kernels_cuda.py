@@ -26,7 +26,7 @@ single-pass TF32 misses by more than 10x.
 import pytest
 import torch
 
-from gd3d_torch.kernels import build, launch_counts, padded_launches
+from gd3d_torch.kernels import build, launch_counts, padded_launches, reset_launch_counts
 from gd3d_torch.kernels.cost_kl import (
     _reference_rows, masked_softmax_kl_fwd, masked_softmax_kl_rows)
 from gd3d_torch.kernels.flash_bwd_fused import (
@@ -738,3 +738,35 @@ def test_cost_kl_refuses_maps_off_each_other_by_4_bytes(dev):
         got = masked_softmax_kl_fwd(teacher, student, mask)
         assert launch_counts()["K3"] == before + 1
         assert_close(got, _reference_rows(teacher, student, mask, 1e-8), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [257, 260, 264, 300, 320, 384, 512, 576])
+@pytest.mark.parametrize("N,M", [(1, 1), (65, 63), (129, 200), (673, 673)])
+def test_flash_kernels_above_256_match_plain(dev, dtype, D, N, M):
+    """K1 and K2 above head dim 256 (the chunked kernels: direct where a row
+    is a 16-byte multiple, else zero-padded to a multiple of 8) against the
+    plain twins at the true head dim, on strided views of qkv projections;
+    one launch each, counted as a chunked launch; K2 repeats its bits."""
+    g = torch.Generator(device=dev).manual_seed(D + N)
+    B, H = 2, 2
+    q = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(dtype)[:, :, 0]
+    kv = torch.randn((B, M, 3, H, D), generator=g, device=dev).to(dtype)
+    k, v = kv[:, :, 1], kv[:, :, 2]
+    scale = D ** -0.5
+    reset_launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, scale)
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
+    assert o.shape == q.shape
+    assert_close(o, o_ref, dtype)
+    assert_close(lse, lse_ref, torch.float32)
+    do = torch.randn((B, N, H, D), generator=g, device=dev).to(dtype)
+    di = torch.einsum("bnhd,bnhd->bhn", o_ref.float(), do.float()).contiguous()
+    grads = flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale)
+    again = flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale)
+    counts = launch_counts()
+    assert [counts[k] for k in ("K1", "K2", "K1 wide", "K2 wide")] == [1, 2, 1, 2]
+    for a, b, c in zip(grads, flash_attention_bwd_plain(q, k, v, lse_ref, do, di, scale), again):
+        assert a.shape == b.shape and torch.equal(a, c)
+        assert_close(a, b, dtype)

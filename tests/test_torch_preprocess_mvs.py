@@ -75,8 +75,9 @@ def test_megadepth_image_equals_gd3d_on_h5py_depth(tmp_path, libver):
 
 
 def test_megadepth_refuses_its_h5_by_name(tmp_path):
-    """An lzf-compressed depth .h5 (a filter data/hdf5.py does not decode)
-    is refused, naming the file and the filter, before any output."""
+    """A depth .h5 whose "depth" is a virtual dataset (which data/hdf5.py
+    does not read) is refused, naming the file and the feature, before any
+    output."""
     import h5py
 
     spec = fixtures.write_raw_tree("megadepth", tmp_path / "raw")
@@ -84,8 +85,10 @@ def test_megadepth_refuses_its_h5_by_name(tmp_path):
     assert h5.read_bytes().startswith(fixtures.HDF5_SIGNATURE)
     depth = np.asarray(h5py.File(h5)["depth"])
     with h5py.File(h5, "w") as f:
-        f.create_dataset("depth", data=depth, compression="lzf")
+        layout = h5py.VirtualLayout(shape=depth.shape, dtype=depth.dtype)
+        layout[:] = h5py.VirtualSource("src.h5", "depth", shape=depth.shape)
+        f.create_virtual_dataset("depth", layout)
     with pytest.raises(ValueError, match=str(h5)) as err:
         port_main(fixtures.preprocess_argv("megadepth", spec, tmp_path / "out"))
-    assert "lzf" in str(err.value)
+    assert "virtual" in str(err.value)
     assert not list((tmp_path / "out").rglob("*.npz"))

@@ -104,8 +104,56 @@ def test_resize_crop_of_the_gd3d_test_image():
     assert np.array_equal(got, want) and np.array_equal(T, T_want)
     with pytest.raises(ValueError, match="all zero"):
         tmisc.resize_crop(np.zeros((8, 8, 3), np.uint8))
-    with pytest.raises(ValueError, match="uint8 RGB or grey"):
-        tmisc.resize_crop(np.zeros((8, 8, 4), np.uint8))
+    with pytest.raises(ValueError, match="cannot handle"):  # as Image.fromarray
+        tmisc.resize_crop(np.ones((8, 8), np.int64))
+
+
+def _framed(dtype, shape, lo, hi, seed):
+    """A random image inside a zero frame (so getbbox has work), in dtype."""
+    rng = np.random.RandomState(seed)
+    a = np.zeros(shape, dtype)
+    H, W = shape[:2]
+    a[4:H - 6, 6:W - 8] = (rng.rand(H - 10, W - 14, *shape[2:]) * (hi - lo) + lo).astype(dtype)
+    return a
+
+
+# dtype, shape, value range: every array gd3d's Image.fromarray takes there
+RESIZE_MODES = {
+    "RGBA": ("u1", (40, 50, 4), 0, 255), "LA": ("u1", (40, 50, 2), 0, 255),
+    "F": ("<f4", (40, 50), -3, 5), "F_from_float64": ("<f8", (40, 50), -3, 5),
+    "I": ("<i4", (40, 50), -2e9, 2e9), "I_from_int16": ("<i2", (40, 50), -3e4, 3e4),
+    "I_from_uint32": ("<u4", (40, 50), 0, 4e9), "I;16": ("<u2", (40, 50), 0, 65535),
+    "I;16B": (">u2", (40, 50), 0, 65535), "1": ("?", (40, 50), 0, 2),
+    "RGB": ("u1", (40, 50, 3), 0, 255), "L": ("u1", (40, 50), 0, 255),
+}
+
+
+@pytest.mark.parametrize("out_size", [17, 32, 80, 44])
+@pytest.mark.parametrize("mode", sorted(RESIZE_MODES))
+def test_resize_crop_matches_gd3d_in_every_mode(mode, out_size):
+    """resize_crop against gd3d's (Image.fromarray, getbbox, crop, resize) in
+    each mode: RGBA and LA premultiplied around the bicubic filter and
+    their bounding box from alpha, F / I / I;16 in Pillow's 32- and 16-bit
+    resamplers (I's sums past the int range as x86 converts them), 1 by
+    NEAREST, and out_size 44 a plain copy (the crop is 44 wide, but for
+    I;16, whose box Pillow scans byte-wise). Every mode
+    bit for bit, F too (the bound is 0: the same float64 sums in the same
+    order, rounded once to float32)."""
+    dtype, shape, lo, hi = RESIZE_MODES[mode]
+    img = _framed(dtype, shape, lo, hi, len(mode) + out_size)
+    got, T = tmisc.resize_crop(img, out_size=out_size)
+    want, T_want = jmisc.resize_crop(img, out_size=out_size)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert np.array_equal(got, want) and np.array_equal(T, T_want)
+
+
+@pytest.mark.parametrize("dtype,shape", [("<i8", (8, 8)), ("u1", (8, 8, 1)), ("<f4", (8, 8, 3)),
+                                         ("<i4", (8, 8, 2))])
+def test_resize_crop_refuses_what_pillow_refuses(dtype, shape):
+    with pytest.raises(TypeError):
+        jmisc.resize_crop(np.ones(shape, dtype))
+    with pytest.raises(ValueError, match="cannot handle"):
+        tmisc.resize_crop(np.ones(shape, dtype))
 
 
 YAML_DOCS = [
@@ -144,15 +192,119 @@ def test_yaml_reader_reads_every_yaml_of_the_repo():
             assert read_yaml(path) == yaml.safe_load(f), path
 
 
+# What the reader once refused (a case each) and the rest of yaml.safe_load:
+# directives, document markers, anchors and aliases, merges, block
+# scalars with their indicators, multi-line and escaped scalars, complex
+# keys, the standard tags and timestamps
+YAML_SAFE_LOAD = [
+    "a: &x 1\nb: *x\n", "a: !!str 1\n", "a: |\n  text\n", "a: >\n  t\n", "---\na: 1\n",
+    "? a\n: b\n", "<<: {a: 1}\n", "a: 2001-12-14\n", "a: b\n  c\n", "a: 'x\n  y'\n",
+    "%YAML 1.1\n%TAG !e! tag:yaml.org,2002:\n---\na: !e!int '12'\n...\n",
+    "base: &b {x: 1, y: 2}\nd:\n  <<: *b\n  y: 3\n",
+    "d:\n  <<: [{a: 1}, {a: 2, b: 3}]\n  c: 4\n",
+    "a: |-\n  x\n\n  y\n\n\nb: |+\n  x\n\n\nc: >2\n   indented\n  more\n\n  para\n",
+    "a: >-\n  folded\n  line\n\n  next\n   more indented\n  back\n",
+    's: "esc \\x41 \\u00e9 \\U0001F600 \\N \\_ \\L \\P \\e \\0 \\/ \\t \\a \\b \\v \\f"\n',
+    's: "multi\n  line\n\n  para \\\n  cont"\nt: \'it\'\'s\n\n  two\'\n',
+    "plain: this is\n  a multi line\n\n  plain\n",
+    "? a b\n: c\n? |\n  block key\n: v\n? >\n  folded\n  key\n: w\n? !!binary aGk=\n: x\n",
+    "[a: 1, b]\n", "{a, b: 1, ? c}\n",
+    "- &a [1, 2]\n- *a\n",
+    "s: !!set {a, b}\no: !!omap [a: 1, b: 2]\np: !!pairs [a: 1, a: 2]\nb: !!binary aGVsbG8=\n",
+    "a: !!float 1\nb: !!int '0x1F'\nc: !!bool YES\nd: !!null x\ne: !!seq [1]\nf: !!map {a: 1}\n",
+    "t: 2001-12-14t21:59:43.10-05:00\nu: 2001-12-14 21:59:43.10\nv: 2001-12-15T02:59:43.1Z\n"
+    "w: 2002-12-14\nx: !!timestamp 2001-12-14\n",
+    "--- |\n  doc\n", "a: ! 12\nb: ! '12'\nc: !<tag:yaml.org,2002:str> 12\n",
+]
+
+
+@pytest.mark.parametrize("i", range(len(YAML_SAFE_LOAD)))
+def test_yaml_reader_matches_safe_load(i):
+    """Every construct of yaml.safe_load, the same repr (types, values, key
+    order, dates and datetimes with their time zones)."""
+    text = YAML_SAFE_LOAD[i]
+    assert repr(loads(text)) == repr(yaml.safe_load(text))
+
+
+def test_yaml_aliases_give_the_same_object():
+    """An alias is its anchor's object, as PyYAML builds it, also inside
+    itself."""
+    got = loads("a: &x [1, {b: 2}]\nc: *x\nd: &y [*y]\n")
+    assert got["a"] is got["c"] and got["d"][0] is got["d"]
+
+
+def _shared_tree(draw_leaf, children):
+    """Random nested lists and dicts whose containers may appear more than
+    once, so that the dumpers write anchors and aliases."""
+    from hypothesis import strategies as st
+
+    @st.composite
+    def tree(draw):
+        pool = []
+
+        def node(depth):
+            if depth == 0 or draw(st.integers(0, 3)) == 0:
+                return draw(draw_leaf)
+            if pool and draw(st.integers(0, 4)) == 0:
+                return draw(st.sampled_from(pool))
+            n = draw(st.integers(0, children))
+            if draw(st.booleans()):
+                value = [node(depth - 1) for _ in range(n)]
+            else:
+                value = {draw(draw_leaf): node(depth - 1) for _ in range(n)}
+            pool.append(value)
+            return value
+
+        return node(4)
+
+    return tree()
+
+
+def _yaml_leaves():
+    from hypothesis import strategies as st
+
+    text = st.text(alphabet=st.sampled_from(list("ab :#-'\"\n\t\\é{}[],&*!|>%@`?~09.")),
+                   max_size=12)
+    return st.one_of(st.integers(-10 ** 9, 10 ** 9), st.floats(allow_nan=False), st.booleans(),
+                     st.none(), text, st.dates(), st.binary(max_size=8),
+                     st.sampled_from(["yes", "no", "on", "1:20", "0x1f", "017", "=", "<<", "~",
+                                      "2001-01-01", ".inf", "", " x ", "a\n\nb"]))
+
+
+@pytest.mark.parametrize("canonical", [False, True], ids=["safe_dump", "canonical"])
+def test_yaml_reader_matches_safe_load_on_dumped_data(canonical):
+    """yaml.safe_dump (anchors and aliases for shared containers, block and
+    flow styles, folded long lines) and yaml.dump(canonical=True) (explicit
+    tags and ---) of random nested data, read back as safe_load reads it."""
+    from hypothesis import HealthCheck, given, settings
+    from hypothesis import strategies as st
+
+    @settings(max_examples=60, deadline=None, derandomize=True,
+              suppress_health_check=list(HealthCheck))
+    @given(_shared_tree(_yaml_leaves(), 4), st.sampled_from([None, True, False]),
+           st.sampled_from([20, 80]), st.sampled_from([None, '"', "'", "|", ">"]))
+    def check(data, flow, width, style):
+        if canonical:
+            text = yaml.dump(data, Dumper=yaml.SafeDumper, canonical=True)
+        else:
+            text = yaml.safe_dump(data, default_flow_style=flow, width=width,
+                                  default_style=style, allow_unicode=True)
+        assert repr(loads(text)) == repr(yaml.safe_load(text))
+
+    check()
+
+
 @pytest.mark.parametrize("text,what", [
-    ("a: &x 1\nb: *x\n", "'&'"), ("a: !!str 1\n", "'!'"), ("a: |\n  text\n", "'|'"),
-    ("a: >\n  t\n", "'>'"), ("---\na: 1\n", "document marker"), ("? a\n: b\n", "complex"),
-    ("<<: {a: 1}\n", "merge"), ("a: 2001-12-14\n", "timestamp"),
-    ("a: b\n  c\n", "several lines"), ("a:\n\t- x\n", "tab"), ("a: 'x\n  y'\n", "several lines"),
-    ("a: [1, 2\n", "unclosed"),
+    ("a:\n\t- x\n", "tab"), ("a: [1, 2\n", "unclosed"),
+    ("---\na: 1\n---\nb: 2\n", "second document"), ("a: !local x\n", "'!local'"),
+    ("a: !!foo x\n", "'tag:yaml.org,2002:foo'"), ("{[1]: 2}\n", "unhashable key"),
 ])
 def test_yaml_reader_refuses_by_name(text, what):
-    with pytest.raises(ValueError, match=f"cannot read.*{what}"):
+    """Where yaml.safe_load raises, the reader raises a ValueError naming the
+    line and what it cannot read."""
+    with pytest.raises(yaml.YAMLError):
+        yaml.safe_load(text)
+    with pytest.raises(ValueError, match=f"line [0-9]+: cannot read.*{what}"):
         loads(text)
 
 

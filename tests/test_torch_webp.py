@@ -10,7 +10,10 @@ RFC 6386 section 7.3) rewrites such a file's header and token partitions
 to reach the simple filter, every sharpness, filter deltas, no filter and 2,
 4 or 8 partitions, and Pillow's decode of the rewritten file is the
 reference. Raw alpha with each of the three spatial filters is written here
-too. Animated files are refused with a ValueError naming the file."""
+too. Animated files give their frame 0 on the canvas, as Pillow's
+WebPAnimDecoder renders it (files from PIL's save_all, and ANMF chunks
+assembled here around still bitstreams, at offsets inside a larger
+canvas)."""
 import io
 import os
 import struct
@@ -145,12 +148,13 @@ def test_open_rgb_matches_gd3d_to_pil(tmp_path, fmt, orientation):
 
 
 def test_animated_and_broken_files_are_refused(tmp_path):
+    """An animation is read now (frame 0, as Pillow gives it); a broken file
+    (a VP8 interframe) and a RIFF file that is no WebP are still refused,
+    naming the file."""
     frames = [Image.fromarray(texture(20, 24, s)) for s in range(3)]
     path = tmp_path / "anim.webp"
     frames[0].save(path, "WEBP", save_all=True, append_images=frames[1:], duration=40)
-    with pytest.raises(ValueError, match="animated") as err:
-        webp.decode_webp(path)
-    assert str(path) in str(err.value)
+    check(path.read_bytes())
     bad = tmp_path / "bad.webp"
     data = save(texture(20, 24, 1), quality=60)
     bad.write_bytes(data[:20] + bytes([data[20] ^ 1]) + data[21:])  # a VP8 interframe
@@ -158,6 +162,96 @@ def test_animated_and_broken_files_are_refused(tmp_path):
         webp.decode_webp(bad)
     with pytest.raises(ValueError, match="not a WebP"):
         webp.decode_webp(b"RIFF\x00\x00\x00\x00WAVE")
+
+
+def _riff_chunk(kind: bytes, body: bytes) -> bytes:
+    return kind + struct.pack("<I", len(body)) + body + b"\x00" * (len(body) & 1)
+
+
+def frame_chunks(still: bytes) -> bytes:
+    """The image chunks (ALPH, VP8 , VP8L) of a still WebP file."""
+    out, pos = b"", 12
+    while pos + 8 <= len(still):
+        kind, n = still[pos:pos + 4], struct.unpack("<I", still[pos + 4:pos + 8])[0]
+        if kind in (b"ALPH", b"VP8 ", b"VP8L"):
+            out += _riff_chunk(kind, still[pos + 8:pos + 8 + n])
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def anim_file(canvas_wh, frames, alpha: bool) -> bytes:
+    """An animated WebP assembled by hand: VP8X (animation, and alpha where
+    asked), ANIM (an opaque red background hint, which the decoder does not
+    paint), then one ANMF a (x, y, w, h, still WebP bytes) frame, its
+    offsets even as the format stores them."""
+    cw, ch = canvas_wh
+    body = _riff_chunk(b"VP8X", bytes([0x02 | (0x10 if alpha else 0), 0, 0, 0])
+                       + (cw - 1).to_bytes(3, "little") + (ch - 1).to_bytes(3, "little"))
+    body += _riff_chunk(b"ANIM", bytes([0, 0, 255, 255]) + struct.pack("<H", 0))
+    for x, y, w, h, still in frames:
+        head = ((x // 2).to_bytes(3, "little") + (y // 2).to_bytes(3, "little")
+                + (w - 1).to_bytes(3, "little") + (h - 1).to_bytes(3, "little")
+                + (100).to_bytes(3, "little") + bytes([0]))
+        body += _riff_chunk(b"ANMF", head + frame_chunks(still))
+    return b"RIFF" + struct.pack("<I", 4 + len(body)) + b"WEBP" + body
+
+
+ANIM_CASES = {
+    # PIL's save_all: lossy, lossless, and RGBA frames (alpha in every frame)
+    "pil_lossy": dict(pil=dict(quality=70)),
+    "pil_lossless": dict(pil=dict(lossless=True)),
+    "pil_rgba": dict(pil=dict(quality=70), c=4),
+    # by hand, frame 0 smaller than the canvas at an offset: lossy, lossless
+    # and lossy with ALPH, with and without VP8X's alpha flag
+    "offset_lossy": dict(frame=(6, 4, 20, 14, dict(quality=60)), alpha=False),
+    "offset_lossy_alpha_flag": dict(frame=(6, 4, 20, 14, dict(quality=60)), alpha=True),
+    "offset_lossless": dict(frame=(2, 10, 17, 9, dict(lossless=True)), alpha=False),
+    "offset_alph": dict(frame=(8, 2, 21, 15, dict(quality=80)), alpha=True, c=4),
+    "offset_lossless_alpha": dict(frame=(0, 6, 30, 11, dict(lossless=True)), alpha=True, c=4),
+    "full_canvas": dict(frame=(0, 0, 32, 24, dict(quality=90)), alpha=False),
+}
+
+
+def anim_case(name, tmp_path):
+    case = ANIM_CASES[name]
+    c = case.get("c", 3)
+    path = tmp_path / f"{name}.webp"
+    if "pil" in case:
+        frames = [Image.fromarray(texture(22, 30, s, c=c)) for s in range(3)]
+        frames[0].save(path, "WEBP", save_all=True, append_images=frames[1:], duration=50,
+                       **case["pil"])
+        return path
+    x, y, w, h, kw = case["frame"]
+    arr = texture(h, w, x + y, c=c)
+    if c == 4:
+        arr[: h // 3, : w // 2, 3] = 0
+        arr[h // 3:, :, 3] = 128 + arr[h // 3:, :, 3] // 2
+    second = save(texture(h, w, 99, c=c), **kw)
+    path.write_bytes(anim_file((32, 24), [(x, y, w, h, save(arr, **kw)), (0, 0, w, h, second)],
+                               case["alpha"]))
+    return path
+
+
+@pytest.mark.parametrize("name", sorted(ANIM_CASES))
+def test_animated_frame_0_matches_pil(name, tmp_path):
+    """An animation's frame 0 on its canvas: Pillow's mode and pixels, PIL's
+    convert("RGB") through decode_rgb and image_size, and gd3d's _to_pil
+    (RGBA onto white) through open_rgb."""
+    path = anim_case(name, tmp_path)
+    data = path.read_bytes()
+    check(data)
+    with Image.open(path) as im:
+        size, rgb = im.size, np.asarray(im.convert("RGB"))
+    np.testing.assert_array_equal(images.decode_rgb(data, str(path), composite=False), rgb)
+    assert images.image_size(path) == size
+    np.testing.assert_array_equal(images.open_rgb(path), np.asarray(gimages._to_pil(str(path))))
+
+
+def test_animated_frame_outside_its_canvas_is_refused(tmp_path):
+    still = save(texture(14, 20, 1), quality=60)
+    data = anim_file((24, 16), [(6, 4, 20, 14, still)], False)
+    with pytest.raises(ValueError, match="outside its 24x16 canvas"):
+        webp.decode_webp(data, "bad.webp")
 
 
 # ------------------------------------------------------------- VP8 transcoder

@@ -15,7 +15,16 @@ tests/test_torch_formats_wiring.py holds to the libraries here:
   * HDF5: MegaDepth-style "depth" at h5py's default format and at
     libver="latest", a "disparity" .h5 and a "flow" .flo5 with NaNs;
     digest: h5py's array, and gd3d's flowio reads (NaN -> +inf) of the
-    disparity and flow.
+    disparity and flow;
+  * more HDF5 (digests under "hdf5_more", keyed "file#dataset"): the
+    filters (lzf, szip, n-bit, scale-offset), types (nested compound,
+    space-padded and variable-length strings, enum, array),
+    links (soft, external, dense storage) and external storage that
+    tests/test_torch_hdf5.py::write_case writes; digest:
+    `h5_digest` of h5py's dset[()] (object arrays element by element);
+  * animated WebPs (frame 0 on its canvas: PIL's save_all with alpha, and
+    ANMF frames at offsets assembled by tests/test_torch_webp.py), under
+    "image" with PIL's digest.
 
     PYTHONPATH=. python tests/torch_formats_gen.py
 
@@ -135,6 +144,67 @@ def view_files() -> dict:
             "view_3.png": encode_png(crops[3], 2, 8, (1, 4), interlace=1)}
 
 
+# tests/test_torch_hdf5.py::MORE_CASES written as fixtures, on a small array
+# (the CPU tests hold the other cases; 4-byte offsets and sequences would
+# take ~13 KB more of test_torch_formats_wiring.py's 400 KB)
+HDF5_MORE = ("lzf", "szip_f4", "szip_i2", "nbit_i31", "scaleoffset", "scaleoffset_float",
+             "compound_nested", "string_spacepad", "vlen_str", "enum", "array", "soft_link",
+             "external_link", "dense_links", "external_storage")
+ANIM_WEBP = ("pil_rgba", "offset_alph", "offset_lossless")
+
+
+def h5_digest(a) -> str:
+    """The SHA-256 of an array as h5py returns it: its dtype and shape, then
+    its bytes, or, for an object array, each element's (bytes, or an
+    array's dtype and bytes)."""
+    def plain(dt):  # the dtype without h5py's metadata
+        if dt.names:
+            return [(n, plain(dt.fields[n][0]), dt.fields[n][1]) for n in dt.names]
+        return [plain(dt.subdtype[0]), dt.subdtype[1]] if dt.subdtype else dt.str
+
+    h = hashlib.sha256(f"{plain(a.dtype)} {a.dtype.itemsize} {a.shape}".encode())
+    if a.dtype != object:
+        h.update(np.ascontiguousarray(a).tobytes())
+        return h.hexdigest()
+    for x in a.reshape(-1):
+        if isinstance(x, np.ndarray):
+            h.update(f"{x.dtype.str} {x.shape}".encode() + x.tobytes())
+        else:
+            h.update(len(x).to_bytes(8, "little") + x)
+    return h.hexdigest()
+
+
+def more_hdf5(digests) -> None:
+    import h5py
+
+    from test_torch_hdf5 import write_case
+
+    data = np.random.RandomState(17).rand(12, 10, 2).astype(np.float32)
+    cwd = os.getcwd()
+    os.chdir(OUT)  # external storage is named from the working directory
+    try:
+        for what in HDF5_MORE:
+            name = write_case(OUT / f"{what}.h5", what, data)
+            with h5py.File(OUT / f"{what}.h5") as f:
+                digests["hdf5_more"][f"{what}.h5#{name}"] = h5_digest(f[name][()])
+    finally:
+        os.chdir(cwd)
+
+
+def anim_webp(digests) -> None:
+    import tempfile
+
+    from PIL import Image
+
+    from test_torch_webp import anim_case
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for case in ANIM_WEBP:
+            name = f"anim_{case}.webp"
+            (OUT / name).write_bytes(anim_case(case, Path(tmp)).read_bytes())
+            digests["image"][name] = sha(np.asarray(Image.open(OUT / name).convert("RGB")))
+
+
 def main():
     import h5py
     from PIL import Image
@@ -145,7 +215,7 @@ def main():
 
     OUT.mkdir(parents=True, exist_ok=True)
     (OUT / "views").mkdir(exist_ok=True)
-    digests = {"image": {}, "view": {}, "exr": {}, "hdf5": {}, "flowio": {}}
+    digests = {"image": {}, "view": {}, "exr": {}, "hdf5": {}, "flowio": {}, "hdf5_more": {}}
     for name, data in sorted(image_files().items()):
         (OUT / name).write_bytes(data)
         digests["image"][name] = sha(np.asarray(Image.open(OUT / name).convert("RGB")))
@@ -174,6 +244,8 @@ def main():
         f.create_dataset("flow", data=flow, compression="gzip", compression_opts=5)
     digests["flowio"]["disp.h5"] = sha(gflow.read_gt(str(OUT / "disp.h5"), "stereo"))
     digests["flowio"]["flow.flo5"] = sha(gflow.read_gt(str(OUT / "flow.flo5"), "flow"))
+    more_hdf5(digests)
+    anim_webp(digests)
     (OUT / "digests.json").write_text(json.dumps(digests, indent=1, sort_keys=True) + "\n")
     total = sum(p.stat().st_size for p in OUT.rglob("*") if p.is_file())
     print(f"wrote {OUT}: {sum(len(v) for v in digests.values())} fixtures, {total} bytes")
