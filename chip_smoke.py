@@ -283,7 +283,14 @@ report), then runs these phases in order, one or more printed lines each:
               4:2:0 progressive JPEG, 512x384 lossy and lossless WebP, a
               512x384 24-bit BMP, a 1024x768 ZIP EXR and a 1024x768 chunked
               gzip HDF5 depth, the last three written here and read back
-              equal); (b) gd3d_torch.cli.align (dense, --niter FORMATS_NITER)
+              equal); the JPEGs of tests/torch_jpeg_writer.py, written here
+              from fixed seeds (arithmetic-coded sequential with restarts
+              and DAC, progressive with successive approximation, CMYK;
+              lossless with predictors 1, 6, 7 and Pt 2; block-smoothed
+              Huffman and arithmetic progressive files), each file's SHA-256
+              and the port's RGB against the committed digests (PIL's RGB),
+              with host ms per decode of the 512x384 4:2:0 arithmetic
+              sequential and progressive files and a 512x384 lossless one; (b) gd3d_torch.cli.align (dense, --niter FORMATS_NITER)
               with the fp32 MASt3R teacher at full width on the four views
               (progressive JPEG, lossy WebP, 24-bit BMP, Adam7 PNG): the
               loaded [-1, 1] arrays against gd3d's load_image_mast3r
@@ -4226,6 +4233,59 @@ def _write_exr():
     return mod.write_exr
 
 
+def _jpeg_writer():
+    """tests/torch_jpeg_writer.py, loaded from its file alone: the JPEG kinds
+    no tool writes (arithmetic-coded, lossless, block-smoothed) come from
+    the tests' numpy writer, from fixed seeds."""
+    import importlib.util
+
+    path = formats_dir().parents[3] / "tests" / "torch_jpeg_writer.py"
+    spec = importlib.util.spec_from_file_location("torch_jpeg_writer", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_formats_written_jpegs(want: dict, gpu: str) -> bool:
+    """(a), the written JPEGs: tests/torch_jpeg_writer.py's fixture files
+    written here, each file's SHA-256 and the port's RGB against the
+    committed digests (the bytes and PIL's RGB where PIL is), and the host
+    ms per decode of the three 512x384 files."""
+    import hashlib
+
+    import numpy as np
+
+    from gd3d_torch.data import images
+
+    t0 = time.perf_counter()
+    files = _jpeg_writer().fixture_files()
+    write_s = time.perf_counter() - t0
+    bad, ms = [], {}
+    for name in sorted(set(want) | set(files)):
+        data = files.get(name, b"")
+        if name not in want or hashlib.sha256(data).hexdigest() != want[name]["file"]:
+            bad.append(f"{name} bytes")
+            continue
+        t0 = time.perf_counter()
+        try:
+            rgb = images.decode_rgb(data, name, composite=False)
+        except ValueError as e:
+            bad.append(f"{name} {e}")
+            continue
+        ms[name] = (time.perf_counter() - t0) * 1e3
+        if hashlib.sha256(np.ascontiguousarray(rgb).tobytes()).hexdigest() != want[name]["rgb"]:
+            bad.append(f"{name} rgb")
+    big = {k: v for k, v in ms.items() if "512x384" in k}
+    log(f"formats: (a) {len(files)} written JPEGs (tests/torch_jpeg_writer.py, {write_s:.2f} s "
+        f"to write) to their committed file and PIL RGB digests: {not bad}; host ms per decode "
+        f"(the card's machine; {gpu}): "
+        + ", ".join(f"{k} ({len(files[k])} bytes) {v:.1f}" for k, v in sorted(big.items()))
+        + "; the rest: " + ", ".join(f"{k} {v:.1f}" for k, v in sorted(ms.items())
+                                     if k not in big)
+        + f" {'OK' if not bad else 'FAIL ' + str(bad)}")
+    return not bad
+
+
 def _view_mismatches(got, want, where=""):
     """Where two stereo-view items (nested dicts, lists and arrays) differ:
     keys, lengths, dtypes, shapes or values."""
@@ -4321,6 +4381,7 @@ def check_formats_fixtures(tmp, gpu: str) -> None:
     write_exr = _write_exr()
     digests = json.loads((formats_dir() / "digests.json").read_text())
     bad, ms, decoded = [], {}, {}
+    written = digests.pop("jpeg_writer")
     for kind, entries in sorted(digests.items()):
         for name, want in sorted(entries.items()):
             got, dt, arr = _formats_digest(kind, name)
@@ -4356,7 +4417,8 @@ def check_formats_fixtures(tmp, gpu: str) -> None:
     t0 = time.perf_counter()
     ok_h5 = np.array_equal(hdf5.read_dataset(tmp / "big.h5", "depth"), depth)
     ms["hdf5 1024x768 gzip"] = (time.perf_counter() - t0) * 1e3
-    ok = not bad and ok_bmp and ok_exr and ok_h5
+    ok_jpeg = bool(written) and check_formats_written_jpegs(written, gpu)
+    ok = not bad and ok_bmp and ok_exr and ok_h5 and ok_jpeg
     log(f"formats: (a) host ms per decode (the card's machine; {gpu}): "
         f"progressive JPEG 854x480 4:2:0 {ms['progressive_854x480.jpg']:.1f}, lossy WebP "
         f"512x384 {ms['lossy_512x384.webp']:.1f}, lossless WebP 512x384 "

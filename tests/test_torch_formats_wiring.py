@@ -15,8 +15,13 @@
   * read_depth_float on an EXR-only tree: the stereo-view dataset's items
     equal those of the same tree with .npy depth;
   * image_size of every image fixture against PIL's .size, and a broken
-    file named in the error."""
+    file named in the error;
+  * tests/torch_jpeg_writer.py's files (arithmetic-coded, lossless and
+    block-smoothed JPEGs, written afresh, none committed): their bytes to
+    the committed SHA-256 and the port's RGB to PIL's digest, and
+    load_image_mast3r on three of them against gd3d's."""
 import hashlib
+import io
 import json
 import os
 import shutil
@@ -93,7 +98,8 @@ def reference_digest(kind, name):
     return sha(gflow.read_gt(str(FORMATS / name), "stereo" if name.endswith(".h5") else "flow"))
 
 
-CASES = sorted((kind, name) for kind, entries in DIGESTS.items() for name in entries)
+CASES = sorted((kind, name) for kind, entries in DIGESTS.items() for name in entries
+               if kind != "jpeg_writer")
 
 
 @pytest.mark.parametrize("kind,name", CASES, ids=[f"{k}-{n}" for k, n in CASES])
@@ -145,6 +151,43 @@ def test_align_cli_on_the_four_formats_equals_gd3d_load_images(tmp_path):
     want = np.stack([load_image_mast3r(str(f), 224)["img"] for f in files])
     np.testing.assert_array_equal(z["images"], want)
     assert np.isfinite(z["pts3d"]).all() and res is not None
+
+
+@pytest.fixture(scope="module")
+def writer_files():
+    from torch_jpeg_writer import fixture_files
+
+    return fixture_files()
+
+
+@pytest.mark.parametrize("name", sorted(DIGESTS["jpeg_writer"]))
+def test_jpeg_writer_files_match_their_digests(writer_files, name):
+    """The writer still writes the committed bytes from its seeds (what
+    chip_smoke.py's formats phase writes on the card's machine), PIL still
+    decodes them to the committed RGB, and the port does too, through
+    images.decode_rgb and image_size."""
+    from PIL import Image
+
+    data, want = writer_files[name], DIGESTS["jpeg_writer"][name]
+    assert hashlib.sha256(data).hexdigest() == want["file"]
+    assert sha(np.asarray(Image.open(io.BytesIO(data)).convert("RGB"))) == want["rgb"]
+    assert sha(images.decode_rgb(data, name, composite=False)) == want["rgb"]
+    assert images.image_size(data) == Image.open(io.BytesIO(data)).size
+
+
+@pytest.mark.parametrize("name", ["arith_seq_restart_dac.jpg", "lossless_p6_pt2_restart.jpg",
+                                  "smooth_prog_420.jpg"])
+def test_load_image_mast3r_equals_gd3d_on_written_jpegs(tmp_path, writer_files, name):
+    """An arithmetic-coded, a lossless and a block-smoothed JPEG through
+    the port's load_image_mast3r and gd3d's (PIL) at 512: the same array."""
+    from gd3d.data.images import load_image_mast3r as gd3d_load
+
+    path = tmp_path / name
+    path.write_bytes(writer_files[name])
+    got = images.load_image_mast3r(str(path), 512)
+    want = gd3d_load(str(path), 512)
+    assert got["img"].dtype == want["img"].dtype
+    np.testing.assert_array_equal(got["img"], want["img"])
 
 
 def test_align_cli_refuses_a_broken_view_by_name(tmp_path):

@@ -1,9 +1,11 @@
 """The port's JPEG decoder (gd3d_torch/data/jpeg.py) against Pillow, which
 gd3d's eval decodes with: every baseline, progressive, CMYK / YCCK and
 4:1:1 / 4:1:0 case must give PIL's Image.open(f).convert("RGB") bytes
-exactly, and jpeg_size PIL's .size. Arithmetic-coded, lossless, 12-bit
-and fractionally sampled files, and progressive files left for block
-smoothing, are refused with a ValueError that names the file.
+exactly, and jpeg_size PIL's .size. Arithmetic-coded, lossless and
+block-smoothed files decode too (tests/test_torch_jpeg_arith.py holds them
+in full); what PIL refuses as well (12 bits, fractional sampling,
+hierarchical and arithmetic-coded lossless files) raises a ValueError that
+names the file.
 
 The committed fixtures under gd3d_torch/eval/testdata/ (decoded on the card
 by chip_smoke.py's eval phase) are checked here against the digests
@@ -224,18 +226,24 @@ def _drop_last_scan(data):
     ("progressive", None),
     ("cmyk", None),
     ("411", None),
-    ("sof9", "arithmetic-coded sequential"),
-    ("sof3", "lossless"),
+    ("sof9", None),
+    ("sof3", None),
     ("12bit", "12-bit"),
     ("fractional", "fractional sampling"),
-    ("smoothing", "block smoothing"),
+    ("smoothing", None),
+    ("hierarchical", "hierarchical"),
+    ("sof11", "arithmetic-coded lossless"),
 ])
 def test_unsupported_files_are_refused(tmp_path, kind, match):
-    """Progressive, CMYK and 4:1:1 files decode to PIL's RGB; what stays
-    refused raises naming the file: arithmetic coding and lossless JPEG (no
-    encoder here writes a fixture to hold a decoder to), 12 bits (PIL
-    refuses it too), fractional sampling ratios, and a progressive file
-    whose last scan was dropped, which libjpeg-turbo block-smooths."""
+    """Progressive, CMYK, 4:1:1, arithmetic-coded (SOF9) and lossless (SOF3)
+    files, and a progressive file whose last scan was dropped, which
+    libjpeg-turbo block-smooths, decode to PIL's RGB (the arithmetic and
+    lossless files from tests/torch_jpeg_writer.py: no tool here writes
+    them); what stays refused raises naming the file, and PIL refuses it
+    too: 12 bits, fractional sampling ratios, a hierarchical file (DHP and
+    SOF5) and arithmetic-coded lossless (SOF11)."""
+    import torch_jpeg_writer as W
+
     img = np.random.RandomState(7).randint(0, 256, (16, 24, 3), np.uint8)
     path = tmp_path / f"{kind}.jpg"
     base = _jpeg(img)
@@ -246,27 +254,31 @@ def test_unsupported_files_are_refused(tmp_path, kind, match):
     elif kind == "411":
         path.write_bytes(cv2.imencode(".jpg", img, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
                                                      0x411111])[1].tobytes())
-    elif kind in ("sof9", "sof3"):
-        path.write_bytes(base.replace(b"\xff\xc0", b"\xff\xc9" if kind == "sof9"
-                                      else b"\xff\xc3", 1))
+    elif kind == "sof9":
+        path.write_bytes(W.write_dct(W.dct_frame(W.ycc(img), W.F420), arith=True))
+    elif kind == "sof3":
+        path.write_bytes(W.write_lossless(list(np.moveaxis(img, -1, 0)), psv=4))
     elif kind == "12bit":
         i = base.index(b"\xff\xc0")
         path.write_bytes(base[:i + 4] + b"\x0c" + base[i + 5:])
-        with pytest.raises(Exception):
-            Image.open(path).load()
     elif kind == "fractional":
         i = base.index(b"\xff\xc0") + 11  # Y 2x2 -> 3x2, Cb 1x1 -> 2x1
         path.write_bytes(base[:i] + b"\x32" + base[i + 1:i + 3] + b"\x21" + base[i + 4:])
+    elif kind == "hierarchical":
+        path.write_bytes(W.hierarchical_probe(img))
+    elif kind == "sof11":
+        path.write_bytes(W.sof11_probe(img))
     else:
         full = _jpeg(texture(32, 40, seed=2), progressive=True)
         path.write_bytes(_drop_last_scan(full))
-        Image.open(path).load()  # libjpeg-turbo decodes it, smoothing the blocks
-    if match is None:  # decodable since the formats slice: held to PIL, not refused
+    if match is None:  # held to PIL, not refused
         data = path.read_bytes()
         np.testing.assert_array_equal(decode_jpeg(data), _pil(data),
                                       err_msg=f"{kind}: decoded, but not to PIL's RGB")
         assert jpeg_size(data) == Image.open(io.BytesIO(data)).size
         return
+    with pytest.raises(Exception):
+        Image.open(path).load()
     with pytest.raises(ValueError, match=match) as err:
         decode_jpeg(path)
     assert str(path) in str(err.value)

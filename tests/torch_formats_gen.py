@@ -24,11 +24,17 @@ tests/test_torch_formats_wiring.py holds to the libraries here:
     `h5_digest` of h5py's dset[()] (object arrays element by element);
   * animated WebPs (frame 0 on its canvas: PIL's save_all with alpha, and
     ANMF frames at offsets assembled by tests/test_torch_webp.py), under
-    "image" with PIL's digest.
+    "image" with PIL's digest;
+  * "jpeg_writer": no files, only digests of tests/torch_jpeg_writer.py's
+    fixture_files() (arithmetic-coded sequential and progressive, lossless
+    and block-smoothed JPEGs, three of them 512x384), which the formats
+    phase writes again from their fixed seeds: the SHA-256 of each file's
+    bytes ("file") and of PIL's RGB ("rgb").
 
     PYTHONPATH=. python tests/torch_formats_gen.py
 
-writes them anew (PIL, cv2, h5py and gd3d needed)."""
+writes them anew (PIL, cv2, h5py and gd3d needed); with --jpeg-writer it
+rewrites the "jpeg_writer" digests alone (PIL needed)."""
 import hashlib
 import io
 import json
@@ -205,6 +211,17 @@ def anim_webp(digests) -> None:
             digests["image"][name] = sha(np.asarray(Image.open(OUT / name).convert("RGB")))
 
 
+def jpeg_writer(digests) -> None:
+    from PIL import Image
+
+    from torch_jpeg_writer import fixture_files
+
+    digests["jpeg_writer"] = {
+        name: {"file": hashlib.sha256(data).hexdigest(),
+               "rgb": sha(np.asarray(Image.open(io.BytesIO(data)).convert("RGB")))}
+        for name, data in sorted(fixture_files().items())}
+
+
 def main():
     import h5py
     from PIL import Image
@@ -246,6 +263,7 @@ def main():
     digests["flowio"]["flow.flo5"] = sha(gflow.read_gt(str(OUT / "flow.flo5"), "flow"))
     more_hdf5(digests)
     anim_webp(digests)
+    jpeg_writer(digests)
     (OUT / "digests.json").write_text(json.dumps(digests, indent=1, sort_keys=True) + "\n")
     total = sum(p.stat().st_size for p in OUT.rglob("*") if p.is_file())
     print(f"wrote {OUT}: {sum(len(v) for v in digests.values())} fixtures, {total} bytes")
@@ -253,4 +271,9 @@ def main():
 
 if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    main()
+    if sys.argv[1:] == ["--jpeg-writer"]:
+        kept = json.loads((OUT / "digests.json").read_text())
+        jpeg_writer(kept)
+        (OUT / "digests.json").write_text(json.dumps(kept, indent=1, sort_keys=True) + "\n")
+    else:
+        main()
