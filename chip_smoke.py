@@ -272,7 +272,14 @@ report), then runs these phases in order, one or more printed lines each:
               to its digest: PIL's RGB of progressive, CMYK, YCCK and 4:1:1
               JPEG, lossy, lossless and alpha WebP, RLE8, 5-6-5 and 32-bit
               BMP, Adam7 and 2-bit PNG; the EXR writer's values of ZIP, PIZ
-              and RLE depth; h5py's arrays of HDF5 depth at both file
+              and RLE depth; OpenCV 4.6's arrays (cv2.imread's
+              IMREAD_ANYDEPTH grey) of the EXR files of
+              gd3d_torch/data/testdata/exr: several, subsampled and mixed
+              channels, chromaticities, a lone Z, tiled (MIPMAP, RIPMAP),
+              multi-part, PXR24, B44, B44A, DWAA and DWAB, pLinear, and a
+              deep file and a file without a grey channel refused as
+              OpenCV refuses them, with host ms of the 512x384 HALF RGB
+              DWAA, B44 and PXR24 files; h5py's arrays of HDF5 depth at both file
               formats; PIL's RGB of three animated WebPs (frame 0 on its
               canvas: PIL's save_all with alpha, ANMF frames at offsets,
               lossy with ALPH and lossless); h5py's arrays (h5_digest) of
@@ -298,7 +305,11 @@ report), then runs these phases in order, one or more printed lines each:
               align phase checks it; (c) MegaDepth preprocessed from its
               .h5 depth to gd3d's digests (datagen_digests.json) and read
               through MegaDepthViews; (d) BlendedMVS read from an EXR-only
-              tree equals the same tree with .npy depth; (e) a .h5
+              tree (its depth files in rotation as scanline ZIP, tiled
+              ONE_LEVEL ZIP, tiled MIPMAP PIZ, part 0 of a multi-part file
+              and B44 on FLOAT; each depth map also read back in all five)
+              equals the same tree with .npy depth, file by file and items
+              0-1; (e) a .h5
               disparity and a .flo5 flow through flowio.read_gt to gd3d's
               digests, and a write_flo5 round trip. The phase's seconds.
  16. sequence ring attention and its all-gather variant
@@ -4220,17 +4231,17 @@ def formats_dir():
     return Path(__file__).resolve().parent / "gd3d_torch" / "data" / "testdata" / "formats"
 
 
-def _write_exr():
-    """tests/exr_writer.py's write_exr, loaded from its file alone: the port
-    writes no EXR, so the EXR fixtures of (a) and (d) come from the tests'
-    numpy writer."""
+def _exr_writer():
+    """tests/exr_writer.py, loaded from its file alone: the port writes no
+    EXR, so the EXR files of (a) and (d) come from the tests' numpy
+    writer."""
     import importlib.util
 
     path = formats_dir().parents[3] / "tests" / "exr_writer.py"
     spec = importlib.util.spec_from_file_location("exr_writer", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.write_exr
+    return mod
 
 
 def _jpeg_writer():
@@ -4351,6 +4362,11 @@ def _formats_digest(kind, name):
         arr = images.load_image_mast3r(str(root / "views" / name), 512)["img"]
     elif kind == "exr":
         arr = exr.read_exr(root / name)
+    elif kind == "exr_cv":
+        try:
+            arr = exr.read_exr(root.parent / "exr" / name)
+        except exr.OpenCVRefuses:  # a file cv2.imread returns None for: digest null
+            return None, time.perf_counter() - t0, None
     elif kind == "hdf5":
         arr = hdf5.read_dataset(root / name, "depth")
     elif kind == "hdf5_more":
@@ -4378,7 +4394,7 @@ def check_formats_fixtures(tmp, gpu: str) -> None:
 
     from gd3d_torch.data import bmp, exr, hdf5
 
-    write_exr = _write_exr()
+    write_exr = _exr_writer().write_exr
     digests = json.loads((formats_dir() / "digests.json").read_text())
     bad, ms, decoded = [], {}, {}
     written = digests.pop("jpeg_writer")
@@ -4391,10 +4407,15 @@ def check_formats_fixtures(tmp, gpu: str) -> None:
                 bad.append(f"{kind} {name}")
     n = sum(len(v) for v in digests.values())
     log(f"formats: (a) {n} committed fixtures decoded to their digests (PIL's RGB, animated "
-        f"WebPs' frame 0 included, gd3d's load_image_mast3r, the EXR writer's values, h5py's "
+        f"WebPs' frame 0 included, gd3d's load_image_mast3r, the EXR writer's values, "
+        f"OpenCV 4.6's arrays of {len(digests['exr_cv'])} EXR files of every channel set, "
+        f"container and compression (refused where OpenCV returns None), h5py's "
         f"arrays, {len(digests['hdf5_more'])} of them of other filters, types, links and "
         f"storage, gd3d's flowio) "
         f"{not bad} {'OK' if not bad else 'FAIL ' + str(bad)}")
+    log("formats: (a) host ms per EXR decode of a 512x384 HALF RGB file (the card's machine; "
+        f"{gpu}): " + ", ".join(f"{name.split('_')[0].upper()} {ms[name]:.1f}"
+                               for name in sorted(ms) if name.endswith("rgb_512x384.exr")))
     # the same pixels as a 512x384 24-bit BMP, and 1024x768 EXR and HDF5 depth
     rgb = decoded["lossy_512x384.webp"]
     h, w = rgb.shape[:2]
@@ -4492,7 +4513,7 @@ def check_formats_trees(tmp) -> None:
     from gd3d_torch.data import stereo_views as sv
 
     quiet = contextlib.redirect_stdout(io.StringIO())
-    write_exr = _write_exr()
+    writer = _exr_writer()
 
     # (c) MegaDepth from its HDF5 depth
     ref = json.loads(fixtures.DATAGEN_DIGESTS.read_text())["preprocess"]["megadepth"]
@@ -4518,17 +4539,39 @@ def check_formats_trees(tmp) -> None:
         preprocess.main(fixtures.preprocess_argv("blendedmvs", spec, tmp / "bmvs_npy"))
     shutil.copytree(tmp / "bmvs_npy", tmp / "bmvs_exr")
     sibs = sorted((tmp / "bmvs_exr").rglob("*.exr.npy"))
-    for npy in sibs:
-        write_exr(str(npy)[:-4], np.load(npy), "ZIP")
+    # FLOAT Y in five containers, each lossless for it: scanline ZIP, tiled
+    # ONE_LEVEL ZIP, tiled MIPMAP PIZ, part 0 of two, B44 (FLOAT stored raw)
+    kinds = ("scanline ZIP", "tiled ZIP", "tiled MIPMAP PIZ", "multi-part", "B44 on FLOAT")
+
+    def write_depth(path, d, kind):
+        if kind == "multi-part":
+            writer.write_parts(path, [dict(channels={"Y": d}, compression="ZIP"),
+                                      dict(channels={"Y": d[::2]}, compression="RLE")])
+        else:
+            comp = {"tiled MIPMAP PIZ": "PIZ", "B44 on FLOAT": "B44"}.get(kind, "ZIP")
+            tiles = {"tiled ZIP": (64, 32, "ONE_LEVEL", "DOWN"),
+                     "tiled MIPMAP PIZ": (128, 96, "MIPMAP", "DOWN")}.get(kind)
+            writer.write_image(path, {"Y": d}, compression=comp, tiles=tiles)
+
+    # every depth map in every container, then the tree in rotation
+    diff = [f"{npy.name} as {kind}" for npy in sibs for kind in kinds
+            if write_depth(str(tmp / "one.exr"), np.load(npy), kind)
+            or not np.array_equal(sv.read_depth_float(str(tmp / "one.exr")), np.load(npy))]
+    for k, npy in enumerate(sibs):
+        write_depth(str(npy)[:-4], np.load(npy), kinds[k % len(kinds)])
         npy.unlink()
     cls, kw = fixtures.TREE_VIEWS["blendedmvs"]
     a = getattr(sv, cls)(str(tmp / "bmvs_npy"), resolution=(224, 224), seed=1, **kw)
     b = getattr(sv, cls)(str(tmp / "bmvs_exr"), resolution=(224, 224), seed=1, **kw)
-    diff = [m for idx in range(min(len(a), 2)) for m in _view_mismatches(b[idx], a[idx],
-                                                                         f"{cls}[{idx}]")]
+    diff += [m for idx in range(min(len(a), 2)) for m in _view_mismatches(b[idx], a[idx],
+                                                                          f"{cls}[{idx}]")]
+    diff += [str(npy) for npy in sibs if not np.array_equal(
+        sv.read_depth_float(str(npy)[:-4]),
+        np.load(tmp / "bmvs_npy" / npy.relative_to(tmp / "bmvs_exr")))]
     same = len(a) == len(b) > 0 and bool(sibs) and not diff
-    log(f"formats: (d) {cls} on an EXR-only tree ({len(sibs)} ZIP depth files) equals the "
-        f".npy tree, items 0-1 {same} {'OK' if same else 'FAIL ' + str(diff[:4])}")
+    log(f"formats: (d) {cls} on an EXR-only tree ({len(sibs)} depth files in rotation as "
+        f"{', '.join(kinds)}; each file also read back in all five) equals the .npy tree, "
+        f"file by file and items 0-1 {same} {'OK' if same else 'FAIL ' + str(diff[:4])}")
     # (e) HDF5 stereo and flow ground truth
     flowd = json.loads((formats_dir() / "digests.json").read_text())["flowio"]
     ok_e = all(_formats_digest("flowio", n)[0] == d for n, d in flowd.items())

@@ -605,14 +605,22 @@ class ScanNetppViews(StereoViews):
 def read_depth_float(path: str) -> np.ndarray:
     """Float depth of the dust3r preprocessed trees: the EXR itself
     (data/exr.py, cv2.imread(path, IMREAD_ANYDEPTH)'s array) where it
-    exists, as gd3d reads it wherever its cv2 has the EXR codec; else the
-    float32 `<path>.npy` sibling that gd3d's preprocessing writes; else a
+    exists and OpenCV reads it, as gd3d reads it wherever its cv2 has the
+    EXR codec; else (no file, or one OpenCV returns None for) the float32
+    `<path>.npy` sibling that gd3d's preprocessing writes; else a
     ValueError naming both."""
+    refused = None
     if osp.exists(path):
-        return exr.read_exr(path)
+        try:
+            return exr.read_exr(path)
+        except exr.OpenCVRefuses as e:
+            refused = e
     npy = path + ".npy"
     if osp.exists(npy):
         return np.load(npy).astype(np.float32)
+    if refused is not None:
+        raise ValueError(f"cannot read depth: OpenCV returns None for {path} ({refused}) and "
+                         f"its float32 sibling {npy} does not exist") from refused
     raise ValueError(f"cannot read depth: neither {path} nor its float32 sibling {npy} exists")
 
 

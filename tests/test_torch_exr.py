@@ -1,11 +1,17 @@
-"""The port's OpenEXR reader (gd3d_torch/data/exr.py) against known values:
-cv2 here has no EXR codec, so tests/exr_writer.py (numpy, OpenEXR's
-compressors) writes seeded float32, float16 and uint32 arrays in every
-supported compression, and the decoded arrays must equal them exactly
-(float16 widened, as cv2.imread(f, IMREAD_ANYDEPTH) widens it). Each
-compressed case is checked to hold compressed blocks, so the decoder's
-path is the one under test. What stays unsupported raises a ValueError
-naming the file and the feature."""
+"""The port's OpenEXR reader (gd3d_torch/data/exr.py) against known values,
+with no oracle needed: tests/exr_writer.py (numpy, OpenEXR's compressors)
+writes seeded float32, float16 and uint32 arrays in every lossless
+compression it has, and the decoded arrays must equal them exactly (float16
+widened, as cv2.imread(f, IMREAD_ANYDEPTH) widens it). Each compressed case
+is checked to hold compressed blocks, so the decoder's path is the one under
+test. What OpenCV 4.6 returns None for raises exr.OpenCVRefuses naming the
+file and the feature, and read_depth_float then reads the .npy sibling, as
+gd3d does. tests/test_torch_exr_oracle.py holds the reader bit for bit to
+OpenCV 4.6 itself (the system interpreter's cv2 has the EXR codec), and
+tests/test_torch_formats_wiring.py to the digests of OpenCV's arrays of
+the committed fixtures."""
+import hashlib
+import json
 import os
 import struct
 import sys
@@ -18,10 +24,12 @@ sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from torch_threads import one_torch_thread  # noqa: E402,F401
-from exr_writer import CODES, write_exr  # noqa: E402
+from exr_writer import write_deep, write_exr, write_parts  # noqa: E402
 from gd3d_torch.data import exr  # noqa: E402
 
 COMPRESSIONS = ["NONE", "RLE", "ZIPS", "ZIP", "PIZ"]
+DIGESTS = json.load(open(os.path.join(ROOT, "gd3d_torch", "data", "testdata", "formats",
+                                      "digests.json")))["exr_cv"]
 
 
 def depth_map(h, w, dtype, seed):
@@ -111,35 +119,99 @@ def test_wavelet_inverts_openexr_encoder(shape, mx):
     np.testing.assert_array_equal(q, p)
 
 
+FIXTURES = os.path.join(ROOT, "gd3d_torch", "data", "testdata", "exr")
+
+
 @pytest.mark.parametrize("what,match", [
-    ("two_channels", "2 channels"),
-    ("channel_R", "channel 'R'"),
     ("tiled", "tiled"),
     ("multipart", "multi-part"),
-    ("PXR24", "PXR24"),
-    ("B44", "B44"),
-    ("DWAA", "DWAA"),
     ("not_exr", "not an OpenEXR"),
+    ("deep_scanline", "deep"),
+    ("deep_tiled", "deep"),
+    ("channel_depth", "without an R, G, B, Y or Z channel"),
+    ("channel_A", "without an R, G, B, Y or Z channel"),
+    ("unshared_parts", "different 'displayWindow'"),
+    ("truncated", "past the end"),
 ])
 def test_unsupported_files_are_refused(tmp_path, what, match):
+    """What OpenCV 4.6 returns None for (a tiled or multi-part flag without
+    the headers it needs, deep data, no channel it reads, parts that do not
+    share a display window, a chunk past the end) raises OpenCVRefuses; a
+    file that is no EXR at all is a plain ValueError (OpenCV would try its
+    other decoders). Each names the file and the feature."""
     path = tmp_path / "r.exr"
     a = depth_map(20, 30, np.float32, 0)
-    if what in ("PXR24", "B44", "DWAA"):
-        write_exr(path, a, "NONE")
-        data = path.read_bytes()
-        i = data.index(b"compression\x00compression\x00") + 28
-        path.write_bytes(data[:i] + bytes([CODES[what]]) + data[i + 1:])
-    elif what == "two_channels":
-        write_exr(path, a, "ZIP", extra_channels=("Z",))
-    elif what == "channel_R":
-        write_exr(path, a, "ZIP", channel="R")
-    elif what in ("tiled", "multipart"):
+    if what in ("tiled", "multipart"):
         write_exr(path, a, "NONE")
         data = path.read_bytes()
         flag = 0x200 if what == "tiled" else 0x1000
         path.write_bytes(data[:4] + struct.pack("<I", 2 | flag) + data[8:])
+    elif what.startswith("deep"):
+        write_deep(path, a, tiled=what == "deep_tiled")
+    elif what.startswith("channel"):
+        write_exr(path, a, "ZIP", channel=what.split("_")[1])
+    elif what == "unshared_parts":
+        write_parts(path, [dict(channels={"Y": a}), dict(channels={"Y": a[:5]})], shared=False)
+    elif what == "truncated":
+        write_exr(path, a, "ZIP")
+        path.write_bytes(path.read_bytes()[:-40])
     else:
         path.write_bytes(b"\x89PNG" + bytes(40))
     with pytest.raises(ValueError, match=match) as err:
         exr.read_exr(path)
     assert str(path) in str(err.value)
+    assert isinstance(err.value, exr.OpenCVRefuses) == (what != "not_exr")
+
+
+@pytest.mark.parametrize("what", ["two_channels", "channel_R", "PXR24", "B44", "DWAA"])
+def test_formerly_refused_files_decode(tmp_path, what):
+    """Files the reader refused before it was held to OpenCV 4.6: Y with Z
+    reads Y, a lone R is grey 0.64 R (the Rec. 709 x chromaticity), and the
+    lossy compressions decode to OpenCV's committed digests."""
+    a = depth_map(20, 30, np.float32, 0)
+    path = tmp_path / "r.exr"
+    if what == "two_channels":
+        write_exr(path, a, "ZIP", extra_channels=("Z",))
+        np.testing.assert_array_equal(exr.read_exr(path), a)
+    elif what == "channel_R":
+        write_exr(path, a, "ZIP", channel="R")
+        np.testing.assert_array_equal(exr.read_exr(path), a * np.float32(0.64))
+    else:
+        name = {"PXR24": "pxr24_rgb_float.exr", "B44": "b44_rgb_half.exr",
+                "DWAA": "dwaa_rgb_half.exr"}[what]
+        got = exr.read_exr(os.path.join(FIXTURES, name))
+        assert hashlib.sha256(got.tobytes()).hexdigest() == DIGESTS[name]
+
+
+@pytest.mark.parametrize("dtype", ["<f4", "<f2", "<u4"])
+@pytest.mark.parametrize("shape", [(5, 7), (33, 20)])
+def test_z_only_file_reads_as_opencv_zeros(tmp_path, dtype, shape):
+    """OpenCV 4.6 takes a lone Z channel for grey but asks OpenEXR for Y,
+    which fills zeros: the port returns those zeros, not Z's samples."""
+    a = (depth_map(*shape, np.float32, 1) * 10).astype(dtype)
+    path = tmp_path / "z.exr"
+    write_exr(path, a, "PIZ", channel="Z")
+    got = exr.read_exr(path)
+    assert got.dtype == np.float32 and got.shape == shape
+    assert not got.view(np.uint32).any()
+
+
+@pytest.mark.parametrize("what", ["channel_depth", "channel_A", "deep", "truncated"])
+def test_read_depth_float_falls_back_where_opencv_returns_none(tmp_path, what):
+    """gd3d's read_depth_float reads the .exr.npy sibling wherever
+    cv2.imread returns None; so does the port's, and without a sibling it
+    raises a ValueError naming both files and OpenCV's refusal."""
+    from gd3d_torch.data.stereo_views import read_depth_float
+
+    a = depth_map(20, 30, np.float32, 2)
+    path = str(tmp_path / "d.exr")
+    if what == "deep":
+        write_deep(path, a)
+    else:
+        write_exr(path, a, "ZIP", channel=what.split("_")[-1] if "_" in what else "Y")
+    if what == "truncated":
+        open(path, "r+b").truncate(os.path.getsize(path) - 30)
+    with pytest.raises(ValueError, match="OpenCV returns None for .*d.exr.npy"):
+        read_depth_float(path)
+    np.save(path + ".npy", a[::-1])
+    np.testing.assert_array_equal(read_depth_float(path), a[::-1])

@@ -1,12 +1,13 @@
 """The formats slice wired through the port, against gd3d on the CPU:
 
-  * the committed fixtures (gd3d_torch/data/testdata/formats, written by
-    tests/torch_formats_gen.py; the animated WebPs and the HDF5 filters,
-    types, links and external storage among them): PIL, h5py, gd3d's
-    load_image_mast3r and
-    gd3d's flowio still give the committed digests, so the fixtures cannot
-    drift, and the port gives them too (what chip_smoke.py's formats phase
-    checks on the card's machine);
+  * the committed fixtures (gd3d_torch/data/testdata/formats and exr,
+    written by tests/torch_formats_gen.py; the animated WebPs, the HDF5
+    filters, types, links and external storage and the EXR files of every
+    channel set, container and compression among them): PIL, h5py, gd3d's
+    load_image_mast3r and gd3d's flowio still give the committed digests, so
+    the fixtures cannot drift, and the port gives them too, OpenCV 4.6's
+    EXR arrays included, and its refusals where OpenCV returns None (what
+    chip_smoke.py's formats phase checks on the card's machine);
   * the align CLI at --tiny on the four views (progressive JPEG, WebP, BMP,
     Adam7 PNG): scene.npz's images are gd3d's load_image_mast3r arrays;
   * a .glb whose texture is a WebP (with alpha) or a BMP, against gd3d's
@@ -41,6 +42,7 @@ from gd3d_torch.data import exr, flowio, hdf5, images  # noqa: E402
 from gd3d_torch.data import fixtures  # noqa: E402
 
 FORMATS = ROOT / "gd3d_torch" / "data" / "testdata" / "formats"
+EXR = ROOT / "gd3d_torch" / "data" / "testdata" / "exr"
 DIGESTS = json.loads((FORMATS / "digests.json").read_text())
 
 
@@ -57,6 +59,11 @@ def port_digest(kind, name):
         return sha(images.load_image_mast3r(str(FORMATS / "views" / name), 512)["img"])
     if kind == "exr":
         return sha(exr.read_exr(FORMATS / name))
+    if kind == "exr_cv":
+        try:
+            return sha(exr.read_exr(EXR / name))
+        except exr.OpenCVRefuses:
+            return None  # cv2.imread returns None for these
     if kind == "hdf5":
         return sha(hdf5.read_dataset(FORMATS / name, "depth"))
     if kind == "hdf5_more":
@@ -78,8 +85,8 @@ def reference_digest(kind, name):
         from gd3d.data.images import load_image_mast3r
 
         return sha(load_image_mast3r(str(FORMATS / "views" / name), 512)["img"])
-    if kind == "exr":
-        return None  # known values: the writer's, recorded by the generator
+    if kind in ("exr", "exr_cv"):
+        return None  # OpenCV's, held in tests/test_torch_exr_oracle.py with the live oracle
     if kind == "hdf5":
         import h5py
 
@@ -113,6 +120,14 @@ def test_committed_fixtures_match_their_digests(kind, name):
 def test_fixtures_stay_small():
     total = sum(p.stat().st_size for p in FORMATS.rglob("*") if p.is_file())
     assert total < 400_000, total
+
+
+def test_exr_fixtures_stay_small():
+    """The EXR fixtures (three 512x384 files among them, for timing) stay
+    under 1.5 MB, and every one has its digest."""
+    files = sorted(p.name for p in EXR.iterdir())
+    assert files == sorted(DIGESTS["exr_cv"])
+    assert sum((EXR / f).stat().st_size for f in files) < 1_500_000
 
 
 @pytest.mark.parametrize("name", sorted(DIGESTS["image"]))

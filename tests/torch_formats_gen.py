@@ -222,6 +222,108 @@ def jpeg_writer(digests) -> None:
         for name, data in sorted(fixture_files().items())}
 
 
+EXR_OUT = ROOT / "gd3d_torch" / "data" / "testdata" / "exr"
+EXR_TIMED = ("dwaa_rgb_512x384.exr", "b44_rgb_512x384.exr", "pxr24_rgb_512x384.exr")
+
+
+def field(h, w, seed, c=0, scale=4.0):
+    """A smooth seeded float32 field (c channels, or (h, w) for c=0) around
+    `scale`, with a hole of zeros."""
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float64)
+    rng = np.random.RandomState(seed)
+    out = []
+    for k in range(max(c, 1)):
+        fy, fx, py, px = rng.uniform(5, 40, 2).tolist() + rng.uniform(0, 6, 2).tolist()
+        out.append(scale * (1.0 + 0.5 * np.sin(yy / fy + py) * np.cos(xx / fx + px)))
+    a = np.stack(out, -1) if c else out[0]
+    a[h // 4:h // 3, w // 5:w // 4] = 0
+    return a.astype(np.float32)
+
+
+def exr_fixture_jobs():
+    """The EXR fixtures: name -> ("cv2", array, compression, type) for
+    OpenCV's writer, ("writer", function, keywords) for tests/exr_writer.py,
+    or ("plinear", cv2 fixture, channels) for a copy with pLinear set."""
+    from exr_writer import write_deep, write_image, write_parts
+
+    h, w = 48, 64
+    rgb, y = field(h, w, 1, 3), field(h, w, 2)
+    jobs = {}
+    for comp, typ in (("PXR24", "HALF"), ("PXR24", "FLOAT"), ("B44", "HALF"), ("B44A", "HALF"),
+                      ("B44", "FLOAT"), ("DWAA", "HALF"), ("DWAB", "FLOAT")):
+        jobs[f"{comp.lower()}_rgb_{typ.lower()}.exr"] = ("cv2", rgb, comp, typ)
+        jobs[f"{comp.lower()}_y_{typ.lower()}.exr"] = ("cv2", y[:37, :53].copy(), comp, typ)
+    big = field(384, 512, 3, 3)
+    for name in EXR_TIMED:
+        jobs[name] = ("cv2", big, name.split("_")[0].upper(), "HALF")
+    jobs["b44_rgb_half_plinear.exr"] = ("plinear", "b44_rgb_half.exr", None)
+    jobs["dwaa_rgb_half_plinear.exr"] = ("plinear", "dwaa_rgb_half.exr", None)
+    jobs["dwaa_y_half_plinear.exr"] = ("plinear", "dwaa_y_half.exr", None)
+    r, g, b = (field(h, w, s) for s in (4, 5, 6))
+    jobs["rgba_mixed_zip.exr"] = ("writer", write_image, dict(
+        channels={"R": r.astype(np.float16), "G": (g * 100).astype(np.uint32), "B": b,
+                  "A": field(h, w, 7).astype(np.float16)}, compression="ZIP", origin=(-3, 5)))
+    jobs["chroma_rgb_piz.exr"] = ("writer", write_image, dict(
+        channels={"R": r, "G": g, "B": b}, compression="PIZ",
+        chromaticities=(0.708, 0.292, 0.170, 0.797, 0.131, 0.046, 0.3127, 0.329)))
+    jobs["sub_y_xy2_piz.exr"] = ("writer", write_image, dict(
+        channels={"Y": y[::2, ::2].astype(np.float16)}, compression="PIZ",
+        sampling={"Y": (2, 2)}))
+    jobs["sub_rgb_zip.exr"] = ("writer", write_image, dict(
+        channels={"R": r, "G": g[::2], "B": b[::2, ::2]}, compression="ZIP",
+        sampling={"G": (1, 2), "B": (2, 2)}, origin=(0, -6)))
+    jobs["z_only_rle.exr"] = ("writer", write_image, dict(channels={"Z": y}, compression="RLE"))
+    jobs["tiled_mipmap_piz.exr"] = ("writer", write_image, dict(
+        channels={"Y": y}, compression="PIZ", tiles=(24, 20, "MIPMAP", "DOWN"), origin=(7, -2)))
+    jobs["tiled_ripmap_up_zip.exr"] = ("writer", write_image, dict(
+        channels={"Y": y[:45, :59].copy()}, compression="ZIP", tiles=(16, 16, "RIPMAP", "UP"),
+        line_order=2))
+    jobs["tiled_rgb_rle.exr"] = ("writer", write_image, dict(
+        channels={"R": r, "G": g, "B": b}, compression="RLE", tiles=(32, 32, "ONE_LEVEL", "DOWN"),
+        line_order=1))
+    jobs["multipart.exr"] = ("writer", write_parts, [
+        dict(channels={"Y": y}, compression="PIZ", tiles=(16, 16, "ONE_LEVEL", "DOWN")),
+        dict(channels={"R": r, "G": g, "B": b}, compression="ZIP")])
+    jobs["deep_scanline.exr"] = ("writer", write_deep, dict(array=y[:8, :12]))
+    jobs["channel_depth.exr"] = ("writer", write_image, dict(channels={"depth": y},
+                                                             compression="ZIP"))
+    return jobs
+
+
+def exr_fixtures(digests) -> None:
+    """Writes the EXR fixtures and records, under "exr_cv", the SHA-256 of
+    OpenCV's float32 cv2.imread(f, IMREAD_ANYDEPTH), or null where it
+    returns None; checks the "exr" digests against OpenCV too."""
+    import shutil
+
+    from exr_oracle import find
+    from exr_writer import set_plinear
+
+    o, why = find()
+    if o is None:
+        raise SystemExit(f"the EXR fixtures need the OpenCV 4.6 oracle: {why}")
+    if EXR_OUT.exists():
+        shutil.rmtree(EXR_OUT)
+    EXR_OUT.mkdir(parents=True)
+    jobs = exr_fixture_jobs()
+    o.write([(job[1], EXR_OUT / name, *job[2:]) for name, job in jobs.items()
+             if job[0] == "cv2"])
+    for name, (kind, *how) in jobs.items():
+        if kind == "plinear":
+            shutil.copy(EXR_OUT / how[0], EXR_OUT / name)
+            set_plinear(EXR_OUT / name, how[1])
+        elif kind == "writer":
+            fn, kw = how
+            fn(EXR_OUT / name, kw) if isinstance(kw, list) else fn(EXR_OUT / name, **kw)
+    names = sorted(jobs)
+    got = o.read([EXR_OUT / n for n in names])
+    digests["exr_cv"] = {n: None if a is None else sha(a) for n, a in zip(names, got)}
+    old = o.read([OUT / n for n in sorted(digests["exr"])])
+    for n, a in zip(sorted(digests["exr"]), old):
+        if a is None or sha(a) != digests["exr"][n]:
+            raise SystemExit(f"OpenCV disagrees with the committed digest of {n}")
+
+
 def main():
     import h5py
     from PIL import Image
@@ -271,9 +373,9 @@ def main():
 
 if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
-    if sys.argv[1:] == ["--jpeg-writer"]:
+    if sys.argv[1:] in (["--jpeg-writer"], ["--exr"]):
         kept = json.loads((OUT / "digests.json").read_text())
-        jpeg_writer(kept)
+        (jpeg_writer if sys.argv[1] == "--jpeg-writer" else exr_fixtures)(kept)
         (OUT / "digests.json").write_text(json.dumps(kept, indent=1, sort_keys=True) + "\n")
     else:
         main()
