@@ -34,11 +34,18 @@ report), then runs these phases in order, one or more printed lines each:
               (2,4161,3,256): bf16 on TMA and wgmma, fp32 on split TF32
               (mma.sync, bound against 165 TFLOP/s as the fp32 K2); no main
               path launches them; every such K2 case runs twice and must
-              give the same bits), K1 and K2 above 256 (the chunked
-              kernels, flash_chunked.cu: (2,673,2,512) and (2,673,2,320)
-              in both dtypes read direct, fp32 258 zero-padded to 264; K2
-              runs twice and must give the same bits; the "K1 wide" and
-              "K2 wide" entries) and K4 / K4b at a 256-wide depth head
+              give the same bits), K1 and K2 above 256 (K1 on the
+              cluster kernels, flash_fwd_cluster_{sm90,tf32}.cu, bound
+              against the route's peak, bf16 989 TFLOP/s, fp32 495 / 3;
+              K2 on the chunked ones, flash_chunked.cu: (2,673,2,512) and
+              (2,673,2,320) in both dtypes read direct, fp32 258
+              zero-padded to 264, and K1 alone at (1,4161,3,512) in both
+              dtypes and past the clusters' reach, on the chunked forward
+              of flash_chunked.cu, at bf16 (2,673,2,776) and fp32
+              (2,129,2,2056); each names the K1 kernel that must run, runs
+              twice and must give the same bits; the "K1 wide", "K1 wide
+              bf16", "K1 chunked" and "K2 wide" entries) and K4 / K4b at a
+              256-wide depth head
               (the wide kernel); K5 on one tensor and on each main-path
               layer's q and k in one launch; K1 and K2 at head dims 16 and
               8 in both dtypes (the --tiny stereo model, read direct at
@@ -373,11 +380,20 @@ REPLACES = {
            "gd3d/kernels/flash_bwd_fused.py:262"),
     "K2 bf16": ("flash_attention_bwd_fused", "gd3d_torch/csrc/flash_bwd_sm90.cu",
                 "gd3d/kernels/flash_bwd_fused.py:262"),
-    # K1 and K2 above head dim 256 (no path launches them): their designated
-    # cases are fp32 at (2,673,2,512); launches are the chunked kernels' on
-    # the paths ("K1 wide" / "K2 wide" of kernels.launch_counts)
-    "K1 wide": ("flash_attention_fwd", "gd3d_torch/csrc/flash_chunked.cu",
+    # K1 and K2 above head dim 256 (no path launches them): K1 on the
+    # cluster kernels, fp32 ("K1 wide", designated at (2,673,2,512)) and
+    # bf16 ("K1 wide bf16", at the same shape), past their reach on the
+    # chunked forward ("K1 chunked", designated bf16 at (2,673,2,776)), K2 on
+    # the chunked kernels (designated fp32 at (2,673,2,512)); launches are
+    # those above 256 on the paths ("K1 wide", "K1 wide bf16", "K1 chunked"
+    # and "K2 wide" of kernels.launch_counts; "K1 wide" counts both dtypes
+    # and both K1 kernels)
+    "K1 wide": ("flash_attention_fwd", "gd3d_torch/csrc/flash_fwd_cluster_tf32.cu",
                 "gd3d/ops/attention.py:180"),
+    "K1 wide bf16": ("flash_attention_fwd", "gd3d_torch/csrc/flash_fwd_cluster_sm90.cu",
+                     "gd3d/ops/attention.py:180"),
+    "K1 chunked": ("flash_attention_fwd", "gd3d_torch/csrc/flash_chunked.cu",
+                   "gd3d/ops/attention.py:180"),
     "K2 wide": ("flash_attention_bwd_fused", "gd3d_torch/csrc/flash_chunked.cu",
                 "gd3d/kernels/flash_bwd_fused.py:262"),
     "K3": ("masked_softmax_kl_rows", "gd3d_torch/csrc/cost_kl.cu",
@@ -390,7 +406,8 @@ REPLACES = {
 }
 # the kernels' launch counters (gd3d_torch.kernels.launch_counts), which a
 # run that must launch every kernel checks
-KERNELS = tuple(k for k in REPLACES if k not in ("K2 bf16", "K1 wide", "K2 wide"))
+WIDE = ("K1 wide", "K1 wide bf16", "K1 chunked", "K2 wide")
+KERNELS = tuple(k for k in REPLACES if k not in ("K2 bf16", *WIDE))
 # Tolerance: max abs error <= TOL[dtype] * max(1, max |plain|). fp32: the
 # kernels and the plain twins sum in different orders (<= 6401 terms);
 # bf16: both round an fp32 result to bf16 (8 mantissa bits), so one ulp of
@@ -542,22 +559,25 @@ class KernelReport:
                                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
 
-def attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated, repeat=False, entry=None):
+def attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated, repeat=False, entry=None,
+              repeat_fwd=False):
     """K1 or K2 against its plain twin at one shape, q, k, v as the strided
     (B, N, H, D) views of one qkv projection; the case names the route its
     head dim takes by the wrappers' rule (direct or padded, runs_direct) and
-    fails if its first launch took the other (the padded-launch count); a K2
-    case with `repeat` also runs twice and must repeat its bits. A
-    designated case fills `entry`'s JSON entry (by default the kernel's;
-    K2's by dtype)."""
+    fails if its first launch took the other (the padded-launch count), and
+    above 256 names the K1 kernel (fwd_route: cluster or chunked) and fails
+    if the library's dispatch reported another (kernels.wide_launches); a K2
+    case with `repeat`, a K1 case with `repeat_fwd`, also runs twice and
+    must repeat its bits. A designated case fills `entry`'s JSON entry (by
+    default the kernel's; K2's by dtype)."""
     import torch
     import torch.nn.functional as F
 
-    from gd3d_torch.kernels import padded_launches
+    from gd3d_torch.kernels import padded_launches, wide_launches
     from gd3d_torch.kernels.flash_bwd_fused import (
         flash_attention_bwd_fused, flash_attention_bwd_plain)
     from gd3d_torch.kernels.flash_fwd import (
-        flash_attention_fwd, flash_attention_fwd_plain, runs_direct)
+        flash_attention_fwd, flash_attention_fwd_plain, fwd_route, runs_direct)
 
     qkv = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(dt)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
@@ -576,8 +596,21 @@ def attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated, repeat=False
             rep.ok = False
 
     if kern == "K1":
+        kernel = fwd_route(D, dt)
+        key = (kernel, dname)
+        wide = wide_launches()["K1"].get(key, 0)
         o, lse = flash_attention_fwd(q, k, v, scale)
         took_route()
+        if kernel in ("cluster", "chunked") and wide_launches()["K1"].get(key, 0) != wide + 1:
+            log(f"kernels: K1 {tag}: the launch did not run the {kernel} kernel FAIL")
+            rep.ok = False
+        if repeat_fwd:
+            # every sum runs in a fixed order: the same bits again
+            again = flash_attention_fwd(q, k, v, scale)
+            same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+            log(f"kernels: K1 {tag} kernel={kernel} repeat bit-identical {same} "
+                f"{'OK' if same else 'FAIL'}")
+            rep.ok &= same
         o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
         rep.check(
             kern, tag, [("o", o, o_ref, dname), ("lse", lse, lse_ref, "float32")],
@@ -587,7 +620,7 @@ def attn_case(rep, g, dev, kern, where, B, N, H, D, dt, designated, repeat=False
             ops=4.0 * B * H * N * N * D, dtype=dname, iters=iters,
             run_library=lambda: F.scaled_dot_product_attention(qh, kh, vh, scale=scale),
             designated=designated, entry=entry,
-            peak="tf32x3" if dt == torch.float32 and 64 < D <= 256 else None)
+            peak="tf32x3" if dt == torch.float32 and kernel in ("tf32", "cluster") else None)
     else:
         o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
         do = torch.randn((B, N, H, D), generator=g, device=dev).to(dt)
@@ -714,24 +747,42 @@ def misaligned_cases(rep, g, dev) -> None:
               dtype="float32", iters=20)
 
 
-# K1 and K2 above head dim 256 (flash_chunked.cu; gd3d takes any head dim,
-# no model of the repo goes past 128): (B, N, H, D, dtype, designated); 512
-# and 320 read direct in both dtypes, fp32 258 (rows off 16 bytes)
-# zero-padded to 264. Operands are strided views of one qkv projection.
-WIDE_CASES = (*[(2, 673, 2, D, dt, (D, dt) == (512, "float32"))
+# K1 and K2 above head dim 256 (gd3d takes any head dim, no model of the
+# repo goes past 128): (B, N, H, D, dtype, kernels, designated); K1 on the
+# cluster kernels (flash_fwd_cluster_{sm90,tf32}.cu), K2 on the chunked
+# ones (flash_chunked.cu). 512 and 320 read direct in both dtypes, fp32 258
+# (rows off 16 bytes) zero-padded to 264; K1 alone at (1,4161,3,512), the
+# student's length at twice its widest head dim, and one head dim past each
+# dtype's cluster reach (flash_fwd.CLUSTER_MAX_D: bf16 768, fp32 2048),
+# where K1 runs the chunked forward. Operands are strided views of one qkv
+# projection.
+WIDE_CASES = (*[(2, 673, 2, D, dt, ("K1", "K2"), D == 512)
                 for D in (512, 320) for dt in ("float32", "bfloat16")],
-              (2, 673, 2, 258, "float32", False))
+              (2, 673, 2, 258, "float32", ("K1", "K2"), False),
+              *[(1, 4161, 3, 512, dt, ("K1",), False) for dt in ("float32", "bfloat16")],
+              (2, 673, 2, 776, "bfloat16", ("K1",), True),
+              (2, 129, 2, 2056, "float32", ("K1",), False))
 
 
 def check_wide_kernels(rep, g, dev) -> None:
     """K1 and K2 at WIDE_CASES against their plain twins, with SDPA's time
-    beside; every K2 case runs twice and must repeat its bits."""
+    beside; every case runs twice and must repeat its bits. The designated
+    cases fill "K1 wide" (fp32), "K1 wide bf16", "K1 chunked" and "K2 wide"
+    (fp32)."""
     import torch
 
-    for B, N, H, D, dname, designated in WIDE_CASES:
-        for kern in ("K1", "K2"):
-            attn_case(rep, g, dev, kern, "above 256 (chunked)", B, N, H, D,
-                      getattr(torch, dname), designated, repeat=True, entry=f"{kern} wide")
+    from gd3d_torch.kernels.flash_fwd import fwd_route
+
+    for B, N, H, D, dname, kerns, designated in WIDE_CASES:
+        dt = getattr(torch, dname)
+        for kern in kerns:
+            if kern == "K1" and fwd_route(D, dt) == "chunked":
+                entry = "K1 chunked"
+            else:
+                entry = f"{kern} wide" + (" bf16" if kern == "K1" and dname == "bfloat16" else "")
+            attn_case(rep, g, dev, kern, "above 256", B, N, H, D, dt,
+                      designated and (kern == "K1" or dname == "float32"), repeat=True,
+                      entry=entry, repeat_fwd=True)
 
 
 def check_kernels(dev) -> dict:
@@ -4668,7 +4719,7 @@ def check_sequence(dev) -> dict:
                 c = kernels.launch_counts()
                 want = n * n if name == "ring" else n
                 launched = c["K1"] == want and c["K2"] == want
-                for kern in ("K1", "K2", "K1 wide", "K2 wide"):
+                for kern in ("K1", "K2", *WIDE):
                     counts[kern] += c[kern]
                 if dt == torch.bfloat16:
                     counts["K2 bf16"] += c["K2"]
@@ -4953,8 +5004,8 @@ def main() -> int:
     log(f"phase: sequence done at {time.perf_counter() - t_start:.1f} s")
     check_tail(dev)
     log(f"phase: tail done at {time.perf_counter() - t_start:.1f} s")
-    log(f"kernels: chunked K1 / K2 launches on the paths: "
-        f"{ {k: counts[k] for k in ('K1 wide', 'K2 wide')} }")
+    log(f"kernels: K1 / K2 launches above head dim 256 on the paths: "
+        f"{ {k: counts[k] for k in WIDE} }")
 
     log(json.dumps({"kernels": [
         {"name": f"{k} {REPLACES[k][0]}", "route": "cuda", "source": REPLACES[k][1],

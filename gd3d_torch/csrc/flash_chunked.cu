@@ -1,9 +1,16 @@
-// K1 and K2 at head dims above 256: non-causal flash attention, forward
-// (O and the row log-sum-exp) and backward (dQ, dK, dV), in column chunks.
+// K2 at head dims above 256, and K1 above 768 (bf16) or 2048 (fp32):
+// non-causal flash attention, forward (O and the row log-sum-exp) and
+// backward (dQ, dK, dV), in column chunks. K1 at 256 < D up to those runs
+// on thread-block clusters instead (flash_fwd_cluster_sm90.cu,
+// flash_fwd_cluster_tf32.cu: S once a key tile on the tensor cores);
+// gd3d_flash_fwd sends only D past their reach (cluster::kMaxDBf16,
+// cluster::kMaxD) to launch_fwd here, and gd3d_flash_bwd every D above 256
+// to launch_bwd.
 //
-// Replaces, for head dims past the widest of the other flash kernels
-// (flash_fwd_sm90.cu, flash_fwd.cu, flash_bwd_sm90.cu, flash_bwd.cu,
-// flash_bwd_tf32_wide.cu: 64, 128 and 256), the same TPU kernels as they do:
+// Replaces, for those head dims (past the widest of the other flash
+// kernels: flash_fwd_sm90.cu, flash_fwd.cu, flash_bwd_sm90.cu, flash_bwd.cu,
+// flash_bwd_tf32_wide.cu at 64, 128 and 256; past the cluster kernels'
+// reach for K1), the same TPU kernels as they do:
 // the stock Pallas flash forward that gd3d reaches through
 // gd3d/ops/attention.py::_flash_call, and
 // gd3d/kernels/flash_bwd_fused.py::flash_attention_bwd_fused. gd3d's
@@ -40,7 +47,8 @@
 // What bounds it: at (B, N, H, D) = (2, 673, 2, 512) the forward's score and
 // PV products are 3.7 GFLOP once against 11 MB of traffic, so the work is
 // arithmetic; these kernels are simple CUDA-core kernels (no tensor cores)
-// and run far below that bound (PERF.md, "K1 / K2 above 256").
+// and run far below that bound (PERF.md, "K1 / K2 above 256"; the forward
+// was timed there before the cluster kernels took 257..2048 from it).
 #include <algorithm>
 
 #include "flash_chunked.cuh"

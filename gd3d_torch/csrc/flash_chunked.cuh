@@ -1,6 +1,6 @@
-// K1 and K2 at head dims above 256 (flash_chunked.cu): the launchers that
-// gd3d_flash_fwd (flash_fwd.cu) and gd3d_flash_bwd (flash_bwd.cu) send
-// those head dims to.
+// K2 at head dims above 256 and K1 past the cluster kernels' reach (768
+// bf16, 2048 fp32; flash_chunked.cu): the launchers that gd3d_flash_bwd
+// (flash_bwd.cu) and gd3d_flash_fwd (flash_fwd.cu) send those head dims to.
 #pragma once
 
 #include "common.cuh"

@@ -79,10 +79,18 @@
 //   four waves of 132 (the last nearly full); 16 at the camera trunk's
 //   (1,2,16,128), a 2-key tile each.
 //
+// * above 256: flash_fwd_cluster_sm90.cu (bf16 up to 768, TMA and wgmma)
+//   and flash_fwd_cluster_tf32.cu (fp32 up to 2048, split TF32 on
+//   mma.sync), each CTA close to the width-256 plan above, a thread-block
+//   cluster of ceil(D / 256) CTAs splitting the head dim and summing its
+//   parts of S in distributed shared memory (flash_fwd_cluster.cuh); past
+//   those, flash_chunked.cu (CUDA cores, column chunks).
+//
 // Layout: q, k, v are (B, N, H, D) views read through their strides; o is a
 // (B, N, H, D) tensor written through its strides and lse a contiguous
-// (B, H, N) fp32 tensor. Each kernel runs at a width of 64, 128 or 256, the
-// least that holds D. A head dim below its width whose rows are 16-byte
+// (B, H, N) fp32 tensor. Up to 256 each kernel runs at a width of 64, 128 or
+// 256, the least that holds D (above, the cluster kernels take 192 or 256
+// columns a CTA). A head dim below its width whose rows are 16-byte
 // multiples (fp32 D a multiple of 4, bf16 a multiple of 8) runs on the
 // caller's own rows: the copies fill the columns past D with zeros (cp.async
 // with no source bytes, TMA past the map's D), which add nothing to Q K^T
@@ -97,6 +105,7 @@
 // block), H, B).
 #include "common.cuh"
 #include "flash_chunked.cuh"
+#include "flash_fwd_cluster.cuh"
 #include "mma.cuh"
 #include "sm90.cuh"
 
@@ -475,7 +484,28 @@ cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* v, void* o
   return cudaGetLastError();
 }
 
+// The K1 kernels, as gd3d_flash_fwd_route names them (flash_fwd.py's
+// FWD_ROUTES, in this order)
+enum FwdRoute : int { kFwdF32, kFwdTf32, kFwdSm90, kFwdCluster, kFwdChunked };
+
 }  // namespace gd3d
+
+// The K1 kernel that gd3d_flash_fwd launches for head dim D. Above 256
+// gd3d_flash_fwd dispatches on it (and flash_fwd.py counts those launches
+// by it): up to cluster::kMaxDBf16 (768, bf16) or cluster::kMaxD (2048,
+// fp32) clusters that split D (flash_fwd_cluster_{sm90,tf32}.cu), wider
+// column chunks (flash_chunked.cu). Up to 256 it names what the dispatch's
+// tests pick: bf16 flash_fwd_sm90.cu, fp32 at width 64 the CUDA cores
+// (flash_fwd_f32_kernel), at 128 and 256 split TF32
+// (flash_fwd_tf32_kernel). -1 for a head dim the kernels refuse.
+extern "C" int gd3d_flash_fwd_route(int D, int is_bf16) {
+  using namespace gd3d;
+  if (D <= 0 || D % (is_bf16 ? 8 : 4) != 0) return -1;
+  if (D > chunked::kChunk)
+    return D <= (is_bf16 ? cluster::kMaxDBf16 : cluster::kMaxD) ? kFwdCluster : kFwdChunked;
+  if (is_bf16) return kFwdSm90;
+  return D <= kD ? kFwdF32 : kFwdTf32;
+}
 
 extern "C" int gd3d_flash_fwd(const void* q, const void* k, const void* v, void* o,
                               void* lse, int B, int N, int M, int H, int D,
@@ -485,13 +515,24 @@ extern "C" int gd3d_flash_fwd(const void* q, const void* k, const void* v, void*
                               long long osb, long long osn, long long osh, float scale,
                               int is_bf16, void* stream) {
   using namespace gd3d;
-  // any head dim whose rows are 16-byte multiples: up to 256 at the least
-  // kernel width that holds it, wider in column chunks (flash_chunked.cu)
+  // any head dim whose rows are 16-byte multiples, on the kernel that
+  // gd3d_flash_fwd_route names: up to 256 at the least kernel width that
+  // holds it, above on the clusters or, past their reach, in column chunks
   if (D <= 0 || D % (is_bf16 ? 8 : 4) != 0 || N <= 0 || M <= 0 || B <= 0 || H <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Strides qs{qsb, qsn, qsh}, ks{ksb, ksn, ksh}, vs{vsb, vsn, vsh}, os{osb, osn, osh};
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D > chunked::kChunk)
+  const int route = gd3d_flash_fwd_route(D, is_bf16);
+  if (route == kFwdCluster) {
+    // S once a key tile, its parts summed across the cluster
+    if (is_bf16)  // above 256: wgmma on TMA tiles
+      return static_cast<int>(cluster::launch_fwd_cluster_bf16(q, k, v, o, lse, B, N, M, H, D,
+                                                               qs, ks, vs, os, scale, st));
+    // fp32 above 256: split TF32 on mma.sync
+    return static_cast<int>(cluster::launch_fwd_cluster_tf32(q, k, v, o, lse, B, N, M, H, D,
+                                                             qs, ks, vs, os, scale, st));
+  }
+  if (route == kFwdChunked)  // past the clusters' reach: column chunks on the CUDA cores
     return static_cast<int>(
         chunked::launch_fwd(q, k, v, o, lse, B, N, M, H, D, qs, ks, vs, os, scale, is_bf16, st));
   if (is_bf16)  // head dims 64, 128 and 256

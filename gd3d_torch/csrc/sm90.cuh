@@ -371,7 +371,7 @@ __device__ __forceinline__ void store_acc(const float (&d)[kN / 2], float mul0, 
 }
 
 // The accumulator registers of a wgmma, as asm operands and as the
-// operand list {%0, ..., %n-1} of its PTX (n = 32, 64 or 128 floats).
+// operand list {%0, ..., %n-1} of its PTX (n = 32, 64, 96 or 128 floats).
 #define GD3D_ACC8(i)                                                                 \
   "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),           \
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
@@ -388,6 +388,14 @@ __device__ __forceinline__ void store_acc(const float (&d)[kN / 2], float mul0, 
   "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, " \
   "%47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, " \
   "%62, %63" "}"
+#define GD3D_D96 "{" \
+  "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, " \
+  "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, " \
+  "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, " \
+  "%45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, " \
+  "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, " \
+  "%75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, " \
+  "%90, %91, %92, %93, %94, %95" "}"
 #define GD3D_D128 "{" \
   "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, " \
   "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, " \
@@ -421,13 +429,14 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[kN / 2], uint64_t da, uint64
   }
 }
 
-// d = A B (acc = 0) or d += A B, m64nNk16 with N = kN (64, 128 or 256), A a
+// d = A B (acc = 0) or d += A B, m64nNk16 with N = kN (64, 128, 192 or 256), A a
 // bf16 fragment in registers, B in shared memory: K-major (kTransB = 0) or
 // MN-major (kTransB = 1, the descriptor's transpose bit).
 template <int kN, int kTransB>
 __device__ __forceinline__ void wgmma_rs(float (&d)[kN / 2], const uint32_t (&a)[4],
                                          uint64_t db, int acc) {
-  static_assert(kN == 64 || kN == 128 || kN == 256, "wgmma_rs: n is 64, 128 or 256");
+  static_assert(kN == 64 || kN == 128 || kN == 192 || kN == 256,
+                "wgmma_rs: n is 64, 128, 192 or 256");
   if constexpr (kN == 64) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
@@ -441,6 +450,13 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[kN / 2], const uint32_t (&a)
         "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " GD3D_D64
         ", {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
         : GD3D_ACC64(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(kTransB));
+  } else if constexpr (kN == 192) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 " GD3D_D96
+        ", {%96, %97, %98, %99}, %100, p, 1, 1, %102;\n}\n"
+        : GD3D_ACC64(0), GD3D_ACC32(64)
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(kTransB));
   } else {
     asm volatile(
@@ -458,6 +474,7 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[kN / 2], const uint32_t (&a)
 #undef GD3D_ACC128
 #undef GD3D_D32
 #undef GD3D_D64
+#undef GD3D_D96
 #undef GD3D_D128
 
 }  // namespace sm90

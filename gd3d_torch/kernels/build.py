@@ -35,6 +35,7 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _ARGTYPES = {
     "gd3d_flash_fwd": [_P] * 5 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
+    "gd3d_flash_fwd_route": [_I, _I],
     "gd3d_flash_bwd": [_P] * 9 + [_I] * 5 + [_L] * 12 + [_F, _I, _P],
     "gd3d_cost_kl": [_P] * 4 + [_I] * 3 + [_F, _P],
     "gd3d_rope2d": [_I] + ([_P] * 3 + [_I] * 3 + [_L] * 6) * 2 + [_I, _I, _F, _F, _I, _P],

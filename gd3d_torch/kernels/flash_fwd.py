@@ -3,9 +3,14 @@
 Wrapper of the CUDA kernels in gd3d_torch/csrc/flash_fwd_sm90.cu (bf16 at
 every kernel width, 64, 128 and 256: TMA, wgmma and warp specialisation),
 flash_fwd.cu (fp32: the register-tiled CUDA-core kernel at 64, split
-TF32 on mma.sync at 128 and 256) and flash_chunked.cu (both dtypes above
-256: column chunks on the CUDA cores), which replace the stock TPU Pallas
-flash forward that gd3d reaches through gd3d/ops/attention.py::_flash_call.
+TF32 on mma.sync at 128 and 256), flash_fwd_cluster_sm90.cu and
+flash_fwd_cluster_tf32.cu (bf16 and fp32 above 256 up to
+CLUSTER_MAX_D[dtype]: thread-block clusters that split the head dim) and
+flash_chunked.cu (both dtypes past it: column chunks on the CUDA cores),
+which replace the stock TPU Pallas flash forward that gd3d reaches through
+gd3d/ops/attention.py::_flash_call. `fwd_route` names the kernel a head dim
+runs on, as the library's gd3d_flash_fwd_route, on which gd3d_flash_fwd
+dispatches, does.
 `flash_attention_fwd_plain` is its plain PyTorch twin: the CPU path, and the
 oracle the kernel is checked against.
 
@@ -13,8 +18,8 @@ gd3d's flash takes any head dim, and so do the kernels. One static rule,
 chosen from (D, dtype) alone and shared with K2 (`runs_direct`), routes a
 head dim D: where a row of D elements is a multiple of 16 bytes (bf16 D a
 multiple of 8, fp32 a multiple of 4), the kernels read the caller's D
-columns at the width `kernel_width(D)` (64, 128 or 256; above 256 the
-chunked kernels, in 64-column panels, at D itself), their loads filling the columns past
+columns at the width `kernel_width(D)` (64, 128 or 256; above 256 at D
+itself, in 64-column panels), their loads filling the columns past
 D with zeros (TMA, cp.async, 16-byte loads), and write D columns of O back:
 no copy, no slice (the direct route). Any other D takes the pad route
 (`fwd_padded`): q, k and v zero-padded along D to the width, O cut back to
@@ -38,6 +43,12 @@ from gd3d_torch.kernels import build
 
 HEAD_DIMS = (64, 128, 256)  # the kernel widths of K1 and K2
 DTYPES = (torch.float32, torch.bfloat16)
+# K1's kernels, as csrc/flash_fwd.cu::gd3d_flash_fwd_route numbers them
+FWD_ROUTES = ("f32", "tf32", "sm90", "cluster", "chunked")
+# K1's cluster kernels take 256 < D <= CLUSTER_MAX_D[dtype]
+# (csrc/flash_fwd_cluster.cuh: fp32 kMaxD, eight CTAs of four 64-column
+# panels; bf16 kMaxDBf16, three, as its inbox holds two peers' parts)
+CLUSTER_MAX_D = {torch.float32: 2048, torch.bfloat16: 768}
 
 
 def flash_attention_fwd_plain(q, k, v, scale: float):
@@ -82,9 +93,30 @@ def kernel_width(D: int, widths=HEAD_DIMS) -> int:
 
 
 def runs_chunked(D: int) -> bool:
-    """Whether head dim D runs on the chunked kernels (flash_chunked.cu):
-    above the widest kernel width."""
+    """Whether head dim D runs K2 on the chunked kernels (flash_chunked.cu):
+    above the widest kernel width. K1 runs there only past
+    CLUSTER_MAX_D[dtype] (`fwd_route`); its launches above 256 count as
+    "K1 wide" all the same."""
     return D > HEAD_DIMS[-1]
+
+
+def fwd_route(D: int, dtype: torch.dtype) -> str:
+    """The K1 kernel that the caller's head dim D runs on, as
+    gd3d_flash_fwd_route (csrc/flash_fwd.cu), which gd3d_flash_fwd
+    dispatches on, names it for the head dim the wrapper launches at (D, or
+    kernel_width(D) on the pad route): "sm90" (bf16 up to 256,
+    flash_fwd_sm90.cu), "f32" (fp32 up to 64) or "tf32" (fp32 at 128 and
+    256, flash_fwd.cu), "cluster" (256 < D <= CLUSTER_MAX_D[dtype],
+    flash_fwd_cluster_sm90.cu for bf16, flash_fwd_cluster_tf32.cu for fp32)
+    or "chunked" (past it, flash_chunked.cu)."""
+    width = D if runs_direct(D, dtype) else kernel_width(D)
+    if width > CLUSTER_MAX_D[dtype]:
+        return "chunked"
+    if width > HEAD_DIMS[-1]:
+        return "cluster"
+    if dtype == torch.bfloat16:
+        return "sm90"
+    return "f32" if width <= HEAD_DIMS[0] else "tf32"
 
 
 def runs_direct(D: int, dtype: torch.dtype) -> bool:
@@ -166,7 +198,8 @@ def _launch(q, k, v, scale: float, padded: bool = False):
     o = torch.empty((B, N, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, N), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = build.library().gd3d_flash_fwd(
+    lib = build.library()
+    err = lib.gd3d_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         B, N, M, H, D,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
@@ -174,8 +207,12 @@ def _launch(q, k, v, scale: float, padded: bool = False):
     build.check(err, "flash_attention_fwd")
     flash_attention_fwd.launches += 1
     flash_attention_fwd.launches_padded += padded
-    flash_attention_fwd.launches_wide += runs_chunked(D)
-    flash_attention_fwd.launches_by[(str(q.dtype).removeprefix("torch."), N)] += 1
+    dname = str(q.dtype).removeprefix("torch.")
+    if runs_chunked(D):  # counted by the kernel the library's dispatch ran
+        route = lib.gd3d_flash_fwd_route(D, int(q.dtype == torch.bfloat16))
+        flash_attention_fwd.launches_wide += 1
+        flash_attention_fwd.launches_wide_by[(FWD_ROUTES[route], dname)] += 1
+    flash_attention_fwd.launches_by[(dname, N)] += 1
     return o, lse
 
 
@@ -191,5 +228,7 @@ def flash_attention_fwd(q, k, v, scale: float):
 
 flash_attention_fwd.launches = 0
 flash_attention_fwd.launches_padded = 0  # of them, launches on the pad route
-flash_attention_fwd.launches_wide = 0  # of them, on the chunked kernels (above 256)
+flash_attention_fwd.launches_wide = 0  # of them, above head dim 256
+# of those, by kernel and dtype: (FWD_ROUTES[gd3d_flash_fwd_route], dtype) -> launches
+flash_attention_fwd.launches_wide_by = Counter()
 flash_attention_fwd.launches_by = Counter()  # (dtype, N) -> launches

@@ -32,7 +32,10 @@ in one call.
     python3 -m gd3d_torch.kernels.sweep wide [--parent OTHER/csrc ...]
 
 K1 and K2 in bf16 and in fp32 at head dims 128 and 256 (and 64, the
-student's, as the yardstick), through gd3d_flash_fwd / gd3d_flash_bwd: the
+student's, as the yardstick) and above 256 (chip_smoke.py's cases: K1 on
+the cluster kernels, K2 on the chunked ones; a parent from before the
+cluster kernels runs its K1 on the chunked forward), through
+gd3d_flash_fwd / gd3d_flash_bwd: the
 shipped build of the flash sources (csrc/flash_*.cu) and, with each
 --parent, another revision's, built from that revision's own flash sources
 and timed the same way as k2's (a scratch copy whose plans are changed
@@ -205,14 +208,28 @@ def variants(tag: str, pattern: str, settings, parents):
 
 
 def build_all(builds) -> dict:
-    """Compiles every build at once, prints ptxas's registers and spills of
-    each, and returns name -> library."""
+    """Compiles every build at once, prints ptxas's registers, spills and
+    warnings of each, and returns name -> library. If nvcc refuses any
+    build, it prints each refusal and raises: no build is measured without
+    the others."""
+    def compile_one(b):
+        try:
+            return build.compile_library(*b[1:])
+        except RuntimeError as e:
+            return e
+
     with ThreadPoolExecutor(len(builds)) as pool:  # every nvcc process at once
-        reports = list(pool.map(lambda b: build.compile_library(*b[1:]), builds))
+        reports = list(pool.map(compile_one, builds))
+    failed = [name for (name, *_), r in zip(builds, reports) if isinstance(r, RuntimeError)]
     for (name, *_), report in zip(builds, reports):
+        if isinstance(report, RuntimeError):
+            print(f"{name}: build failed: {str(report)[-3000:]}", flush=True)
+            continue
         for line in report.splitlines():
-            if "Used" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("Used", "spill", "Compiling entry", "warning")):
                 print(f"{name}: {line.strip()}", flush=True)
+    if failed:
+        raise RuntimeError(f"sweep: nvcc refused the builds {failed}")
     return {name: build.load(so) for name, so, _, _ in builds}
 
 
@@ -305,13 +322,15 @@ def k2(dev, parents) -> int:
 # ------------------------------------------------------------ K1 / K2 wide
 # (B, N, H, D): one tile at each wide width, ragged lengths, chip_smoke.py's
 # wide cases, the student's width 768 re-headed, its head-dim-64 pass, the
-# VGGT camera trunk (fp32 at 128 on a main path), and the head dims below
+# VGGT camera trunk (fp32 at 128 on a main path), the head dims below
 # their kernel width: the --tiny stereo model's encoder and decoder, and
-# chip_smoke.py's 96 and 192 at (2,673,4,D)
+# chip_smoke.py's 96 and 192 at (2,673,4,D), and chip_smoke.py's cases
+# above 256 (258 on the pad route to 264 in both dtypes)
 WIDE_CASES = ((1, 64, 1, 128), (1, 64, 1, 256), (1, 81, 2, 128), (1, 81, 2, 256),
               (2, 673, 4, 128), (2, 673, 4, 256), (2, 4161, 6, 128), (2, 4161, 3, 256),
               (2, 4161, 12, 64), (1, 2, 16, 128), (4, 24, 2, 16), (2, 24, 2, 8),
-              (2, 673, 4, 96), (2, 673, 4, 192))
+              (2, 673, 4, 96), (2, 673, 4, 192),
+              (2, 673, 2, 512), (2, 673, 2, 320), (2, 673, 2, 258), (1, 4161, 3, 512))
 WIDE_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 

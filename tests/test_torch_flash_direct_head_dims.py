@@ -17,6 +17,8 @@ Tolerance: 1e-5 of max(1, max |reference|) in fp32, as
 tests/test_torch_flash_head_dims.py (sums of up to 192 terms per output in
 another order).
 """
+import re
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -24,10 +26,12 @@ import pytest
 import torch
 
 from gd3d.ops.attention import scaled_dot_attention as jax_attention
-from gd3d_torch.kernels import launch_counts, padded_launches, reset_launch_counts, wrappers
+from gd3d_torch.kernels import (
+    build, launch_counts, padded_launches, reset_launch_counts, wide_launches, wrappers)
 from gd3d_torch.kernels.flash_bwd_fused import bwd_routed, flash_attention_bwd_plain
 from gd3d_torch.kernels.flash_fwd import (
-    check_views, flash_attention_fwd_plain, fwd_routed, kernel_width, runs_chunked, runs_direct)
+    CLUSTER_MAX_D, FWD_ROUTES, check_views, flash_attention_fwd_plain, fwd_route, fwd_routed,
+    kernel_width, runs_chunked, runs_direct)
 from torch_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
@@ -187,15 +191,68 @@ def test_padded_launches_are_counted_apart_and_reset():
 
 
 def test_chunked_launches_are_read_with_the_launches_and_reset():
-    """K1 and K2 count their launches on the chunked kernels (head dims above
-    256, `launches_wide`); launch_counts reads them as "K1 wide" and "K2
-    wide" beside the kernels' launches, and reset_launch_counts zeroes them
-    with the rest, so a counted run sees only its own."""
+    """K1 and K2 count their launches above head dim 256 (`launches_wide`),
+    K1 also by the kernel that ran and dtype (`launches_wide_by`);
+    launch_counts reads them as "K1 wide" and "K2 wide", and K1's bf16 ones
+    as "K1 wide bf16" and those on the chunked kernels as "K1 chunked",
+    beside the kernels' launches; wide_launches reads K1's by kernel;
+    reset_launch_counts zeroes them with the rest, so a counted run sees
+    only its own."""
     fns = wrappers()
-    for kern, n in (("K1", 2), ("K2", 5)):
+    for kern, n in (("K1", 3), ("K2", 5)):
         fns[kern].launches = fns[kern].launches_wide = n
+    by = {("cluster", "bfloat16"): 1, ("cluster", "float32"): 1, ("chunked", "bfloat16"): 1}
+    fns["K1"].launches_wide_by.update(by)
     counts = launch_counts()
-    assert set(counts) == set(fns) | {"K1 wide", "K2 wide"}
-    assert (counts["K1"], counts["K2"], counts["K1 wide"], counts["K2 wide"]) == (2, 5, 2, 5)
+    assert set(counts) == set(fns) | {"K1 wide", "K2 wide", "K1 wide bf16", "K1 chunked"}
+    assert (counts["K1"], counts["K2"], counts["K1 wide"], counts["K2 wide"]) == (3, 5, 3, 5)
+    assert (counts["K1 wide bf16"], counts["K1 chunked"]) == (2, 1)
+    assert wide_launches() == {"K1": by}
     reset_launch_counts()
     assert all(n == 0 for n in launch_counts().values())
+    assert wide_launches() == {"K1": {}}
+
+
+# K1 above 256 by fwd_route: the head dim the kernel gets (D, or D padded to a
+# multiple of 8 where its rows are off 16 bytes) and its kernel; the bf16
+# clusters reach 768 (776 past it), the fp32 ones 2048 (2056 past it)
+K1_ROUTES = {
+    **{(D, dt): (264, "cluster") for D in (257, 258, 264) for dt in (F32, BF16)},
+    (300, F32): (300, "cluster"), (300, BF16): (304, "cluster"),
+    **{(D, dt): (D, "cluster") for D in (320, 384, 512, 576, 768) for dt in (F32, BF16)},
+    (776, F32): (776, "cluster"), (776, BF16): (776, "chunked"),
+    (2048, F32): (2048, "cluster"), (2048, BF16): (2048, "chunked"),
+    (2056, F32): (2056, "chunked"), (2056, BF16): (2056, "chunked"),
+}
+
+
+@pytest.mark.parametrize("dtype", [F32, BF16], ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("D", [257, 258, 264, 300, 320, 384, 512, 576, 768, 776, 2048, 2056])
+def test_fwd_route_sends_wide_head_dims_to_the_cluster_kernels(D, dtype):
+    """Above 256 K1 runs on the cluster kernels up to CLUSTER_MAX_D[dtype]
+    (bf16 flash_fwd_cluster_sm90.cu up to 768, fp32
+    flash_fwd_cluster_tf32.cu up to 2048) and on the chunked kernels past
+    it, and K2 stays on the chunked kernels at every such D."""
+    width, route = K1_ROUTES[(D, dtype)]
+    assert (D if runs_direct(D, dtype) else kernel_width(D)) == width
+    assert runs_chunked(width)
+    assert fwd_route(D, dtype) == route
+    assert (route == "cluster") == (width <= CLUSTER_MAX_D[dtype])
+
+
+@pytest.mark.parametrize("D,dtype,route", [
+    (1, F32, "f32"), (64, F32, "f32"), (72, F32, "tf32"), (256, F32, "tf32"),
+    (8, BF16, "sm90"), (20, BF16, "sm90"), (256, BF16, "sm90")])
+def test_fwd_route_keeps_head_dims_up_to_256_on_their_width(D, dtype, route):
+    """Up to 256 the route is the width's kernel, as before the clusters."""
+    assert fwd_route(D, dtype) == route and not runs_chunked(kernel_width(D))
+
+
+def test_fwd_routes_are_the_dispatch_s_in_its_order():
+    """FWD_ROUTES names the kernels in the order of csrc/flash_fwd.cu's
+    FwdRoute, the numbers gd3d_flash_fwd_route returns and the wrapper
+    counts its launches above 256 by."""
+    src = (build.CSRC_DIR / "flash_fwd.cu").read_text()
+    enum = re.search(r"enum FwdRoute : int \{([^}]*)\};", src).group(1)
+    names = [re.fullmatch(r"kFwd(\w+)", n.strip()).group(1).lower() for n in enum.split(",")]
+    assert names == list(FWD_ROUTES)

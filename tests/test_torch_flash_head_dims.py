@@ -33,8 +33,8 @@ from gd3d_torch.convert import student_state_dict
 from gd3d_torch.core.config import StudentConfig
 from gd3d_torch.kernels.flash_bwd_fused import bwd_padded, flash_attention_bwd_plain
 from gd3d_torch.kernels.flash_fwd import (
-    HEAD_DIMS, aligned_16, fit_views, flash_attention_fwd_plain, fwd_padded, kernel_width,
-    pad_head_dim)
+    CLUSTER_MAX_D, HEAD_DIMS, aligned_16, fit_views, flash_attention_fwd_plain, fwd_padded,
+    kernel_width, pad_head_dim)
 from gd3d_torch.kernels.pairwise_rank import padded_hidden, scratch_floats
 from gd3d_torch.kernels.rope2d import fit_view
 from gd3d_torch.models.student import Student
@@ -293,3 +293,50 @@ def test_bf16_head_dim_64_branch_reaches_the_hopper_kernels(entry_file, branch, 
     text = _branch_sources(entry_file, branch, launcher)
     assert "wgmma.mma_async" in text and "cp.async.bulk.tensor" in text
     assert "mma.sync" not in text
+
+
+@pytest.mark.parametrize("branch,launcher,has,lacks", [
+    ("if (is_bf16)  // above 256", "launch_fwd_cluster_bf16",
+     ("wgmma.mma_async", "cp.async.bulk.tensor"), ("mma.sync",)),
+    ("// fp32 above 256", "launch_fwd_cluster_tf32", ("mma.sync",), ("wgmma.mma_async",)),
+])
+def test_wide_branch_reaches_the_cluster_kernels(branch, launcher, has, lacks):
+    """Above head dim 256 gd3d_flash_fwd sends bf16 to a source built on
+    wgmma and TMA (cp.async.bulk.tensor) and fp32 to one on mma.sync (split
+    TF32), and neither source reaches the chunked kernels (their code, the
+    comments taken out)."""
+    text = re.sub(r"//[^\n]*", "", _branch_sources("flash_fwd.cu", branch, launcher))
+    assert all(x in text for x in has) and not any(x in text for x in lacks)
+    assert "chunked" not in text
+
+
+def test_chunked_forward_runs_only_past_the_clusters_reach():
+    """gd3d_flash_fwd_route, which gd3d_flash_fwd dispatches on, names the
+    cluster kernels above 256 up to their reach (cluster::kMaxDBf16 for
+    bf16, cluster::kMaxD for fp32) and the chunked forward past it, and
+    gd3d_flash_fwd launches the cluster launchers, both dtypes, on the one
+    and the chunked forward on the other; the reaches (three and eight CTAs
+    of four 64-column panels) are CLUSTER_MAX_D's, past 512, so no head dim
+    up to 512 runs the chunked forward."""
+    entry = (CSRC / "flash_fwd.cu").read_text()
+    route = entry[entry.index('extern "C" int gd3d_flash_fwd_route'):]
+    route = route[:route.index("\n}\n")]
+    assert ("if (D > chunked::kChunk)\n    return D <= (is_bf16 ? cluster::kMaxDBf16 : "
+            "cluster::kMaxD) ? kFwdCluster : kFwdChunked;") in route
+    body = entry[entry.index('extern "C" int gd3d_flash_fwd('):]
+    assert "const int route = gd3d_flash_fwd_route(D, is_bf16);" in body
+    wide = body[body.index("if (route == kFwdCluster) {"):]
+    head = wide[:wide.index("if (route == kFwdChunked)")]
+    assert head.count("return static_cast<int>(cluster::launch_fwd_cluster_") == 2
+    assert "launch_fwd_cluster_bf16(" in head and "launch_fwd_cluster_tf32(" in head
+    assert "chunked::launch_fwd(" not in head
+    chunked = wide[wide.index("if (route == kFwdChunked)"):]
+    assert re.match(r"if \(route == kFwdChunked\)[^;]*chunked::launch_fwd\(", chunked, re.S)
+    header = (CSRC / "flash_fwd_cluster.cuh").read_text()
+    consts = dict(re.findall(r"constexpr int (kMaxCtas|kMaxCtasBf16|kPanelCols) = (\d+);",
+                             header))
+    assert "constexpr int kMaxD = 4 * kPanelCols * kMaxCtas;" in header
+    assert "constexpr int kMaxDBf16 = 4 * kPanelCols * kMaxCtasBf16;" in header
+    panel = int(consts["kPanelCols"])
+    assert 4 * panel * int(consts["kMaxCtas"]) == CLUSTER_MAX_D[torch.float32] > 512
+    assert 4 * panel * int(consts["kMaxCtasBf16"]) == CLUSTER_MAX_D[torch.bfloat16] > 512

@@ -26,12 +26,15 @@ single-pass TF32 misses by more than 10x.
 import pytest
 import torch
 
-from gd3d_torch.kernels import build, launch_counts, padded_launches, reset_launch_counts
+from gd3d_torch.kernels import (
+    build, launch_counts, padded_launches, reset_launch_counts, wide_launches)
 from gd3d_torch.kernels.cost_kl import (
     _reference_rows, masked_softmax_kl_fwd, masked_softmax_kl_rows)
 from gd3d_torch.kernels.flash_bwd_fused import (
     flash_attention_bwd_fused, flash_attention_bwd_plain)
-from gd3d_torch.kernels.flash_fwd import flash_attention_fwd, flash_attention_fwd_plain
+from gd3d_torch.kernels.flash_fwd import (
+    CLUSTER_MAX_D, FWD_ROUTES, flash_attention_fwd, flash_attention_fwd_plain, fwd_route,
+    kernel_width, runs_direct)
 from gd3d_torch.kernels.pairwise_rank import (
     pairwise_rank_bwd, pairwise_rank_bwd_plain, pairwise_rank_fwd, pairwise_rank_sums_plain,
     pairwise_ranking_sums, scratch_floats, stream_chunks)
@@ -745,10 +748,12 @@ def test_cost_kl_refuses_maps_off_each_other_by_4_bytes(dev):
 @pytest.mark.parametrize("D", [257, 260, 264, 300, 320, 384, 512, 576])
 @pytest.mark.parametrize("N,M", [(1, 1), (65, 63), (129, 200), (673, 673)])
 def test_flash_kernels_above_256_match_plain(dev, dtype, D, N, M):
-    """K1 and K2 above head dim 256 (the chunked kernels: direct where a row
-    is a 16-byte multiple, else zero-padded to a multiple of 8) against the
-    plain twins at the true head dim, on strided views of qkv projections;
-    one launch each, counted as a chunked launch; K2 repeats its bits."""
+    """K1 and K2 above head dim 256 (direct where a row is a 16-byte
+    multiple, else zero-padded to a multiple of 8) against the plain twins
+    at the true head dim, on strided views of qkv projections; one launch
+    each, counted as a wide launch, K1's on the cluster kernels
+    (flash_fwd_cluster_{sm90,tf32}.cu), K2's on the chunked kernels; K2
+    repeats its bits."""
     g = torch.Generator(device=dev).manual_seed(D + N)
     B, H = 2, 2
     q = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(dtype)[:, :, 0]
@@ -767,6 +772,70 @@ def test_flash_kernels_above_256_match_plain(dev, dtype, D, N, M):
     again = flash_attention_bwd_fused(q, k, v, lse_ref, do, di, scale)
     counts = launch_counts()
     assert [counts[k] for k in ("K1", "K2", "K1 wide", "K2 wide")] == [1, 2, 1, 2]
+    dname = str(dtype).removeprefix("torch.")
+    assert fwd_route(D, dtype) == "cluster"
+    assert wide_launches()["K1"] == {("cluster", dname): 1}
     for a, b, c in zip(grads, flash_attention_bwd_plain(q, k, v, lse_ref, do, di, scale), again):
         assert a.shape == b.shape and torch.equal(a, c)
         assert_close(a, b, dtype)
+
+
+def _wide_qkv(g, B, N, M, H, D, dtype, dev):
+    q = torch.randn((B, N, 3, H, D), generator=g, device=dev).to(dtype)[:, :, 0]
+    kv = torch.randn((B, M, 3, H, D), generator=g, device=dev).to(dtype)
+    return q, kv[:, :, 1], kv[:, :, 2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fwd_above_256_at_length_4161_repeats_its_bits(dev, dtype):
+    """K1 at (1, 4161, 3, 512), the student's length at twice its widest
+    head dim, on the cluster kernels (66 key tiles a query tile of bf16, 131
+    of fp32, each with its exchange of S) against the plain twin; a second
+    run gives the same bits."""
+    g = torch.Generator(device=dev).manual_seed(4161)
+    q, k, v = _wide_qkv(g, 1, 4161, 4161, 3, 512, dtype, dev)
+    scale = 512 ** -0.5
+    reset_launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, scale)
+    o2, lse2 = flash_attention_fwd(q, k, v, scale)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    assert wide_launches()["K1"] == {("cluster", str(dtype).removeprefix("torch.")): 2}
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
+    assert_close(o, o_ref, dtype)
+    assert_close(lse, lse_ref, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [768, 776, 2048, 2056])
+def test_flash_fwd_at_the_clusters_reach_matches_plain(dev, dtype, D):
+    """K1 at the cluster kernels' reach and past it, against the plain
+    twin: bf16 reaches 768 (three CTAs) and runs 776 on the chunked forward;
+    fp32 runs 776 and 2048 on four and eight CTAs and 2056 on the chunked
+    forward. Each launch is counted under its kernel."""
+    g = torch.Generator(device=dev).manual_seed(D)
+    q, k, v = _wide_qkv(g, 2, 65, 129, 2, D, dtype, dev)
+    scale = D ** -0.5
+    reset_launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, scale)
+    route = "cluster" if D <= CLUSTER_MAX_D[dtype] else "chunked"
+    assert fwd_route(D, dtype) == route
+    assert wide_launches()["K1"] == {(route, str(dtype).removeprefix("torch.")): 1}
+    o_ref, lse_ref = flash_attention_fwd_plain(q, k, v, scale)
+    assert_close(o, o_ref, dtype)
+    assert_close(lse, lse_ref, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwd_route_is_the_dispatch_s(dev, dtype):
+    """For every head dim up to 2100, fwd_route names the kernel that the
+    library's gd3d_flash_fwd_route, on which gd3d_flash_fwd dispatches,
+    gives the head dim the wrapper launches at."""
+    lib = build.library()
+    for D in range(1, 2101):
+        width = D if runs_direct(D, dtype) else kernel_width(D)
+        got = lib.gd3d_flash_fwd_route(width, int(dtype == torch.bfloat16))
+        assert got >= 0 and FWD_ROUTES[got] == fwd_route(D, dtype), D
+
